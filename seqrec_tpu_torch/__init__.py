@@ -1,0 +1,31 @@
+"""seqrec_tpu_torch: the PyTorch/CUDA port of seqrec_tpu for NVIDIA Hopper.
+
+The JAX package ``seqrec_tpu`` stays the reference. This package keeps its
+module names, its CLI flags, its model-filename scheme and its ``.npz``
+checkpoint keys, so a checkpoint written by either package loads in the
+other. Plain tensor code is PyTorch; every Pallas TPU kernel on a ported
+path becomes a CUDA C++ kernel for ``sm_90a`` under ``csrc/``, built with
+``nvcc`` at first use (``ops/_build.py``) and checked against a plain
+PyTorch version of the same function kept beside its wrapper.
+
+Ported so far: the serving path of ``RNNOneHot`` on a GRU tower (batched
+masked top-k evaluation through ``cli/test.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. CUDA unless the caller asks for
+    the CPU; a missing card raises instead of running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass --device cpu (device='cpu') "
+            "to run on the CPU"
+        )
+    return device

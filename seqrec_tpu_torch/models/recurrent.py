@@ -1,0 +1,191 @@
+"""Recurrent tower for eval and serving: the GRU stack as an ``nn.Module``.
+
+Counterpart of ``seqrec_tpu/models/recurrent.py``. Same CLI flags, same
+``name`` string, same parameter names and shapes
+(``layer{i}_{fwd,bwd}/W_in, W_hid, b, h0`` and ``embedding``) and the same
+numpy draw order in :meth:`RecurrentLayers.init_params`, so one seed gives
+bit-identical parameters in both packages.
+
+The input is the sparse one-hot trick: the gather-sum of ``W_in`` rows over
+the active feature ids, for all steps at once, before the time scan. The
+last layer's final state goes through the GRU kernel (``ops/rnn_scan.py``);
+earlier layers, which return every step, run the plain masked-carry scan.
+Gradient clipping is the identity in the forward pass and comes with the
+training slice. LSTM and Vanilla towers come with later slices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from seqrec_tpu_torch.ops.core import gather_sum
+from seqrec_tpu_torch.ops.rnn_scan import gru_scan, gru_step
+
+GATE_COUNT = {"GRU": 3, "LSTM": 4, "Vanilla": 1}
+# leaves drawn from N(0, 0.1) at init; all others start at 0
+_NORMAL_LEAVES = ("embedding", "W_in", "W_hid", "w_ci", "w_cf", "w_co")
+
+
+def recurrent_layers_command_parser(parser) -> None:
+    parser.add_argument(
+        "--r_t",
+        dest="recurrent_layer_type",
+        choices=["LSTM", "GRU", "Vanilla"],
+        help="Type of recurrent layer",
+        default="GRU",
+    )
+    parser.add_argument(
+        "--r_l", help="Layers' size, (eg: 100-50-50)", default="50", type=str
+    )
+    parser.add_argument("--r_bi", help="Bidirectional layers.", action="store_true")
+    parser.add_argument(
+        "--r_emb",
+        help="Add an embedding layer before the RNN (size of the embedding; <1 disables).",
+        type=int,
+        default=0,
+    )
+
+
+def get_recurrent_layers(args) -> "RecurrentLayers":
+    return RecurrentLayers(
+        layer_type=args.recurrent_layer_type,
+        layers=[int(x) for x in args.r_l.split("-")],
+        bidirectional=args.r_bi,
+        embedding_size=args.r_emb,
+    )
+
+
+class RecurrentLayers(nn.Module):
+    """Configuration, parameters and forward pass of the recurrent stack."""
+
+    def __init__(
+        self,
+        layer_type: str = "LSTM",
+        layers=(32,),
+        bidirectional: bool = False,
+        embedding_size: int = 0,
+        grad_clipping: float = 100,
+    ):
+        super().__init__()
+        if layer_type not in GATE_COUNT:
+            raise ValueError("Unknown layer type")
+        self.layer_type = layer_type
+        self.layers = list(layers)
+        self.bidirectional = bidirectional
+        self.embedding_size = embedding_size
+        self.grad_clip = grad_clipping
+        self.set_name()
+
+    def set_name(self) -> None:
+        """Filename fragment; format parity with recurrent_layers.py:28-39."""
+        self.name = ""
+        if self.bidirectional:
+            self.name += "b" + self.layer_type + "_"
+        elif self.layer_type != "LSTM":
+            self.name += self.layer_type + "_"
+        self.name += "gc" + str(self.grad_clip) + "_"
+        if self.embedding_size > 0:
+            self.name += "e" + str(self.embedding_size)
+        self.name += "h" + "-".join(map(str, self.layers))
+
+    @property
+    def output_size(self) -> int:
+        return self.layers[-1] * (2 if self.bidirectional else 1)
+
+    def _directions(self):
+        return ["fwd", "bwd"] if self.bidirectional else ["fwd"]
+
+    def param_shapes(self, true_input_size: int) -> dict:
+        """Nested ``{name: shape}`` of every parameter, in draw order."""
+        G = GATE_COUNT[self.layer_type]
+        shapes: dict = {}
+        in_dim = true_input_size
+        if self.embedding_size > 0:
+            shapes["embedding"] = (true_input_size, self.embedding_size)
+            in_dim = self.embedding_size
+        for li, h in enumerate(self.layers):
+            for d in self._directions():
+                layer = {"W_in": (in_dim, G * h), "W_hid": (h, G * h), "b": (G * h,), "h0": (h,)}
+                if self.layer_type == "LSTM":
+                    layer.update(c0=(h,), w_ci=(h,), w_cf=(h,), w_co=(h,))
+                shapes[f"layer{li}_{d}"] = layer
+            in_dim = h * (2 if self.bidirectional else 1)
+        return shapes
+
+    def init_params(self, rng: np.random.Generator, true_input_size: int) -> dict:
+        """Numpy parameter tree, drawn as the JAX package draws it: weights
+        ~ N(0, 0.1) in declaration order, biases and initial states 0."""
+
+        def leaf(name, shape):
+            if name in _NORMAL_LEAVES:
+                return rng.normal(0.0, 0.1, size=shape).astype(np.float32)
+            return np.zeros(shape, dtype=np.float32)
+
+        return {
+            key: leaf(key, val) if isinstance(val, tuple) else {n: leaf(n, s) for n, s in val.items()}
+            for key, val in self.param_shapes(true_input_size).items()
+        }
+
+    def build(self, true_input_size: int, device) -> None:
+        """Create the (uninitialised) parameters on ``device``; a numpy tree
+        is loaded into them with ``load_state_dict``."""
+        if self.layer_type != "GRU":
+            raise NotImplementedError(
+                f"{self.layer_type} towers come with a later slice of the port"
+                + (" (LSTM eval needs kernel K6)" if self.layer_type == "LSTM" else "")
+            )
+
+        def param(shape):
+            return nn.Parameter(torch.empty(shape, device=device), requires_grad=False)
+
+        for key, val in self.param_shapes(true_input_size).items():
+            if isinstance(val, tuple):
+                self.register_parameter(key, param(val))
+            else:
+                self.add_module(key, nn.ParameterDict({n: param(s) for n, s in val.items()}))
+
+    # ------------------------------------------------------------------
+    def forward(self, inputs, mask, id_mask=None, only_return_final: bool = True):
+        """inputs: integer ``[B, L, F]`` feature ids; mask: float ``[B, L]``
+        (1 = valid step); id_mask: optional float ``[B, L, F]``.
+        Returns ``[B, H_out]`` (final state) or ``[B, L, H_out]``."""
+        sparse = not inputs.is_floating_point()
+        x = inputs
+        if self.embedding_size > 0:
+            if not sparse:
+                raise ValueError("Embedding layer only works with sparse inputs")
+            x, sparse = gather_sum(self.embedding, inputs, id_mask), False
+
+        n_layers = len(self.layers)
+        for li in range(n_layers):
+            orf = only_return_final and li == n_layers - 1
+            outs = [
+                self._run_layer(getattr(self, f"layer{li}_{d}"), x, mask, id_mask, sparse, orf, d == "bwd")
+                for d in self._directions()
+            ]
+            x = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+            sparse = False  # deeper layers are densely encoded
+            id_mask = None
+        return x
+
+    def _run_layer(self, lp, x, mask, id_mask, sparse, only_return_final, backwards):
+        """One unidirectional GRU layer over time."""
+        if sparse:
+            x_pre = gather_sum(lp["W_in"], x, id_mask) + lp["b"]
+        else:
+            x_pre = torch.einsum("bld,dg->blg", x, lp["W_in"]) + lp["b"]
+        if backwards:
+            # a backwards layer is the forward scan of the time-flipped inputs
+            x_pre, mask = x_pre.flip(1), mask.flip(1)
+        B, H = x_pre.shape[0], lp["h0"].shape[0]
+        h0 = lp["h0"].expand(B, H).contiguous()
+        if only_return_final:
+            return gru_scan(x_pre.contiguous(), mask.contiguous(), lp["W_hid"], h0)
+        h, states = h0, []
+        for t in range(x_pre.shape[1]):
+            h = gru_step(h, x_pre[:, t], mask[:, t : t + 1], lp["W_hid"])
+            states.append(h)
+        ys = torch.stack(states, dim=1)
+        return ys.flip(1) if backwards else ys

@@ -1,0 +1,83 @@
+"""RNN with full-catalog categorical cross-entropy (the parity flagship),
+serving half.
+
+Counterpart of ``seqrec_tpu/models/rnn_one_hot.py``: the recurrent tower
+feeds a dense output layer over the whole catalog. Ranking the raw logits
+ranks the softmax, so batched evaluation goes through the fused
+score + seen-mask + top-k kernel (``ops/score_topk.py``). The loss, the
+diversity bias and the output-bias regularization come with the training
+slice; their hyperparameters are kept for the model filename.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from seqrec_tpu_torch.models.base import RNNBase
+from seqrec_tpu_torch.models.recurrent import RecurrentLayers
+
+
+class OneHotNetwork(nn.Module):
+    """Recurrent tower + dense output layer; state-dict keys
+    ``tower.layer0_fwd.W_in``, ..., ``W_out``, ``b_out``."""
+
+    def __init__(self, tower: RecurrentLayers, true_input_size: int, n_items: int, device):
+        super().__init__()
+        tower.build(true_input_size, device)
+        self.tower = tower
+        h_out = tower.output_size
+        self.W_out = nn.Parameter(torch.empty((h_out, n_items), device=device), requires_grad=False)
+        self.b_out = nn.Parameter(torch.empty((n_items,), device=device), requires_grad=False)
+
+    def forward(self, ids, mask, id_mask=None):
+        """Logits [B, n_items]."""
+        return self.tower(ids, mask, id_mask) @ self.W_out + self.b_out
+
+
+class RNNOneHot(RNNBase):
+    def __init__(self, diversity_bias: float = 0.0, regularization: float = 0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.diversity_bias = float(diversity_bias)
+        self.regularization = float(regularization)
+        self.name = "RNN with categorical cross entropy"
+
+    def _get_model_filename(self, epochs) -> str:
+        return (
+            "rnn_cce_db"
+            + str(self.diversity_bias)
+            + "_r"
+            + str(self.regularization)
+            + "_"
+            + self._common_filename(epochs)
+        )
+
+    def _prepare_networks(self, n_items: int) -> None:
+        self.n_items = n_items
+        self.net = OneHotNetwork(self.recurrent_layer, self._input_size(), n_items, self.device)
+
+    def _init_params(self) -> dict:
+        rng = self.rng
+        tower = self.recurrent_layer.init_params(rng, self._input_size())
+        h_out = self.recurrent_layer.output_size
+        # DenseLayer defaults: GlorotUniform W, zero b
+        limit = np.sqrt(6.0 / (h_out + self.n_items))
+        return {
+            "tower": tower,
+            "W_out": rng.uniform(-limit, limit, size=(h_out, self.n_items)).astype(np.float32),
+            "b_out": np.zeros(self.n_items, dtype=np.float32),
+        }
+
+    def _logits(self, ids, id_mask, mask):
+        return self.net(ids, mask, id_mask)
+
+    def _scores(self, ids, id_mask, mask):
+        # deterministic output = softmax over the catalog (rnn_one_hot.py:65)
+        return torch.softmax(self._logits(ids, id_mask, mask), dim=-1)
+
+    def _rank_scores(self, ids, id_mask, mask):
+        # ranking raw logits == ranking the softmax
+        return self._logits(ids, id_mask, mask)
+
+    fused_eval_head = True

@@ -1,0 +1,64 @@
+"""Plain PyTorch ops shared across models (counterpart of
+``seqrec_tpu/ops/core.py``).
+
+Top-k order here is (value descending, id ascending), what ``lax.top_k``
+returns on the JAX package's CPU path: ties, masked items included, keep
+their ids in ascending order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def gather_sum(table: torch.Tensor, ids: torch.Tensor, id_mask: torch.Tensor | None = None):
+    """Sum of ``table`` rows selected by ``ids`` over the last ids-axis.
+
+    table: [n_rows, D]; ids: integer [..., F]. Negative ids are pad slots
+    that contribute 0. id_mask: optional float [..., F]; 0 entries
+    contribute 0. Returns [..., D].
+    """
+    rows = table[ids.clamp_min(0).long()]  # [..., F, D]
+    rows = rows * (ids >= 0).to(rows.dtype).unsqueeze(-1)
+    if id_mask is not None:
+        rows = rows * id_mask.unsqueeze(-1)
+    return rows.sum(dim=-2)
+
+
+def top_k_sorted(scores: torch.Tensor, k: int):
+    """(values [B, k], ids int32 [B, k]) in (value descending, id
+    ascending) order. Rows with fewer than k columns are filled with the
+    empty-slot sentinel (-inf, INT32_MAX)."""
+    n = scores.shape[1]
+    values, ids = torch.sort(scores, dim=1, descending=True, stable=True)
+    values, ids = values[:, :k], ids[:, :k].to(torch.int32)
+    if n < k:
+        pad = (scores.shape[0], k - n)
+        values = torch.cat([values, values.new_full(pad, float("-inf"))], dim=1)
+        ids = torch.cat([ids, ids.new_full(pad, torch.iinfo(torch.int32).max)], dim=1)
+    return values, ids
+
+
+def mask_seen(scores: torch.Tensor, seen_ids=None, seen_mask=None) -> torch.Tensor:
+    """Scatter -inf into each row at its seen ids (entries whose
+    ``seen_mask`` is 0 add 0). Returns a new tensor."""
+    if seen_ids is None:
+        return scores
+    if seen_mask is None:
+        updates = torch.full(seen_ids.shape, float("-inf"), dtype=scores.dtype, device=scores.device)
+    else:
+        updates = torch.where(
+            seen_mask > 0,
+            torch.tensor(float("-inf"), dtype=scores.dtype, device=scores.device),
+            torch.tensor(0.0, dtype=scores.dtype, device=scores.device),
+        )
+    return scores.scatter_add(1, seen_ids.long(), updates)
+
+
+def masked_top_k(scores: torch.Tensor, k: int, seen_ids=None, seen_mask=None) -> torch.Tensor:
+    """Top-k item ids per row after excluding already-seen items.
+
+    scores: [B, n_items]; seen_ids: int [B, S]; seen_mask: float [B, S],
+    0 entries of seen_ids are ignored. Returns int32 [B, k], best first.
+    """
+    return top_k_sorted(mask_seen(scores, seen_ids, seen_mask), k)[1]

@@ -1,0 +1,107 @@
+"""Fused catalog scoring + seen-item masking + top-k (kernel K4).
+
+Counterpart of ``seqrec_tpu/ops/pallas_topk.py:fused_score_topk``: the k
+best items of ``h·W_out + b_out`` per row, with the row's seen ids masked
+to -inf, best first. Order is (value descending, id ascending) over all
+real columns, with (-inf, INT32_MAX) for empty slots: what the JAX
+package's CPU path (``masked_top_k`` -> ``lax.top_k``) returns, rows with
+fewer than k unmasked items included.
+
+On a CUDA tensor :func:`fused_score_topk` launches the two kernels of
+``csrc/score_topk.cu`` (per-split partial top-k, then a merge) for any
+catalog size and k <= 64; on a CPU tensor it runs
+:func:`fused_score_topk_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from seqrec_tpu_torch.ops import _build
+from seqrec_tpu_torch.ops.core import mask_seen, top_k_sorted
+
+MAX_K = 64  # the kernel's per-row list length (csrc/score_topk.cu kMaxK)
+TILE_COLS = 256  # catalog columns of one tile (kThreads)
+ROWS_PER_BLOCK = 16  # batch rows of one block (kRows)
+MAX_CANDIDATES = 2048  # splits * k candidates the merge kernel ranks per row
+
+
+def fused_score_topk_plain(h, w_out, b_out, seen_ids=None, seen_mask=None, k: int = 10):
+    """Plain version: the full [B, N] scores, -inf scattered at the seen
+    ids, a stable sort. Returns (values f32 [B, k], ids int32 [B, k])."""
+    return top_k_sorted(mask_seen(h @ w_out + b_out, seen_ids, seen_mask), k)
+
+
+def split_plan(B: int, N: int, k: int, n_sm: int) -> tuple[int, int]:
+    """(n_splits, cols_per_split) for the partial kernel: enough catalog
+    splits for about two blocks per SM, whole tiles per split, and at most
+    MAX_CANDIDATES candidates per row for the merge."""
+    row_tiles = -(-B // ROWS_PER_BLOCK)
+    col_tiles = -(-N // TILE_COLS)
+    n_splits = max(1, min(-(-2 * n_sm // row_tiles), col_tiles, MAX_CANDIDATES // k))
+    cols_per_split = -(-col_tiles // n_splits) * TILE_COLS
+    return -(-N // cols_per_split), cols_per_split
+
+
+def _library():
+    fn = _build.load("score_topk").seqrec_score_topk_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_score_topk(h, w_out, b_out, seen_ids=None, seen_mask=None, k: int = 10):
+    """Top-k (values f32 [B, k], ids int32 [B, k]) of h [B, H] · w_out [H, N]
+    + b_out [N], with seen_ids int32 [B, S] masked where seen_mask [B, S]
+    is > 0 (both None: nothing masked)."""
+    if h.device.type == "cpu":
+        return fused_score_topk_plain(h, w_out, b_out, seen_ids, seen_mask, k)
+    if h.device.type != "cuda":
+        raise ValueError(f"fused_score_topk: no kernel for device {h.device}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"fused_score_topk: the kernel takes 1 <= k <= {MAX_K}, got {k}")
+    if (seen_ids is None) != (seen_mask is None):
+        raise ValueError("fused_score_topk: pass both seen_ids and seen_mask, or neither")
+    B, H = h.shape
+    N = w_out.shape[1]
+    S = 0 if seen_ids is None else seen_ids.shape[1]
+    expected = {
+        "h": (h, torch.float32, (B, H)),
+        "w_out": (w_out, torch.float32, (H, N)),
+        "b_out": (b_out, torch.float32, (N,)),
+    }
+    if S:
+        expected["seen_ids"] = (seen_ids, torch.int32, (B, S))
+        expected["seen_mask"] = (seen_mask, torch.float32, (B, S))
+    for name, (t, dtype, shape) in expected.items():
+        if t.device != h.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"fused_score_topk: {name} must be a contiguous {dtype} tensor on {h.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"fused_score_topk: {name} has shape {tuple(t.shape)}, expected {shape}")
+    values = torch.empty((B, k), dtype=torch.float32, device=h.device)
+    ids = torch.empty((B, k), dtype=torch.int32, device=h.device)
+    if B == 0:
+        return values, ids
+    n_sm = torch.cuda.get_device_properties(h.device).multi_processor_count
+    n_splits, cols_per_split = split_plan(B, N, k, n_sm)
+    part_v = torch.empty((B, n_splits, k), dtype=torch.float32, device=h.device)
+    part_i = torch.empty((B, n_splits, k), dtype=torch.int32, device=h.device)
+    fn = _library()
+    with torch.cuda.device(h.device):
+        err = fn(
+            h.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
+            seen_ids.data_ptr() if S else None, seen_mask.data_ptr() if S else None,
+            part_v.data_ptr(), part_i.data_ptr(), values.data_ptr(), ids.data_ptr(),
+            B, H, N, S, k, n_splits, cols_per_split,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"fused_score_topk kernel launch failed with CUDA error {err}")
+    fused_score_topk.launches += 1
+    return values, ids
+
+
+fused_score_topk.launches = 0

@@ -1,0 +1,60 @@
+"""Import hygiene and device policy of the PyTorch port."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import seqrec_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(seqrec_tpu_torch.__path__, "seqrec_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401
+banned = {"jax", "jaxlib", "optax", "ml_dtypes", "seqrec_tpu"}
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+print(len(names), leaked)
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of seqrec_tpu_torch, and chip_smoke.py, imported in a
+    fresh interpreter, leaves jax, optax, ml_dtypes and seqrec_tpu (matched
+    by exact top-level name: seqrec_tpu_torch starts with seqrec_tpu) out
+    of sys.modules."""
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": ROOT},
+    )
+    assert out.returncode == 0, out.stderr
+    n_modules, leaked = out.stdout.split(maxsplit=1)
+    assert int(n_modules) >= 15
+    assert leaked.strip() == "[]"
+
+
+def test_cli_without_device_cpu_raises_when_no_gpu(synthetic_dataset):
+    import seqrec_tpu_torch.cli.test as test_cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the CLI runs on it")
+    argv = ["-d", synthetic_dataset, "-m", "RNN", "--loss", "CCE", "--r_l", "8", "-i", "1"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        test_cli.main(argv)
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["-m", "BPRMF"], ["--loss", "BPR"], ["--clusters", "4"], ["--bf16"], ["--mesh", "1,1"],
+     ["--save_rank"], ["--r_t", "LSTM"]],
+)
+def test_cli_raises_not_implemented_outside_the_slice(synthetic_dataset, flags):
+    import seqrec_tpu_torch.cli.test as test_cli
+
+    argv = ["-d", synthetic_dataset, "-m", "RNN", "--loss", "CCE", "--r_l", "8", "--device", "cpu", *flags]
+    with pytest.raises(NotImplementedError, match="later slice"):
+        test_cli.main(argv)

@@ -1,0 +1,163 @@
+"""The port's kernel modules (plain versions, on the CPU) against the JAX
+package: the GRU eval scan (K3), the fused score + seen-mask + top-k (K4,
+the Pallas kernels run in interpret mode), masked_top_k and gather_sum.
+
+The CUDA kernels themselves need a card; chip_smoke.py holds them against
+these plain versions there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seqrec_tpu.models.recurrent import RecurrentLayers as JaxRecurrentLayers
+from seqrec_tpu.ops.core import gather_sum as jax_gather_sum
+from seqrec_tpu.ops.core import masked_top_k as jax_masked_top_k
+from seqrec_tpu.ops.pallas_rnn import gru_scan as jax_gru_scan
+from seqrec_tpu.ops.pallas_topk import fused_score_topk as jax_fused_score_topk
+from seqrec_tpu_torch.models.recurrent import RecurrentLayers
+from seqrec_tpu_torch.ops.core import gather_sum, masked_top_k
+from seqrec_tpu_torch.ops.rnn_scan import gru_scan, gru_scan_plain
+from seqrec_tpu_torch.ops.score_topk import fused_score_topk, fused_score_topk_plain, split_plan
+
+B, L, H = 9, 7, 12  # ragged: no size is a power of two
+
+
+def _gru_inputs(seed):
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, L + 1, size=B)
+    lengths[0] = 0  # an empty sequence keeps h0
+    return (
+        rng.normal(size=(B, L, 3 * H)).astype(np.float32),
+        (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32),
+        rng.normal(0, 0.1, size=(H, 3 * H)).astype(np.float32),
+        rng.normal(size=(B, H)).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gru_scan_plain_matches_pallas_interpret(seed):
+    x, m, w, h0 = _gru_inputs(seed)
+    want = np.asarray(jax_gru_scan(*map(jnp.asarray, (x, m, w, h0)), block_b=8, interpret=True))
+    got = gru_scan(*map(torch.from_numpy, (x, m, w, h0))).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got[0], h0[0])
+
+
+@pytest.mark.parametrize("layers,bidirectional,embedding", [([12], False, 0), ([10, 12], True, 0), ([12], False, 6)])
+def test_tower_matches_jax_recurrent_layers(layers, bidirectional, embedding):
+    """The port's tower (gather-sum input, plain scan for earlier layers,
+    gru_scan for the last) against RecurrentLayers.apply, same params."""
+    n_ids = 40
+    jax_tower = JaxRecurrentLayers("GRU", layers, bidirectional, embedding)
+    tower = RecurrentLayers("GRU", layers, bidirectional, embedding)
+    params = jax_tower.init_params(np.random.default_rng(5), n_ids)
+    tower.build(n_ids, "cpu")
+    flat = {}
+    for key, val in params.items():
+        for name, arr in (val.items() if isinstance(val, dict) else [(None, val)]):
+            flat[key if name is None else f"{key}.{name}"] = torch.from_numpy(arr)
+    tower.load_state_dict(flat, strict=True)
+
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, n_ids, size=(B, L, 2)).astype(np.int32)
+    ids[:, :, 1] = -1  # pad slot
+    ids[::3, 2, 1] = 7
+    lengths = rng.integers(1, L + 1, size=B)
+    mask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
+    id_mask = np.broadcast_to(mask[:, :, None], ids.shape).astype(np.float32)
+    want = np.asarray(jax_tower.apply(params, jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(id_mask)))
+    with torch.inference_mode():
+        got = tower(torch.from_numpy(ids), torch.from_numpy(mask), torch.from_numpy(id_mask)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _topk_inputs(N, S, seed):
+    rng = np.random.default_rng(seed)
+    Bq, Hq = 11, 8
+    seen = rng.integers(0, N, size=(Bq, S)).astype(np.int32)
+    seen_mask = (np.arange(S)[None, :] < rng.integers(0, S + 1, size=(Bq, 1))).astype(np.float32)
+    if S > 2:
+        seen[1, 2] = seen[1, 0]  # a duplicate seen id
+    return (
+        rng.normal(size=(Bq, Hq)).astype(np.float32),
+        rng.normal(size=(Hq, N)).astype(np.float32),
+        rng.normal(size=N).astype(np.float32),
+        seen,
+        seen_mask,
+    )
+
+
+@pytest.mark.parametrize("N", [100, 513])
+def test_fused_score_topk_plain_matches_jax(N):
+    h, w, b, seen, sm = _topk_inputs(N, 6, seed=N)
+    k = 10
+    want_v, want_i = jax_fused_score_topk(*map(jnp.asarray, (h, w, b, seen, sm)), k=k, interpret=True)
+    scores = jnp.asarray(h) @ jnp.asarray(w) + jnp.asarray(b)
+    want_masked = np.asarray(jax_masked_top_k(scores, k, jnp.asarray(seen), jnp.asarray(sm)))
+    got_v, got_i = fused_score_topk(*map(torch.from_numpy, (h, w, b, seen, sm)), k=k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_i.numpy(), want_masked)
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=1e-5)
+    got_masked = masked_top_k(torch.from_numpy(h @ w + b), k, torch.from_numpy(seen), torch.from_numpy(sm))
+    np.testing.assert_array_equal(got_masked.numpy(), want_masked)
+
+
+def test_topk_rows_with_fewer_than_k_unmasked_match_lax_top_k():
+    """Rows with every item seen, or fewer than k unseen, keep masked items
+    as -inf candidates with their own ids, in id order (lax.top_k's)."""
+    N, S, k = 12, 12, 10
+    h, w, b, seen, sm = _topk_inputs(N, S, seed=3)
+    seen[0] = np.arange(N)  # all seen
+    sm[0] = 1.0
+    seen[1, :6], sm[1] = [11, 0, 5, 3, 9, 7], 0.0
+    sm[1, :6] = 1.0  # 6 unmasked < k
+    scores = h @ w + b
+    want = np.asarray(jax_masked_top_k(jnp.asarray(scores), k, jnp.asarray(seen), jnp.asarray(sm)))
+    got_v, got_i = fused_score_topk_plain(*map(torch.from_numpy, (h, w, b, seen, sm)), k=k)
+    np.testing.assert_array_equal(got_i.numpy(), want)
+    np.testing.assert_array_equal(got_i[0].numpy(), np.arange(k))
+    assert np.all(np.isneginf(got_v[0].numpy()))
+    assert np.isneginf(got_v[1, 6:].numpy()).all() and np.isfinite(got_v[1, :6].numpy()).all()
+    np.testing.assert_array_equal(got_i[1, 6:].numpy(), [0, 3, 5, 7])
+    finite = np.isfinite(got_v.numpy())
+    np.testing.assert_allclose(
+        got_v.numpy()[finite], np.take_along_axis(scores, want, 1)[finite], rtol=1e-5
+    )
+
+
+def test_topk_without_seen_ids_and_small_catalog_sentinel():
+    h, w, b, _, _ = _topk_inputs(7, 1, seed=4)
+    v, i = fused_score_topk(*map(torch.from_numpy, (h, w, b)), k=10)
+    scores = h @ w + b
+    np.testing.assert_array_equal(i[:, :7].numpy(), np.argsort(-scores, axis=1, kind="stable"))
+    assert (i[:, 7:] == np.iinfo(np.int32).max).all() and torch.isneginf(v[:, 7:]).all()
+
+
+def test_gather_sum_with_pad_slots_matches_jax():
+    rng = np.random.default_rng(0)
+    table = rng.normal(size=(20, 5)).astype(np.float32)
+    ids = rng.integers(-1, 20, size=(4, 6, 3)).astype(np.int32)
+    id_mask = (rng.random(size=(4, 6, 3)) < 0.7).astype(np.float32)
+    for m in (None, id_mask):
+        want = np.asarray(jax_gather_sum(jnp.asarray(table), jnp.asarray(ids), None if m is None else jnp.asarray(m)))
+        got = gather_sum(torch.from_numpy(table), torch.from_numpy(ids), None if m is None else torch.from_numpy(m))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_wrappers_on_cpu_tensors_run_the_plain_version_and_count_no_launch():
+    gru_scan.launches = fused_score_topk.launches = 0
+    x, m, w, h0 = map(torch.from_numpy, _gru_inputs(2))
+    torch.testing.assert_close(gru_scan(x, m, w, h0), gru_scan_plain(x, m, w, h0), rtol=0, atol=0)
+    args = tuple(map(torch.from_numpy, _topk_inputs(50, 4, seed=5)))
+    for got, want in zip(fused_score_topk(*args, k=5), fused_score_topk_plain(*args, k=5)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert gru_scan.launches == 0 and fused_score_topk.launches == 0
+
+
+@pytest.mark.parametrize("B,N,k", [(64, 3706, 10), (512, 200_000, 10), (5, 100, 64), (1, 10, 1)])
+def test_split_plan_covers_the_catalog_in_whole_tiles(B, N, k):
+    n_splits, cols = split_plan(B, N, k, n_sm=132)
+    assert cols % 256 == 0 and (n_splits - 1) * cols < N <= n_splits * cols
+    assert n_splits * k <= 2048
