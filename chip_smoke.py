@@ -3,33 +3,46 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line with its seconds:
 
 1. build: compile every CUDA kernel of the port from ``seqrec_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) and print the build time, the
    compiler's register/shared-memory report and the card's name and power
    limit.
-2. kernels: hold each kernel against its plain PyTorch version on the card,
-   at the shapes of the serving path and at one large shape, and time the
-   kernel, the plain version and a PyTorch library yardstick beside the
-   kernel's bound: per call with CUDA events (median of at least 20 runs
-   after warm-up; host launch time included) and as device time from
-   torch.profiler (mean of 20 calls).
-3. main path: write an ML-1M-scale synthetic dataset, save a GRU-50 CCE
-   model from seed 0, run the port's test CLI on the card with every launch
-   counter at 0, check that every kernel was launched, run the CLI again on
-   the CPU and check that both give the same top-10 lists; then time a
-   serving pass of 4096 users at eval chunks of 64 and 512.
+2. kernels: hold each kernel against its plain PyTorch version on the card
+   (the training kernels against autograd through the plain scan and the
+   dense head), at the shapes of the main paths and at large shapes, plus
+   edge cases, and time the kernel, the plain version and a PyTorch library
+   yardstick beside the kernel's bound: per call with CUDA events (median
+   of at least 20 runs after warm-up; host launch time included) and as
+   device time from torch.profiler (mean of 20 calls).
+3. main_path (serving): write an ML-1M-scale synthetic dataset, save a
+   GRU-50 CCE model from seed 0, run the port's test CLI on the card with
+   every launch counter at 0, check that K3 and K4 were launched, run the
+   CLI again on the CPU and check that both give the same top-10 lists;
+   then time a serving pass of 4096 users at eval chunks of 64 and 512.
+4. main_path_train (flagship): with every counter at 0, train GRU-50 CCE
+   (L=30, B=16, Adam 1e-3) through the train CLI on the card, with two
+   validations; check that K1 (forward and backward), K3 and K4 ran and K2
+   did not (dense head); check that the first 20 step costs agree with the
+   CLI on the CPU; test the trained checkpoint with the test CLI on the
+   card; time steady training steps and profile them.
+5. main_path_train (large catalog): write a synthetic dataset of about
+   50,000 items (streaming head), with every counter at 0 train GRU-128 at
+   B=1024 for 30 steps and one validation through the train CLI; check
+   that K1 and K2 (stats and gradients) ran; time and profile steady steps.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. The last lines are
 the card's name and power limit, the kernels summary, and
-``{"ok": true, "device": {...}}``. Builds and the dataset go under
-``build/`` of the checkout; TF32 is off throughout.
+``{"ok": true, "device": {...}}``. Builds and datasets go under ``build/``
+of the checkout; TF32 is off throughout.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -45,14 +58,44 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 # H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, HBM3 bandwidth
 F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# wrapper name -> (module, CUDA source, TPU kernel it replaces)
 KERNELS = {
-    "gru_scan": ("seqrec_tpu_torch/csrc/gru_scan.cu", "seqrec_tpu/ops/pallas_rnn.py:88"),
-    "fused_score_topk": ("seqrec_tpu_torch/csrc/score_topk.cu", "seqrec_tpu/ops/pallas_topk.py:57"),
+    "gru_scan": ("rnn_scan", "seqrec_tpu_torch/csrc/gru_scan.cu", "seqrec_tpu/ops/pallas_rnn.py:88"),
+    "fused_score_topk": ("score_topk", "seqrec_tpu_torch/csrc/score_topk.cu", "seqrec_tpu/ops/pallas_topk.py:57"),
+    "gru_scan_train_fwd": ("rnn_scan_train", "seqrec_tpu_torch/csrc/gru_scan_train.cu",
+                           "seqrec_tpu/ops/pallas_rnn_train.py:67"),
+    "gru_scan_train_bwd": ("rnn_scan_train", "seqrec_tpu_torch/csrc/gru_scan_train.cu",
+                           "seqrec_tpu/ops/pallas_rnn_train.py:96"),
+    "cce_stats": ("streaming_cce", "seqrec_tpu_torch/csrc/streaming_cce.cu",
+                  "seqrec_tpu/ops/pallas_streaming_cce.py:60"),
+    "cce_grads": ("streaming_cce", "seqrec_tpu_torch/csrc/streaming_cce.cu",
+                  "seqrec_tpu/ops/pallas_streaming_cce.py:140"),
 }
-SERVING_ARGV = [
+FLAGSHIP = [
     "-m", "RNN", "--loss", "CCE", "--r_t", "GRU", "--r_l", "50", "--max_length", "30",
-    "-b", "16", "--u_m", "adam", "--u_l", "0.001", "-i", "1",
+    "-b", "16", "--u_m", "adam", "--u_l", "0.001",
 ]
+SERVING_ARGV = FLAGSHIP + ["-i", "1"]
+# bench_matrix.json row GRU-128-50000-f32-B1024
+LARGE = [
+    "-m", "RNN", "--loss", "CCE", "--r_t", "GRU", "--r_l", "128", "--max_length", "30",
+    "-b", "1024", "--u_m", "adam", "--u_l", "0.001",
+]
+
+
+def wrapper(name):
+    import importlib
+
+    return getattr(importlib.import_module("seqrec_tpu_torch.ops." + KERNELS[name][0]), name)
+
+
+def zero_counters() -> None:
+    for name in KERNELS:
+        wrapper(name).launches = 0
+
+
+def read_counters() -> dict:
+    return {name: wrapper(name).launches for name in KERNELS}
 
 
 def emit(obj) -> None:
@@ -133,23 +176,31 @@ def gru_inputs(B, L, H, seed, device):
     return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in arrays.items()}
 
 
-def cudnn_gru(x_pre, mask, w_hid, h0):
-    """torch.nn.GRU (cuDNN) computing the same final state: identity input
-    weights (its input is x_pre), zero biases, the update-gate columns
-    negated (torch's z is 1 - u), inputs packed by the prefix lengths.
-    Returns a call that runs it; it also does a [B*L, 3H] x [3H, 3H]
-    input product the kernel does not."""
+def cudnn_gru_module(w_hid):
+    """torch.nn.GRU (cuDNN) computing the kernels' GRU from x_pre: identity
+    input weights, zero biases, the update-gate columns negated (torch's z
+    is 1 - u). It also does a [B*L, 3H] x [3H, 3H] input product the
+    kernels do not."""
     import torch
 
-    H = h0.shape[1]
-    gru = torch.nn.GRU(3 * H, H, batch_first=True).to(x_pre.device)
-    sign = torch.ones(3 * H, device=x_pre.device)
+    H = w_hid.shape[0]
+    gru = torch.nn.GRU(3 * H, H, batch_first=True).to(w_hid.device)
+    sign = torch.ones(3 * H, device=w_hid.device)
     sign[H : 2 * H] = -1.0
     with torch.no_grad():
         gru.weight_ih_l0.copy_(torch.diag(sign))
         gru.weight_hh_l0.copy_((w_hid * sign).t())
         gru.bias_ih_l0.zero_()
         gru.bias_hh_l0.zero_()
+    return gru
+
+
+def cudnn_gru(x_pre, mask, w_hid, h0):
+    """A call that runs cudnn_gru_module's final state, the inputs packed
+    by the prefix lengths."""
+    import torch
+
+    gru = cudnn_gru_module(w_hid)
     lengths = mask.sum(1).long().cpu()
     packed = torch.nn.utils.rnn.pack_padded_sequence(x_pre, lengths, batch_first=True, enforce_sorted=False)
     h0 = h0[None]  # nn.GRU permutes the state to and from the packed order itself
@@ -191,6 +242,178 @@ def check_gru(B, L, H, seed):
         "library_max_abs_err": library_err,
         "bound_ms": bound, "bound_by": bound_by,
     }
+
+
+# ----------------------------------------------------------------------
+# K1: GRU training scan, forward and backward
+# ----------------------------------------------------------------------
+def close(got, want, rtol, atol_rel):
+    """max |got - want| and whether |got - want| <= atol_rel * max|want|
+    + rtol * |want| everywhere."""
+    import torch
+
+    err = (got - want).abs().max().item()
+    atol = atol_rel * max(want.abs().max().item(), 1e-30)
+    return err, bool(torch.allclose(got, want, rtol=rtol, atol=atol))
+
+
+def cudnn_gru_train(x_pre, mask, w_hid, h0, dh):
+    """The cuDNN yardstick for K1: cudnn_gru_module differentiated with
+    retain_graph, so its backward can be timed alone. It does not clip the
+    hidden cotangent. Returns (run forward, run backward)."""
+    import torch
+
+    gru = cudnn_gru_module(w_hid)
+    lengths = mask.sum(1).long().cpu()
+    x = x_pre.detach().clone().requires_grad_()
+    h0 = h0[None].detach().clone().requires_grad_()
+
+    def forward():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(x, lengths, batch_first=True, enforce_sorted=False)
+        return gru(packed, h0)[1][0]
+
+    out = forward()
+    inputs = [x, h0, gru.weight_hh_l0]
+
+    def backward():
+        return torch.autograd.grad(out, inputs, dh, retain_graph=True)
+
+    return forward, backward
+
+
+def check_gru_train(B, L, H, clip, seed, timed=True):
+    """K1 forward (final state) and backward (dx, dh0, dW) against autograd
+    through the plain scan, for a random upstream cotangent dh."""
+    import torch
+
+    from seqrec_tpu_torch.ops.rnn_scan_train import (
+        gru_scan_train_bwd,
+        gru_scan_train_fwd,
+        gru_scan_train_plain,
+    )
+
+    a = gru_inputs(B, L, H, seed, "cuda")
+    x, m, w, h0 = a["x_pre"], a["mask"], a["w_hid"], a["h0"]
+    dh = torch.tensor(np.random.default_rng(seed + 100).normal(0, 1, size=(B, H)),
+                      dtype=torch.float32, device="cuda")
+    h_k, hs = gru_scan_train_fwd(x, m, w, h0)
+    dx_k, dh0_k, dw_k = gru_scan_train_bwd(x, m, w, hs, dh, clip)
+    leaves = [t.clone().requires_grad_() for t in (x, w, h0)]
+    h_p = gru_scan_train_plain(leaves[0], m, leaves[1], leaves[2], clip)
+    dx_p, dw_p, dh0_p = torch.autograd.grad(h_p, leaves, dh, retain_graph=True)
+    torch.cuda.synchronize()
+    # f32 with other summation orders: dW sums B*L products per entry
+    errs, ok = {}, True
+    for name, got, want in (("h", h_k, h_p), ("dx", dx_k, dx_p), ("dh0", dh0_k, dh0_p), ("dW", dw_k, dw_p)):
+        errs[name], good = close(got, want.detach(), rtol=1e-4, atol_rel=1e-5)
+        ok &= good
+    if not ok:
+        raise AssertionError(f"gru_scan_train disagrees with its plain version at {(B, L, H, clip)}: {errs}")
+    # a clip that binds changes dW against the unclipped plain gradient
+    leaves2 = [t.clone().requires_grad_() for t in (x, w, h0)]
+    dw_free = torch.autograd.grad(gru_scan_train_plain(leaves2[0], m, leaves2[1], leaves2[2], 0.0), leaves2[1], dh)[0]
+    out = {
+        "kernel": "gru_scan_train", "shape": {"B": B, "L": L, "H": H}, "grad_clip": clip,
+        "max_abs_err": errs, "clip_moves_dW_by": (dw_p - dw_free).abs().max().item(),
+        "tolerance": "rtol 1e-4 + atol 1e-5*max|plain| (f32; dW sums B*L products in another order)",
+    }
+    if not timed:
+        return out
+    fwd_flops = 2 * B * L * H * 3 * H
+    fwd_bytes = 4 * (B * L * 3 * H + B * L + 3 * H * H + 2 * B * H + L * B * H)
+    bwd_bytes = 4 * (2 * B * L * 3 * H + B * L + 2 * 3 * H * H + L * B * H + 2 * B * H)
+    lib_fwd, lib_bwd = cudnn_gru_train(x, m, w, h0, dh)
+
+    def plain_fwd():
+        with torch.no_grad():
+            return gru_scan_train_plain(x, m, w, h0, clip)
+
+    def plain_bwd():
+        return torch.autograd.grad(h_p, leaves, dh, retain_graph=True)
+
+    fwd = lambda: gru_scan_train_fwd(x, m, w, h0)  # noqa: E731
+    bwd = lambda: gru_scan_train_bwd(x, m, w, hs, dh, clip)  # noqa: E731
+    out["fwd"] = dict(
+        zip(("bound_ms", "bound_by"), bound_ms(fwd_flops, fwd_bytes)),
+        kernel_ms=time_ms(fwd), plain_ms=time_ms(plain_fwd), library_ms=time_ms(lib_fwd),
+        kernel_device_ms=device_ms(fwd), plain_device_ms=device_ms(plain_fwd),
+        library_device_ms=device_ms(lib_fwd),
+    )
+    out["bwd"] = dict(
+        zip(("bound_ms", "bound_by"), bound_ms(3 * fwd_flops, bwd_bytes)),
+        kernel_ms=time_ms(bwd), plain_ms=time_ms(plain_bwd), library_ms=time_ms(lib_bwd),
+        kernel_device_ms=device_ms(bwd), plain_device_ms=device_ms(plain_bwd),
+        library_device_ms=device_ms(lib_bwd),
+    )
+    out["library"] = "torch.nn.GRU (cuDNN), packed; forward, and backward alone (no hidden-cotangent clip)"
+    return out
+
+
+# ----------------------------------------------------------------------
+# K2: streaming CCE stats and gradients
+# ----------------------------------------------------------------------
+def check_cce(B, H, N, seed, timed=True):
+    """K2 stats (m, s) and grads (dh, dW, db) against the plain dense
+    versions, for in-range targets and a random upstream cotangent."""
+    import torch
+    import torch.nn.functional as F
+
+    from seqrec_tpu_torch.ops.streaming_cce import cce_grads, cce_grads_plain, cce_stats, cce_stats_plain
+
+    a = topk_inputs(B, H, N, 1, seed, "cuda")
+    h, w, b = a["h"], a["w_out"], a["b_out"]
+    rng = np.random.default_rng(seed + 100)
+    targets = torch.tensor(rng.integers(0, N, size=B), dtype=torch.int32, device="cuda")
+    g = torch.tensor(rng.uniform(0.5, 1.5, size=B) / B, dtype=torch.float32, device="cuda")
+    g[0] = 0.0  # a row with no cotangent contributes nothing
+    m_k, s_k = cce_stats(h, w, b)
+    m_p, s_p = cce_stats_plain(h, w, b)
+    logz = m_p + torch.log(s_p)
+    grads_k = cce_grads(h, w, b, targets, logz, g)
+    grads_p = cce_grads_plain(h, w, b, targets, logz, g)
+    torch.cuda.synchronize()
+    errs, ok = {}, True
+    for name, got, want in (("m", m_k, m_p), ("s", s_k, s_p), *zip(("dh", "dW", "db"), grads_k, grads_p)):
+        errs[name], good = close(got, want, rtol=1e-4, atol_rel=1e-5)
+        ok &= good
+    if not ok:
+        raise AssertionError(f"streaming cce disagrees with its plain version at {(B, H, N)}: {errs}")
+    out = {
+        "kernel": "streaming_cce", "shape": {"B": B, "H": H, "N": N}, "max_abs_err": errs,
+        "tolerance": "rtol 1e-4 + atol 1e-5*max|plain| (f32; sums over N or B in another order)",
+    }
+    if not timed:
+        return out
+    tl = targets.long()
+
+    def lib_stats():
+        return torch.logsumexp(h @ w + b, dim=1)
+
+    leaves = [t.clone().requires_grad_() for t in (h, w, b)]
+
+    def lib_grads():
+        loss = (F.cross_entropy(leaves[0] @ leaves[1] + leaves[2], tl, reduction="none") * g).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    stats = lambda: cce_stats(h, w, b)  # noqa: E731
+    grads = lambda: cce_grads(h, w, b, targets, logz, g)  # noqa: E731
+    plain_stats = lambda: cce_stats_plain(h, w, b)  # noqa: E731
+    plain_grads = lambda: cce_grads_plain(h, w, b, targets, logz, g)  # noqa: E731
+    out["stats"] = dict(
+        zip(("bound_ms", "bound_by"), bound_ms(2 * B * H * N, 4 * (B * H + H * N + N + 2 * B))),
+        kernel_ms=time_ms(stats), plain_ms=time_ms(plain_stats), library_ms=time_ms(lib_stats),
+        kernel_device_ms=device_ms(stats), plain_device_ms=device_ms(plain_stats),
+        library_device_ms=device_ms(lib_stats),
+    )
+    grads_bytes = 4 * (2 * (B * H + H * N + N) + 3 * B)
+    out["grads"] = dict(
+        zip(("bound_ms", "bound_by"), bound_ms(6 * B * H * N, grads_bytes)),
+        kernel_ms=time_ms(grads), plain_ms=time_ms(plain_grads), library_ms=time_ms(lib_grads),
+        kernel_device_ms=device_ms(grads), plain_device_ms=device_ms(plain_grads),
+        library_device_ms=device_ms(lib_grads),
+    )
+    out["library"] = "stats: torch.logsumexp(h@W+b); grads: autograd of g-weighted F.cross_entropy on h@W+b (forward included)"
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -320,15 +543,9 @@ def main_path(card):
     from seqrec_tpu_torch.data import DataHandler
     from seqrec_tpu_torch.data.synthetic import make_dataset
     from seqrec_tpu_torch.models.base import pytree_save
-    from seqrec_tpu_torch.ops.rnn_scan import gru_scan
-    from seqrec_tpu_torch.ops.score_topk import fused_score_topk
 
-    t0 = time.perf_counter()
-    # scripts/baseline_run.sh's dataset: 6040 users, 3706 items
-    ds_dir = make_dataset(
-        os.path.join(WORK, "ml1m_synth"), n_users=6040, n_items=3706, min_len=20, max_len=310,
-        markov_strength=0.45, n_val_users=100, n_test_users=100, seed=7,
-    )
+    t_phase = t0 = time.perf_counter()
+    ds_dir = ml1m_dataset()
     dataset = DataHandler(ds_dir)
     model = serving_predictor("cpu")
     model.prepare_model(dataset)
@@ -337,13 +554,13 @@ def main_path(card):
     setup_s = time.perf_counter() - t0
 
     argv = ["-d", ds_dir] + SERVING_ARGV
-    gru_scan.launches = fused_score_topk.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     ev_gpu = test_cli.main(argv)
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
-    launches = {"gru_scan": gru_scan.launches, "fused_score_topk": fused_score_topk.launches}
-    missing = [name for name, n in launches.items() if n == 0]
+    launches = read_counters()
+    missing = [name for name in ("gru_scan", "fused_score_topk") if launches[name] == 0]
     if missing:
         raise AssertionError(f"the serving path launched no {', '.join(missing)} kernel")
     ev_cpu = test_cli.main(argv + ["--device", "cpu"])
@@ -390,6 +607,161 @@ def main_path(card):
         "passes": {f"chunk{c}": p for c, p in passes.items()},
         "timed": "host clock; topk_s = GRU scan + fused top-k + copy back of every chunk",
         "profile_chunk64": profile_pass(model, inputs, 64, passes[64]["wall_s"]),
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return launches
+
+
+def ml1m_dataset() -> str:
+    """scripts/baseline_run.sh's dataset: 6040 users, 3706 items."""
+    from seqrec_tpu_torch.data.synthetic import make_dataset
+
+    path = os.path.join(WORK, "ml1m_synth")
+    if os.path.exists(os.path.join(path, "data", "stats")):
+        return path + "/"
+    return make_dataset(
+        path, n_users=6040, n_items=3706, min_len=20, max_len=310,
+        markov_strength=0.45, n_val_users=100, n_test_users=100, seed=7,
+    )
+
+
+# ----------------------------------------------------------------------
+# main path, training: the train CLI at two configurations
+# ----------------------------------------------------------------------
+def run_cli(main, argv):
+    """Run a CLI entry point with its standard output captured; returns
+    (its result, the text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv)
+    os.makedirs(WORK, exist_ok=True)
+    with open(os.path.join(WORK, "cli.log"), "a") as f:
+        f.write("$ " + " ".join(argv) + "\n" + buf.getvalue())
+    return result, buf.getvalue()
+
+
+def progress_values(text, key) -> list:
+    """Numbers of the train CLI's progress lines ``key :  value ...``."""
+    return [float(ln.split(":", 1)[1].split()[0]) for ln in text.splitlines() if ln.startswith(key + " :")]
+
+
+def steady_state(argv, ds_dir, steps, warmup, profile_steps, card):
+    """Train steps of the CLI's predictor outside the CLI: sequences/s over
+    ``steps`` steps after ``warmup`` (host clock to a synchronize), then the
+    device time of ``profile_steps`` steps from torch.profiler, its share of
+    the same steps' wall time and the largest kernels (ms per step)."""
+    import torch
+
+    import seqrec_tpu_torch.utils.command_parser as parse
+    from seqrec_tpu_torch.data import DataHandler
+
+    args = parse.command_parser(parse.predictor_command_parser, argv=argv)
+    args.device = "cuda"
+    model = parse.get_predictor(args)
+    dataset = DataHandler(ds_dir)
+    model.prepare_model(dataset)
+    model.set_dataset(dataset)
+    model.params_from_numpy(model._init_params())
+    gen = model._gen_packed_mini_batch(dataset.training_set, np.random.default_rng(1))
+    for _ in range(warmup):
+        model.train_function(next(gen))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        model.train_function(next(gen))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    batches = [next(gen) for _ in range(profile_steps)]
+    events = device_events(lambda: [model.train_function(b) for b in batches])
+    per_step = {k: v / profile_steps for k, v in events.items()}
+    device_ms = sum(per_step.values())
+    torch.cuda.reset_peak_memory_stats()
+    model.train_function(next(gen))
+    return {
+        "sequences_per_s": model.batch_size / step_s, "step_ms": step_s * 1e3, "steps_timed": steps,
+        "device_ms_per_step": device_ms, "device_busy_share": device_ms / (step_s * 1e3),
+        "top_kernels_ms_per_step": dict(sorted(per_step.items(), key=lambda kv: -kv[1])[:8]),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card,
+    }
+
+
+def main_path_train_flagship(card) -> dict:
+    import torch
+
+    from seqrec_tpu_torch.cli import test as test_cli
+    from seqrec_tpu_torch.cli import train as train_cli
+
+    t_phase = time.perf_counter()
+    ds_dir = ml1m_dataset()
+    argv = ["-d", ds_dir, *FLAGSHIP, "--max_iter", "3000", "--progress", "1500", "--save", "Best",
+            "--dir", "chip_train/"]
+    zero_counters()
+    t0 = time.perf_counter()
+    (best, _, _), text = run_cli(train_cli.main, argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counters()
+    ran = ("gru_scan_train_fwd", "gru_scan_train_bwd", "gru_scan", "fused_score_topk")
+    if any(launches[k] == 0 for k in ran) or launches["cce_stats"] or launches["cce_grads"]:
+        raise AssertionError(f"the flagship's training path launched {launches}")
+    costs = progress_values(text, "Last train cost")
+    if len(costs) != 2 or not costs[1] < costs[0]:
+        raise AssertionError(f"train cost did not fall: {costs}")
+
+    # the first 20 step costs on the card and on the CPU (one step per progress line)
+    short = ["-d", ds_dir, *FLAGSHIP, "--max_iter", "20", "--progress", "1", "--save", "None"]
+    gpu = progress_values(run_cli(train_cli.main, short)[1], "Last train cost")
+    cpu = progress_values(run_cli(train_cli.main, short + ["--device", "cpu"])[1], "Last train cost")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gpu, cpu))
+    if len(gpu) != 20 or len(cpu) != 20 or rel > 1e-4:
+        raise AssertionError(f"step costs differ between cuda and cpu: {gpu} vs {cpu}")
+
+    ev = run_cli(test_cli.main, ["-d", ds_dir, *FLAGSHIP, "--dir", "chip_train/"])[0]
+    emit({
+        "phase": "main_path_train", "config": "flagship GRU-50 CCE, L=30, B=16, Adam 1e-3, dense head",
+        "launches": launches, "cli_cuda_s": cli_s, "iterations": 3000,
+        "throughput_sequences_per_s": progress_values(text, "Throughput"),
+        "train_cost": costs, "validation_sps@10": progress_values(text, "sps"), "best": best,
+        "test_cli_metrics@10": {m: ev.metrics[m]() for m in ("sps", "recall", "item_coverage", "user_coverage")},
+        "first_20_step_costs_cuda_vs_cpu_max_rel_diff": rel,
+        "tolerance": "rel 1e-4 (f32 kernels vs the CPU's plain versions, 20 Adam steps)",
+        "steady": steady_state(FLAGSHIP, ds_dir, steps=300, warmup=20, profile_steps=50, card=card),
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return launches
+
+
+def main_path_train_large(card) -> dict:
+    import torch
+
+    from seqrec_tpu_torch.cli import train as train_cli
+    from seqrec_tpu_torch.data import DataHandler
+    from seqrec_tpu_torch.data.synthetic import catalog_interactions, write_dataset
+
+    t_phase = time.perf_counter()
+    rows = catalog_interactions(n_users=25_000, n_items=50_000, min_len=20, max_len=100, seed=8)
+    ds_dir = write_dataset(os.path.join(WORK, "catalog50k"), rows, n_val_users=500, n_test_users=500, seed=8)
+    n_items = DataHandler(ds_dir).n_items
+    if n_items < 16384:
+        raise AssertionError(f"the large catalog has {n_items} items, under the streaming switch")
+    setup_s = time.perf_counter() - t_phase
+    argv = ["-d", ds_dir, *LARGE, "--max_iter", "30", "--progress", "30", "--save", "None"]
+    zero_counters()
+    t0 = time.perf_counter()
+    text = run_cli(train_cli.main, argv)[1]
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counters()
+    ran = ("gru_scan_train_fwd", "gru_scan_train_bwd", "cce_stats", "cce_grads")
+    if any(launches[k] == 0 for k in ran):
+        raise AssertionError(f"the large catalog's training path launched {launches}")
+    emit({
+        "phase": "main_path_train", "config": "GRU-128, 50k-item synthetic catalog, L=30, B=1024, Adam 1e-3, streaming head",
+        "n_items": n_items, "launches": launches, "setup_s": setup_s, "cli_cuda_s": cli_s, "iterations": 30,
+        "throughput_sequences_per_s": progress_values(text, "Throughput"),
+        "train_cost": progress_values(text, "Last train cost"), "validation_sps@10": progress_values(text, "sps"),
+        "steady": steady_state(LARGE, ds_dir, steps=20, warmup=3, profile_steps=5, card=card),
+        "seconds": time.perf_counter() - t_phase,
     })
     return launches
 
@@ -406,7 +778,8 @@ def main() -> int:
     from seqrec_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    logs = _build.build([os.path.basename(src)[: -len(".cu")] for src, _ in KERNELS.values()])
+    sources = sorted({os.path.basename(src)[: -len(".cu")] for _, src, _ in KERNELS.values()})
+    logs = _build.build(sources)
     build_s = time.perf_counter() - t0
     card = card_line()
     report = {
@@ -415,29 +788,51 @@ def main() -> int:
     }
     emit({"phase": "build", "seconds": build_s, "ptxas": report, "card": card})
 
-    small = {
+    t0 = time.perf_counter()
+    k1 = check_gru_train(16, 30, 50, 100.0, seed=11)  # the flagship's shape, clip inactive
+    k2 = check_cce(1024, 128, 50_000, seed=15)  # the large catalog's shape
+    main_shape = {
         "gru_scan": check_gru(64, 30, 50, seed=1),
         "fused_score_topk": check_topk(64, 50, 3706, 30, 10, seed=2),
+        "gru_scan_train_fwd": {**k1, **k1["fwd"], "max_abs_err": k1["max_abs_err"]["h"]},
+        "gru_scan_train_bwd": {**k1, **k1["bwd"], "max_abs_err": max(k1["max_abs_err"][k] for k in ("dx", "dh0", "dW"))},
+        "cce_stats": {**k2, **k2["stats"], "max_abs_err": max(k2["max_abs_err"][k] for k in ("m", "s"))},
+        "cce_grads": {**k2, **k2["grads"], "max_abs_err": max(k2["max_abs_err"][k] for k in ("dh", "dW", "db"))},
     }
-    for res in small.values():
-        emit({"phase": "kernels", "at": "serving shape", **res})
+    for res in (main_shape["gru_scan"], main_shape["fused_score_topk"], k1, k2):
+        emit({"phase": "kernels", "at": "main-path shape", **res})
     emit({"phase": "kernels", "at": "large shape", **check_gru(512, 30, 256, seed=3)})
     emit({"phase": "kernels", "at": "large shape", **check_topk(512, 256, 200_000, 30, 10, seed=4)})
+    emit({"phase": "kernels", "at": "large shape", **check_gru_train(1024, 30, 128, 100.0, seed=13)})
+    # K2 at the flagship's shape: the dense head's cost against the streaming kernels
+    emit({"phase": "kernels", "at": "flagship shape", **check_cce(16, 50, 3706, seed=14)})
     edge = [
         check_topk(6, 50, 25, 30, 10, seed=5, seen_all_rows=2, timed=False),
         check_topk(64, 50, 3706, 30, 10, seed=6, timed=False, with_seen=False),
         check_topk(33, 64, 1000, 5, 64, seed=7, timed=False),
+        check_gru_train(16, 30, 50, 0.01, seed=12, timed=False),  # the clip binds
+        check_gru_train(9, 7, 12, 0.05, seed=17, timed=False),
+        check_cce(70, 12, 1000, seed=16, timed=False),
+        check_cce(5, 256, 300, seed=18, timed=False),  # four register tiles of H
     ]
-    emit({"phase": "kernels", "at": "edge cases", "checks": [e["shape"] for e in edge], "ok": True})
+    if not all(e.get("clip_moves_dW_by", 1.0) > 0 for e in edge):
+        raise AssertionError("a small grad_clip did not bind")
+    emit({"phase": "kernels", "at": "edge cases", "checks": [e["shape"] for e in edge],
+          "clip_moves_dW_by": [e["clip_moves_dW_by"] for e in edge if "clip_moves_dW_by" in e],
+          "ok": True, "seconds": time.perf_counter() - t0})
 
-    launches = main_path(card)
+    serving = main_path(card)
+    flagship = main_path_train_flagship(card)
+    large = main_path_train_large(card)
+    path_of = {"gru_scan": serving, "fused_score_topk": serving, "gru_scan_train_fwd": flagship,
+               "gru_scan_train_bwd": flagship, "cce_stats": large, "cce_grads": large}
 
     summary = []
-    for name, (source, replaces) in KERNELS.items():
-        res = small[name]
+    for name, (_, source, replaces) in KERNELS.items():
+        res = main_shape[name]
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": res["max_abs_err"],
+            "launches": path_of[name][name], "max_abs_err": res["max_abs_err"],
             "ms": res["kernel_ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
         })

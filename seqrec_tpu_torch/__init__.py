@@ -8,8 +8,10 @@ path becomes a CUDA C++ kernel for ``sm_90a`` under ``csrc/``, built with
 ``nvcc`` at first use (``ops/_build.py``) and checked against a plain
 PyTorch version of the same function kept beside its wrapper.
 
-Ported so far: the serving path of ``RNNOneHot`` on a GRU tower (batched
-masked top-k evaluation through ``cli/test.py``).
+Ported so far: ``RNNOneHot`` on a GRU tower, trained through
+``cli/train.py`` (GRU training scan K1, streaming CCE K2 at large
+catalogs) and served through ``cli/test.py`` (GRU scan K3, fused masked
+top-k K4).
 """
 
 from __future__ import annotations

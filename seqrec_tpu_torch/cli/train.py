@@ -1,0 +1,145 @@
+"""Training CLI: ``python -m seqrec_tpu_torch.cli.train``.
+
+Same flags as ``seqrec_tpu/cli/train.py`` (``-d DATASET_DIR -m RNN --loss
+CCE --save Best ...``), plus ``--device {cuda,cpu}``: it trains on CUDA
+unless ``--device cpu`` is given, and a missing GPU is an error. It writes
+the JAX package's checkpoints (same filenames and ``.npz`` keys) under
+``DATASET_DIR/models/``. ``--profile``, ``--mesh`` and ``--spd`` > 1 come
+with later slices of the port and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+import seqrec_tpu_torch.utils.command_parser as parse
+from seqrec_tpu_torch import resolve_device
+from seqrec_tpu_torch.data import DataHandler
+
+
+def training_command_parser(parser):
+    parser.add_argument(
+        "--tshuffle", help="Shuffle sequences during training.", action="store_true"
+    )
+    parser.add_argument(
+        "--extended_set",
+        help="Use extended training set (first half of validation and test users).",
+        action="store_true",
+    )
+    parser.add_argument(
+        "-d", dest="dataset", help="Directory name of the dataset.", default="", type=str
+    )
+    parser.add_argument(
+        "--dir", help="Directory name to save model.", default="", type=str
+    )
+    parser.add_argument(
+        "--save",
+        choices=["All", "Best", "None"],
+        help="Policy for saving models.",
+        default="Best",
+    )
+    parser.add_argument(
+        "--metrics",
+        help="Metrics for validation, comma separated",
+        default="sps",
+        type=str,
+    )
+    parser.add_argument(
+        "--time_based_progress",
+        help="Progress based on time instead of iterations.",
+        action="store_true",
+    )
+    parser.add_argument(
+        "--load_last_model",
+        help="Load last model before starting training.",
+        action="store_true",
+    )
+    parser.add_argument("--progress", help="Progress intervals", default="2.", type=str)
+    parser.add_argument(
+        "--mpi", help="Max progress intervals", default=np.inf, type=float
+    )
+    parser.add_argument(
+        "--max_iter", help="Max number of iterations", default=np.inf, type=float
+    )
+    parser.add_argument(
+        "--max_time", help="Max training time in seconds", default=np.inf, type=float
+    )
+    parser.add_argument(
+        "--min_iter",
+        help="Min iterations before showing progress",
+        default=0.0,
+        type=float,
+    )
+    parser.add_argument(
+        "--profile",
+        help="Capture a profiler trace of the training run into this directory.",
+        default="",
+        type=str,
+    )
+    parser.add_argument(
+        "--spd",
+        dest="steps_per_dispatch",
+        help="Optimizer steps fused into one device dispatch.",
+        default=1,
+        type=int,
+    )
+    parser.add_argument(
+        "--mesh",
+        help='Shard training over a ("data","model") device mesh: "DATA,MODEL" or "auto".',
+        default="",
+        type=str,
+    )
+    parser.add_argument(
+        "--device",
+        choices=["cuda", "cpu"],
+        help="Device to train on; cuda raises when no GPU is present.",
+        default="cuda",
+    )
+
+
+def num(s):
+    try:
+        return int(s)
+    except ValueError:
+        return float(s)
+
+
+def main(argv=None):
+    """Run the CLI; returns ``predictor.train``'s (best metrics, seconds,
+    best checkpoint file)."""
+    args = parse.command_parser(
+        parse.predictor_command_parser,
+        training_command_parser,
+        parse.early_stopping_command_parser,
+        argv=argv,
+    )
+    for flag, asked in (("--mesh", args.mesh), ("--profile", args.profile),
+                        ("--spd > 1", args.steps_per_dispatch > 1)):
+        if asked:
+            raise NotImplementedError(f"{flag} comes with a later slice of the port")
+    resolve_device(args.device)
+    predictor = parse.get_predictor(args)
+    dataset = DataHandler(
+        dirname=args.dataset,
+        extended_training_set=args.extended_set,
+        shuffle_training=args.tshuffle,
+    )
+    predictor.prepare_model(dataset)
+    return predictor.train(
+        dataset,
+        save_dir=dataset.dirname + "models/" + args.dir,
+        time_based_progress=args.time_based_progress,
+        progress=num(args.progress),
+        autosave=args.save,
+        max_progress_interval=args.mpi,
+        max_iter=args.max_iter,
+        min_iterations=args.min_iter,
+        max_time=args.max_time,
+        early_stopping=parse.get_early_stopper(args),
+        load_last_model=args.load_last_model,
+        validation_metrics=args.metrics.split(","),
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -1,120 +1,14 @@
 // Forward GRU over time, final state only: the eval/serving tower scan.
 //
 // Replaces seqrec_tpu/ops/pallas_rnn.py:_gru_scan_kernel (reached through
-// gru_scan). Same math, gate order reset|update|candidate:
-//   hid = h . W_hid
-//   r = sigmoid(x_r + hid_r), u = sigmoid(x_u + hid_u), c = tanh(x_c + r * hid_c)
-//   h' = (1 - u) * h + u * c, kept only where mask > 0.
-//
-// What bounds it on an H100: the L steps depend on each other, so at the
-// serving shapes (B=64, L=30, H=50: 29 MFLOP, 1.2 MB) it is latency-bound,
-// far above its byte and operation bounds. At large batch and hidden size
-// the per-step [rows, H] x [H, 3H] product dominates.
-//
-// Design: one block per tile of `rows` batch rows runs the whole L-step
-// loop, so h never leaves shared memory between steps. The tile is chosen
-// so the grid has about one block per SM (rows = ceil(B / SMs), at most 8);
-// at B=64 that is still only 64 blocks on 132 SMs. Each step has two
-// phases with a barrier between them: threads own gate columns of the
-// product (one W_hid element feeds all rows of the tile from a register),
-// then (row, unit) pairs for the gate math. W_hid is staged in shared
-// memory when it fits beside h and hid (H=50: 30 KB; up to H of about 128
-// with the opt-in limit) and is read through L2 otherwise (H=256: 786 KB).
-// Any H is taken as is: no padding to a lane multiple. x_pre is read in
-// the caller's [B, L, 3H] layout.
+// gru_scan). The kernel, what bounds it and its design are in
+// gru_forward.cuh, which the training scan (gru_scan_train.cu) shares; this
+// file launches it without the per-step residual store.
 
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kMaxRows = 8;
-
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-template <bool kWShared>
-__global__ void __launch_bounds__(kThreads) gru_scan_kernel(
-    const float* __restrict__ x,     // [B, L, 3H]
-    const float* __restrict__ mask,  // [B, L]
-    const float* __restrict__ w,     // [H, 3H]
-    const float* __restrict__ h0,    // [B, H]
-    float* __restrict__ out,         // [B, H]
-    int B, int L, int H, int rows_per_block) {
-  extern __shared__ float smem[];
-  const int G = 3 * H;
-  const int row0 = blockIdx.x * rows_per_block;
-  const int rows = min(rows_per_block, B - row0);
-  float* h = smem;                       // [rows_per_block, H]
-  float* hid = h + rows_per_block * H;   // [rows_per_block, 3H]
-  float* ws = hid + rows_per_block * G;  // [H, 3H] when kWShared
-  const float* wr = kWShared ? ws : w;
-
-  for (int i = threadIdx.x; i < rows * H; i += kThreads) h[i] = h0[(size_t)row0 * H + i];
-  if (kWShared) {
-    for (int i = threadIdx.x; i < H * G; i += kThreads) ws[i] = w[i];
-  }
-  __syncthreads();
-
-  for (int t = 0; t < L; ++t) {
-    // phase 1: hid[r, c] = sum_k h[r, k] * W[k, c]
-    for (int c = threadIdx.x; c < G; c += kThreads) {
-      float acc[kMaxRows];
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.0f;
-      for (int k = 0; k < H; ++k) {
-        const float wk = wr[k * G + c];
-#pragma unroll
-        for (int r = 0; r < kMaxRows; ++r) {
-          if (r < rows) acc[r] = fmaf(h[r * H + k], wk, acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        if (r < rows) hid[r * G + c] = acc[r];
-      }
-    }
-    __syncthreads();
-    // phase 2: gate math; masked steps carry h through
-    for (int i = threadIdx.x; i < rows * H; i += kThreads) {
-      const int r = i / H;
-      const int j = i - r * H;
-      const size_t b = (size_t)row0 + r;
-      if (mask[b * L + t] > 0.0f) {
-        const float* xt = x + (b * L + t) * G;
-        const float* hr = hid + r * G;
-        const float rg = sigmoid_f(xt[j] + hr[j]);
-        const float u = sigmoid_f(xt[H + j] + hr[H + j]);
-        const float c = tanhf(xt[2 * H + j] + rg * hr[2 * H + j]);
-        h[i] = (1.0f - u) * h[i] + u * c;
-      }
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < rows * H; i += kThreads) out[(size_t)row0 * H + i] = h[i];
-}
-
-}  // namespace
+#include "gru_forward.cuh"
 
 extern "C" int seqrec_gru_scan_f32(const float* x, const float* mask, const float* w,
                                    const float* h0, float* out, int B, int L, int H,
                                    void* stream) {
-  if (B <= 0 || L < 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  int dev = 0, n_sm = 0, smem_optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  int rows = (B + n_sm - 1) / n_sm;
-  rows = rows < 1 ? 1 : (rows > kMaxRows ? kMaxRows : rows);
-  const size_t base = (size_t)rows * 4 * H * sizeof(float);  // h [rows, H] + hid [rows, 3H]
-  const size_t w_bytes = (size_t)3 * H * H * sizeof(float);
-  if (base > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
-  const bool w_shared = base + w_bytes <= (size_t)smem_optin;
-  const size_t smem = base + (w_shared ? w_bytes : 0);
-  auto kernel = w_shared ? gru_scan_kernel<true> : gru_scan_kernel<false>;
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  const int grid = (B + rows - 1) / rows;
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(x, mask, w, h0, out, B, L, H, rows);
-  return (int)cudaGetLastError();
+  return launch_gru_forward<false>(x, mask, w, h0, out, nullptr, B, L, H, stream);
 }

@@ -1,0 +1,239 @@
+// GRU training scan: the forward that keeps h_{t-1} of every step, and its
+// backward (kernel K1).
+//
+// Replaces seqrec_tpu/ops/pallas_rnn_train.py:_fwd_kernel and _bwd_kernel
+// (reached through gru_scan_train, a custom VJP). Backward math per
+// unmasked step, gate order reset|update|candidate, with the gates
+// recomputed from x_pre[t] and h_{t-1}:
+//   du = dh (c - h_{t-1});  dc = dh u;  dcpre = dc (1 - c^2)
+//   dr = dcpre hid_c;  drpre = dr r (1 - r);  dupre = du u (1 - u)
+//   dhid = clip([drpre, dupre, dcpre r], +-grad_clip), 0 on masked steps
+//   dx[t] = [drpre, dupre, dcpre] (unclipped; the caller clips x_pre), 0 when masked
+//   dh_{t-1} = dh (1 - u) + dhid . W_hid^T, or dh itself on masked steps
+//   dW_hid = sum over steps and rows of h_{t-1}^T dhid.
+//
+// What bounds it on an H100: like the forward, the reverse walk is L
+// dependent steps, latency-bound at the flagship shape (B=16, L=30, H=50);
+// at B=1024, H=128 the three per-step products (recompute hid, dhid . W^T,
+// and dW) dominate: 3 x 2 B L H 3H = 9.1 GFLOP of f32 FMAs.
+//
+// Design:
+// - forward: the eval scan of gru_forward.cuh with the h_{t-1} store.
+// - backward scan: one block per tile of rows (as in the forward) walks
+//   t = L-1 .. 0 with dh in shared memory. Per step: load h_{t-1} of the
+//   tile; threads over gate columns recompute hid = h_{t-1} W (one W
+//   element feeds every row from a register); threads over (row, unit)
+//   form dx and dhid; threads over units form dh_{t-1} from a transposed
+//   copy W^T [3H, H] (so neighbouring threads read neighbouring floats).
+//   W and W^T sit in shared memory when both fit (H=50: 60 KB) and are
+//   read through L2 otherwise (H=128: 393 KB).
+// - dW: a sum over B x L rows. CUDA blocks run in no order, so instead of
+//   carrying a sum across blocks the scan writes each step's dhid to
+//   scratch [L, B, 3H], and dW = hs^T dhid is a split-K tiled product
+//   (tile_mma.cuh) whose per-split partials are summed in split order by
+//   a second kernel. No atomics: the result is the same run after run.
+// Any H and L are taken as they are (no lane padding, no time chunks).
+
+#include "gru_forward.cuh"
+#include "tile_mma.cuh"
+
+namespace {
+
+template <bool kWShared>
+__global__ void __launch_bounds__(kThreads) gru_backward_kernel(
+    const float* __restrict__ x,     // [B, L, 3H]
+    const float* __restrict__ mask,  // [B, L]
+    const float* __restrict__ w,     // [H, 3H]
+    const float* __restrict__ wt,    // [3H, H]
+    const float* __restrict__ hs,    // [L, B, H], h_{t-1} of step t
+    const float* __restrict__ dh_in, // [B, H]
+    float* __restrict__ dx,          // [B, L, 3H]
+    float* __restrict__ dh0,         // [B, H]
+    float* __restrict__ dhid_out,    // [L, B, 3H]
+    int B, int L, int H, int rows_per_block, float clip) {
+  extern __shared__ float smem[];
+  const int G = 3 * H;
+  const int row0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, B - row0);
+  float* hp = smem;                      // [rows_per_block, H]   h_{t-1}
+  float* dh = hp + rows_per_block * H;   // [rows_per_block, H]
+  float* dd = dh + rows_per_block * H;   // [rows_per_block, H]   direct part of dh_{t-1}
+  float* hid = dd + rows_per_block * H;  // [rows_per_block, 3H] hid, then dhid
+  float* ws = hid + rows_per_block * G;  // [H, 3H] when kWShared
+  float* wts = ws + H * G;               // [3H, H] when kWShared
+  const float* wr = kWShared ? ws : w;
+  const float* wtr = kWShared ? wts : wt;
+
+  for (int i = threadIdx.x; i < rows * H; i += kThreads) dh[i] = dh_in[(size_t)row0 * H + i];
+  if (kWShared) {
+    for (int i = threadIdx.x; i < H * G; i += kThreads) {
+      ws[i] = w[i];
+      wts[i] = wt[i];
+    }
+  }
+
+  for (int t = L - 1; t >= 0; --t) {
+    // rows of one step are contiguous in hs [L, B, H]
+    const float* hs_t = hs + ((size_t)t * B + row0) * H;
+    for (int i = threadIdx.x; i < rows * H; i += kThreads) hp[i] = hs_t[i];
+    __syncthreads();
+    // phase 1: recompute hid[r, c] = sum_k h_{t-1}[r, k] W[k, c]
+    for (int c = threadIdx.x; c < G; c += kThreads) {
+      float acc[kMaxRows];
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.0f;
+      for (int k = 0; k < H; ++k) {
+        const float wk = wr[k * G + c];
+#pragma unroll
+        for (int r = 0; r < kMaxRows; ++r) {
+          if (r < rows) acc[r] = fmaf(hp[r * H + k], wk, acc[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) {
+        if (r < rows) hid[r * G + c] = acc[r];
+      }
+    }
+    __syncthreads();
+    // phase 2: gate cotangents; each thread reads and then overwrites only
+    // its own three hid columns, so hid becomes dhid in place
+    for (int i = threadIdx.x; i < rows * H; i += kThreads) {
+      const int r = i / H;
+      const int j = i - r * H;
+      const size_t b = (size_t)row0 + r;
+      float* hr = hid + r * G;
+      float* dxt = dx + (b * L + t) * G;
+      float* dht = dhid_out + ((size_t)t * B + b) * G;
+      const float g = dh[i];
+      if (mask[b * L + t] > 0.0f) {
+        const float* xt = x + (b * L + t) * G;
+        const float rg = sigmoid_f(xt[j] + hr[j]);
+        const float u = sigmoid_f(xt[H + j] + hr[H + j]);
+        const float hidc = hr[2 * H + j];
+        const float c = tanhf(xt[2 * H + j] + rg * hidc);
+        const float du = g * (c - hp[i]);
+        const float dcpre = g * u * (1.0f - c * c);
+        const float drpre = dcpre * hidc * rg * (1.0f - rg);
+        const float dupre = du * u * (1.0f - u);
+        float d0 = drpre, d1 = dupre, d2 = dcpre * rg;
+        if (clip > 0.0f) {
+          d0 = fminf(fmaxf(d0, -clip), clip);
+          d1 = fminf(fmaxf(d1, -clip), clip);
+          d2 = fminf(fmaxf(d2, -clip), clip);
+        }
+        dxt[j] = drpre;
+        dxt[H + j] = dupre;
+        dxt[2 * H + j] = dcpre;
+        hr[j] = d0;
+        hr[H + j] = d1;
+        hr[2 * H + j] = d2;
+        dd[i] = g * (1.0f - u);
+      } else {
+        dxt[j] = dxt[H + j] = dxt[2 * H + j] = 0.0f;
+        hr[j] = hr[H + j] = hr[2 * H + j] = 0.0f;
+        dd[i] = g;  // dh passes through a masked step
+      }
+      dht[j] = hr[j];
+      dht[H + j] = hr[H + j];
+      dht[2 * H + j] = hr[2 * H + j];
+    }
+    __syncthreads();
+    // phase 3: dh_{t-1}[r, k] = dd[r, k] + sum_c dhid[r, c] W^T[c, k]
+    for (int k = threadIdx.x; k < H; k += kThreads) {
+      float acc[kMaxRows];
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.0f;
+      for (int c = 0; c < G; ++c) {
+        const float wk = wtr[c * H + k];
+#pragma unroll
+        for (int r = 0; r < kMaxRows; ++r) {
+          if (r < rows) acc[r] = fmaf(hid[r * G + c], wk, acc[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) {
+        if (r < rows) dh[r * H + k] = dd[r * H + k] + acc[r];
+      }
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < rows * H; i += kThreads) dh0[(size_t)row0 * H + i] = dh[i];
+}
+
+// part[split, m, n] = sum over k of this split of A[k, m] Bm[k, n]
+// (A [K, M], Bm [K, N], row-major): the dW = hs^T dhid product.
+__global__ void __launch_bounds__(kTileThreads) atb_partial_kernel(
+    const float* __restrict__ A, const float* __restrict__ Bm, float* __restrict__ part,
+    int K, int M, int N, int k_per_split) {
+  __shared__ float As[kTile * kTS];
+  __shared__ float Bs[kTile * kTS];
+  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
+  const int k_begin = blockIdx.z * k_per_split;
+  const int k_end = min(K, k_begin + k_per_split);
+  float acc[4][4];
+  zero_acc(acc);
+  for (int k0 = k_begin; k0 < k_end; k0 += kTile) {
+    __syncthreads();
+    load_tile(As, A, M, k0, k_end, m0, M);
+    load_tile(Bs, Bm, N, k0, k_end, n0, N);
+    __syncthreads();
+    tile_mma(As, Bs, min(kTile, k_end - k0), acc);
+  }
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* out = part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (m < M && n < N) out[(size_t)m * N + n] = acc[i][j];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int seqrec_gru_train_fwd_f32(const float* x, const float* mask, const float* w,
+                                        const float* h0, float* out, float* hs, int B, int L,
+                                        int H, void* stream) {
+  return launch_gru_forward<true>(x, mask, w, h0, out, hs, B, L, H, stream);
+}
+
+// dh [B, H] -> dx [B, L, 3H], dh0 [B, H], dw [H, 3H]. Scratch from the
+// caller: dhid [L, B, 3H] and part [n_splits, H, 3H]; the K = L * B rows of
+// the dW product are cut into n_splits ranges of k_per_split rows.
+extern "C" int seqrec_gru_train_bwd_f32(const float* x, const float* mask, const float* w,
+                                        const float* wt, const float* hs, const float* dh,
+                                        float* dx, float* dh0, float* dw, float* dhid,
+                                        float* part, int B, int L, int H, int n_splits,
+                                        int k_per_split, float clip, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || n_splits <= 0 || k_per_split <= 0 ||
+      (long long)n_splits * k_per_split < (long long)L * B)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, n_sm = 0, smem_optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const int rows = gru_rows_per_block(B, n_sm);
+  const size_t base = (size_t)rows * 6 * H * sizeof(float);  // hp, dh, dd [rows, H] + hid [rows, 3H]
+  const size_t w_bytes = (size_t)2 * 3 * H * H * sizeof(float);  // W and W^T
+  if (base > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
+  const bool w_shared = base + w_bytes <= (size_t)smem_optin;
+  const size_t smem = base + (w_shared ? w_bytes : 0);
+  auto kernel = w_shared ? gru_backward_kernel<true> : gru_backward_kernel<false>;
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  kernel<<<(B + rows - 1) / rows, kThreads, smem, s>>>(x, mask, w, wt, hs, dh, dx, dh0, dhid, B,
+                                                        L, H, rows, clip);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int G = 3 * H;
+  dim3 grid((H + kTile - 1) / kTile, (G + kTile - 1) / kTile, n_splits);
+  atb_partial_kernel<<<grid, kTileThreads, 0, s>>>(hs, dhid, part, L * B, H, G, k_per_split);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_sum_splits(part, dw, n_splits, (size_t)H * G, s);
+}

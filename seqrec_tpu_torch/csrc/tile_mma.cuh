@@ -1,0 +1,88 @@
+// A 64 x 64 f32 tile product on the CUDA cores, shared by the training
+// kernels (gru_scan_train.cu, streaming_cce.cu).
+//
+// A block of kTileThreads threads owns one 64 x 64 output tile; thread
+// (ty, tx) = (tid / 16, tid % 16) holds the 4 x 4 outputs (ty + 16 i,
+// tx + 16 j) in registers. Operands sit in shared memory k-major with a
+// row stride of kTS = 65 floats, so a transposed store into a tile (column
+// by column) hits 32 different banks:
+//   acc[i][j] += sum_k As[k][ty + 16 i] * Bs[k][tx + 16 j].
+// Every step reads 4 + 4 shared floats for 16 FMAs; the callers accept
+// that (about a quarter of the f32 peak) for a first, simple kernel.
+// TF32 and the tensor cores (wgmma) are left for a later version.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTile = 64;
+constexpr int kTS = kTile + 1;
+constexpr int kTileThreads = 256;
+
+__device__ __forceinline__ void tile_mma(const float* __restrict__ As, const float* __restrict__ Bs,
+                                         int kn, float acc[4][4]) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  for (int k = 0; k < kn; ++k) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = As[k * kTS + ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = Bs[k * kTS + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float acc[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+}
+
+// dst[k][c] = src[(k0 + k) * ld + c0 + c] for k < 64, c < 64; zero where
+// k0 + k >= k_end or c0 + c >= c_end. Reads are contiguous in c.
+__device__ __forceinline__ void load_tile(float* __restrict__ dst, const float* __restrict__ src,
+                                          size_t ld, int k0, int k_end, int c0, int c_end) {
+  for (int e = threadIdx.x; e < kTile * kTile; e += kTileThreads) {
+    const int k = e / kTile, c = e - k * kTile;
+    const bool ok = k0 + k < k_end && c0 + c < c_end;
+    dst[k * kTS + c] = ok ? src[(size_t)(k0 + k) * ld + c0 + c] : 0.0f;
+  }
+}
+
+// The transpose: dst[c][k] = src[(k0 + k) * ld + c0 + c], same bounds.
+__device__ __forceinline__ void load_tile_t(float* __restrict__ dst, const float* __restrict__ src,
+                                            size_t ld, int k0, int k_end, int c0, int c_end) {
+  for (int e = threadIdx.x; e < kTile * kTile; e += kTileThreads) {
+    const int k = e / kTile, c = e - k * kTile;
+    const bool ok = k0 + k < k_end && c0 + c < c_end;
+    dst[c * kTS + k] = ok ? src[(size_t)(k0 + k) * ld + c0 + c] : 0.0f;
+  }
+}
+
+// out[i] = sum_s part[s * count + i], in split order (deterministic).
+__global__ void sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                  int n_splits, size_t count) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float acc = 0.0f;
+  for (int s = 0; s < n_splits; ++s) acc += part[(size_t)s * count + i];
+  out[i] = acc;
+}
+
+inline int launch_sum_splits(const float* part, float* out, int n_splits, size_t count,
+                             cudaStream_t stream) {
+  const int threads = 256;
+  const unsigned grid = (unsigned)((count + threads - 1) / threads);
+  if (grid) sum_splits_kernel<<<grid, threads, 0, stream>>>(part, out, n_splits, count);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -3,9 +3,12 @@
 ``generate_interactions`` draws the same interactions as
 ``seqrec_tpu.data.synthetic.generate_interactions`` for the same arguments
 (a first-order Markov chain over items plus a Zipf-like popularity skew).
-``make_dataset`` writes them straight into the preprocessed directory
-layout that :class:`seqrec_tpu_torch.data.DataHandler` reads, without the
-JAX package's pandas preprocess:
+``catalog_interactions`` draws interactions of the same kind vectorized
+over users, with a flatter popularity, for catalogs of tens of thousands
+of items. ``make_dataset`` (through ``write_dataset``) writes them
+straight into the preprocessed directory layout that
+:class:`seqrec_tpu_torch.data.DataHandler` reads, without the JAX
+package's pandas preprocess:
 
 - ``data/{train,val,test}_set_sequences``: one ``user i1 r1 i2 r2 ...`` line
   per user, in time order;
@@ -75,6 +78,38 @@ def generate_interactions(
     return np.asarray(rows, dtype=np.int64)
 
 
+def catalog_interactions(
+    n_users: int,
+    n_items: int,
+    min_len: int = 20,
+    max_len: int = 100,
+    markov_strength: float = 0.45,
+    pop_exponent: float = 0.5,
+    seed: int = 0,
+) -> np.ndarray:
+    """Rows ``(user, item, rating, time)`` for a large catalog, one numpy
+    pass per time step over all users: with probability
+    ``markov_strength`` the next item is the planted successor of the
+    previous one, otherwise a draw from a popularity ``rank^-pop_exponent``
+    (flatter than ``generate_interactions``' 1.1, so that most items stay
+    above the rare-item filter). Not the JAX package's draws."""
+    rng = np.random.default_rng(seed)
+    succ = rng.permutation(n_items)
+    cdf = np.cumsum(np.arange(1, n_items + 1, dtype=np.float64) ** -pop_exponent)
+    cdf /= cdf[-1]
+    lengths = rng.integers(min_len, max_len + 1, size=n_users)
+    items = np.zeros((n_users, max_len), dtype=np.int64)
+    items[:, 0] = cdf.searchsorted(rng.random(n_users), side="right")
+    for t in range(1, max_len):
+        follow = rng.random(n_users) < markov_strength
+        drawn = cdf.searchsorted(rng.random(n_users), side="right")
+        items[:, t] = np.where(follow, succ[items[:, t - 1]], drawn)
+    valid = np.arange(max_len)[None, :] < lengths[:, None]
+    users = np.broadcast_to(np.arange(n_users)[:, None], items.shape)[valid]
+    n = int(valid.sum())
+    return np.stack([users, items[valid], rng.integers(1, 6, size=n), np.arange(n)], axis=1)
+
+
 def _remove_rare(rows: np.ndarray, min_user_activity: int, min_item_pop: int) -> np.ndarray:
     """Drop inactive users, then rare items, then inactive users again (the
     preprocess order; the item bound may end up loosely satisfied)."""
@@ -119,12 +154,9 @@ def make_dataset(
     min_item_pop: int = 5,
     seed: int = 0,
 ) -> str:
-    """Generate interactions and write the preprocessed layout into
-    ``dirname``; returns the directory with a trailing slash.
-
-    Users and items are renumbered ``0..n-1`` in the order of their
-    original ids after the rare-element filter; validation and test users
-    are drawn without replacement from ``np.random.default_rng(seed)``."""
+    """Generate interactions (``generate_interactions``) and write the
+    preprocessed layout into ``dirname`` (``write_dataset``); returns the
+    directory with a trailing slash."""
     rows = generate_interactions(
         n_users=n_users,
         n_items=n_items,
@@ -133,6 +165,25 @@ def make_dataset(
         markov_strength=markov_strength,
         seed=seed,
     )
+    return write_dataset(dirname, rows, n_val_users, n_test_users, min_user_activity, min_item_pop, seed)
+
+
+def write_dataset(
+    dirname: str,
+    rows: np.ndarray,
+    n_val_users: int = 50,
+    n_test_users: int = 50,
+    min_user_activity: int = 2,
+    min_item_pop: int = 5,
+    seed: int = 0,
+) -> str:
+    """Write interaction rows ``(user, item, rating, time)`` as a
+    preprocessed dataset into ``dirname``; returns the directory with a
+    trailing slash.
+
+    Users and items are renumbered ``0..n-1`` in the order of their
+    original ids after the rare-element filter; validation and test users
+    are drawn without replacement from ``np.random.default_rng(seed)``."""
     rows = _remove_rare(rows, min_user_activity, min_item_pop)
     rows = rows[np.argsort(rows[:, 3], kind="stable")]
     rows[:, 0] = np.unique(rows[:, 0], return_inverse=True)[1]

@@ -1,22 +1,34 @@
-"""RNN-family base predictor, serving half: encoding, checkpoints, batched
-masked top-k.
+"""RNN-family base predictor: encoding, batching, the training loop,
+checkpoints and batched masked top-k.
 
 Counterpart of ``seqrec_tpu/models/base.py:RNNBase``. The predictor
-protocol the test CLI relies on is kept — ``prepare_model(dataset)``,
-``load``, ``set_dataset``, ``_iter_test_instances``,
-``_stage_eval_inputs``/``_topk_from_staged``, ``top_k_recommendations``,
-``metrics`` — and so are the filename scheme and the ``.npz`` checkpoint
-format (path-encoded keys), so a checkpoint of either package loads in the
-other. The network is an ``nn.Module`` (``self.net``) whose state-dict keys
-are the JAX parameter paths with ``/`` replaced by ``.``.
+protocol the CLIs rely on is kept — ``prepare_model(dataset)``, ``train``,
+``load``, ``load_last``, ``save``, ``set_dataset``,
+``_iter_test_instances``, ``_stage_eval_inputs``/``_topk_from_staged``,
+``top_k_recommendations``, ``metrics`` — and so are the filename scheme
+and the ``.npz`` checkpoint format (path-encoded keys), so a checkpoint of
+either package loads in the other. The network is an ``nn.Module``
+(``self.net``) whose state-dict keys are the JAX parameter paths with
+``/`` replaced by ``.``.
 
-Training (batching, the loop, optimizer steps, saving during training)
-comes with the training slice of the port.
+Training draws the JAX package's batches: the packed batcher with
+``np.random.default_rng(seed + 77)`` on the default plugin settings, the
+per-sequence batcher with the model's own generator otherwise, so one seed
+gives the same batches and the loss trajectories compare step by step.
+Each ``train_function`` call is one synchronous optimizer step (autograd,
+then the updater's in-place step); validation runs the eval kernels.
+Saves are synchronous. Not ported yet (each raises ``NotImplementedError``
+where a flag asks for it): the index wire and K-step dispatch (``--spd``),
+the async save queue, ``--lazy_updates``, ``--mesh``.
 """
 
 from __future__ import annotations
 
+import glob
 import os
+import re
+import sys
+from time import time
 
 import numpy as np
 import torch
@@ -28,6 +40,7 @@ from seqrec_tpu_torch.models.recurrent import RecurrentLayers
 from seqrec_tpu_torch.models.updates import Adagrad
 from seqrec_tpu_torch.ops.core import masked_top_k
 from seqrec_tpu_torch.ops.score_topk import fused_score_topk
+from seqrec_tpu_torch.utils import evaluation
 
 # Defaults (reference rnn_base.py:24,32)
 MAX_LENGTH = 200
@@ -88,8 +101,20 @@ def _flatten(tree, prefix=()):
             yield ".".join(prefix + (k,)), v
 
 
+def _unflatten(state) -> dict:
+    """``{"a.b.c": tensor}`` -> nested ``{"a": {"b": {"c": ndarray}}}``."""
+    tree: dict = {}
+    for key, t in state.items():
+        node = tree
+        *parents, leaf = key.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = t.detach().cpu().numpy()
+    return tree
+
+
 class RNNBase:
-    """Base for sequence predictors (serving half)."""
+    """Base for sequence predictors trained with the generic loop."""
 
     def __init__(
         self,
@@ -138,7 +163,11 @@ class RNNBase:
             "blockbuster_share": {"direction": -1},
         }
         self.net: torch.nn.Module | None = None
+        self._has_params = False
+        self.opt_state = None
         self.eval_batch_size = max(batch_size, 64)
+        # >1 asks for the K-step dispatch, which is not ported yet
+        self.steps_per_dispatch = 1
 
     # ------------------------------------------------------------------
     # featurization: packed sparse ids per timestep
@@ -187,6 +216,7 @@ class RNNBase:
     def set_dataset(self, dataset) -> None:
         self.dataset = dataset
         self.target_selection.set_dataset(dataset)
+        self._val_cache = None
 
     def _init_params(self) -> dict:  # pragma: no cover
         """Freshly initialised numpy parameter tree (the JAX package's)."""
@@ -203,13 +233,23 @@ class RNNBase:
         # np.require copies only leaves that are read-only or not C-contiguous
         state = {key: torch.from_numpy(np.require(arr, requirements="CW")) for key, arr in _flatten(tree)}
         self.net.load_state_dict(state, strict=True)
+        self._has_params = True
         return self.net
 
+    def params_to_numpy(self) -> dict:
+        """The JAX-layout params tree of numpy arrays (inverse of
+        ``params_from_numpy``)."""
+        return _unflatten(self.net.state_dict())
+
     def load(self, filename: str) -> None:
+        """Load the params of a checkpoint of either package. The optimizer
+        restarts from zero: an archive's ``opt`` leaves (the JAX package
+        writes them only when ``save_optimizer_state`` is set) are not read."""
         tree = pytree_load(filename)
         if "params" not in tree:  # archives from before the opt-state split
             tree = {"params": tree}
         self.params_from_numpy(tree["params"])
+        self.opt_state = None
 
     # ------------------------------------------------------------------
     # prediction
@@ -304,6 +344,393 @@ class RNNBase:
     def _topk_from_staged(self, staged, k: int) -> np.ndarray:
         pending = [(n, self._topk_wire(ids, lengths, k)) for n, (ids, lengths) in staged]
         return np.concatenate([top[:n].cpu().numpy() for n, top in pending], axis=0)
+
+    # ------------------------------------------------------------------
+    # mini-batches: the JAX package's samplers, step for step
+    # ------------------------------------------------------------------
+    def _fast_batching_ok(self) -> bool:
+        """The vectorized batcher reproduces the per-sequence sampler only
+        for the default plugin settings (no sequence noise; deterministic
+        next-item target)."""
+        ts = self.target_selection
+        return (
+            self.sequence_noise.is_identity
+            and ts.n_targets == 1
+            and not ts.shuffle
+            and ts.bias < 0
+            and np.isfinite(self.max_length)
+        )
+
+    def _gen_cut_indices(self, training_set, rng, B: int):
+        """Multiple random cuts per drawn sequence, the batch filled in
+        draw order (``base.py:_gen_cut_indices``). Yields ``(sel_rows,
+        sel_cuts)`` int64[B] buffers, reused across yields."""
+        lengths = training_set.store.lengths
+        eligible = np.where(lengths >= 3)[0]
+        if len(eligible) == 0:
+            raise ValueError("no trainable sequences (all shorter than 3)")
+        order = eligible.copy()
+        pos = len(order)
+        epoch = -1
+        sel_rows = np.empty(B, dtype=np.int64)
+        sel_cuts = np.empty(B, dtype=np.int64)
+        while True:
+            j = 0
+            while j < B:
+                if pos >= len(order):
+                    if training_set.shuffle:
+                        rng.shuffle(order)
+                    pos = 0
+                    epoch += 1
+                r = order[pos]
+                pos += 1
+                training_set.epochs = epoch + pos / len(order)
+                n = int(min(B - j, lengths[r] - 2))
+                if n == lengths[r] - 2:
+                    # every cut: a sorted full sample is the range
+                    sel_cuts[j : j + n] = np.arange(2, lengths[r])
+                else:
+                    sel_cuts[j : j + n] = np.sort(
+                        rng.choice(np.arange(2, lengths[r]), size=n, replace=False)
+                    )
+                sel_rows[j : j + n] = r
+                j += n
+            yield sel_rows, sel_cuts
+
+    def _gen_packed_mini_batch(self, training_set, rng=None):
+        """Vectorized batches from the packed SequenceStore
+        (``base.py:_gen_packed_mini_batch`` with ``n_stack=0``), in the
+        compact wire format: int16 ids when they fit, [B] prefix lengths
+        instead of masks."""
+        store = training_set.store
+        offsets = store.offsets
+        B, L, F = self.batch_size, self.max_length, self.n_feature_slots
+        rng = rng if rng is not None else self.rng
+        for sel_rows, sel_cuts in self._gen_cut_indices(training_set, rng, B):
+            offs = offsets[sel_rows]
+            starts = np.maximum(0, sel_cuts - L)
+            m = (sel_cuts - starts).astype(np.int64)  # [B] prefix lengths
+            t_idx = np.arange(L, dtype=np.int64)[None, :]
+            valid = t_idx < m[:, None]
+            flat = np.where(valid, offs[:, None] + starts[:, None] + t_idx, 0)
+            ids = np.zeros((B, L, F), dtype=np.int32)
+            ids[:, :, 0] = np.where(valid, store.items[flat], 0)
+            if self.use_ratings_features:
+                buckets = np.clip(np.round(store.ratings[flat] * 2) - 1, 0, 9).astype(np.int32)
+                ids[:, :, 1] = np.where(valid, self.n_items + buckets, 0)
+            mask = valid.astype(np.float32)
+            targets = store.items[offs + sel_cuts].astype(np.int32)
+            target_ratings = store.ratings[offs + sel_cuts]
+            packed = {"ids": ids, "mask": mask, "targets": targets}
+            if F > 1:
+                packed["id_mask"] = np.broadcast_to(mask[:, :, None], ids.shape).astype(np.float32)
+            yield self._compact_wire(self._finalize_packed_batch(packed, target_ratings), m)
+
+    def _finalize_packed_batch(self, packed: dict, target_ratings) -> dict:
+        """Model hook: loss-specific fields of a packed batch."""
+        packed["target_pop"] = np.ones(len(packed["targets"]), dtype=np.float32)
+        return packed
+
+    _WIRE_ID_KEYS = ("ids", "targets")
+
+    def _compact_wire(self, packed: dict, prefix_lengths) -> dict:
+        packed.pop("mask", None)
+        packed.pop("id_mask", None)
+        packed["lengths"] = prefix_lengths.astype(np.int32)
+        if self._input_size() + 1 < np.iinfo(np.int16).max:
+            for key in self._WIRE_ID_KEYS:
+                if key in packed and packed[key].dtype == np.int32:
+                    packed[key] = packed[key].astype(np.int16)
+        return packed
+
+    def _gen_mini_batch(self, sequence_generator, test=False, max_reuse_sequence=np.inf):
+        """Per-sequence batches (``base.py:_gen_mini_batch``), the path the
+        noise and target flags take; draws from the model's generator."""
+        while True:
+            j = 0
+            sequences = []
+            batch_size = 1 if test else self.batch_size
+            while j < batch_size:
+                sequence, user_id = next(sequence_generator)
+                if not test:
+                    n_cuts = int(min(batch_size - j, len(sequence) - 2, max_reuse_sequence))
+                    if n_cuts <= 0:
+                        continue
+                    seq_lengths = sorted(
+                        self.rng.choice(np.arange(2, len(sequence)), size=n_cuts, replace=False).tolist()
+                    )
+                else:
+                    seq_lengths = [int(len(sequence) / 2)]
+                skipped_seq = 0
+                for l in seq_lengths:
+                    target = self.target_selection(sequence[l:], test=test)
+                    if len(target) == 0:
+                        skipped_seq += 1
+                        continue
+                    start = max(0, l - self.max_length)
+                    sequences.append([user_id, sequence[start:l], target])
+                j += len(seq_lengths) - skipped_seq
+            if test:
+                yield self._prepare_input(sequences), [i[0] for i in sequence[seq_lengths[0] :]]
+            else:
+                yield self._prepare_input(sequences)
+
+    def _prepare_input(self, sequences) -> dict:  # pragma: no cover
+        """sequences: list of [user_id, input_sequence, targets] -> batch."""
+        raise NotImplementedError
+
+    def _device_batch(self, batch: dict) -> dict:
+        """Upload a host batch; the compact wire's prefix lengths become the
+        [B, L] mask (and its [B, L, F] broadcast) on the device."""
+        out = {key: self._tensor(val) for key, val in batch.items()}
+        if "lengths" in out:
+            lengths = out.pop("lengths")
+            ids = out["ids"]
+            mask = (torch.arange(ids.shape[-2], device=ids.device) < lengths[:, None]).float()
+            out["mask"] = mask
+            if self.n_feature_slots > 1:
+                out["id_mask"] = mask[..., None].expand(ids.shape).contiguous()
+        out["targets"] = out["targets"].long()
+        return out
+
+    # ------------------------------------------------------------------
+    # optimizer steps
+    # ------------------------------------------------------------------
+    def _loss(self, batch):  # pragma: no cover
+        """Scalar training cost of a device batch."""
+        raise NotImplementedError
+
+    def _train_params(self) -> list:
+        return list(self.net.parameters())
+
+    def train_function(self, batch):
+        """One optimizer step on a host batch; returns the batch cost as a
+        device scalar (the loop syncs only at progress checkpoints)."""
+        if self.opt_state is None:
+            self.opt_state = self.updater.init(self._train_params())
+        params = self._train_params()
+        cost = self._loss(self._device_batch(batch))
+        grads = torch.autograd.grad(cost, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        self.updater.step(params, grads, self.opt_state)
+        return cost.detach()
+
+    # ------------------------------------------------------------------
+    # validation and the training loop (contract of rnn_base.py:215-356)
+    # ------------------------------------------------------------------
+    def _compute_validation_metrics(self, metrics):
+        ev = evaluation.Evaluator(self.dataset, k=10)
+        # the validation inputs are the same at every checkpoint: encode and
+        # upload them once, unless --rand_test_target randomizes the goals
+        cacheable = self.target_selection.determinist_test
+        if not cacheable or getattr(self, "_val_cache", None) is None:
+            instances = list(self._iter_test_instances(self.dataset.validation_set(epochs=1)))
+            staged = (
+                self._stage_eval_inputs(
+                    [seq for seq, _, _ in instances], user_ids=[u for _, _, u in instances]
+                )
+                if instances
+                else []
+            )
+            if cacheable:
+                self._val_cache = (instances, staged)
+        else:
+            instances, staged = self._val_cache
+        if not instances:
+            for name in self.metrics:
+                metrics[name].append(0.0)
+            return metrics
+        recs = self._topk_from_staged(staged, k=10)
+        for (_, goal, _), rec in zip(instances, recs):
+            ev.add_instance(goal, rec.tolist())
+        metrics["recall"].append(ev.average_recall())
+        metrics["sps"].append(ev.sps())
+        metrics["ndcg"].append(ev.average_ndcg())
+        metrics["user_coverage"].append(ev.user_coverage())
+        metrics["item_coverage"].append(ev.item_coverage())
+        metrics["blockbuster_share"].append(ev.blockbuster_share())
+        return metrics
+
+    def get_pareto_front(self, metrics, metrics_names):
+        costs = np.zeros((len(metrics[metrics_names[0]]), len(metrics_names)))
+        for i, m in enumerate(metrics_names):
+            costs[:, i] = np.array(metrics[m]) * self.metrics[m]["direction"]
+        is_efficient = np.ones(costs.shape[0], dtype=bool)
+        for i, c in enumerate(costs):
+            if is_efficient[i]:
+                is_efficient[is_efficient] = np.any(costs[is_efficient] >= c, axis=1)
+        return np.where(is_efficient)[0].tolist()
+
+    def train(
+        self,
+        dataset,
+        max_time=np.inf,
+        progress=2.0,
+        time_based_progress=False,
+        autosave="All",
+        save_dir="",
+        min_iterations=0,
+        max_iter=np.inf,
+        max_progress_interval=np.inf,
+        load_last_model=False,
+        early_stopping=None,
+        validation_metrics=("sps",),
+    ):
+        if self.lazy_updates:
+            raise NotImplementedError("--lazy_updates comes with a later slice of the port")
+        if self.steps_per_dispatch > 1:
+            raise NotImplementedError("--spd > 1 (K-step dispatch) comes with a later slice of the port")
+        validation_metrics = list(validation_metrics)
+        self.set_dataset(dataset)
+        if len(set(validation_metrics) & set(self.metrics.keys())) < len(validation_metrics):
+            raise ValueError(
+                "Incorrect validation metrics. Metrics must be chosen among: "
+                + ", ".join(self.metrics.keys())
+            )
+        if not self._has_params:
+            self.params_from_numpy(self._init_params())
+
+        iterations = 0
+        epochs_offset = 0
+        if load_last_model:
+            epochs_offset = self.load_last(save_dir)
+        if self.opt_state is None:
+            self.opt_state = self.updater.init(self._train_params())
+
+        if self._fast_batching_ok():
+            # a generator of its own, as the JAX package's prefetch thread has
+            batch_rng = np.random.default_rng(self.seed + 77)
+            batch_generator = self._gen_packed_mini_batch(dataset.training_set, batch_rng)
+        else:
+            batch_generator = self._gen_mini_batch(self.sequence_noise(dataset.training_set()))
+
+        start_time = time()
+        next_save = int(progress)
+        train_costs = []
+        cost_sum = None  # device-side running sum: one host pull per checkpoint
+        cost_count = 0
+        epochs = []
+        metrics = {name: [] for name in self.metrics.keys()}
+        filename = {}
+        try:
+            while time() - start_time < max_time and iterations < max_iter:
+                try:
+                    cost = self.train_function(next(batch_generator))
+                except StopIteration:
+                    break
+                cost_sum = cost if cost_sum is None else cost_sum + cost
+                cost_count += 1
+                iterations += 1
+                progress_indicator = int(time() - start_time) if time_based_progress else iterations
+
+                if progress_indicator >= next_save:
+                    if progress_indicator >= min_iterations:
+                        epochs.append(epochs_offset + dataset.training_set.epochs)
+                        mean_cost = float(cost_sum) / max(cost_count, 1)
+                        if np.isnan(mean_cost):
+                            raise ValueError("Cost is NaN")
+                        train_costs.append(mean_cost)
+                        cost_sum, cost_count = None, 0
+                        metrics = self._compute_validation_metrics(metrics)
+                        self._print_progress(
+                            iterations, epochs[-1], start_time, train_costs, metrics, validation_metrics
+                        )
+                        run_nb = len(metrics[list(self.metrics.keys())[0]]) - 1
+                        if autosave == "All":
+                            filename[run_nb] = save_dir + self._get_model_filename(round(epochs[-1], 3))
+                            self.save(filename[run_nb])
+                        elif autosave == "Best":
+                            pareto_runs = self.get_pareto_front(metrics, validation_metrics)
+                            if run_nb in pareto_runs:
+                                filename[run_nb] = save_dir + self._get_model_filename(round(epochs[-1], 3))
+                                for run in [r for r in filename if r not in pareto_runs and r != run_nb]:
+                                    try:
+                                        os.remove(filename[run])
+                                    except OSError:
+                                        print("Warning : Previous model could not be deleted")
+                                    del filename[run]
+                                self.save(filename[run_nb])
+                        if early_stopping is not None and all(
+                            early_stopping(epochs, metrics[m]) for m in validation_metrics
+                        ):
+                            break
+                    # catch up past the current indicator (a slow validation
+                    # pass can overshoot a time-based schedule)
+                    while next_save <= progress_indicator:
+                        if isinstance(progress, int):
+                            next_save += min(progress, max_progress_interval)
+                        else:
+                            next_save += min(max_progress_interval, next_save * (progress - 1))
+        except KeyboardInterrupt:
+            print("Training interrupted")
+
+        if not metrics[validation_metrics[0]]:
+            # no checkpoint was reached before the iteration/time budget ran out
+            return ({m: None for m in self.metrics}, time() - start_time, None)
+        best_run = np.argmax(
+            np.array(metrics[validation_metrics[0]]) * self.metrics[validation_metrics[0]]["direction"]
+        )
+        return (
+            {m: metrics[m][best_run] for m in self.metrics.keys()},
+            time() - start_time,
+            filename.get(best_run),
+        )
+
+    def _print_progress(self, iterations, epochs, start_time, train_costs, metrics, validation_metrics):
+        print(self.name, iterations, "batchs, ", epochs, " epochs in", time() - start_time, "s")
+        # training throughput since the previous checkpoint (sequences/s)
+        now = time()
+        last_iters, last_time = getattr(self, "_tp_mark", (0, start_time))
+        if iterations > last_iters and now > last_time:
+            rate = (iterations - last_iters) * self.batch_size / (now - last_time)
+            print("Throughput : ", round(rate, 1), " sequences/s")
+        self._tp_mark = (iterations, now)
+        print("Last train cost : ", train_costs[-1])
+        for m in self.metrics:
+            print(m, ": ", metrics[m][-1])
+            if m in validation_metrics:
+                print(
+                    "Best ", m, ": ",
+                    max(np.array(metrics[m]) * self.metrics[m]["direction"]) * self.metrics[m]["direction"],
+                )
+        print("-----------------")
+        # machine-readable TSV progress on stderr (rnn_base.py:434)
+        print(
+            iterations, epochs, time() - start_time, train_costs[-1],
+            " ".join(str(metrics[m][-1]) for m in self.metrics),
+            file=sys.stderr,
+        )
+
+    # ------------------------------------------------------------------
+    # checkpoints (parity with rnn_base.py:470-515)
+    # ------------------------------------------------------------------
+    def save(self, filename: str) -> None:
+        """Write the params as the JAX package's ``.npz`` checkpoint
+        (``{"params": ...}``, path-encoded keys); on disk when this returns.
+        No optimizer state, as the JAX package's default."""
+        print("Save model in " + filename)
+        pytree_save(filename, {"params": self.params_to_numpy()})
+
+    def load_last(self, save_dir: str) -> float:
+        """Load the checkpoint of this configuration with the most epochs
+        under ``save_dir``; returns its epoch count (0 if there is none)."""
+        base = self._get_model_filename("*").replace("\\", "/").split("/")[-1]
+        # the ``ne*`` wildcard must capture only the epoch number: the
+        # filename scheme omits defaulted tokens, so the glob also matches
+        # sibling configurations (``..._ne1.5_GRU_...`` for an LSTM)
+        rx = re.compile(re.escape(base).replace(re.escape("*"), r"([0-9]+(\.[0-9]+)?)") + r"$")
+        files = [
+            f for f in glob.glob(save_dir + self._get_model_filename("*"))
+            if rx.search(f.replace("\\", "/").split("/")[-1])
+        ]
+        if not files:
+            print("No previous model, starting from scratch")
+            return 0
+        last_batch = max(float(re.search(r"_ne([0-9]+(\.[0-9]+)?)_", f).group(1)) for f in files)
+        last_model = save_dir + self._get_model_filename(last_batch)
+        print("Starting from model " + last_model)
+        self.load(last_model)
+        return last_batch
 
     # ------------------------------------------------------------------
     # filenames (parity with rnn_base.py:111-130)

@@ -1,4 +1,4 @@
-"""Recurrent tower for eval and serving: the GRU stack as an ``nn.Module``.
+"""Recurrent tower: the GRU stack as an ``nn.Module``.
 
 Counterpart of ``seqrec_tpu/models/recurrent.py``. Same CLI flags, same
 ``name`` string, same parameter names and shapes
@@ -8,10 +8,14 @@ bit-identical parameters in both packages.
 
 The input is the sparse one-hot trick: the gather-sum of ``W_in`` rows over
 the active feature ids, for all steps at once, before the time scan. The
-last layer's final state goes through the GRU kernel (``ops/rnn_scan.py``);
-earlier layers, which return every step, run the plain masked-carry scan.
-Gradient clipping is the identity in the forward pass and comes with the
-training slice. LSTM and Vanilla towers come with later slices.
+last layer's final state goes through a GRU kernel: the eval scan
+(``ops/rnn_scan.py``, K3) for serving, the training scan with its backward
+(``ops/rnn_scan_train.py``, K1) when ``train=True``. Earlier layers, which
+return every step, run the plain masked-carry scan under autograd. Lasagne's
+gradient clipping clips the cotangents of ``x_pre`` (here) and of
+``hid = h W_hid`` (in the step, or inside K1's backward). The JAX package's
+remat gate (``recurrent.py:378-398``) is XLA tuning and is not ported. LSTM
+and Vanilla towers come with later slices.
 """
 
 from __future__ import annotations
@@ -20,8 +24,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from seqrec_tpu_torch.ops.core import gather_sum
+from seqrec_tpu_torch.ops.core import gather_sum, maybe_grad_clip
 from seqrec_tpu_torch.ops.rnn_scan import gru_scan, gru_step
+from seqrec_tpu_torch.ops.rnn_scan_train import gru_scan_train
 
 GATE_COUNT = {"GRU": 3, "LSTM": 4, "Vanilla": 1}
 # leaves drawn from N(0, 0.1) at init; all others start at 0
@@ -129,8 +134,8 @@ class RecurrentLayers(nn.Module):
         }
 
     def build(self, true_input_size: int, device) -> None:
-        """Create the (uninitialised) parameters on ``device``; a numpy tree
-        is loaded into them with ``load_state_dict``."""
+        """Create the (uninitialised, trainable) parameters on ``device``; a
+        numpy tree is loaded into them with ``load_state_dict``."""
         if self.layer_type != "GRU":
             raise NotImplementedError(
                 f"{self.layer_type} towers come with a later slice of the port"
@@ -138,7 +143,7 @@ class RecurrentLayers(nn.Module):
             )
 
         def param(shape):
-            return nn.Parameter(torch.empty(shape, device=device), requires_grad=False)
+            return nn.Parameter(torch.empty(shape, device=device))
 
         for key, val in self.param_shapes(true_input_size).items():
             if isinstance(val, tuple):
@@ -147,9 +152,10 @@ class RecurrentLayers(nn.Module):
                 self.add_module(key, nn.ParameterDict({n: param(s) for n, s in val.items()}))
 
     # ------------------------------------------------------------------
-    def forward(self, inputs, mask, id_mask=None, only_return_final: bool = True):
+    def forward(self, inputs, mask, id_mask=None, only_return_final: bool = True, train: bool = False):
         """inputs: integer ``[B, L, F]`` feature ids; mask: float ``[B, L]``
-        (1 = valid step); id_mask: optional float ``[B, L, F]``.
+        (1 = valid step); id_mask: optional float ``[B, L, F]``. ``train``
+        runs the last layer through the differentiable training scan.
         Returns ``[B, H_out]`` (final state) or ``[B, L, H_out]``."""
         sparse = not inputs.is_floating_point()
         x = inputs
@@ -162,7 +168,7 @@ class RecurrentLayers(nn.Module):
         for li in range(n_layers):
             orf = only_return_final and li == n_layers - 1
             outs = [
-                self._run_layer(getattr(self, f"layer{li}_{d}"), x, mask, id_mask, sparse, orf, d == "bwd")
+                self._run_layer(getattr(self, f"layer{li}_{d}"), x, mask, id_mask, sparse, orf, d == "bwd", train)
                 for d in self._directions()
             ]
             x = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
@@ -170,22 +176,24 @@ class RecurrentLayers(nn.Module):
             id_mask = None
         return x
 
-    def _run_layer(self, lp, x, mask, id_mask, sparse, only_return_final, backwards):
+    def _run_layer(self, lp, x, mask, id_mask, sparse, only_return_final, backwards, train):
         """One unidirectional GRU layer over time."""
         if sparse:
             x_pre = gather_sum(lp["W_in"], x, id_mask) + lp["b"]
         else:
             x_pre = torch.einsum("bld,dg->blg", x, lp["W_in"]) + lp["b"]
+        x_pre = maybe_grad_clip(x_pre, self.grad_clip)
         if backwards:
             # a backwards layer is the forward scan of the time-flipped inputs
             x_pre, mask = x_pre.flip(1), mask.flip(1)
         B, H = x_pre.shape[0], lp["h0"].shape[0]
         h0 = lp["h0"].expand(B, H).contiguous()
         if only_return_final:
-            return gru_scan(x_pre.contiguous(), mask.contiguous(), lp["W_hid"], h0)
+            args = (x_pre.contiguous(), mask.contiguous(), lp["W_hid"], h0)
+            return gru_scan_train(*args, self.grad_clip) if train else gru_scan(*args)
         h, states = h0, []
         for t in range(x_pre.shape[1]):
-            h = gru_step(h, x_pre[:, t], mask[:, t : t + 1], lp["W_hid"])
+            h = gru_step(h, x_pre[:, t], mask[:, t : t + 1], lp["W_hid"], self.grad_clip)
             states.append(h)
         ys = torch.stack(states, dim=1)
         return ys.flip(1) if backwards else ys

@@ -1,12 +1,15 @@
-"""RNN with full-catalog categorical cross-entropy (the parity flagship),
-serving half.
+"""RNN with full-catalog categorical cross-entropy (the parity flagship).
 
 Counterpart of ``seqrec_tpu/models/rnn_one_hot.py``: the recurrent tower
-feeds a dense output layer over the whole catalog. Ranking the raw logits
-ranks the softmax, so batched evaluation goes through the fused
-score + seen-mask + top-k kernel (``ops/score_topk.py``). The loss, the
-diversity bias and the output-bias regularization come with the training
-slice; their hyperparameters are kept for the model filename.
+feeds a dense output layer over the whole catalog, and the per-example CCE
+is divided by ``target_popularity^diversity_bias``. Catalogs of
+``STREAMING_CCE_MIN_ITEMS`` items or more train through the streaming CCE
+(``ops/streaming_cce.py``, kernel K2), smaller ones through the dense
+logits ``h W_out + b`` (``torch.matmul``, as the JAX package leaves it to
+XLA). Regularization applies to the output bias only: L2 for a positive
+value, L1 for a negative one. Ranking the raw logits ranks the softmax, so
+batched evaluation goes through the fused score + seen-mask + top-k kernel
+(``ops/score_topk.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from torch import nn
 
 from seqrec_tpu_torch.models.base import RNNBase
 from seqrec_tpu_torch.models.recurrent import RecurrentLayers
+from seqrec_tpu_torch.ops import losses
+from seqrec_tpu_torch.ops.streaming_cce import STREAMING_CCE_MIN_ITEMS, streaming_cce
 
 
 class OneHotNetwork(nn.Module):
@@ -28,8 +33,8 @@ class OneHotNetwork(nn.Module):
         tower.build(true_input_size, device)
         self.tower = tower
         h_out = tower.output_size
-        self.W_out = nn.Parameter(torch.empty((h_out, n_items), device=device), requires_grad=False)
-        self.b_out = nn.Parameter(torch.empty((n_items,), device=device), requires_grad=False)
+        self.W_out = nn.Parameter(torch.empty((h_out, n_items), device=device))
+        self.b_out = nn.Parameter(torch.empty((n_items,), device=device))
 
     def forward(self, ids, mask, id_mask=None):
         """Logits [B, n_items]."""
@@ -81,3 +86,42 @@ class RNNOneHot(RNNBase):
         return self._logits(ids, id_mask, mask)
 
     fused_eval_head = True
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def _use_streaming_head(self) -> bool:
+        return self.n_items >= STREAMING_CCE_MIN_ITEMS
+
+    def _loss(self, batch):
+        net = self.net
+        h = net.tower(batch["ids"], batch["mask"], batch.get("id_mask"), train=True)
+        if self._use_streaming_head():
+            per_ex = streaming_cce(h, net.W_out, net.b_out, batch["targets"])
+            cost = (per_ex / batch["target_pop"]).mean()
+        else:
+            logits = h @ net.W_out + net.b_out
+            cost = losses.diversity_biased_cce(logits, batch["targets"], batch["target_pop"])
+        if self.regularization > 0.0:
+            cost = cost + self.regularization * torch.sum(torch.square(net.b_out))
+        elif self.regularization < 0.0:
+            # |b| with JAX's derivative at 0 (+1; torch.abs gives 0 there)
+            b = net.b_out
+            cost = cost - self.regularization * torch.sum(torch.where(b >= 0, b, -b))
+        return cost
+
+    def _finalize_packed_batch(self, packed, target_ratings):
+        packed["target_pop"] = (
+            self.dataset.item_popularity[packed["targets"]] ** self.diversity_bias
+        ).astype(np.float32)
+        return packed
+
+    def _prepare_input(self, sequences):
+        """sequences: list of [user_id, input_sequence, targets]."""
+        ids, id_mask, mask = self._encode_sequences([s[1] for s in sequences])
+        targets = np.array([s[2][0][0] for s in sequences], dtype=np.int32)  # first and only target
+        pop = (self.dataset.item_popularity[targets] ** self.diversity_bias).astype(np.float32)
+        batch = {"ids": ids, "mask": mask, "targets": targets, "target_pop": pop}
+        if id_mask is not None:
+            batch["id_mask"] = id_mask
+        return batch

@@ -1,12 +1,20 @@
-"""Optimizer flags and the filename-encoded ``name`` strings.
+"""Optimizers: flags, the filename-encoded ``name`` strings and the step
+math.
 
 Same CLI surface and ``name`` strings as ``seqrec_tpu/models/updates.py``
-(``Ug_lr…``, ``Ud_lr…_rho…``, ``Ur…``, ``Un…``, ``Ua…``): the model-filename
-scheme needs them to find a checkpoint. The update step math comes with
-the training slice of the port.
+(``Ug_lr…``, ``Ud_lr…_rho…``, ``Ur…``, ``Un…``, ``Ua…``). Each ``step``
+follows the optax transformation the JAX package builds
+(``updates.py:75-144``) operation for operation, as plain tensor code that
+updates the parameters in place (``torch.no_grad``); the state holds one
+f32 tensor per parameter and slot. ``torch.optim`` is not used: Adagrad
+and RMSProp put eps inside the rsqrt in optax and outside the sqrt in
+torch. ``--u_moments bfloat16`` (stochastically rounded bf16 Adam
+moments, drawn from JAX random bits) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
+
+import torch
 
 
 def update_manager_command_parser(parser) -> None:
@@ -56,39 +64,100 @@ def get_update_manager(args):
 
 
 class UpdateManager:
-    """Carries a display ``name`` (used in model filenames)."""
+    """Carries a display ``name`` (used in model filenames) and the step
+    math: ``init(params)`` gives the state, ``step(params, grads, state)``
+    updates ``params`` and ``state`` in place."""
 
     name: str
+    slots: tuple = ()
+
+    def init(self, params) -> dict:
+        state = {slot: [torch.zeros_like(p) for p in params] for slot in self.slots}
+        state["count"] = 0
+        return state
+
+    @torch.no_grad()
+    def step(self, params, grads, state) -> None:
+        state["count"] += 1
+        for i, (p, g) in enumerate(zip(params, grads)):
+            p.add_(self._update(g, [state[s][i] for s in self.slots], state["count"]))
+
+    def _update(self, g, slots, count):  # pragma: no cover
+        raise NotImplementedError
 
 
 class Adagrad(UpdateManager):
+    """optax.adagrad(lr, initial_accumulator_value=0, eps=1e-6)."""
+
+    slots = ("sum_of_squares",)
+
     def __init__(self, learning_rate: float = 0.1):
         self.learning_rate = learning_rate
         self.name = "Ug_lr" + str(learning_rate)
 
+    def _update(self, g, slots, count):
+        (acc,) = slots
+        acc.copy_(g * g + acc)
+        inv = torch.where(acc > 0, torch.rsqrt(acc + 1e-6), torch.zeros_like(acc))
+        return inv * g * -self.learning_rate
+
 
 class Adadelta(UpdateManager):
+    """optax.adadelta(lr, rho, eps=1e-6)."""
+
+    slots = ("e_g", "e_x")
+
     def __init__(self, learning_rate: float = 1.0, rho: float = 0.9):
         self.learning_rate = learning_rate
         self.rho = rho
         self.name = "Ud_lr" + str(learning_rate) + "_rho" + str(rho)
 
+    def _update(self, g, slots, count):
+        e_g, e_x = slots
+        rho, eps = self.rho, 1e-6
+        e_g.copy_((1 - rho) * (g * g) + rho * e_g)
+        u = (torch.sqrt(e_x + eps) / torch.sqrt(e_g + eps)) * g
+        e_x.copy_((1 - rho) * (u * u) + rho * e_x)
+        return u * -self.learning_rate
+
 
 class RMSProp(UpdateManager):
+    """optax.rmsprop(lr, decay=rho, eps=1e-6): eps inside the rsqrt."""
+
+    slots = ("nu",)
+
     def __init__(self, learning_rate: float = 1.0, rho: float = 0.9):
         self.learning_rate = learning_rate
         self.rho = rho
         self.name = "Ur_lr" + str(learning_rate) + "_rho" + str(rho)
 
+    def _update(self, g, slots, count):
+        (nu,) = slots
+        nu.copy_((1 - self.rho) * (g * g) + self.rho * nu)
+        return torch.rsqrt(nu + 1e-6) * g * -self.learning_rate
+
 
 class NesterovMomentum(UpdateManager):
+    """optax.sgd(lr, momentum, nesterov=True)."""
+
+    slots = ("trace",)
+
     def __init__(self, learning_rate: float = 1.0, momentum: float = 0.9):
         self.learning_rate = learning_rate
         self.momentum = momentum
         self.name = "Un_lr" + str(learning_rate) + "_m" + str(momentum)
 
+    def _update(self, g, slots, count):
+        (trace,) = slots
+        trace.copy_(g + self.momentum * trace)
+        return (g + self.momentum * trace) * -self.learning_rate
+
 
 class Adam(UpdateManager):
+    """optax.adam(lr, b1, b2, eps=1e-8), f32 moments."""
+
+    slots = ("mu", "nu")
+
     def __init__(
         self,
         learning_rate: float = 0.001,
@@ -106,3 +175,22 @@ class Adam(UpdateManager):
         if moment_dtype != "float32":
             # legacy filenames stay byte-identical for the f32 default
             self.name += "_mbf16"
+
+    def init(self, params) -> dict:
+        if self.moment_dtype != "float32":
+            raise NotImplementedError(
+                "--u_moments bfloat16 comes with a later slice of the port "
+                "(its stochastic rounding draws JAX random bits)"
+            )
+        return super().init(params)
+
+    def _update(self, g, slots, count):
+        mu, nu = slots
+        b1, b2 = self.beta1, self.beta2
+        mu.copy_((1 - b1) * g + b1 * mu)
+        nu.copy_((1 - b2) * (g * g) + b2 * nu)
+        # optax computes the corrections in f32: 1 - decay**count
+        c = torch.tensor(count, dtype=torch.float32)
+        bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** c).item()
+        bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** c).item()
+        return (mu / bc1) / (torch.sqrt(nu / bc2) + 1e-8) * -self.learning_rate

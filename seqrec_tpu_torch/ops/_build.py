@@ -3,8 +3,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into ``build/seqrec_tpu_torch/lib<name>-<digest>.so`` at the root of the
-checkout, where ``digest`` hashes the source and the flags, so an edited
-source builds anew and an unchanged one is reused. Nothing here includes
+checkout, where ``digest`` hashes the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header builds anew
+and an unchanged one is reused. Nothing here includes
 PyTorch's headers: a build takes seconds. Pointers and the stream cross
 into C as ``ctypes.c_void_p``; every C entry point returns
 ``cudaGetLastError()`` after its launches and the wrapper raises if it is
@@ -14,6 +15,7 @@ not 0.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -38,8 +40,11 @@ def source_path(name: str) -> str:
 
 
 def _library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [source_path(name), *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

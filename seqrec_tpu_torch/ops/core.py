@@ -11,12 +11,49 @@ from __future__ import annotations
 import torch
 
 
+class _GradClip(torch.autograd.Function):
+    """Identity forward; the backward clamps the cotangent to +-limit
+    (Lasagne's ``grad_clipping``, ``seqrec_tpu/ops/core.py:grad_clip``)."""
+
+    @staticmethod
+    def forward(ctx, x, limit):
+        ctx.limit = limit
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.clamp(-ctx.limit, ctx.limit), None
+
+
+def grad_clip(x: torch.Tensor, limit: float) -> torch.Tensor:
+    return _GradClip.apply(x, float(limit))
+
+
+def maybe_grad_clip(x: torch.Tensor, limit: float) -> torch.Tensor:
+    """Identity when ``limit`` is falsy (or nothing needs a gradient)."""
+    return grad_clip(x, limit) if limit and x.requires_grad else x
+
+
+def check_tensors(fn: str, device, expected: dict) -> None:
+    """Raise unless every ``name: (tensor, dtype, shape)`` of ``expected``
+    is a contiguous tensor of that dtype and shape on ``device``, and
+    ``device`` is a CUDA device (the kernels' wrappers check their inputs
+    with this before passing pointers)."""
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for device {device}")
+    for name, (t, dtype, shape) in expected.items():
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous {dtype} tensor on {device}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
 def gather_sum(table: torch.Tensor, ids: torch.Tensor, id_mask: torch.Tensor | None = None):
     """Sum of ``table`` rows selected by ``ids`` over the last ids-axis.
 
     table: [n_rows, D]; ids: integer [..., F]. Negative ids are pad slots
-    that contribute 0. id_mask: optional float [..., F]; 0 entries
-    contribute 0. Returns [..., D].
+    that contribute 0, and so get no gradient. id_mask: optional float
+    [..., F]; 0 entries contribute 0. Returns [..., D].
     """
     rows = table[ids.clamp_min(0).long()]  # [..., F, D]
     rows = rows * (ids >= 0).to(rows.dtype).unsqueeze(-1)

@@ -16,13 +16,16 @@ import ctypes
 import torch
 
 from seqrec_tpu_torch.ops import _build
+from seqrec_tpu_torch.ops.core import check_tensors, maybe_grad_clip
 
 
-def gru_step(h, x_t, m, w_hid):
+def gru_step(h, x_t, m, w_hid, grad_clip: float = 0.0):
     """One masked GRU step (Lasagne formulation, gate order
-    reset|update|candidate); rows whose ``m`` [B, 1] is 0 keep ``h``."""
+    reset|update|candidate); rows whose ``m`` [B, 1] is 0 keep ``h``.
+    ``grad_clip`` clips the cotangent of ``hid`` in the backward
+    (``seqrec_tpu/models/recurrent.py:_gru_step``)."""
     H = h.shape[-1]
-    hid = h @ w_hid
+    hid = maybe_grad_clip(h @ w_hid, grad_clip)
     r = torch.sigmoid(x_t[:, :H] + hid[:, :H])
     u = torch.sigmoid(x_t[:, H : 2 * H] + hid[:, H : 2 * H])
     c = torch.tanh(x_t[:, 2 * H :] + r * hid[:, 2 * H :])
@@ -52,17 +55,13 @@ def gru_scan(x_pre, mask, w_hid, h0):
     w_hid [H, 3H] and h0 [B, H], all f32 and contiguous."""
     if x_pre.device.type == "cpu":
         return gru_scan_plain(x_pre, mask, w_hid, h0)
-    if x_pre.device.type != "cuda":
-        raise ValueError(f"gru_scan: no kernel for device {x_pre.device}")
     B, L, _ = x_pre.shape
     H = h0.shape[-1]
-    tensors = {"x_pre": x_pre, "mask": mask, "w_hid": w_hid, "h0": h0}
-    shapes = {"x_pre": (B, L, 3 * H), "mask": (B, L), "w_hid": (H, 3 * H), "h0": (B, H)}
-    for name, t in tensors.items():
-        if t.device != x_pre.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"gru_scan: {name} must be a contiguous float32 tensor on {x_pre.device}")
-        if tuple(t.shape) != shapes[name]:
-            raise ValueError(f"gru_scan: {name} has shape {tuple(t.shape)}, expected {shapes[name]}")
+    f32 = torch.float32
+    check_tensors("gru_scan", x_pre.device, {
+        "x_pre": (x_pre, f32, (B, L, 3 * H)), "mask": (mask, f32, (B, L)),
+        "w_hid": (w_hid, f32, (H, 3 * H)), "h0": (h0, f32, (B, H)),
+    })
     out = torch.empty((B, H), dtype=torch.float32, device=x_pre.device)
     if B == 0:
         return out

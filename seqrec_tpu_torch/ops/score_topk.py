@@ -20,7 +20,7 @@ import ctypes
 import torch
 
 from seqrec_tpu_torch.ops import _build
-from seqrec_tpu_torch.ops.core import mask_seen, top_k_sorted
+from seqrec_tpu_torch.ops.core import check_tensors, mask_seen, top_k_sorted
 
 MAX_K = 64  # the kernel's per-row list length (csrc/score_topk.cu kMaxK)
 TILE_COLS = 256  # catalog columns of one tile (kThreads)
@@ -59,8 +59,6 @@ def fused_score_topk(h, w_out, b_out, seen_ids=None, seen_mask=None, k: int = 10
     is > 0 (both None: nothing masked)."""
     if h.device.type == "cpu":
         return fused_score_topk_plain(h, w_out, b_out, seen_ids, seen_mask, k)
-    if h.device.type != "cuda":
-        raise ValueError(f"fused_score_topk: no kernel for device {h.device}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"fused_score_topk: the kernel takes 1 <= k <= {MAX_K}, got {k}")
     if (seen_ids is None) != (seen_mask is None):
@@ -76,11 +74,7 @@ def fused_score_topk(h, w_out, b_out, seen_ids=None, seen_mask=None, k: int = 10
     if S:
         expected["seen_ids"] = (seen_ids, torch.int32, (B, S))
         expected["seen_mask"] = (seen_mask, torch.float32, (B, S))
-    for name, (t, dtype, shape) in expected.items():
-        if t.device != h.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"fused_score_topk: {name} must be a contiguous {dtype} tensor on {h.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"fused_score_topk: {name} has shape {tuple(t.shape)}, expected {shape}")
+    check_tensors("fused_score_topk", h.device, expected)
     values = torch.empty((B, k), dtype=torch.float32, device=h.device)
     ids = torch.empty((B, k), dtype=torch.int32, device=h.device)
     if B == 0:

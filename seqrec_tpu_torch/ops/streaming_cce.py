@@ -1,0 +1,175 @@
+"""Streaming (flash-style) full-catalog cross-entropy (kernel K2).
+
+Counterpart of ``seqrec_tpu/ops/streaming_cce.py:streaming_cce``, unsharded:
+the per-example CCE ``logsumexp_j(h W + b)_j - (h W + b)_target`` of
+``h [B, H]``, ``W [H, N]``, ``b [N]`` and int targets ``[B]``, the same math
+as ``losses.log_softmax_cce(h @ W + b, targets)``, with a hand-written
+backward. On CUDA tensors the forward's log-sum-exp stats (m, s) and the
+backward's (dh, dW, db) come from the kernels of ``csrc/streaming_cce.cu``,
+which never write the [B, N] logits; the target logit is one gather of B
+columns outside the kernel, as in the JAX package. On CPU tensors
+:func:`cce_stats_plain` and :func:`cce_grads_plain` compute the same from
+the dense logits.
+
+The kernel masks the ragged catalog edge itself: there is no column
+padding and no chunk-size choice. Targets outside ``[0, N)`` raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from seqrec_tpu_torch.ops import _build
+from seqrec_tpu_torch.ops.core import check_tensors
+
+# catalogs at least this large route RNNOneHot's training loss through the
+# streaming op (the JAX package's switch; not re-derived for the H100 yet)
+STREAMING_CCE_MIN_ITEMS = 16384
+TILE = 64  # rows and columns of one logit tile (csrc/tile_mma.cuh kTile)
+MAX_H = 256  # the gradient kernel keeps ceil(H / 64) <= 4 register tiles
+
+
+def cce_stats_plain(h, W, b):
+    """(m, s) [B]: row max of the logits and the sum of exp(logit - m)."""
+    logits = h @ W + b
+    m = logits.max(dim=1).values
+    return m, torch.exp(logits - m[:, None]).sum(dim=1)
+
+
+def cce_grads_plain(h, W, b, targets, logz, g):
+    """(dh [B, H], dW [H, N], db [N]) of sum_i g[i] * CCE_i, given the
+    log-partition logz [B]."""
+    logits = h @ W + b
+    dz = torch.exp(logits - logz[:, None])
+    dz[torch.arange(len(targets), device=h.device), targets.long()] -= 1.0
+    dz *= g[:, None]
+    return dz @ W.t(), h.t() @ dz, dz.sum(dim=0)
+
+
+def split_plan(B: int, N: int, n_sm: int) -> tuple[int, int]:
+    """(n_splits, cols_per_split) of the catalog for the stats and dh
+    kernels: about two blocks per SM over the row tiles, whole 64-column
+    tiles per split, no split empty."""
+    row_tiles = -(-B // TILE)
+    col_tiles = -(-N // TILE)
+    n_splits = max(1, min(-(-2 * n_sm // row_tiles), col_tiles))
+    cols = -(-col_tiles // n_splits) * TILE
+    return -(-N // cols), cols
+
+
+def _library():
+    lib = _build.load("streaming_cce")
+    stats, grads = lib.seqrec_cce_stats_f32, lib.seqrec_cce_grads_f32
+    if stats.argtypes is None:
+        stats.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        stats.restype = ctypes.c_int
+        grads.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        grads.restype = ctypes.c_int
+    return stats, grads
+
+
+def _check(fn: str, h, expected: dict) -> None:
+    check_tensors(fn, h.device, expected)
+    if 0 in h.shape or expected["W"][0].shape[1] == 0:
+        raise ValueError(f"{fn}: the kernel needs B, H and N >= 1")
+
+
+def _plan(h, N):
+    n_sm = torch.cuda.get_device_properties(h.device).multi_processor_count
+    return split_plan(h.shape[0], N, n_sm)
+
+
+def cce_stats(h, W, b):
+    """(m, s) [B] of the logits h W + b; CUDA tensors launch K2's stats
+    kernels, CPU tensors run :func:`cce_stats_plain`."""
+    if h.device.type == "cpu":
+        return cce_stats_plain(h, W, b)
+    B, H = h.shape
+    N = W.shape[1]
+    f32 = torch.float32
+    _check("cce_stats", h, {"h": (h, f32, (B, H)), "W": (W, f32, (H, N)), "b": (b, f32, (N,))})
+    n_splits, cols = _plan(h, N)
+    part = torch.empty((2, n_splits, B), dtype=f32, device=h.device)
+    m = torch.empty(B, dtype=f32, device=h.device)
+    s = torch.empty(B, dtype=f32, device=h.device)
+    stats, _ = _library()
+    with torch.cuda.device(h.device):
+        err = stats(
+            h.data_ptr(), W.data_ptr(), b.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+            m.data_ptr(), s.data_ptr(), B, H, N, n_splits, cols,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"cce_stats kernel launch failed with CUDA error {err}")
+    cce_stats.launches += 1
+    return m, s
+
+
+def cce_grads(h, W, b, targets, logz, g):
+    """(dh, dW, db) of sum_i g[i] * CCE_i; targets int32 [B] in [0, N),
+    logz and g f32 [B]. CUDA tensors launch K2's gradient kernels, CPU
+    tensors run :func:`cce_grads_plain`."""
+    if h.device.type == "cpu":
+        return cce_grads_plain(h, W, b, targets, logz, g)
+    B, H = h.shape
+    N = W.shape[1]
+    f32 = torch.float32
+    _check("cce_grads", h, {
+        "h": (h, f32, (B, H)), "W": (W, f32, (H, N)), "b": (b, f32, (N,)),
+        "targets": (targets, torch.int32, (B,)), "logz": (logz, f32, (B,)), "g": (g, f32, (B,)),
+    })
+    if H > MAX_H:
+        raise ValueError(f"cce_grads: the kernel takes H <= {MAX_H}, got {H}")
+    n_splits, cols = _plan(h, N)
+    dh = torch.empty((B, H), dtype=f32, device=h.device)
+    dW = torch.empty((H, N), dtype=f32, device=h.device)
+    db = torch.empty(N, dtype=f32, device=h.device)
+    part = torch.empty((n_splits, B, H), dtype=f32, device=h.device)
+    _, grads = _library()
+    with torch.cuda.device(h.device):
+        err = grads(
+            h.data_ptr(), W.data_ptr(), b.data_ptr(), targets.data_ptr(), logz.data_ptr(),
+            g.data_ptr(), dh.data_ptr(), dW.data_ptr(), db.data_ptr(), part.data_ptr(),
+            B, H, N, n_splits, cols, torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"cce_grads kernel launch failed with CUDA error {err}")
+    cce_grads.launches += 1
+    return dh, dW, db
+
+
+cce_stats.launches = 0
+cce_grads.launches = 0
+
+
+def target_logit(h, W, b, targets):
+    """[B] logit of each row's target: a gather of B columns of W and a
+    length-H dot per row (``streaming_cce.py:_target_logit``)."""
+    return (h * W.index_select(1, targets).t()).sum(dim=1) + b.index_select(0, targets)
+
+
+class _StreamingCCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, W, b, targets):
+        h, W, b = h.contiguous(), W.contiguous(), b.contiguous()
+        targets = targets.to(torch.int32).contiguous()
+        m, s = cce_stats(h, W, b)
+        ctx.save_for_backward(h, W, b, targets, m, s)
+        return torch.log(s) + m - target_logit(h, W, b, targets.long())
+
+    @staticmethod
+    def backward(ctx, g):
+        h, W, b, targets, m, s = ctx.saved_tensors
+        dh, dW, db = cce_grads(h, W, b, targets, m + torch.log(s), g.contiguous())
+        return dh, dW, db, None
+
+
+def streaming_cce(h, W, b, targets):
+    """Per-example CCE [B] of h [B, H], W [H, N], b [N] and int targets
+    [B], each in [0, N) (checked: one host sync)."""
+    N = W.shape[1]
+    if len(targets) and bool(((targets < 0) | (targets >= N)).any()):
+        raise ValueError(f"streaming_cce: a target is outside the catalog [0, {N})")
+    return _StreamingCCE.apply(h, W, b, targets)

@@ -1,0 +1,217 @@
+"""The port's training ops (plain versions, on the CPU) against the JAX
+package: the GRU training scan (K1) and the streaming CCE (K2) against
+their Pallas kernels in interpret mode, the streaming op against JAX's and
+against the dense loss, grad_clip, the CCE losses and the five optimizers
+against optax.
+
+Tolerances: f32 on both sides, sums taken in other orders. Values and
+per-element products agree to rtol 1e-5; sums over B*L (dW) or over the
+catalog get rtol 1e-4 with atol 1e-6, and the optimizers, whose 50 steps
+compound rounding, rtol 1e-5 with atol 1e-6.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seqrec_tpu.models import updates as jax_updates
+from seqrec_tpu.ops.core import gather_sum as jax_gather_sum
+from seqrec_tpu.ops.core import grad_clip as jax_grad_clip
+from seqrec_tpu.ops.losses import diversity_biased_cce as jax_diversity_biased_cce
+from seqrec_tpu.ops.pallas_rnn_train import gru_scan_train as jax_gru_scan_train
+from seqrec_tpu.ops.pallas_streaming_cce import grads_pallas, stats_pallas
+from seqrec_tpu.ops.streaming_cce import _pad_cols
+from seqrec_tpu.ops.streaming_cce import streaming_cce as jax_streaming_cce
+from seqrec_tpu_torch.models import updates
+from seqrec_tpu_torch.ops import losses
+from seqrec_tpu_torch.ops.core import gather_sum, grad_clip
+from seqrec_tpu_torch.ops.rnn_scan_train import (
+    gru_scan_train,
+    gru_scan_train_bwd,
+    gru_scan_train_fwd,
+    gru_scan_train_plain,
+)
+from seqrec_tpu_torch.ops.streaming_cce import (
+    cce_grads,
+    cce_grads_plain,
+    cce_stats,
+    cce_stats_plain,
+    streaming_cce,
+)
+
+B, L, H = 9, 7, 12  # ragged: L is not a multiple of the TPU's time chunk (8), H not of a lane
+
+
+def _gru_inputs(seed):
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, L + 1, size=B)
+    lengths[0], lengths[1] = 1, L  # rows of length 1 and L
+    return (
+        rng.normal(size=(B, L, 3 * H)).astype(np.float32),
+        (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32),
+        rng.normal(0, 0.3, size=(H, 3 * H)).astype(np.float32),
+        rng.normal(size=(B, H)).astype(np.float32),
+        rng.normal(size=(B, H)).astype(np.float32),  # upstream cotangent
+    )
+
+
+@pytest.mark.parametrize("clip", [100.0, 0.05, 0.0])
+def test_gru_scan_train_plain_matches_pallas_interpret(clip):
+    x, m, w, h0, dh = _gru_inputs(int(clip * 100) + 1)
+    fn = lambda x_, w_, h0_: jax_gru_scan_train(x_, jnp.asarray(m), w_, h0_, clip, 8, True)  # noqa: E731
+    want_h, vjp = jax.vjp(fn, *map(jnp.asarray, (x, w, h0)))
+    want_dx, want_dw, want_dh0 = vjp(jnp.asarray(dh))
+
+    leaves = [torch.tensor(a, requires_grad=True) for a in (x, w, h0)]
+    got_h = gru_scan_train(leaves[0], torch.from_numpy(m), leaves[1], leaves[2], clip)
+    got_dx, got_dw, got_dh0 = torch.autograd.grad(got_h, leaves, torch.from_numpy(dh))
+    np.testing.assert_allclose(got_h.detach().numpy(), np.asarray(want_h), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_dx.numpy(), np.asarray(want_dx), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got_dh0.numpy(), np.asarray(want_dh0), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got_dw.numpy(), np.asarray(want_dw), rtol=1e-4, atol=1e-6)
+    # masked steps leave no gradient: dx is 0 past each row's length
+    assert not got_dx.numpy()[~m.astype(bool)].any()
+    if clip == 0.05:  # the clip binds: dW moves against the unclipped one
+        free = gru_scan_train_plain(leaves[0], torch.from_numpy(m), leaves[1], leaves[2], 0.0)
+        got_free = torch.autograd.grad(free, leaves[1], torch.from_numpy(dh))[0]
+        assert (got_free - got_dw).abs().max() > 1e-2
+
+
+def test_gru_train_wrappers_run_plain_on_cpu_and_refuse_cpu_kernels():
+    gru_scan_train_fwd.launches = gru_scan_train_bwd.launches = 0
+    x, m, w, h0, dh = map(torch.from_numpy, _gru_inputs(5))
+    torch.testing.assert_close(gru_scan_train(x, m, w, h0, 1.0), gru_scan_train_plain(x, m, w, h0, 1.0))
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        gru_scan_train_fwd(x, m, w, h0)
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        gru_scan_train_bwd(x, m, w, torch.zeros(L, B, H), dh, 1.0)
+    assert gru_scan_train_fwd.launches == 0 and gru_scan_train_bwd.launches == 0
+
+
+def _cce_inputs(seed, Bq=10, Hq=12, N=300):
+    rng = np.random.default_rng(seed)
+    return (
+        rng.normal(size=(Bq, Hq)).astype(np.float32),
+        rng.normal(0, 0.5, size=(Hq, N)).astype(np.float32),
+        rng.normal(0, 0.5, size=N).astype(np.float32),
+        rng.integers(0, N, size=Bq).astype(np.int32),
+        rng.uniform(0.5, 1.5, size=Bq).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("N", [300, 128])
+def test_cce_stats_and_grads_plain_match_pallas_interpret(N):
+    h, w, b, t, g = _cce_inputs(N, N=N)
+    g[3] = 0.0  # a row without cotangent
+    Wp, bp, _ = _pad_cols(jnp.asarray(w), jnp.asarray(b), 128)
+    want_m, want_s = stats_pallas(jnp.asarray(h), Wp, bp, block_b=8, chunk=128, interpret=True)
+    got_m, got_s = cce_stats(*map(torch.from_numpy, (h, w, b)))
+    np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=1e-4)
+    logz = np.array(want_m + jnp.log(want_s))
+    want = grads_pallas(jnp.asarray(h), Wp, bp, jnp.asarray(t), jnp.asarray(logz), jnp.asarray(g),
+                        block_b=8, chunk=128, interpret=True)
+    got = cce_grads(*map(torch.from_numpy, (h, w, b, t, logz, g)))
+    for name, gt, wt in zip(("dh", "dW", "db"), got, (want[0], want[1][:, :N], want[2][:N])):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(wt), rtol=1e-4, atol=1e-6, err_msg=name)
+    np.testing.assert_array_equal(got[0].numpy()[3], 0.0)
+    assert cce_stats.launches == 0 and cce_grads.launches == 0
+
+
+def test_streaming_cce_matches_jax_and_the_dense_loss():
+    h, w, b, t, g = _cce_inputs(7, N=1000)
+    fn = lambda h_, w_, b_: jax_streaming_cce(h_, w_, b_, jnp.asarray(t), 256)  # noqa: E731
+    want_loss, vjp = jax.vjp(fn, *map(jnp.asarray, (h, w, b)))
+    want_grads = vjp(jnp.asarray(g))
+
+    def port(loss_fn):
+        leaves = [torch.tensor(a, requires_grad=True) for a in (h, w, b)]
+        loss = loss_fn(*leaves)
+        return loss.detach().numpy(), torch.autograd.grad(loss, leaves, torch.from_numpy(g))
+
+    got_loss, got_grads = port(lambda h_, w_, b_: streaming_cce(h_, w_, b_, torch.from_numpy(t)))
+    dense_loss, dense_grads = port(lambda h_, w_, b_: losses.log_softmax_cce(h_ @ w_ + b_, torch.from_numpy(t)))
+    np.testing.assert_allclose(got_loss, np.asarray(want_loss), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_loss, dense_loss, rtol=1e-5, atol=1e-6)
+    for gt, wt, dn in zip(got_grads, want_grads, dense_grads):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(wt), rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(gt.numpy(), dn.numpy(), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("bad", [-1, 1000])
+def test_streaming_cce_rejects_targets_outside_the_catalog(bad):
+    h, w, b, t, _ = map(torch.from_numpy, _cce_inputs(8, N=1000))
+    t[2] = bad
+    with pytest.raises(ValueError, match="outside the catalog"):
+        streaming_cce(h, w, b, t)
+
+
+def test_cce_losses_match_jax():
+    h, w, b, t, g = _cce_inputs(9, N=50)
+    logits = h @ w + b
+    want = jax_diversity_biased_cce(jnp.asarray(logits), jnp.asarray(t), jnp.asarray(g))
+    got = losses.diversity_biased_cce(torch.from_numpy(logits), torch.from_numpy(t), torch.from_numpy(g))
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+
+
+def test_grad_clip_matches_jax():
+    rng = np.random.default_rng(0)
+    x, ct = rng.normal(size=(5, 7)).astype(np.float32), rng.normal(0, 2, size=(5, 7)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: jax_grad_clip(a, 0.7), jnp.asarray(x))
+    xt = torch.tensor(x, requires_grad=True)
+    y = grad_clip(xt, 0.7)
+    torch.testing.assert_close(y.detach(), xt.detach(), rtol=0, atol=0)
+    got = torch.autograd.grad(y, xt, torch.from_numpy(ct))[0]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(vjp(jnp.asarray(ct))[0]))
+
+
+def test_gather_sum_gives_pad_slots_no_gradient():
+    rng = np.random.default_rng(1)
+    table = rng.normal(size=(20, 5)).astype(np.float32)
+    ids = rng.integers(-1, 20, size=(4, 6, 3)).astype(np.int32)
+    ids[ids == 0] = -1  # row 0 is referenced only by pad slots (clamped to 0)
+    ct = rng.normal(size=(4, 6, 5)).astype(np.float32)
+    want = jax.vjp(lambda tb: jax_gather_sum(tb, jnp.asarray(ids)), jnp.asarray(table))[1](jnp.asarray(ct))[0]
+    tt = torch.tensor(table, requires_grad=True)
+    got = torch.autograd.grad(gather_sum(tt, torch.from_numpy(ids)), tt, torch.from_numpy(ct))[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda m: m.Adagrad(learning_rate=0.1),
+        lambda m: m.Adadelta(learning_rate=1.0, rho=0.9),
+        lambda m: m.RMSProp(learning_rate=0.01, rho=0.9),
+        lambda m: m.NesterovMomentum(learning_rate=0.05, momentum=0.9),
+        lambda m: m.Adam(learning_rate=0.01, beta1=0.9, beta2=0.999),
+    ],
+    ids=["adagrad", "adadelta", "rmsprop", "nesterov", "adam"],
+)
+def test_optimizer_steps_follow_optax(make):
+    rng = np.random.default_rng(2)
+    params = [rng.normal(size=(6, 4)).astype(np.float32), rng.normal(size=5).astype(np.float32)]
+    grads = [[rng.normal(0, s, size=p.shape).astype(np.float32) for p in params] for s in np.geomspace(1, 1e-3, 50)]
+    grads[3][0][0] = 0.0  # an exact zero (Adagrad's where(acc > 0) branch)
+
+    opt = make(jax_updates).make()
+    jp = [jnp.asarray(p) for p in params]
+    state = opt.init(jp)
+    mine = make(updates)
+    tp = [torch.from_numpy(p.copy()) for p in params]
+    tstate = mine.init(tp)
+    assert mine.name == make(jax_updates).name
+    for g in grads:
+        upd, state = opt.update([jnp.asarray(x) for x in g], state, jp)
+        jp = [p + u for p, u in zip(jp, upd)]
+        mine.step(tp, [torch.from_numpy(x) for x in g], tstate)
+    for got, want in zip(tp, jp):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def test_bf16_adam_moments_raise_later_slice():
+    with pytest.raises(NotImplementedError, match="later slice"):
+        updates.Adam(moment_dtype="bfloat16").init([torch.zeros(3)])
