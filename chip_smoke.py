@@ -12,7 +12,8 @@ Phases, each printing one JSON line with its seconds:
 2. kernels: hold each kernel against its plain PyTorch version on the card
    (the training kernels against autograd through the plain scan and the
    dense head), at the shapes of the main paths and at large shapes, plus
-   edge cases, and time the kernel, the plain version and a PyTorch library
+   edge cases and a bidirectional LSTM tower against the same tower on the
+   CPU, and time the kernel, the plain version and a PyTorch library
    yardstick beside the kernel's bound: per call with CUDA events (median
    of at least 20 runs after warm-up; host launch time included) and as
    device time from torch.profiler (mean of 20 calls).
@@ -31,6 +32,14 @@ Phases, each printing one JSON line with its seconds:
    50,000 items (streaming head), with every counter at 0 train GRU-128 at
    B=1024 for 30 steps and one validation through the train CLI; check
    that K1 and K2 (stats and gradients) ran; time and profile steady steps.
+6. main_path_train (LSTM): on the same dataset, with every counter at 0
+   train LSTM-128 at B=1024, Adam 2e-3 for 30 steps and one validation
+   through the train CLI, saving the best checkpoint; check that K5
+   (forward and backward) and K2 ran and no GRU kernel did; check that the
+   first 5 step costs agree with the CLI on the CPU; with the counters at 0
+   again run the test CLI on the checkpoint on the card, check that K6 and
+   K4 ran and that the top-10 lists equal the CPU run's; time and profile
+   steady steps.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. The last lines are
@@ -70,6 +79,11 @@ KERNELS = {
                   "seqrec_tpu/ops/pallas_streaming_cce.py:60"),
     "cce_grads": ("streaming_cce", "seqrec_tpu_torch/csrc/streaming_cce.cu",
                   "seqrec_tpu/ops/pallas_streaming_cce.py:140"),
+    "lstm_scan": ("rnn_scan", "seqrec_tpu_torch/csrc/lstm_scan.cu", "seqrec_tpu/ops/pallas_rnn.py:165"),
+    "lstm_scan_train_fwd": ("lstm_scan_train", "seqrec_tpu_torch/csrc/lstm_scan_train.cu",
+                            "seqrec_tpu/ops/pallas_lstm_train.py:80"),
+    "lstm_scan_train_bwd": ("lstm_scan_train", "seqrec_tpu_torch/csrc/lstm_scan_train.cu",
+                            "seqrec_tpu/ops/pallas_lstm_train.py:111"),
 }
 FLAGSHIP = [
     "-m", "RNN", "--loss", "CCE", "--r_t", "GRU", "--r_l", "50", "--max_length", "30",
@@ -80,6 +94,11 @@ SERVING_ARGV = FLAGSHIP + ["-i", "1"]
 LARGE = [
     "-m", "RNN", "--loss", "CCE", "--r_t", "GRU", "--r_l", "128", "--max_length", "30",
     "-b", "1024", "--u_m", "adam", "--u_l", "0.001",
+]
+# bench_matrix.json row LSTM-128-50000-f32-B1024, scripts/convergence_run.sh's LSTM leg
+LSTM_LARGE = [
+    "-m", "RNN", "--loss", "CCE", "--r_t", "LSTM", "--r_l", "128", "--max_length", "30",
+    "-b", "1024", "--u_m", "adam", "--u_l", "0.002",
 ]
 
 
@@ -347,6 +366,215 @@ def check_gru_train(B, L, H, clip, seed, timed=True):
     )
     out["library"] = "torch.nn.GRU (cuDNN), packed; forward, and backward alone (no hidden-cotangent clip)"
     return out
+
+
+# ----------------------------------------------------------------------
+# K6 and K5: LSTM eval scan, LSTM training scan forward and backward
+# ----------------------------------------------------------------------
+def lstm_inputs(B, L, H, seed, device, empty_row=False):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, L + 1, size=B)
+    if empty_row:
+        lengths[0] = 0  # keeps (h0, c0)
+    arrays = {
+        "x_pre": rng.normal(0.0, 0.5, size=(B, L, 4 * H)),
+        "mask": (np.arange(L)[None, :] < lengths[:, None]),
+        "w_hid": rng.normal(0.0, 0.1, size=(H, 4 * H)),
+        "peep": rng.normal(0.0, 0.1, size=(3, H)),
+        "h0": rng.normal(0.0, 0.1, size=(B, H)),
+        "c0": rng.normal(0.0, 0.1, size=(B, H)),
+    }
+    return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in arrays.items()}
+
+
+def cudnn_lstm_module(w_hid):
+    """torch.nn.LSTM (cuDNN) with identity input weights, zero biases and
+    W_hh = W_hid^T (the same i|f|g|o gate order): the kernels' LSTM
+    without its peepholes and its clip. It also does a [B*L, 4H] x [4H, 4H]
+    input product the kernels do not. A nearby function, not the same."""
+    import torch
+
+    H = w_hid.shape[0]
+    lstm = torch.nn.LSTM(4 * H, H, batch_first=True).to(w_hid.device)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(torch.eye(4 * H, device=w_hid.device))
+        lstm.weight_hh_l0.copy_(w_hid.t())
+        lstm.bias_ih_l0.zero_()
+        lstm.bias_hh_l0.zero_()
+    return lstm
+
+
+def cudnn_lstm(a, requires_grad=False):
+    """(forward, module inputs) of cudnn_lstm_module's final state, the
+    inputs packed by the prefix lengths (rows of length >= 1)."""
+    import torch
+
+    lstm = cudnn_lstm_module(a["w_hid"])
+    lengths = a["mask"].sum(1).long().cpu()
+    x = a["x_pre"].detach().clone().requires_grad_(requires_grad)
+    state = tuple(a[k][None].detach().clone().requires_grad_(requires_grad) for k in ("h0", "c0"))
+
+    def forward():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(x, lengths, batch_first=True, enforce_sorted=False)
+        return lstm(packed, state)[1][0][0]
+
+    return forward, [x, *state, lstm.weight_hh_l0]
+
+
+def check_lstm(B, L, H, seed, timed=True, empty_row=False):
+    """K6 against lstm_scan_plain on the card."""
+    import torch
+
+    from seqrec_tpu_torch.ops.rnn_scan import lstm_scan, lstm_scan_plain
+
+    a = lstm_inputs(B, L, H, seed, "cuda", empty_row)
+    args = (a["x_pre"], a["mask"], a["w_hid"], a["peep"], a["h0"], a["c0"])
+    got, want = lstm_scan(*args), lstm_scan_plain(*args)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"lstm_scan disagrees with its plain version at {(B, L, H)}: max abs err {err}")
+    if empty_row and not torch.equal(got[0], a["h0"][0]):
+        raise AssertionError("lstm_scan changed the state of a row of length 0")
+    out = {"kernel": "lstm_scan", "shape": {"B": B, "L": L, "H": H}, "max_abs_err": err,
+           "tolerance": "rtol 1e-5, atol 1e-5"}
+    if not timed:
+        return out
+    library = cudnn_lstm(a)[0]
+    flops = 2 * B * L * H * 4 * H
+    n_bytes = 4 * (B * L * 4 * H + B * L + 4 * H * H + 3 * H + 3 * B * H)
+
+    def lib():
+        with torch.no_grad():
+            return library()
+
+    out.update(
+        dict(zip(("bound_ms", "bound_by"), bound_ms(flops, n_bytes))),
+        kernel_ms=time_ms(lambda: lstm_scan(*args)), plain_ms=time_ms(lambda: lstm_scan_plain(*args)),
+        library_ms=time_ms(lib), kernel_device_ms=device_ms(lambda: lstm_scan(*args)),
+        plain_device_ms=device_ms(lambda: lstm_scan_plain(*args)), library_device_ms=device_ms(lib),
+        library="torch.nn.LSTM (cuDNN), packed; no peepholes; includes a [B*L,4H]x[4H,4H] input product",
+    )
+    return out
+
+
+def check_lstm_train(B, L, H, clip, seed, timed=True):
+    """K5 forward (final state) and backward (dx, dW, dpeep, dh0, dc0)
+    against autograd through the plain scan, for a random upstream
+    cotangent dh."""
+    import torch
+
+    from seqrec_tpu_torch.ops.lstm_scan_train import (
+        lstm_scan_train_bwd,
+        lstm_scan_train_fwd,
+        lstm_scan_train_plain,
+    )
+
+    a = lstm_inputs(B, L, H, seed, "cuda")
+    x, m, w, p, h0, c0 = (a[k] for k in ("x_pre", "mask", "w_hid", "peep", "h0", "c0"))
+    dh = torch.tensor(np.random.default_rng(seed + 100).normal(0, 1, size=(B, H)),
+                      dtype=torch.float32, device="cuda")
+    h_k, hs, cs = lstm_scan_train_fwd(x, m, w, p, h0, c0)
+    grads_k = lstm_scan_train_bwd(x, m, w, p, hs, cs, dh, clip)
+    leaves = [t.clone().requires_grad_() for t in (x, w, p, h0, c0)]
+    h_p = lstm_scan_train_plain(leaves[0], m, *leaves[1:], clip)
+    grads_p = torch.autograd.grad(h_p, leaves, dh, retain_graph=True)
+    torch.cuda.synchronize()
+    # f32 with other summation orders: dW and dpeep sum B*L products per entry
+    names = ("dx", "dW", "dpeep", "dh0", "dc0")
+    errs, ok = {}, True
+    for name, got, want in (("h", h_k, h_p), *zip(names, grads_k, grads_p)):
+        errs[name], good = close(got, want.detach(), rtol=1e-4, atol_rel=1e-5)
+        ok &= good
+    if not ok:
+        raise AssertionError(f"lstm_scan_train disagrees with its plain version at {(B, L, H, clip)}: {errs}")
+    # a clip that binds changes dW against the unclipped plain gradient
+    leaves2 = [t.clone().requires_grad_() for t in (x, w, p, h0, c0)]
+    free = lstm_scan_train_plain(leaves2[0], m, *leaves2[1:], 0.0)
+    dw_free = torch.autograd.grad(free, leaves2[1], dh)[0]
+    out = {
+        "kernel": "lstm_scan_train", "shape": {"B": B, "L": L, "H": H}, "grad_clip": clip,
+        "max_abs_err": errs, "clip_moves_dW_by": (grads_p[1] - dw_free).abs().max().item(),
+        "tolerance": "rtol 1e-4 + atol 1e-5*max|plain| (f32; dW and dpeep sum B*L products in another order)",
+    }
+    if not timed:
+        return out
+    flops = 2 * B * L * H * 4 * H
+    fwd_bytes = 4 * (B * L * 4 * H + B * L + 4 * H * H + 3 * H + 3 * B * H + 2 * L * B * H)
+    bwd_bytes = 4 * (2 * B * L * 4 * H + B * L + 2 * 4 * H * H + 2 * 3 * H + 2 * L * B * H + 3 * B * H)
+    lib_fwd, lib_inputs = cudnn_lstm(a, requires_grad=True)
+    lib_out = lib_fwd()
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, lib_inputs, dh, retain_graph=True)
+
+    def plain_fwd():
+        with torch.no_grad():
+            return lstm_scan_train_plain(x, m, w, p, h0, c0, clip)
+
+    def plain_bwd():
+        return torch.autograd.grad(h_p, leaves, dh, retain_graph=True)
+
+    fwd = lambda: lstm_scan_train_fwd(x, m, w, p, h0, c0)  # noqa: E731
+    bwd = lambda: lstm_scan_train_bwd(x, m, w, p, hs, cs, dh, clip)  # noqa: E731
+    out["fwd"] = dict(
+        zip(("bound_ms", "bound_by"), bound_ms(flops, fwd_bytes)),
+        kernel_ms=time_ms(fwd), plain_ms=time_ms(plain_fwd), library_ms=time_ms(lib_fwd),
+        kernel_device_ms=device_ms(fwd), plain_device_ms=device_ms(plain_fwd),
+        library_device_ms=device_ms(lib_fwd),
+    )
+    out["bwd"] = dict(
+        zip(("bound_ms", "bound_by"), bound_ms(3 * flops, bwd_bytes)),
+        kernel_ms=time_ms(bwd), plain_ms=time_ms(plain_bwd), library_ms=time_ms(lib_bwd),
+        kernel_device_ms=device_ms(bwd), plain_device_ms=device_ms(plain_bwd),
+        library_device_ms=device_ms(lib_bwd),
+    )
+    out["library"] = ("torch.nn.LSTM (cuDNN), packed; forward, and backward alone; no peepholes, no clip, "
+                      "an extra [B*L,4H]x[4H,4H] input product")
+    return out
+
+
+def check_lstm_tower():
+    """A 2-layer bidirectional LSTM tower ([16, 12]) on the card against the
+    same tower on the CPU: eval forward (plain first layer, K6 last) and
+    the training forward and gradients (plain first layer, K5 last)."""
+    import torch
+
+    from seqrec_tpu_torch.models.recurrent import RecurrentLayers
+
+    n_ids, B, L = 300, 48, 20
+    rng = np.random.default_rng(31)
+    params = RecurrentLayers("LSTM", [16, 12], True).init_params(rng, n_ids)
+    flat = {}
+    for key, val in params.items():
+        for name, arr in (val.items() if isinstance(val, dict) else [(None, val)]):
+            flat[key if name is None else f"{key}.{name}"] = torch.from_numpy(arr)
+    ids = rng.integers(0, n_ids, size=(B, L, 1)).astype(np.int32)
+    lengths = rng.integers(1, L + 1, size=B)
+    mask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
+    ct = rng.normal(size=(B, 24)).astype(np.float32)
+    results = {}
+    for device in ("cpu", "cuda"):
+        tower = RecurrentLayers("LSTM", [16, 12], True)
+        tower.build(n_ids, device)
+        tower.load_state_dict({k: v.to(device) for k, v in flat.items()})
+        inputs = (torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device))
+        with torch.no_grad():
+            ev = tower(*inputs)
+        tr = tower(*inputs, train=True)
+        grads = torch.autograd.grad(tr, list(tower.parameters()), torch.from_numpy(ct).to(device))
+        results[device] = [t.detach().cpu() for t in (ev, tr, *grads)]
+    names = ["eval", "train"] + [n for n, _ in tower.named_parameters()]
+    errs, ok = {}, True
+    for name, got, want in zip(names, results["cuda"], results["cpu"]):
+        errs[name], good = close(got, want, rtol=1e-4, atol_rel=1e-5)
+        ok &= good
+    if not ok:
+        raise AssertionError(f"the bidirectional LSTM tower differs between cuda and cpu: {errs}")
+    return {"check": "bidirectional LSTM tower [16, 12], cuda vs cpu", "max_abs_err": max(errs.values()),
+            "tolerance": "rtol 1e-4 + atol 1e-5*max|cpu|"}
 
 
 # ----------------------------------------------------------------------
@@ -736,11 +964,9 @@ def main_path_train_large(card) -> dict:
 
     from seqrec_tpu_torch.cli import train as train_cli
     from seqrec_tpu_torch.data import DataHandler
-    from seqrec_tpu_torch.data.synthetic import catalog_interactions, write_dataset
 
     t_phase = time.perf_counter()
-    rows = catalog_interactions(n_users=25_000, n_items=50_000, min_len=20, max_len=100, seed=8)
-    ds_dir = write_dataset(os.path.join(WORK, "catalog50k"), rows, n_val_users=500, n_test_users=500, seed=8)
+    ds_dir = catalog50k_dataset()
     n_items = DataHandler(ds_dir).n_items
     if n_items < 16384:
         raise AssertionError(f"the large catalog has {n_items} items, under the streaming switch")
@@ -764,6 +990,82 @@ def main_path_train_large(card) -> dict:
         "seconds": time.perf_counter() - t_phase,
     })
     return launches
+
+
+def catalog50k_dataset() -> str:
+    """The large catalog: 25,000 users over about 50,000 items (written
+    once, then reused)."""
+    from seqrec_tpu_torch.data.synthetic import catalog_interactions, write_dataset
+
+    path = os.path.join(WORK, "catalog50k")
+    if os.path.exists(os.path.join(path, "data", "stats")):
+        return path + "/"
+    rows = catalog_interactions(n_users=25_000, n_items=50_000, min_len=20, max_len=100, seed=8)
+    return write_dataset(path, rows, n_val_users=500, n_test_users=500, seed=8)
+
+
+def main_path_train_lstm(card) -> tuple[dict, dict]:
+    """The LSTM path: train LSTM-128 on the 50k-item catalog through the
+    train CLI (K5 and K2), compare its first 5 step costs with the CPU,
+    then serve the saved checkpoint through the test CLI (K6 and K4) on the
+    card and on the CPU. Returns the launch counts of the training run and
+    of the test CLI run."""
+    import torch
+
+    from seqrec_tpu_torch.cli import test as test_cli
+    from seqrec_tpu_torch.cli import train as train_cli
+
+    t_phase = time.perf_counter()
+    ds_dir = catalog50k_dataset()
+    argv = ["-d", ds_dir, *LSTM_LARGE, "--max_iter", "30", "--progress", "30", "--save", "Best",
+            "--dir", "chip_lstm/"]
+    zero_counters()
+    t0 = time.perf_counter()
+    text = run_cli(train_cli.main, argv)[1]
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    train_launches = read_counters()
+    ran = ("lstm_scan_train_fwd", "lstm_scan_train_bwd", "cce_stats", "cce_grads")
+    if any(train_launches[k] == 0 for k in ran) or any(train_launches[k] for k in KERNELS if k.startswith("gru_")):
+        raise AssertionError(f"the LSTM training path launched {train_launches}")
+
+    # the first 5 step costs on the card and on the CPU (one step per progress line)
+    short = ["-d", ds_dir, *LSTM_LARGE, "--max_iter", "5", "--progress", "1", "--save", "None"]
+    gpu = progress_values(run_cli(train_cli.main, short)[1], "Last train cost")
+    cpu = progress_values(run_cli(train_cli.main, short + ["--device", "cpu"])[1], "Last train cost")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gpu, cpu))
+    if len(gpu) != 5 or len(cpu) != 5 or rel > 1e-4:
+        raise AssertionError(f"LSTM step costs differ between cuda and cpu: {gpu} vs {cpu}")
+
+    test_argv = ["-d", ds_dir, *LSTM_LARGE, "--dir", "chip_lstm/"]
+    zero_counters()
+    t0 = time.perf_counter()
+    ev_gpu = run_cli(test_cli.main, test_argv)[0]
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    serve_launches = read_counters()
+    if serve_launches["lstm_scan"] == 0 or serve_launches["fused_score_topk"] == 0:
+        raise AssertionError(f"the LSTM serving path launched {serve_launches}")
+    ev_cpu = run_cli(test_cli.main, test_argv + ["--device", "cpu"])[0]
+    recs_gpu = [pred for _, pred in ev_gpu.instances]
+    recs_cpu = [pred for _, pred in ev_cpu.instances]
+    if not recs_gpu or recs_gpu != recs_cpu:
+        n_diff = sum(a != b for a, b in zip(recs_gpu, recs_cpu))
+        raise AssertionError(f"LSTM top-10 lists differ between cuda and cpu on {n_diff} users")
+    emit({
+        "phase": "main_path_train", "config": "LSTM-128, 50k-item synthetic catalog, L=30, B=1024, Adam 2e-3, streaming head",
+        "launches": train_launches, "cli_cuda_s": cli_s, "iterations": 30,
+        "throughput_sequences_per_s": progress_values(text, "Throughput"),
+        "train_cost": progress_values(text, "Last train cost"), "validation_sps@10": progress_values(text, "sps"),
+        "first_5_step_costs_cuda_vs_cpu_max_rel_diff": rel,
+        "tolerance": "rel 1e-4 (f32 kernels vs the CPU's plain versions, 5 Adam steps)",
+        "test_cli": {"launches": serve_launches, "cuda_s": test_s, "test_users": len(recs_gpu),
+                     "same_top10_as_cpu": True,
+                     "metrics@10": {m: ev_gpu.metrics[m]() for m in ("sps", "recall", "item_coverage", "user_coverage")}},
+        "steady": steady_state(LSTM_LARGE, ds_dir, steps=20, warmup=3, profile_steps=5, card=card),
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return train_launches, serve_launches
 
 
 def main() -> int:
@@ -791,6 +1093,9 @@ def main() -> int:
     t0 = time.perf_counter()
     k1 = check_gru_train(16, 30, 50, 100.0, seed=11)  # the flagship's shape, clip inactive
     k2 = check_cce(1024, 128, 50_000, seed=15)  # the large catalog's shape
+    # the LSTM path's shapes: its eval chunk is -b 1024 too, so K6 has one shape there
+    k6 = check_lstm(1024, 30, 128, seed=21)
+    k5 = check_lstm_train(1024, 30, 128, 100.0, seed=23)
     main_shape = {
         "gru_scan": check_gru(64, 30, 50, seed=1),
         "fused_score_topk": check_topk(64, 50, 3706, 30, 10, seed=2),
@@ -798,12 +1103,18 @@ def main() -> int:
         "gru_scan_train_bwd": {**k1, **k1["bwd"], "max_abs_err": max(k1["max_abs_err"][k] for k in ("dx", "dh0", "dW"))},
         "cce_stats": {**k2, **k2["stats"], "max_abs_err": max(k2["max_abs_err"][k] for k in ("m", "s"))},
         "cce_grads": {**k2, **k2["grads"], "max_abs_err": max(k2["max_abs_err"][k] for k in ("dh", "dW", "db"))},
+        "lstm_scan": k6,
+        "lstm_scan_train_fwd": {**k5, **k5["fwd"], "max_abs_err": k5["max_abs_err"]["h"]},
+        "lstm_scan_train_bwd": {**k5, **k5["bwd"], "max_abs_err": max(
+            k5["max_abs_err"][k] for k in ("dx", "dW", "dpeep", "dh0", "dc0"))},
     }
-    for res in (main_shape["gru_scan"], main_shape["fused_score_topk"], k1, k2):
+    for res in (main_shape["gru_scan"], main_shape["fused_score_topk"], k1, k2, k6, k5):
         emit({"phase": "kernels", "at": "main-path shape", **res})
     emit({"phase": "kernels", "at": "large shape", **check_gru(512, 30, 256, seed=3)})
     emit({"phase": "kernels", "at": "large shape", **check_topk(512, 256, 200_000, 30, 10, seed=4)})
     emit({"phase": "kernels", "at": "large shape", **check_gru_train(1024, 30, 128, 100.0, seed=13)})
+    # K6 at the GRU serving shape, beside K3's
+    emit({"phase": "kernels", "at": "serving shape", **check_lstm(64, 30, 50, seed=22)})
     # K2 at the flagship's shape: the dense head's cost against the streaming kernels
     emit({"phase": "kernels", "at": "flagship shape", **check_cce(16, 50, 3706, seed=14)})
     edge = [
@@ -814,18 +1125,24 @@ def main() -> int:
         check_gru_train(9, 7, 12, 0.05, seed=17, timed=False),
         check_cce(70, 12, 1000, seed=16, timed=False),
         check_cce(5, 256, 300, seed=18, timed=False),  # four register tiles of H
+        check_lstm_train(16, 30, 50, 0.01, seed=24, timed=False),  # the clip binds
+        check_lstm_train(9, 7, 12, 0.05, seed=25, timed=False),
+        check_lstm(9, 7, 12, seed=26, timed=False, empty_row=True),  # a row of length 0 keeps h0
     ]
     if not all(e.get("clip_moves_dW_by", 1.0) > 0 for e in edge):
         raise AssertionError("a small grad_clip did not bind")
-    emit({"phase": "kernels", "at": "edge cases", "checks": [e["shape"] for e in edge],
+    tower = check_lstm_tower()
+    emit({"phase": "kernels", "at": "edge cases", "checks": [e["shape"] for e in edge], "tower": tower,
           "clip_moves_dW_by": [e["clip_moves_dW_by"] for e in edge if "clip_moves_dW_by" in e],
           "ok": True, "seconds": time.perf_counter() - t0})
 
     serving = main_path(card)
     flagship = main_path_train_flagship(card)
     large = main_path_train_large(card)
+    lstm_train, lstm_serve = main_path_train_lstm(card)
     path_of = {"gru_scan": serving, "fused_score_topk": serving, "gru_scan_train_fwd": flagship,
-               "gru_scan_train_bwd": flagship, "cce_stats": large, "cce_grads": large}
+               "gru_scan_train_bwd": flagship, "cce_stats": large, "cce_grads": large,
+               "lstm_scan": lstm_serve, "lstm_scan_train_fwd": lstm_train, "lstm_scan_train_bwd": lstm_train}
 
     summary = []
     for name, (_, source, replaces) in KERNELS.items():

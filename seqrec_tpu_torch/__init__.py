@@ -8,10 +8,11 @@ path becomes a CUDA C++ kernel for ``sm_90a`` under ``csrc/``, built with
 ``nvcc`` at first use (``ops/_build.py``) and checked against a plain
 PyTorch version of the same function kept beside its wrapper.
 
-Ported so far: ``RNNOneHot`` on a GRU tower, trained through
-``cli/train.py`` (GRU training scan K1, streaming CCE K2 at large
-catalogs) and served through ``cli/test.py`` (GRU scan K3, fused masked
-top-k K4).
+Ported so far: ``RNNOneHot`` on GRU, LSTM and Vanilla towers, trained
+through ``cli/train.py`` (GRU training scan K1 or LSTM training scan K5,
+streaming CCE K2 at large catalogs) and served through ``cli/test.py``
+(GRU scan K3 or LSTM scan K6, fused masked top-k K4). The Vanilla tower
+is a plain scan, as in the JAX package.
 """
 
 from __future__ import annotations

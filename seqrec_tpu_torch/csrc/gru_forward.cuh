@@ -25,14 +25,9 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
+#include "scan_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kMaxRows = 8;
-
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 template <bool kWShared, bool kStoreHs>
 __global__ void __launch_bounds__(kThreads) gru_forward_kernel(
@@ -59,23 +54,8 @@ __global__ void __launch_bounds__(kThreads) gru_forward_kernel(
   __syncthreads();
 
   for (int t = 0; t < L; ++t) {
-    // phase 1: hid[r, c] = sum_k h[r, k] * W[k, c]
-    for (int c = threadIdx.x; c < G; c += kThreads) {
-      float acc[kMaxRows];
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.0f;
-      for (int k = 0; k < H; ++k) {
-        const float wk = wr[k * G + c];
-#pragma unroll
-        for (int r = 0; r < kMaxRows; ++r) {
-          if (r < rows) acc[r] = fmaf(h[r * H + k], wk, acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        if (r < rows) hid[r * G + c] = acc[r];
-      }
-    }
+    // phase 1: hid = h . W_hid
+    rows_product(h, wr, hid, nullptr, rows, H, G);
     __syncthreads();
     // phase 2: gate math; masked steps carry h through
     for (int i = threadIdx.x; i < rows * H; i += kThreads) {
@@ -97,33 +77,16 @@ __global__ void __launch_bounds__(kThreads) gru_forward_kernel(
   for (int i = threadIdx.x; i < rows * H; i += kThreads) out[(size_t)row0 * H + i] = h[i];
 }
 
-// Rows of one block: about one block per SM, at most kMaxRows.
-inline int gru_rows_per_block(int B, int n_sm) {
-  int rows = (B + n_sm - 1) / n_sm;
-  return rows < 1 ? 1 : (rows > kMaxRows ? kMaxRows : rows);
-}
-
 template <bool kStoreHs>
 int launch_gru_forward(const float* x, const float* mask, const float* w, const float* h0,
                        float* out, float* hs, int B, int L, int H, void* stream) {
   if (B <= 0 || L < 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  int dev = 0, n_sm = 0, smem_optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const int rows = gru_rows_per_block(B, n_sm);
+  const int rows = scan_rows_per_block(B);
   const size_t base = (size_t)rows * 4 * H * sizeof(float);  // h [rows, H] + hid [rows, 3H]
   const size_t w_bytes = (size_t)3 * H * H * sizeof(float);
-  if (base > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
-  const bool w_shared = base + w_bytes <= (size_t)smem_optin;
-  const size_t smem = base + (w_shared ? w_bytes : 0);
-  auto kernel = w_shared ? gru_forward_kernel<true, kStoreHs> : gru_forward_kernel<false, kStoreHs>;
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  const int grid = (B + rows - 1) / rows;
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(x, mask, w, h0, out, hs, B, L, H, rows);
-  return (int)cudaGetLastError();
+  return launch_scan(gru_forward_kernel<true, kStoreHs>, gru_forward_kernel<false, kStoreHs>, base,
+                     w_bytes, (B + rows - 1) / rows, (cudaStream_t)stream, x, mask, w, h0, out, hs,
+                     B, L, H, rows);
 }
 
 }  // namespace

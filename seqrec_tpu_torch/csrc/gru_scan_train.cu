@@ -77,23 +77,8 @@ __global__ void __launch_bounds__(kThreads) gru_backward_kernel(
     const float* hs_t = hs + ((size_t)t * B + row0) * H;
     for (int i = threadIdx.x; i < rows * H; i += kThreads) hp[i] = hs_t[i];
     __syncthreads();
-    // phase 1: recompute hid[r, c] = sum_k h_{t-1}[r, k] W[k, c]
-    for (int c = threadIdx.x; c < G; c += kThreads) {
-      float acc[kMaxRows];
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.0f;
-      for (int k = 0; k < H; ++k) {
-        const float wk = wr[k * G + c];
-#pragma unroll
-        for (int r = 0; r < kMaxRows; ++r) {
-          if (r < rows) acc[r] = fmaf(hp[r * H + k], wk, acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        if (r < rows) hid[r * G + c] = acc[r];
-      }
-    }
+    // phase 1: recompute hid = h_{t-1} W
+    rows_product(hp, wr, hid, nullptr, rows, H, G);
     __syncthreads();
     // phase 2: gate cotangents; each thread reads and then overwrites only
     // its own three hid columns, so hid becomes dhid in place
@@ -160,38 +145,6 @@ __global__ void __launch_bounds__(kThreads) gru_backward_kernel(
   for (int i = threadIdx.x; i < rows * H; i += kThreads) dh0[(size_t)row0 * H + i] = dh[i];
 }
 
-// part[split, m, n] = sum over k of this split of A[k, m] Bm[k, n]
-// (A [K, M], Bm [K, N], row-major): the dW = hs^T dhid product.
-__global__ void __launch_bounds__(kTileThreads) atb_partial_kernel(
-    const float* __restrict__ A, const float* __restrict__ Bm, float* __restrict__ part,
-    int K, int M, int N, int k_per_split) {
-  __shared__ float As[kTile * kTS];
-  __shared__ float Bs[kTile * kTS];
-  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
-  float acc[4][4];
-  zero_acc(acc);
-  for (int k0 = k_begin; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    load_tile(As, A, M, k0, k_end, m0, M);
-    load_tile(Bs, Bm, N, k0, k_end, n0, N);
-    __syncthreads();
-    tile_mma(As, Bs, min(kTile, k_end - k0), acc);
-  }
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float* out = part + (size_t)blockIdx.z * M * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (m < M && n < N) out[(size_t)m * N + n] = acc[i][j];
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" int seqrec_gru_train_fwd_f32(const float* x, const float* mask, const float* w,
@@ -211,29 +164,13 @@ extern "C" int seqrec_gru_train_bwd_f32(const float* x, const float* mask, const
   if (B <= 0 || L <= 0 || H <= 0 || n_splits <= 0 || k_per_split <= 0 ||
       (long long)n_splits * k_per_split < (long long)L * B)
     return (int)cudaErrorInvalidValue;
-  int dev = 0, n_sm = 0, smem_optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const int rows = gru_rows_per_block(B, n_sm);
+  const int rows = scan_rows_per_block(B);
   const size_t base = (size_t)rows * 6 * H * sizeof(float);  // hp, dh, dd [rows, H] + hid [rows, 3H]
   const size_t w_bytes = (size_t)2 * 3 * H * H * sizeof(float);  // W and W^T
-  if (base > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
-  const bool w_shared = base + w_bytes <= (size_t)smem_optin;
-  const size_t smem = base + (w_shared ? w_bytes : 0);
-  auto kernel = w_shared ? gru_backward_kernel<true> : gru_backward_kernel<false>;
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
   cudaStream_t s = (cudaStream_t)stream;
-  kernel<<<(B + rows - 1) / rows, kThreads, smem, s>>>(x, mask, w, wt, hs, dh, dx, dh0, dhid, B,
-                                                        L, H, rows, clip);
-  int err = (int)cudaGetLastError();
+  const int err = launch_scan(gru_backward_kernel<true>, gru_backward_kernel<false>, base, w_bytes,
+                              (B + rows - 1) / rows, s, x, mask, w, wt, hs, dh, dx, dh0, dhid, B,
+                              L, H, rows, clip);
   if (err) return err;
-  const int G = 3 * H;
-  dim3 grid((H + kTile - 1) / kTile, (G + kTile - 1) / kTile, n_splits);
-  atb_partial_kernel<<<grid, kTileThreads, 0, s>>>(hs, dhid, part, L * B, H, G, k_per_split);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  return launch_sum_splits(part, dw, n_splits, (size_t)H * G, s);
+  return launch_atb(hs, dhid, part, dw, L * B, H, 3 * H, n_splits, k_per_split, s);
 }

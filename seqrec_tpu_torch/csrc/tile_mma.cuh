@@ -1,5 +1,5 @@
 // A 64 x 64 f32 tile product on the CUDA cores, shared by the training
-// kernels (gru_scan_train.cu, streaming_cce.cu).
+// kernels (gru_scan_train.cu, lstm_scan_train.cu, streaming_cce.cu).
 //
 // A block of kTileThreads threads owns one 64 x 64 output tile; thread
 // (ty, tx) = (tid / 16, tid % 16) holds the 4 x 4 outputs (ty + 16 i,
@@ -67,6 +67,38 @@ __device__ __forceinline__ void load_tile_t(float* __restrict__ dst, const float
   }
 }
 
+// part[split, m, n] = sum over k of this split of A[k, m] Bm[k, n]
+// (A [K, M], Bm [K, N], row-major): the dW = hs^T dhid product of the training scans.
+__global__ void __launch_bounds__(kTileThreads) atb_partial_kernel(
+    const float* __restrict__ A, const float* __restrict__ Bm, float* __restrict__ part,
+    int K, int M, int N, int k_per_split) {
+  __shared__ float As[kTile * kTS];
+  __shared__ float Bs[kTile * kTS];
+  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
+  const int k_begin = blockIdx.z * k_per_split;
+  const int k_end = min(K, k_begin + k_per_split);
+  float acc[4][4];
+  zero_acc(acc);
+  for (int k0 = k_begin; k0 < k_end; k0 += kTile) {
+    __syncthreads();
+    load_tile(As, A, M, k0, k_end, m0, M);
+    load_tile(Bs, Bm, N, k0, k_end, n0, N);
+    __syncthreads();
+    tile_mma(As, Bs, min(kTile, k_end - k0), acc);
+  }
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* out = part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (m < M && n < N) out[(size_t)m * N + n] = acc[i][j];
+    }
+  }
+}
+
 // out[i] = sum_s part[s * count + i], in split order (deterministic).
 __global__ void sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
                                   int n_splits, size_t count) {
@@ -83,6 +115,18 @@ inline int launch_sum_splits(const float* part, float* out, int n_splits, size_t
   const unsigned grid = (unsigned)((count + threads - 1) / threads);
   if (grid) sum_splits_kernel<<<grid, threads, 0, stream>>>(part, out, n_splits, count);
   return (int)cudaGetLastError();
+}
+
+// out [M, N] = A^T Bm for A [K, M], Bm [K, N]: the K rows cut into n_splits
+// ranges of k_per_split rows, one partial each in part [n_splits, M, N],
+// then summed in split order. No atomics: the same bits run after run.
+inline int launch_atb(const float* A, const float* Bm, float* part, float* out, int K, int M,
+                      int N, int n_splits, int k_per_split, cudaStream_t stream) {
+  dim3 grid((M + kTile - 1) / kTile, (N + kTile - 1) / kTile, n_splits);
+  atb_partial_kernel<<<grid, kTileThreads, 0, stream>>>(A, Bm, part, K, M, N, k_per_split);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_sum_splits(part, out, n_splits, (size_t)M * N, stream);
 }
 
 }  // namespace

@@ -5,7 +5,8 @@
 (a first-order Markov chain over items plus a Zipf-like popularity skew).
 ``catalog_interactions`` draws interactions of the same kind vectorized
 over users, with a flatter popularity, for catalogs of tens of thousands
-of items. ``make_dataset`` (through ``write_dataset``) writes them
+of items. ``generate_interactions_lag2`` draws the JAX package's lag-2
+successor regime. ``make_dataset`` (through ``write_dataset``) writes them
 straight into the preprocessed directory layout that
 :class:`seqrec_tpu_torch.data.DataHandler` reads, without the JAX
 package's pandas preprocess:
@@ -108,6 +109,40 @@ def catalog_interactions(
     users = np.broadcast_to(np.arange(n_users)[:, None], items.shape)[valid]
     n = int(valid.sum())
     return np.stack([users, items[valid], rng.integers(1, 6, size=n), np.arange(n)], axis=1)
+
+
+def generate_interactions_lag2(
+    n_users: int = 500,
+    n_items: int = 2000,
+    min_len: int = 10,
+    max_len: int = 40,
+    markov_strength: float = 0.6,
+    seed: int = 0,
+) -> np.ndarray:
+    """Rows ``(user, item, rating, time)`` of the lag-2 successor regime,
+    the same draws as ``seqrec_tpu.data.synthetic.generate_interactions_lag2``
+    for the same arguments: with probability ``markov_strength`` the next
+    item is ``succ[i_{t-2}]`` (a planted permutation of the second-to-last
+    item), otherwise a uniform jump. Two interleaved successor chains leave
+    a first-order model at the popularity floor, while a recurrent model
+    has to carry the item one step through its state
+    (``scripts/convergence_run.sh``'s dataset)."""
+    rng = np.random.default_rng(seed)
+    succ = rng.permutation(n_items)
+    lengths = rng.integers(min_len, max_len + 1, size=n_users)
+    L = int(lengths.max())
+    items = np.zeros((n_users, L), dtype=np.int64)
+    items[:, 0] = rng.integers(0, n_items, size=n_users)
+    items[:, 1] = rng.integers(0, n_items, size=n_users)
+    for t in range(2, L):
+        follow = rng.random(n_users) < markov_strength
+        jump = rng.integers(0, n_items, size=n_users)
+        items[:, t] = np.where(follow, succ[items[:, t - 2]], jump)
+    valid = np.arange(L)[None, :] < lengths[:, None]
+    users = np.repeat(np.arange(n_users), lengths)
+    flat_items = items[valid]
+    ratings = rng.integers(1, 6, size=flat_items.size)
+    return np.stack([users, flat_items, ratings, np.arange(flat_items.size)], axis=1)
 
 
 def _remove_rare(rows: np.ndarray, min_user_activity: int, min_item_pop: int) -> np.ndarray:

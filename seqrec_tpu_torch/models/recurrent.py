@@ -1,21 +1,28 @@
-"""Recurrent tower: the GRU stack as an ``nn.Module``.
+"""Recurrent tower: GRU, LSTM and Vanilla stacks as an ``nn.Module``.
 
 Counterpart of ``seqrec_tpu/models/recurrent.py``. Same CLI flags, same
 ``name`` string, same parameter names and shapes
-(``layer{i}_{fwd,bwd}/W_in, W_hid, b, h0`` and ``embedding``) and the same
-numpy draw order in :meth:`RecurrentLayers.init_params`, so one seed gives
+(``layer{i}_{fwd,bwd}/W_in, W_hid, b, h0``, for the LSTM also ``c0`` and
+the peepholes ``w_ci, w_cf, w_co``, and ``embedding``) and the same numpy
+draw order in :meth:`RecurrentLayers.init_params`, so one seed gives
 bit-identical parameters in both packages.
 
 The input is the sparse one-hot trick: the gather-sum of ``W_in`` rows over
 the active feature ids, for all steps at once, before the time scan. The
-last layer's final state goes through a GRU kernel: the eval scan
-(``ops/rnn_scan.py``, K3) for serving, the training scan with its backward
-(``ops/rnn_scan_train.py``, K1) when ``train=True``. Earlier layers, which
-return every step, run the plain masked-carry scan under autograd. Lasagne's
-gradient clipping clips the cotangents of ``x_pre`` (here) and of
-``hid = h W_hid`` (in the step, or inside K1's backward). The JAX package's
-remat gate (``recurrent.py:378-398``) is XLA tuning and is not ported. LSTM
-and Vanilla towers come with later slices.
+last layer's final state goes through a kernel: for the GRU the eval scan
+(``ops/rnn_scan.py:gru_scan``, K3) for serving and the training scan with
+its backward (``ops/rnn_scan_train.py``, K1) when ``train=True``; for the
+LSTM the eval scan (``ops/rnn_scan.py:lstm_scan``, K6) and the training
+scan (``ops/lstm_scan_train.py``, K5). Earlier layers, which return every
+step, run the plain masked-carry scan under autograd. The Vanilla tower
+runs the plain scan in every layer, on the CPU and on CUDA alike: the JAX
+package has no Pallas kernel for it by design (``recurrent.py:274-279``;
+its cell is one [B, H] x [H, H] product and a tanh), so there is no kernel
+to port. Lasagne's gradient clipping clips the cotangents of ``x_pre``
+(here) and, in the step or inside K1/K5's backward, of ``hid = h W_hid``
+(GRU) or of the summed pre-activation ``x_pre + h W_hid`` (LSTM, Vanilla).
+The JAX package's remat gate (``recurrent.py:378-398``) is XLA tuning and
+is not ported.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ import torch
 from torch import nn
 
 from seqrec_tpu_torch.ops.core import gather_sum, maybe_grad_clip
-from seqrec_tpu_torch.ops.rnn_scan import gru_scan, gru_step
+from seqrec_tpu_torch.ops.lstm_scan_train import lstm_scan_train
+from seqrec_tpu_torch.ops.rnn_scan import gru_scan, gru_step, lstm_scan, lstm_step, vanilla_step
 from seqrec_tpu_torch.ops.rnn_scan_train import gru_scan_train
 
 GATE_COUNT = {"GRU": 3, "LSTM": 4, "Vanilla": 1}
@@ -136,11 +144,6 @@ class RecurrentLayers(nn.Module):
     def build(self, true_input_size: int, device) -> None:
         """Create the (uninitialised, trainable) parameters on ``device``; a
         numpy tree is loaded into them with ``load_state_dict``."""
-        if self.layer_type != "GRU":
-            raise NotImplementedError(
-                f"{self.layer_type} towers come with a later slice of the port"
-                + (" (LSTM eval needs kernel K6)" if self.layer_type == "LSTM" else "")
-            )
 
         def param(shape):
             return nn.Parameter(torch.empty(shape, device=device))
@@ -177,7 +180,7 @@ class RecurrentLayers(nn.Module):
         return x
 
     def _run_layer(self, lp, x, mask, id_mask, sparse, only_return_final, backwards, train):
-        """One unidirectional GRU layer over time."""
+        """One unidirectional recurrent layer over time."""
         if sparse:
             x_pre = gather_sum(lp["W_in"], x, id_mask) + lp["b"]
         else:
@@ -188,12 +191,28 @@ class RecurrentLayers(nn.Module):
             x_pre, mask = x_pre.flip(1), mask.flip(1)
         B, H = x_pre.shape[0], lp["h0"].shape[0]
         h0 = lp["h0"].expand(B, H).contiguous()
-        if only_return_final:
-            args = (x_pre.contiguous(), mask.contiguous(), lp["W_hid"], h0)
+        lstm = self.layer_type == "LSTM"
+        if lstm:
+            c0 = lp["c0"].expand(B, H).contiguous()
+            peep = torch.stack([lp["w_ci"], lp["w_cf"], lp["w_co"]])
+        if only_return_final and self.layer_type != "Vanilla":
+            x_pre, mask = x_pre.contiguous(), mask.contiguous()
+            if lstm:
+                args = (x_pre, mask, lp["W_hid"], peep, h0, c0)
+                return lstm_scan_train(*args, self.grad_clip) if train else lstm_scan(*args)
+            args = (x_pre, mask, lp["W_hid"], h0)
             return gru_scan_train(*args, self.grad_clip) if train else gru_scan(*args)
-        h, states = h0, []
+        h, c, states = h0, (c0 if lstm else None), []
         for t in range(x_pre.shape[1]):
-            h = gru_step(h, x_pre[:, t], mask[:, t : t + 1], lp["W_hid"], self.grad_clip)
+            x_t, m = x_pre[:, t], mask[:, t : t + 1]
+            if lstm:
+                h, c = lstm_step(h, c, x_t, m, lp["W_hid"], peep, self.grad_clip)
+            elif self.layer_type == "GRU":
+                h = gru_step(h, x_t, m, lp["W_hid"], self.grad_clip)
+            else:
+                h = vanilla_step(h, x_t, m, lp["W_hid"], self.grad_clip)
             states.append(h)
+        if only_return_final:
+            return h
         ys = torch.stack(states, dim=1)
         return ys.flip(1) if backwards else ys

@@ -38,11 +38,12 @@ def gru_scan_train_plain(x_pre, mask, w_hid, h0, grad_clip: float = 0.0):
     return h
 
 
-def dw_split_plan(K: int, H: int, n_sm: int) -> tuple[int, int]:
-    """(n_splits, rows_per_split) of the K = L*B rows of dW = hs^T dhid:
-    about two blocks per SM over the [H, 3H] output tiles, whole tiles
-    of rows per split, no split empty."""
-    out_tiles = -(-H // TILE) * -(-3 * H // TILE)
+def dw_split_plan(K: int, H: int, G: int, n_sm: int) -> tuple[int, int]:
+    """(n_splits, rows_per_split) of the K = L*B rows of dW = hs^T dpre,
+    dW [H, G] (G = 3H for the GRU, 4H for the LSTM): about two blocks per
+    SM over the output tiles, whole tiles of rows per split, no split
+    empty."""
+    out_tiles = -(-H // TILE) * -(-G // TILE)
     k_tiles = -(-K // TILE)
     n_splits = max(1, min(-(-2 * n_sm // out_tiles), k_tiles))
     per_split = -(-k_tiles // n_splits) * TILE
@@ -101,7 +102,7 @@ def gru_scan_train_bwd(x_pre, mask, w_hid, hs, dh, grad_clip: float):
         raise ValueError("gru_scan_train_bwd: the kernel needs B >= 1 and L >= 1")
     dev = x_pre.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits, per_split = dw_split_plan(L * B, H, n_sm)
+    n_splits, per_split = dw_split_plan(L * B, H, 3 * H, n_sm)
     w_t = w_hid.t().contiguous()
     dx = torch.empty((B, L, 3 * H), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)

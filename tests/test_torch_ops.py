@@ -1,6 +1,7 @@
 """The port's kernel modules (plain versions, on the CPU) against the JAX
 package: the GRU eval scan (K3), the fused score + seen-mask + top-k (K4,
-the Pallas kernels run in interpret mode), masked_top_k and gather_sum.
+the Pallas kernels run in interpret mode), the tower's forward for the
+GRU, LSTM and Vanilla cells, masked_top_k and gather_sum.
 
 The CUDA kernels themselves need a card; chip_smoke.py holds them against
 these plain versions there.
@@ -45,13 +46,22 @@ def test_gru_scan_plain_matches_pallas_interpret(seed):
     np.testing.assert_array_equal(got[0], h0[0])
 
 
-@pytest.mark.parametrize("layers,bidirectional,embedding", [([12], False, 0), ([10, 12], True, 0), ([12], False, 6)])
-def test_tower_matches_jax_recurrent_layers(layers, bidirectional, embedding):
+_TOWERS = [([12], False, 0), ([10, 12], True, 0), ([12], False, 6)]
+
+
+@pytest.mark.parametrize(
+    "cell,layers,bidirectional,embedding",
+    [(cell, *case) for cell in ("GRU", "LSTM", "Vanilla") for case in _TOWERS],
+    # the GRU cases keep the ids they had before the LSTM and Vanilla towers
+    ids=[f"{pre}layers{i}-{case[1]}-{case[2]}" for pre in ("", "LSTM-", "Vanilla-") for i, case in enumerate(_TOWERS)],
+)
+def test_tower_matches_jax_recurrent_layers(cell, layers, bidirectional, embedding):
     """The port's tower (gather-sum input, plain scan for earlier layers,
-    gru_scan for the last) against RecurrentLayers.apply, same params."""
+    gru_scan or lstm_scan for the last; the plain scan throughout for
+    Vanilla) against RecurrentLayers.apply, same params."""
     n_ids = 40
-    jax_tower = JaxRecurrentLayers("GRU", layers, bidirectional, embedding)
-    tower = RecurrentLayers("GRU", layers, bidirectional, embedding)
+    jax_tower = JaxRecurrentLayers(cell, layers, bidirectional, embedding)
+    tower = RecurrentLayers(cell, layers, bidirectional, embedding)
     params = jax_tower.init_params(np.random.default_rng(5), n_ids)
     tower.build(n_ids, "cpu")
     flat = {}

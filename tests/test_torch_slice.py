@@ -2,7 +2,9 @@
 seed gives the same parameters, a JAX checkpoint loads in the port and
 gives the same logits and the same test-CLI metrics, and the port's own
 synthetic dataset reads the same through both packages' DataHandler.
-Everything runs on the CPU (GRU-16, max_length 10).
+An LSTM checkpoint round-trips between the packages and gives the same
+metrics. Everything runs on the CPU (GRU-16 and small LSTM towers,
+max_length 10).
 """
 
 import ml_dtypes
@@ -27,9 +29,10 @@ from seqrec_tpu_torch.models.rnn_one_hot import RNNOneHot
 CLI_ARGS = ["-m", "RNN", "--loss", "CCE", "--r_t", "GRU", "--r_l", "16", "--max_length", "10", "-b", "8"]
 
 
-def _models(dataset_dir, seed=3, layers=(16,)):
-    jax_model = JaxRNNOneHot(recurrent_layer=JaxRecurrentLayers("GRU", list(layers)), max_length=10, seed=seed)
-    model = RNNOneHot(recurrent_layer=RecurrentLayers("GRU", list(layers)), max_length=10, seed=seed, device="cpu")
+def _models(dataset_dir, seed=3, layers=(16,), cell="GRU", bidirectional=False):
+    tower = (cell, list(layers), bidirectional)
+    jax_model = JaxRNNOneHot(recurrent_layer=JaxRecurrentLayers(*tower), max_length=10, seed=seed)
+    model = RNNOneHot(recurrent_layer=RecurrentLayers(*tower), max_length=10, seed=seed, device="cpu")
     jax_model.prepare_model(JaxDataHandler(dataset_dir))
     model.prepare_model(DataHandler(dataset_dir))
     return jax_model, model
@@ -95,13 +98,46 @@ def test_jax_checkpoint_loads_in_port(synthetic_dataset, tmp_path):
         ]
 
 
-def test_test_cli_prints_jax_metrics_on_the_same_checkpoint(synthetic_dataset, capsys):
-    argv = ["-d", synthetic_dataset, *CLI_ARGS, "--dir", "torchparity/", "-i", "1"]
+def test_lstm_checkpoint_round_trips_between_the_packages(synthetic_dataset, tmp_path):
+    """A bidirectional LSTM's tree (c0 and the peepholes included) goes
+    from a JAX checkpoint into the port and back through the port's save
+    unchanged, and params_from_numpy gives the JAX package's logits."""
+    import jax
+    import jax.numpy as jnp
+
+    from seqrec_tpu.models.base import pytree_load as jax_pytree_load
+
+    jax_model, model = _models(synthetic_dataset, seed=4, layers=(8, 12), cell="LSTM", bidirectional=True)
+    tree = jax_model._init_params()
+    leaves = dict(_leaves(tree))
+    assert {"tower/layer1_bwd/c0", "tower/layer1_bwd/w_ci", "tower/layer0_fwd/w_co"} <= leaves.keys()
+    path = str(tmp_path / "jax.npz")
+    jax_pytree_save(path, {"params": tree})
+    model.load(path)
+    back = str(tmp_path / "port.npz")
+    model.save(back)
+    for got in (dict(_leaves(model.params_to_numpy())), dict(_leaves(jax_pytree_load(back)["params"]))):
+        assert got.keys() == leaves.keys()
+        for key, arr in leaves.items():
+            np.testing.assert_array_equal(got[key], arr, err_msg=key)
+
+    params = jax.tree_util.tree_map(jnp.asarray, tree)
+    model.params_from_numpy(jax.tree_util.tree_map(np.asarray, params), "cpu")
+    seqs = [seq for seq, _, _ in model._iter_test_instances(DataHandler(synthetic_dataset).test_set(epochs=1))]
+    ids, _, mask = model._encode_sequences(seqs)
+    want = np.asarray(jax_model._logits(params, jnp.asarray(ids), None, jnp.asarray(mask), fast=True))
+    with torch.inference_mode():
+        got = model._logits(torch.from_numpy(ids), None, torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _cli_metric_lines_agree(synthetic_dataset, capsys, cli_args, sub):
+    argv = ["-d", synthetic_dataset, *cli_args, "--dir", sub, "-i", "1"]
     args = jax_parse.command_parser(jax_parse.predictor_command_parser, jax_test_cli.test_command_parser, argv=argv)
     jax_model = jax_parse.get_predictor(args)
     jax_model.prepare_model(JaxDataHandler(synthetic_dataset))
     name = jax_model._get_model_filename(1)
-    jax_pytree_save(synthetic_dataset + "models/torchparity/" + name, {"params": jax_model._init_params()})
+    jax_pytree_save(synthetic_dataset + "models/" + sub + name, {"params": jax_model._init_params()})
 
     def metric_lines():
         return [line for line in capsys.readouterr().out.splitlines() if "@10:" in line]
@@ -113,6 +149,17 @@ def test_test_cli_prints_jax_metrics_on_the_same_checkpoint(synthetic_dataset, c
     got = metric_lines()
     assert len(want) == 5 and got == want
     assert len(evaluator.instances) == JaxDataHandler(synthetic_dataset).test_set.n_users
+
+
+def test_test_cli_prints_jax_metrics_on_the_same_checkpoint(synthetic_dataset, capsys):
+    _cli_metric_lines_agree(synthetic_dataset, capsys, CLI_ARGS, "torchparity/")
+
+
+def test_test_cli_prints_jax_metrics_on_an_lstm_checkpoint(synthetic_dataset, capsys):
+    """The LSTM path's serving at a small size: K6's plain version for the
+    final state of a stacked LSTM tower."""
+    lstm_args = ["-m", "RNN", "--loss", "CCE", "--r_t", "LSTM", "--r_l", "8-12", "--max_length", "10", "-b", "8"]
+    _cli_metric_lines_agree(synthetic_dataset, capsys, lstm_args, "torchparity_lstm/")
 
 
 def test_port_synthetic_generator_draws_the_jax_interactions():
@@ -139,7 +186,9 @@ def test_port_synthetic_dataset_reads_the_same_in_both_packages(tmp_path):
     "flags",
     [[], ["--rf"], ["--repeated_interactions"], ["--u_m", "adagrad", "--u_l", "0.1"],
      ["--r_bi", "--r_emb", "8", "--r_l", "32-16"], ["--n_dropout", "0.1", "--target_bias", "0.5"],
-     ["--u_moments", "bfloat16", "--lazy_updates", "--db", "0.3", "-r", "0.01"]],
+     ["--u_moments", "bfloat16", "--lazy_updates", "--db", "0.3", "-r", "0.01"],
+     ["--r_t", "LSTM"], ["--r_t", "LSTM", "--r_bi", "--r_emb", "8", "--r_l", "32-16"],
+     ["--r_t", "Vanilla", "--r_bi"]],
 )
 def test_model_filename_matches_jax(flags):
     """The checkpoint lookup of the test CLI depends on the filename scheme."""

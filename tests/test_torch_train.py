@@ -3,7 +3,8 @@ seed gives the same batches (exactly), the same train steps give the same
 costs and parameters (dense head, and the streaming head at a 16,384-item
 catalog), and the train CLI writes the checkpoint the JAX CLI would name,
 which the JAX test CLI reads; a JAX checkpoint resumes in the port.
-Flags of later slices raise. Small sizes throughout (GRU-8/16, L=10).
+Flags of later slices raise. Small sizes throughout (GRU and LSTM towers
+of widths 6 to 16, L=10).
 
 Tolerances: costs rtol 1e-5 (the same f32 math, summed in other orders);
 parameters after 20 Adam steps at lr 0.01 rtol 1e-4 with atol 5e-5, half
@@ -107,16 +108,14 @@ def _assert_same_params(got, want, prefix=""):
             np.testing.assert_allclose(got[key], want[key], rtol=1e-4, atol=5e-5, err_msg=prefix + key)
 
 
-def test_twenty_steps_dense_head_match_jax(synthetic_dataset):
-    """The flagship's layout, small: one GRU layer, the dense CCE head with
-    a diversity bias, L2 on b_out, Adam."""
+def _twenty_dense_steps(dataset_dir, cell):
     kwargs = dict(max_length=10, batch_size=8, seed=4, regularization=0.01, diversity_bias=0.3)
-    jm = JaxRNNOneHot(recurrent_layer=JaxRecurrentLayers("GRU", [16]), updater=JaxAdam(0.01), **kwargs)
-    tm = RNNOneHot(recurrent_layer=RecurrentLayers("GRU", [16]), updater=Adam(0.01), device="cpu", **kwargs)
-    handler = DataHandler(synthetic_dataset)
-    jm.prepare_model(JaxDataHandler(synthetic_dataset))
+    jm = JaxRNNOneHot(recurrent_layer=JaxRecurrentLayers(cell, [16]), updater=JaxAdam(0.01), **kwargs)
+    tm = RNNOneHot(recurrent_layer=RecurrentLayers(cell, [16]), updater=Adam(0.01), device="cpu", **kwargs)
+    handler = DataHandler(dataset_dir)
+    jm.prepare_model(JaxDataHandler(dataset_dir))
     tm.prepare_model(handler)
-    jm.set_dataset(JaxDataHandler(synthetic_dataset))
+    jm.set_dataset(JaxDataHandler(dataset_dir))
     tm.set_dataset(handler)
     gen = tm._gen_packed_mini_batch(handler.training_set, np.random.default_rng(4 + 77))
     batches = [next(gen) for _ in range(20)]
@@ -126,19 +125,28 @@ def test_twenty_steps_dense_head_match_jax(synthetic_dataset):
     _assert_same_params(tp, jp)
 
 
+def test_twenty_steps_dense_head_match_jax(synthetic_dataset):
+    """The flagship's layout, small: one GRU layer, the dense CCE head with
+    a diversity bias, L2 on b_out, Adam."""
+    _twenty_dense_steps(synthetic_dataset, "GRU")
+
+
+def test_twenty_lstm_steps_dense_head_match_jax(synthetic_dataset):
+    """The same with one LSTM layer (K5's plain version; c0 and the
+    peepholes are trained)."""
+    _twenty_dense_steps(synthetic_dataset, "LSTM")
+
+
 class _Popularity:
     def __init__(self, n):
         self.item_popularity = np.arange(1, n + 1, dtype=np.float64)
 
 
-def test_twenty_steps_streaming_head_match_jax():
-    """At 16,384 items both packages switch to the streaming CCE (the port's
-    plain K2 on the CPU, JAX's chunk scan); two stacked layers (the first
-    on the plain scan, the last on K1's plain version), L1 on b_out."""
+def _twenty_streaming_steps(cell):
     N, Bq, Lq = 16384, 16, 10
     kwargs = dict(max_length=Lq, batch_size=Bq, seed=6, regularization=-0.001, diversity_bias=0.2)
-    jm = JaxRNNOneHot(recurrent_layer=JaxRecurrentLayers("GRU", [6, 8]), updater=JaxAdam(0.01), **kwargs)
-    tm = RNNOneHot(recurrent_layer=RecurrentLayers("GRU", [6, 8]), updater=Adam(0.01), device="cpu", **kwargs)
+    jm = JaxRNNOneHot(recurrent_layer=JaxRecurrentLayers(cell, [6, 8]), updater=JaxAdam(0.01), **kwargs)
+    tm = RNNOneHot(recurrent_layer=RecurrentLayers(cell, [6, 8]), updater=Adam(0.01), device="cpu", **kwargs)
     for m in (jm, tm):
         m._prepare_networks(N)
         m.dataset = _Popularity(N)
@@ -156,6 +164,19 @@ def test_twenty_steps_streaming_head_match_jax():
     want, got, jp, tp = _train_both(jm, tm, batches)
     np.testing.assert_allclose(got, want, rtol=1e-5)
     _assert_same_params(tp, jp)
+
+
+def test_twenty_steps_streaming_head_match_jax():
+    """At 16,384 items both packages switch to the streaming CCE (the port's
+    plain K2 on the CPU, JAX's chunk scan); two stacked layers (the first
+    on the plain scan, the last on K1's plain version), L1 on b_out."""
+    _twenty_streaming_steps("GRU")
+
+
+def test_twenty_lstm_steps_streaming_head_match_jax():
+    """The same with two stacked LSTM layers (the last on K5's plain
+    version): the LSTM path's head at a small size."""
+    _twenty_streaming_steps("LSTM")
 
 
 TRAIN_FLAGS = BASE + ["--max_iter", "20", "--progress", "10", "--save", "All"]
@@ -181,6 +202,29 @@ def test_train_cli_writes_jax_checkpoints_that_jax_reads(tmp_path, capsys):
     want = metric_lines()
     torch_test_cli.main(test_argv + ["--device", "cpu"])
     assert len(want) == 12 and metric_lines() == want
+
+
+@pytest.mark.parametrize(
+    "tower",
+    [["--r_t", "LSTM", "--r_l", "8-12", "--r_bi"], ["--r_t", "Vanilla", "--r_bi", "--r_emb", "6"],
+     ["--r_t", "LSTM", "--r_emb", "6"]],
+    ids=["lstm-stacked-bi", "vanilla-bi-emb", "lstm-emb"],
+)
+def test_train_cli_trains_lstm_and_vanilla_towers_that_jax_reads(tmp_path, capsys, tower):
+    """The train CLI takes the other towers; the JAX test CLI names, reads
+    and scores its checkpoint as the port's test CLI does."""
+    d = make_dataset(str(tmp_path / "ds"), n_users=120, n_items=60, min_len=8, max_len=24, seed=3)
+    flags = BASE + tower
+    torch_train_cli.main(["-d", d, *flags, "--max_iter", "20", "--progress", "20", "--save", "All",
+                          "--dir", "port/", "--device", "cpu"])
+    assert len(_models_in(d, "port")) == 1
+    capsys.readouterr()
+    test_argv = ["-d", d, *flags, "--dir", "port/"]
+    jax_test_cli.main(test_argv)
+    want = [line for line in capsys.readouterr().out.splitlines() if "@10:" in line]
+    torch_test_cli.main(test_argv + ["--device", "cpu"])
+    got = [line for line in capsys.readouterr().out.splitlines() if "@10:" in line]
+    assert len(want) == 5 and got == want
 
 
 def test_load_last_model_resumes_a_jax_checkpoint(tmp_path, capsys):
@@ -226,7 +270,7 @@ def test_train_cli_without_device_cpu_raises_when_no_gpu(synthetic_dataset):
 @pytest.mark.parametrize(
     "flags",
     [["--mesh", "1,1"], ["--spd", "2"], ["--u_moments", "bfloat16"], ["--lazy_updates"],
-     ["--profile", "trace/"], ["--r_t", "LSTM"], ["-m", "BPRMF"]],
+     ["--profile", "trace/"], ["--loss", "hinge"], ["-m", "BPRMF"]],
 )
 def test_train_cli_raises_not_implemented_outside_the_slice(synthetic_dataset, flags):
     argv = ["-d", synthetic_dataset, *BASE, "--max_iter", "2", "--save", "None", "--device", "cpu", *flags]
