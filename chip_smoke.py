@@ -12,9 +12,12 @@ Phases, each printing one JSON line with its seconds:
 2. kernels: hold each kernel against its plain PyTorch version on the card
    (the training kernels against autograd through the plain scan and the
    dense head), at the shapes of the main paths and at large shapes, plus
-   edge cases and a bidirectional LSTM tower against the same tower on the
-   CPU, and time the kernel, the plain version and a PyTorch library
-   yardstick beside the kernel's bound: per call with CUDA events (median
+   edge cases (K3's cluster path: ragged tiles, uneven unit splits, two
+   units a lane, empty rows, masks with holes; K2's gradients: H=256,
+   ragged shapes, a row with g = 0, the same bits on two calls) and a
+   bidirectional LSTM tower against the same tower on the CPU, and time
+   the kernel, the plain version and a PyTorch library yardstick beside
+   the kernel's bound: per call with CUDA events (median
    of at least 20 runs after warm-up; host launch time included) and as
    device time from torch.profiler (mean of 20 calls).
 3. main_path (serving): write an ML-1M-scale synthetic dataset, save a
@@ -40,6 +43,12 @@ Phases, each printing one JSON line with its seconds:
    again run the test CLI on the checkpoint on the card, check that K6 and
    K4 ran and that the top-10 lists equal the CPU run's; time and profile
    steady steps.
+7. serving_pass_gru256: GRU-256 (``bench_matrix.json`` row
+   GRU-256-50000-f32-B1024) from seed 0 on the same catalog; with every
+   counter at 0 serve 4096 users at eval chunks of 512, check that K3 ran
+   on its cluster path and K4 ran, and that the top-10 lists of the first
+   512 users equal the same model's on the CPU; print users/s and the
+   profiler's top kernels.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. The last lines are
@@ -66,6 +75,7 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 
 # H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, HBM3 bandwidth
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12  # dense, tensor cores
 HBM_BYTES_PER_S = 3.35e12
 # wrapper name -> (module, CUDA source, TPU kernel it replaces)
 KERNELS = {
@@ -111,6 +121,7 @@ def wrapper(name):
 def zero_counters() -> None:
     for name in KERNELS:
         wrapper(name).launches = 0
+    wrapper("gru_scan").cluster_launches = 0
 
 
 def read_counters() -> dict:
@@ -181,14 +192,19 @@ def bound_ms(flops: float, n_bytes: float):
 # ----------------------------------------------------------------------
 # K3: GRU scan
 # ----------------------------------------------------------------------
-def gru_inputs(B, L, H, seed, device):
+def gru_inputs(B, L, H, seed, device, empty_row=False, holes=False):
     import torch
 
     rng = np.random.default_rng(seed)
     lengths = rng.integers(1, L + 1, size=B)
+    if empty_row:
+        lengths[0] = 0  # keeps h0
+    mask = np.arange(L)[None, :] < lengths[:, None]
+    if holes:
+        mask[:, [3, 7]] = False  # interior steps skipped: h carried through
     arrays = {
         "x_pre": rng.normal(0.0, 0.5, size=(B, L, 3 * H)),
-        "mask": (np.arange(L)[None, :] < lengths[:, None]),
+        "mask": mask,
         "w_hid": rng.normal(0.0, 0.1, size=(H, 3 * H)),
         "h0": rng.normal(0.0, 0.1, size=(B, H)),
     }
@@ -231,36 +247,48 @@ def cudnn_gru(x_pre, mask, w_hid, h0):
     return run
 
 
-def check_gru(B, L, H, seed):
+def check_gru(B, L, H, seed, timed=True, empty_row=False, holes=False, path=None):
+    """K3 against gru_scan_plain on the card; ``path``, where given, is the
+    plan path the launch must take."""
     import torch
 
-    from seqrec_tpu_torch.ops.rnn_scan import gru_scan, gru_scan_plain
+    from seqrec_tpu_torch.ops.rnn_scan import _device_plan, gru_scan, gru_scan_plain
 
-    a = gru_inputs(B, L, H, seed, "cuda")
+    a = gru_inputs(B, L, H, seed, "cuda", empty_row, holes)
     args = (a["x_pre"], a["mask"], a["w_hid"], a["h0"])
+    plan = _device_plan(B, H, a["x_pre"].device)
+    before = gru_scan.cluster_launches
     got, want = gru_scan(*args), gru_scan_plain(*args)
     torch.cuda.synchronize()
+    took = "cluster" if gru_scan.cluster_launches > before else plan[0]
+    if took != plan[0] or (path is not None and took != path):
+        raise AssertionError(f"gru_scan at {(B, L, H)} took the {took} path, plan {plan}, wanted {path}")
     err = (got - want).abs().max().item()
     if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
         raise AssertionError(f"gru_scan disagrees with its plain version at {(B, L, H)}: max abs err {err}")
+    if empty_row and not torch.equal(got[0], a["h0"][0]):
+        raise AssertionError("gru_scan changed the state of a row of length 0")
+    out = {"kernel": "gru_scan", "shape": {"B": B, "L": L, "H": H}, "plan": list(plan), "max_abs_err": err,
+           "tolerance": "rtol 1e-5, atol 1e-5"}
+    if not timed:
+        return out
     library = cudnn_gru(*args)
     library_err = (library() - want).abs().max().item()
     flops = 2 * B * L * H * 3 * H
     n_bytes = 4 * (B * L * 3 * H + B * L + 3 * H * H + 2 * B * H)
     bound, bound_by = bound_ms(flops, n_bytes)
-    return {
-        "kernel": "gru_scan", "shape": {"B": B, "L": L, "H": H}, "max_abs_err": err,
-        "tolerance": "rtol 1e-5, atol 1e-5",
-        "kernel_ms": time_ms(lambda: gru_scan(*args)),
-        "plain_ms": time_ms(lambda: gru_scan_plain(*args)),
-        "library_ms": time_ms(library),
-        "kernel_device_ms": device_ms(lambda: gru_scan(*args)),
-        "plain_device_ms": device_ms(lambda: gru_scan_plain(*args)),
-        "library_device_ms": device_ms(library),
-        "library": "torch.nn.GRU (cuDNN), packed; includes a [B*L,3H]x[3H,3H] input product",
-        "library_max_abs_err": library_err,
-        "bound_ms": bound, "bound_by": bound_by,
-    }
+    out.update(
+        kernel_ms=time_ms(lambda: gru_scan(*args)),
+        plain_ms=time_ms(lambda: gru_scan_plain(*args)),
+        library_ms=time_ms(library),
+        kernel_device_ms=device_ms(lambda: gru_scan(*args)),
+        plain_device_ms=device_ms(lambda: gru_scan_plain(*args)),
+        library_device_ms=device_ms(library),
+        library="torch.nn.GRU (cuDNN), packed; includes a [B*L,3H]x[3H,3H] input product",
+        library_max_abs_err=library_err,
+        bound_ms=bound, bound_by=bound_by,
+    )
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -598,6 +626,7 @@ def check_cce(B, H, N, seed, timed=True):
     m_p, s_p = cce_stats_plain(h, w, b)
     logz = m_p + torch.log(s_p)
     grads_k = cce_grads(h, w, b, targets, logz, g)
+    grads_again = cce_grads(h, w, b, targets, logz, g)
     grads_p = cce_grads_plain(h, w, b, targets, logz, g)
     torch.cuda.synchronize()
     errs, ok = {}, True
@@ -606,9 +635,14 @@ def check_cce(B, H, N, seed, timed=True):
         ok &= good
     if not ok:
         raise AssertionError(f"streaming cce disagrees with its plain version at {(B, H, N)}: {errs}")
+    if not all(torch.equal(x, y) for x, y in zip(grads_k, grads_again)):
+        raise AssertionError(f"two calls of cce_grads at {(B, H, N)} give different bits")
+    if grads_k[0][0].any():
+        raise AssertionError("cce_grads gave a row with g = 0 a gradient")
     out = {
         "kernel": "streaming_cce", "shape": {"B": B, "H": H, "N": N}, "max_abs_err": errs,
-        "tolerance": "rtol 1e-4 + atol 1e-5*max|plain| (f32; sums over N or B in another order)",
+        "tolerance": "rtol 1e-4 + atol 1e-5*max|plain| (f32 stats; 3xTF32 gradients; sums over N or B in another order)",
+        "grads_same_bits_twice": True, "g0_row_dh_zero": True,
     }
     if not timed:
         return out
@@ -634,8 +668,12 @@ def check_cce(B, H, N, seed, timed=True):
         library_device_ms=device_ms(lib_stats),
     )
     grads_bytes = 4 * (2 * (B * H + H * N + N) + 3 * B)
+    # three products (6 B H N): as f32 FMA, and as the kernels run them,
+    # three TF32 passes on the tensor cores; bound_ms is the lesser
+    t_tf32, t_bytes = 3 * 6 * B * H * N / TF32_FLOPS * 1e3, grads_bytes / HBM_BYTES_PER_S * 1e3
     out["grads"] = dict(
-        zip(("bound_ms", "bound_by"), bound_ms(6 * B * H * N, grads_bytes)),
+        bound_ms=max(t_tf32, t_bytes), bound_by="operations" if t_tf32 >= t_bytes else "bytes",
+        bound_f32_ms=bound_ms(6 * B * H * N, grads_bytes)[0], bound_tf32x3_ms=max(t_tf32, t_bytes),
         kernel_ms=time_ms(grads), plain_ms=time_ms(plain_grads), library_ms=time_ms(lib_grads),
         kernel_device_ms=device_ms(grads), plain_device_ms=device_ms(plain_grads),
         library_device_ms=device_ms(lib_grads),
@@ -1068,6 +1106,76 @@ def main_path_train_lstm(card) -> tuple[dict, dict]:
     return train_launches, serve_launches
 
 
+def serving_pass_gru256(card) -> dict:
+    """GRU-256 serving on the 50k-item catalog: 4096 users at eval chunks
+    of 512 with every counter at 0 (K3 on its cluster path, K4), the
+    first 512 users' top-10 lists against the same model on the CPU.
+    Returns the launch counts of the pass."""
+    import torch
+
+    from seqrec_tpu_torch.data import DataHandler
+    from seqrec_tpu_torch.models.recurrent import RecurrentLayers
+    from seqrec_tpu_torch.models.rnn_one_hot import RNNOneHot
+    from seqrec_tpu_torch.models.updates import Adam
+    from seqrec_tpu_torch.ops.rnn_scan import _device_plan
+
+    t_phase = t0 = time.perf_counter()
+    dataset = DataHandler(catalog50k_dataset())
+    models = {}
+    for device in ("cpu", "cuda"):
+        model = RNNOneHot(
+            recurrent_layer=RecurrentLayers(layer_type="GRU", layers=[256]),
+            updater=Adam(learning_rate=0.001), max_length=30, batch_size=1024, seed=0, device=device,
+        )
+        model.prepare_model(dataset)
+        model.set_dataset(dataset)
+        model.eval_batch_size = 512
+        models[device] = model
+    params = models["cpu"]._init_params()
+    for model in models.values():
+        model.params_from_numpy(params)
+    inputs = []
+    for seq, _, _ in models["cuda"]._iter_test_instances(dataset.training_set(epochs=1)):
+        inputs.append(seq)
+        if len(inputs) == 4096:
+            break
+    gpu = models["cuda"]
+    gpu._batched_recommendations(inputs[:512])  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    zero_counters()
+    t0 = time.perf_counter()
+    staged = gpu._stage_eval_inputs(inputs)
+    t1 = time.perf_counter()
+    recs = gpu._topk_from_staged(staged, k=10)
+    t2 = time.perf_counter()
+    launches = read_counters()
+    cluster = wrapper("gru_scan").cluster_launches
+    if launches["gru_scan"] == 0 or launches["fused_score_topk"] == 0 or cluster != launches["gru_scan"]:
+        raise AssertionError(f"the GRU-256 serving pass launched {launches}, {cluster} on K3's cluster path")
+    recs_cpu = models["cpu"]._batched_recommendations(inputs[:512])
+    if not np.array_equal(recs[:512], recs_cpu):
+        n_diff = int((recs[:512] != recs_cpu).any(axis=1).sum())
+        raise AssertionError(f"GRU-256 top-10 lists differ between cuda and cpu on {n_diff} of 512 users")
+    wall_s = t2 - t0
+    device = device_events(lambda: gpu._batched_recommendations(inputs))
+    dev_ms = sum(device.values())
+    emit({
+        "phase": "serving_pass_gru256", "config": "GRU-256 RNNOneHot from seed 0, 50k-item synthetic catalog, eval chunk 512",
+        "n_items": dataset.n_items, "users": len(inputs), "card": card, "launches": launches,
+        "gru_scan_cluster_launches": cluster,
+        "gru_scan_plan": list(_device_plan(512, 256, torch.device("cuda", torch.cuda.current_device()))),
+        "same_top10_as_cpu_first_512": True, "users_per_s": len(inputs) / wall_s, "wall_s": wall_s,
+        "encode_upload_s": t1 - t0, "topk_s": t2 - t1, "setup_s": setup_s,
+        "timed": "host clock; topk_s = GRU scan + fused top-k + copy back of every chunk",
+        "profile": {"device_ms": dev_ms, "device_busy_share": dev_ms / (wall_s * 1e3),
+                    "top_kernels_ms": dict(sorted(device.items(), key=lambda kv: -kv[1])[:5])},
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return {**launches, "gru_scan_cluster": cluster}
+
+
 def main() -> int:
     import torch
 
@@ -1091,13 +1199,14 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "ptxas": report, "card": card})
 
     t0 = time.perf_counter()
+    k3_large = check_gru(512, 30, 256, seed=3, path="cluster")  # GRU-256 serving's eval chunk
     k1 = check_gru_train(16, 30, 50, 100.0, seed=11)  # the flagship's shape, clip inactive
     k2 = check_cce(1024, 128, 50_000, seed=15)  # the large catalog's shape
     # the LSTM path's shapes: its eval chunk is -b 1024 too, so K6 has one shape there
     k6 = check_lstm(1024, 30, 128, seed=21)
     k5 = check_lstm_train(1024, 30, 128, 100.0, seed=23)
     main_shape = {
-        "gru_scan": check_gru(64, 30, 50, seed=1),
+        "gru_scan": check_gru(64, 30, 50, seed=1, path="shared"),
         "fused_score_topk": check_topk(64, 50, 3706, 30, 10, seed=2),
         "gru_scan_train_fwd": {**k1, **k1["fwd"], "max_abs_err": k1["max_abs_err"]["h"]},
         "gru_scan_train_bwd": {**k1, **k1["bwd"], "max_abs_err": max(k1["max_abs_err"][k] for k in ("dx", "dh0", "dW"))},
@@ -1110,13 +1219,14 @@ def main() -> int:
     }
     for res in (main_shape["gru_scan"], main_shape["fused_score_topk"], k1, k2, k6, k5):
         emit({"phase": "kernels", "at": "main-path shape", **res})
-    emit({"phase": "kernels", "at": "large shape", **check_gru(512, 30, 256, seed=3)})
+    emit({"phase": "kernels", "at": "large shape", **k3_large})
     emit({"phase": "kernels", "at": "large shape", **check_topk(512, 256, 200_000, 30, 10, seed=4)})
     emit({"phase": "kernels", "at": "large shape", **check_gru_train(1024, 30, 128, 100.0, seed=13)})
     # K6 at the GRU serving shape, beside K3's
     emit({"phase": "kernels", "at": "serving shape", **check_lstm(64, 30, 50, seed=22)})
     # K2 at the flagship's shape: the dense head's cost against the streaming kernels
-    emit({"phase": "kernels", "at": "flagship shape", **check_cce(16, 50, 3706, seed=14)})
+    k2_flagship = check_cce(16, 50, 3706, seed=14)
+    emit({"phase": "kernels", "at": "flagship shape", **k2_flagship})
     edge = [
         check_topk(6, 50, 25, 30, 10, seed=5, seen_all_rows=2, timed=False),
         check_topk(64, 50, 3706, 30, 10, seed=6, timed=False, with_seen=False),
@@ -1128,11 +1238,26 @@ def main() -> int:
         check_lstm_train(16, 30, 50, 0.01, seed=24, timed=False),  # the clip binds
         check_lstm_train(9, 7, 12, 0.05, seed=25, timed=False),
         check_lstm(9, 7, 12, seed=26, timed=False, empty_row=True),  # a row of length 0 keeps h0
+        # K3's cluster path: one row, a ragged tile, C not dividing H, a row
+        # of length 0, a mask with holes, a small batch
+        check_gru(1, 30, 256, seed=40, timed=False, path="cluster"),
+        check_gru(513, 30, 256, seed=41, timed=False, path="cluster"),
+        check_gru(300, 30, 250, seed=42, timed=False, path="cluster"),
+        check_gru(64, 30, 256, seed=43, timed=False, empty_row=True, path="cluster"),
+        check_gru(64, 30, 256, seed=44, timed=False, holes=True, path="cluster"),
+        check_gru(64, 30, 256, seed=45, timed=False, path="cluster"),
+        check_gru(64, 30, 300, seed=48, timed=False, path="cluster"),  # two units a lane
+        # K2's gradients: two H chunks at the large catalog; ragged B, H and N
+        # (a padded W); every check_cce has a row with g = 0 and compares
+        # two calls bit for bit
+        check_cce(1024, 256, 50_000, seed=46, timed=False),
+        check_cce(1000, 100, 50_001, seed=47, timed=False),
     ]
     if not all(e.get("clip_moves_dW_by", 1.0) > 0 for e in edge):
         raise AssertionError("a small grad_clip did not bind")
     tower = check_lstm_tower()
-    emit({"phase": "kernels", "at": "edge cases", "checks": [e["shape"] for e in edge], "tower": tower,
+    emit({"phase": "kernels", "at": "edge cases", "checks": [e["shape"] for e in edge],
+          "max_abs_err": [e["max_abs_err"] for e in edge], "tower": tower,
           "clip_moves_dW_by": [e["clip_moves_dW_by"] for e in edge if "clip_moves_dW_by" in e],
           "ok": True, "seconds": time.perf_counter() - t0})
 
@@ -1140,6 +1265,7 @@ def main() -> int:
     flagship = main_path_train_flagship(card)
     large = main_path_train_large(card)
     lstm_train, lstm_serve = main_path_train_lstm(card)
+    gru256 = serving_pass_gru256(card)
     path_of = {"gru_scan": serving, "fused_score_topk": serving, "gru_scan_train_fwd": flagship,
                "gru_scan_train_bwd": flagship, "cce_stats": large, "cce_grads": large,
                "lstm_scan": lstm_serve, "lstm_scan_train_fwd": lstm_train, "lstm_scan_train_bwd": lstm_train}
@@ -1153,6 +1279,27 @@ def main() -> int:
             "ms": res["kernel_ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
         })
+    # where this round's redesigns act: K3 at GRU-256 serving's chunk, K2's gradients
+    k3 = summary[0]
+    k3.update(
+        kernel_device_ms=main_shape["gru_scan"]["kernel_device_ms"],
+        library_device_ms=main_shape["gru_scan"]["library_device_ms"], path="shared",
+        at_B512_L30_H256={
+            "path": k3_large["plan"][0], "plan": k3_large["plan"], "kernel_ms": k3_large["kernel_ms"],
+            "kernel_device_ms": k3_large["kernel_device_ms"], "plain_device_ms": k3_large["plain_device_ms"],
+            "library_device_ms": k3_large["library_device_ms"], "bound_ms": k3_large["bound_ms"],
+            "max_abs_err": k3_large["max_abs_err"],
+            "launches_serving_pass_gru256": gru256["gru_scan"],
+            "cluster_launches_serving_pass_gru256": gru256["gru_scan_cluster"],
+        },
+    )
+    grads = next(e for e in summary if e["name"] == "cce_grads")
+    grads.update(
+        kernel_device_ms=k2["grads"]["kernel_device_ms"], plain_device_ms=k2["grads"]["plain_device_ms"],
+        library_device_ms=k2["grads"]["library_device_ms"], bound_f32_ms=k2["grads"]["bound_f32_ms"],
+        bound_tf32x3_ms=k2["grads"]["bound_tf32x3_ms"],
+        at_B16_H50_N3706={k: k2_flagship["grads"][k] for k in ("kernel_ms", "kernel_device_ms", "bound_ms")},
+    )
     print(card_line(), flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {

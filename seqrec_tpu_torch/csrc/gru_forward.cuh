@@ -17,7 +17,11 @@
 // product (one W_hid element feeds all rows of the tile from a register),
 // then (row, unit) pairs for the gate math. W_hid is staged in shared
 // memory when it fits beside h and hid (H=50: 30 KB; up to H of about 128
-// with the opt-in limit) and is read through L2 otherwise (H=256: 786 KB).
+// with the opt-in limit) and is read through L2 otherwise. The L2 read is
+// what K1's forward does at larger H; the eval scan (K3) launches this
+// kernel only where W_hid fits, or past the reach of its cluster kernel
+// (gru_cluster.cuh, which splits W_hid over a thread-block cluster; H=256:
+// 786 KB over 8 CTAs), as ops/rnn_scan.py:gru_scan_plan decides.
 // Any H is taken as is: no padding to a lane multiple. x_pre is read in
 // the caller's [B, L, 3H] layout. With kStoreHs the training scan also
 // writes h_{t-1} of every step to hs [L, B, H], the one residual its

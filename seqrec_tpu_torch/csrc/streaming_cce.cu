@@ -10,30 +10,38 @@
 // The one-hot is a compare of the column index with the row's target;
 // rows with g = 0 contribute nothing.
 //
-// What bounds it on an H100: f32 operations. At B=1024, H=128, N=50,000
-// the stats are 2 B H N = 13 GFLOP and the gradients need three products,
-// 39 GFLOP, against a few MB of inputs and outputs.
+// What bounds it on an H100: operations. At B=1024, H=128, N=50,000 the
+// stats are 2 B H N = 13 GFLOP (f32 FMA: 0.20 ms at 67 TFLOP/s) and the
+// gradients need three products, 39 GFLOP (0.59 ms as f32 FMA, 0.24 ms as
+// three TF32 passes at 495 TFLOP/s), against a few MB of inputs and
+// outputs.
 //
-// Design: every kernel computes 64 x 64 logit tiles with tile_mma.cuh
-// (h^T and W staged through shared memory, 64 values of H at a time) and
-// consumes them in registers or shared memory; no logit reaches device
-// memory. The TPU kernel carries its sums across a sequential grid; CUDA
-// blocks run in no order, so:
-// - stats: the catalog is cut into splits; the block of (row tile, split)
-//   keeps an online (m, s) per row over its split's column tiles (m starts
-//   at -inf; every tile holds at least one real column, so m is finite
-//   after the first tile and the first rescale is exp(-inf) = 0). A merge
-//   kernel combines the splits, as K4 merges its partial top-k.
-// - dW and db: the block of a column tile owns dW[:, tile] and db[tile]
-//   and walks every row tile, so each is written once, with no atomics.
-// - dh: the block of (row tile, split) walks its split's column tiles and
-//   writes its partial dh [B, H]; a second kernel sums the splits in order.
-// dW and dh each recompute the logits, so the gradients do 4 products
-// (52 GFLOP at that shape) for two simple, deterministic kernels. f32 FMA
-// on the CUDA cores throughout: no TF32, no tensor cores yet.
+// The TPU kernel carries its sums across a sequential grid; CUDA blocks
+// run in no order, so:
+// - stats: 64 x 64 logit tiles of f32 FMA from tile_mma.cuh. The catalog
+//   is cut into splits; the block of (row tile, split) keeps an online
+//   (m, s) per row over its split's column tiles (m starts at -inf; every
+//   tile holds at least one real column, so m is finite after the first
+//   tile and the first rescale is exp(-inf) = 0). A merge kernel combines
+//   the splits, as K4 merges its partial top-k.
+// - gradients: 128 x 128 tiles from block_mma.cuh: 3xTF32 products on the
+//   tensor cores (about f32 accuracy) with the streamed operands in a
+//   three-stage ring of 16-byte cp.async copies. dz never leaves shared
+//   memory.
+//   - dW and db: the block of (column tile, H chunk) owns
+//     dW[chunk, tile] (and db[tile] in the first chunk) and walks every
+//     row tile: logits, dz, dW += h^T dz. Each output is written once.
+//   - dh: the block of (row tile, split, H chunk) walks its split's
+//     column tiles: logits, dz, dh += dz W^T, and writes its partial dh;
+//     a second kernel sums the splits in order.
+//   Both recompute the logits: 4 products (52 GFLOP at that shape) rather
+//   than 3 and a partial of dh per column tile (about 200 MB at 128
+//   columns) or of dW per row tile. An H of 256 is two 128-wide chunks,
+//   each recomputing the logits. No atomics: the same bits run after run.
 
 #include <math.h>
 
+#include "block_mma.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -140,154 +148,227 @@ __global__ void stats_merge_kernel(const float* __restrict__ part_m, const float
   s[row] = acc;
 }
 
-// dz of one logit tile, 0 outside the real rows and columns [.., c_end)
-__device__ __forceinline__ void dlogits_tile(float acc[4][4], const int* __restrict__ targets,
-                                             const float* __restrict__ logz,
-                                             const float* __restrict__ g, int B, int row0,
-                                             int col0, int c_end) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+// acc = (h W)[row0 + frag_row, col0 + frag_col] for one 128 x 128 tile
+// (b not added); rows past B and columns past N hold 0. h and W have row
+// strides ldh and ldw (multiples of 4).
+__device__ __forceinline__ void logits_block(const float* __restrict__ h, size_t ldh,
+                                             const float* __restrict__ W, size_t ldw, int B, int H,
+                                             int N, int row0, int col0, float* ring,
+                                             float acc[4][4][4]) {
+  zero_block(acc);
+  pipeline(
+      (H + kBK - 1) / kBK, ring,
+      [&](int s, float* slot) {
+        stage_x_major(slot, h, ldh, row0, B, s * kBK, H);           // A (row, k) = h[row0 + row, k]
+        stage_k_major(slot + kSlice, W, ldw, col0, N, s * kBK, H);  // B (col, k) = W[k, col0 + col]
+      },
+      [&](int, const float* slot) { mma_slice<true, kXS, false, kKS>(slot, slot + kSlice, acc); });
+}
+
+// What dz needs of the thread's 8 rows (frag_row(mt, 2 half)) of a row
+// tile, loaded before the tile's logits so their latency hides behind it.
+struct RowTerms {
+  float lz[4][2], g[4][2];
+  int tg[4][2];
+};
+
+__device__ __forceinline__ void load_row_terms(RowTerms& rt, const int* __restrict__ targets,
+                                               const float* __restrict__ logz,
+                                               const float* __restrict__ g, int B, int row0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    const bool real = row < B;
-    const float lz = real ? logz[row] : 0.0f;
-    const float gr = real ? g[row] : 0.0f;
-    const int tg = real ? targets[row] : -1;
+  for (int mt = 0; mt < 4; ++mt) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      float d = 0.0f;
-      if (real && col < c_end) d = gr * (expf(acc[i][j] - lz) - (col == tg ? 1.0f : 0.0f));
-      acc[i][j] = d;
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + frag_row(mt, 2 * half);
+      const bool real = row < B;
+      rt.lz[mt][half] = real ? logz[row] : 0.0f;
+      rt.g[mt][half] = real ? g[row] : 0.0f;  // 0 outside the batch: dz = 0 there
+      rt.tg[mt][half] = real ? targets[row] : -1;
     }
   }
 }
 
-// grid (column tiles): dW [H, N], db [N]; kHC = ceil(H / 64) register tiles
-template <int kHC>
-__global__ void __launch_bounds__(kTileThreads) grads_dw_kernel(
-    const float* __restrict__ h, const float* __restrict__ W, const float* __restrict__ bias,
-    const int* __restrict__ targets, const float* __restrict__ logz, const float* __restrict__ g,
-    float* __restrict__ dW, float* __restrict__ db, int B, int H, int N) {
-  __shared__ float As[kTile * kTS];
-  __shared__ float Bs[kTile * kTS];
-  float* Ds = Bs;  // Ds[r][c] = dz[row0 + r, col0 + c], once the logits are done with Bs
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int col0 = blockIdx.x * kTile;
-  float accW[kHC][4][4], acc[4][4];
+// the bias of the thread's 8 columns (frag_col(nt, e)) of a column tile
+__device__ __forceinline__ void load_col_bias(float bj[4][2], const float* __restrict__ bias,
+                                              int N, int col0) {
 #pragma unroll
-  for (int q = 0; q < kHC; ++q) zero_acc(accW[q]);
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = col0 + frag_col(nt, e);
+      bj[nt][e] = col < N ? bias[col] : 0.0f;
+    }
+  }
+}
+
+// dz of the tile into D[r * kLd + c]: g (exp(z - logz) - onehot), 0
+// outside the real rows and columns
+template <int kLd>
+__device__ __forceinline__ void dlogits_block(const float acc[4][4][4], const RowTerms& rt,
+                                              const float bj[4][2], int N, int col0, float* D) {
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = frag_row(mt, 2 * half);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float d[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = col0 + frag_col(nt, e);
+          const float p = expf(acc[mt][nt][2 * half + e] + bj[nt][e] - rt.lz[mt][half]);
+          d[e] = col < N ? rt.g[mt][half] * (p - (col == rt.tg[mt][half] ? 1.0f : 0.0f)) : 0.0f;
+        }
+        *reinterpret_cast<float2*>(D + r * kLd + frag_col(nt, 0)) = make_float2(d[0], d[1]);
+      }
+    }
+  }
+}
+
+// sum over the 128 rows of column threadIdx.x (< 128) of D [128][kLd],
+// in a fixed order (rows of a thread, then lanes, then the two warp rows);
+// scratch holds 256 floats. Every thread must call it.
+template <int kLd>
+__device__ __forceinline__ float tile_column_sum(const float* D, float* scratch) {
+  __syncthreads();  // D is complete
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = 0.0f;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) v += D[frag_row(mt, 2 * half) * kLd + frag_col(nt, e)];
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane < 4) scratch[(warp >> 2) * kBT + frag_col(nt, e)] = v;
+    }
+  }
+  __syncthreads();
+  return threadIdx.x < kBT ? scratch[threadIdx.x] + scratch[kBT + threadIdx.x] : 0.0f;
+}
+
+constexpr int kDwLd = kKS;      // dz [row][col] as dW's k-major B operand
+constexpr int kDhLd = kBT + 4;  // dz [row][col] as dh's x-major A operand
+constexpr size_t kGradsSmem = (size_t)(kStages * kSlot + kBT * kKS) * sizeof(float);
+
+// grid (column tiles, H chunks of 128): dW [H, N]; db [N] from chunk 0
+__global__ void __launch_bounds__(kBThreads, 1) grads_dw_kernel(
+    const float* __restrict__ h, size_t ldh, const float* __restrict__ W, size_t ldw,
+    const float* __restrict__ bias, const int* __restrict__ targets,
+    const float* __restrict__ logz, const float* __restrict__ g, float* __restrict__ dW,
+    float* __restrict__ db, int B, int H, int N) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* D = ring + kStages * kSlot;  // D[r][c] = dz[row0 + r, col0 + c]
+  const int col0 = blockIdx.x * kBT, hc0 = blockIdx.y * kBT;
+  float accW[4][4][4], acc[4][4][4], bj[4][2];
+  zero_block(accW);
+  load_col_bias(bj, bias, N, col0);
   float db_acc = 0.0f;
-  for (int row0 = 0; row0 < B; row0 += kTile) {
-    logits_tile(h, W, bias, B, H, N, row0, col0, As, Bs, acc);
-    dlogits_tile(acc, targets, logz, g, B, row0, col0, N);
-    __syncthreads();
+  for (int row0 = 0; row0 < B; row0 += kBT) {
+    RowTerms rt;
+    load_row_terms(rt, targets, logz, g, B, row0);
+    // the logits' pipeline starts with a barrier: the last dW product has read D
+    logits_block(h, ldh, W, ldw, B, H, N, row0, col0, ring, acc);
+    dlogits_block<kDwLd>(acc, rt, bj, N, col0, D);
+    const int rows = min(kBT, B - row0);
+    if (blockIdx.y == 0) db_acc += tile_column_sum<kDwLd>(D, ring);
+    // dW[hc0 + a, col0 + c] += sum_r h[row0 + r, hc0 + a] D[r][c]
+    pipeline(
+        (rows + kBK - 1) / kBK, ring,
+        [&](int s, float* slot) { stage_k_major(slot, h, ldh, hc0, H, row0 + s * kBK, B); },
+        [&](int s, const float* slot) {
+          mma_slice<false, kKS, false, kDwLd>(slot, D + s * kBK * kDwLd, accW);
+        });
+  }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+  for (int mt = 0; mt < 4; ++mt) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) Ds[(ty + 16 * i) * kTS + tx + 16 * j] = acc[i][j];
-    }
-    __syncthreads();
-    if (threadIdx.x < kTile) {
-      for (int r = 0; r < kTile; ++r) db_acc += Ds[r * kTS + threadIdx.x];
-    }
-    // dW[q*64 + a, col0 + c] += sum_r h[row0 + r, q*64 + a] Ds[r][c]
+    for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
-    for (int q = 0; q < kHC; ++q) {
-      if (q * kTile < H) {
-        __syncthreads();
-        load_tile(As, h + q * kTile, H, row0, B, 0, H - q * kTile);
-        __syncthreads();
-        tile_mma(As, Ds, kTile, accW[q]);
+      for (int e = 0; e < 4; ++e) {
+        const int hh = hc0 + frag_row(mt, e), col = col0 + frag_col(nt, e);
+        if (hh < H && col < N) dW[(size_t)hh * N + col] = accW[mt][nt][e];
       }
     }
   }
-#pragma unroll
-  for (int q = 0; q < kHC; ++q) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int hh = q * kTile + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = col0 + tx + 16 * j;
-        if (hh < H && col < N) dW[(size_t)hh * N + col] = accW[q][i][j];
-      }
-    }
-  }
-  if (threadIdx.x < kTile && col0 + threadIdx.x < N) db[col0 + threadIdx.x] = db_acc;
+  if (blockIdx.y == 0 && threadIdx.x < kBT && col0 + threadIdx.x < N) db[col0 + threadIdx.x] = db_acc;
 }
 
-// grid (row tiles, splits): part_dh [n_splits, B, H]
-template <int kHC>
-__global__ void __launch_bounds__(kTileThreads) grads_dh_partial_kernel(
-    const float* __restrict__ h, const float* __restrict__ W, const float* __restrict__ bias,
-    const int* __restrict__ targets, const float* __restrict__ logz, const float* __restrict__ g,
-    float* __restrict__ part_dh, int B, int H, int N, int cols_per_split) {
-  __shared__ float As[kTile * kTS];
-  __shared__ float Bs[kTile * kTS];
-  float* Dt = As;  // Dt[c][r] = dz[row0 + r, col0 + c], once the logits are done with As
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int row0 = blockIdx.x * kTile;
+// grid (row tiles, splits, H chunks of 128): part_dh [n_splits, B, H]
+__global__ void __launch_bounds__(kBThreads, 1) grads_dh_partial_kernel(
+    const float* __restrict__ h, size_t ldh, const float* __restrict__ W, size_t ldw,
+    const float* __restrict__ bias, const int* __restrict__ targets,
+    const float* __restrict__ logz, const float* __restrict__ g, float* __restrict__ part_dh,
+    int B, int H, int N, int cols_per_split) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* D = ring + kStages * kSlot;  // D[r][c] = dz[row0 + r, col0 + c]
+  const int row0 = blockIdx.x * kBT, hc0 = blockIdx.z * kBT;
   const int c_begin = blockIdx.y * cols_per_split;
   const int c_end = min(N, c_begin + cols_per_split);
-  float accH[kHC][4][4], acc[4][4];
-#pragma unroll
-  for (int q = 0; q < kHC; ++q) zero_acc(accH[q]);
-  for (int col0 = c_begin; col0 < c_end; col0 += kTile) {
-    logits_tile(h, W, bias, B, H, N, row0, col0, As, Bs, acc);
-    dlogits_tile(acc, targets, logz, g, B, row0, col0, c_end);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Dt[(tx + 16 * j) * kTS + ty + 16 * i] = acc[i][j];
-    }
-    // dh[row0 + r, q*64 + a] += sum_c Dt[c][r] W[q*64 + a, col0 + c]
-#pragma unroll
-    for (int q = 0; q < kHC; ++q) {
-      if (q * kTile < H) {
-        __syncthreads();
-        load_tile_t(Bs, W + (size_t)q * kTile * N, N, 0, H - q * kTile, col0, c_end);
-        __syncthreads();
-        tile_mma(Dt, Bs, kTile, accH[q]);
-      }
-    }
+  float accH[4][4][4], acc[4][4][4];
+  zero_block(accH);
+  RowTerms rt;
+  load_row_terms(rt, targets, logz, g, B, row0);
+  for (int col0 = c_begin; col0 < c_end; col0 += kBT) {
+    float bj[4][2];
+    load_col_bias(bj, bias, N, col0);
+    logits_block(h, ldh, W, ldw, B, H, N, row0, col0, ring, acc);
+    dlogits_block<kDhLd>(acc, rt, bj, N, col0, D);
+    // dh[row0 + r, hc0 + a] += sum_c D[r][c] W[hc0 + a, col0 + c]
+    pipeline(
+        (min(kBT, c_end - col0) + kBK - 1) / kBK, ring,
+        [&](int s, float* slot) { stage_x_major(slot, W, ldw, hc0, H, col0 + s * kBK, c_end); },
+        [&](int s, const float* slot) {
+          mma_slice<true, kDhLd, true, kXS>(D + s * kBK, slot, accH);
+        });
   }
   float* out = part_dh + (size_t)blockIdx.y * B * H;
 #pragma unroll
-  for (int q = 0; q < kHC; ++q) {
+  for (int mt = 0; mt < 4; ++mt) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + ty + 16 * i;
+    for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int hh = q * kTile + tx + 16 * j;
-        if (row < B && hh < H) out[(size_t)row * H + hh] = accH[q][i][j];
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + frag_row(mt, e), hh = hc0 + frag_col(nt, e);
+        if (row < B && hh < H) out[(size_t)row * H + hh] = accH[mt][nt][e];
       }
     }
   }
 }
 
-template <int kHC>
-int launch_grads(const float* h, const float* W, const float* bias, const int* targets,
-                 const float* logz, const float* g, float* dh, float* dW, float* db,
-                 float* part_dh, int B, int H, int N, int n_splits, int cols_per_split,
-                 cudaStream_t s) {
-  grads_dw_kernel<kHC><<<(N + kTile - 1) / kTile, kTileThreads, 0, s>>>(h, W, bias, targets, logz,
-                                                                         g, dW, db, B, H, N);
-  int err = (int)cudaGetLastError();
+int launch_grads(const float* h, int ldh, const float* W, int ldw, const float* bias,
+                 const int* targets, const float* logz, const float* g, float* dh, float* dW,
+                 float* db, float* part_dh, int B, int H, int N, int n_splits,
+                 int cols_per_split, cudaStream_t s) {
+  const int n_chunks = (H + kBT - 1) / kBT;
+  int err = (int)cudaFuncSetAttribute(grads_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)kGradsSmem);
   if (err) return err;
-  dim3 grid((B + kTile - 1) / kTile, n_splits);
-  grads_dh_partial_kernel<kHC><<<grid, kTileThreads, 0, s>>>(h, W, bias, targets, logz, g, part_dh,
-                                                              B, H, N, cols_per_split);
+  err = (int)cudaFuncSetAttribute(grads_dh_partial_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGradsSmem);
+  if (err) return err;
+  grads_dw_kernel<<<dim3((N + kBT - 1) / kBT, n_chunks), kBThreads, kGradsSmem, s>>>(
+      h, ldh, W, ldw, bias, targets, logz, g, dW, db, B, H, N);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  grads_dh_partial_kernel<<<dim3((B + kBT - 1) / kBT, n_splits, n_chunks), kBThreads, kGradsSmem,
+                            s>>>(h, ldh, W, ldw, bias, targets, logz, g, part_dh, B, H, N,
+                                 cols_per_split);
   err = (int)cudaGetLastError();
   if (err) return err;
   return launch_sum_splits(part_dh, dh, n_splits, (size_t)B * H, s);
 }
 
-bool valid_plan(int B, int H, int N, int n_splits, int cols_per_split) {
+bool valid_plan(int B, int H, int N, int n_splits, int cols_per_split, int tile) {
   return B > 0 && H > 0 && N > 0 && n_splits > 0 && cols_per_split > 0 &&
-         cols_per_split % kTile == 0 && (long long)(n_splits - 1) * cols_per_split < N &&
+         cols_per_split % tile == 0 && (long long)(n_splits - 1) * cols_per_split < N &&
          (long long)n_splits * cols_per_split >= N;
 }
 
@@ -300,7 +381,7 @@ extern "C" int seqrec_cce_stats_f32(const float* h, const float* W, const float*
                                     float* part_m, float* part_s, float* m, float* s, int B,
                                     int H, int N, int n_splits, int cols_per_split,
                                     void* stream) {
-  if (!valid_plan(B, H, N, n_splits, cols_per_split)) return (int)cudaErrorInvalidValue;
+  if (!valid_plan(B, H, N, n_splits, cols_per_split, kTile)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   dim3 grid((B + kTile - 1) / kTile, n_splits);
   stats_partial_kernel<<<grid, kTileThreads, 0, st>>>(h, W, bias, part_m, part_s, B, H, N,
@@ -312,22 +393,19 @@ extern "C" int seqrec_cce_stats_f32(const float* h, const float* W, const float*
 }
 
 // dh [B, H], dW [H, N], db [N] from h, W, b, targets int32 [B] (each in
-// [0, N)), logz [B] and the upstream cotangent g [B]; scratch part_dh
-// [n_splits, B, H]. H up to 256.
-extern "C" int seqrec_cce_grads_f32(const float* h, const float* W, const float* bias,
-                                    const int* targets, const float* logz, const float* g,
-                                    float* dh, float* dW, float* db, float* part_dh, int B,
-                                    int H, int N, int n_splits, int cols_per_split,
-                                    void* stream) {
-  if (!valid_plan(B, H, N, n_splits, cols_per_split) || H > 4 * kTile)
+// [0, N)), logz [B] and the upstream cotangent g [B]; h and W are read
+// with row strides ldh >= H and ldw >= N, multiples of 4, from 16-byte
+// aligned addresses; scratch part_dh [n_splits, B, H]; the catalog cut
+// into n_splits ranges of cols_per_split (a multiple of 128) columns,
+// none empty. H up to 256.
+extern "C" int seqrec_cce_grads_f32(const float* h, int ldh, const float* W, int ldw,
+                                    const float* bias, const int* targets, const float* logz,
+                                    const float* g, float* dh, float* dW, float* db,
+                                    float* part_dh, int B, int H, int N, int n_splits,
+                                    int cols_per_split, void* stream) {
+  if (!valid_plan(B, H, N, n_splits, cols_per_split, kBT) || H > 2 * kBT || ldh < H ||
+      ldw < N || ldh % 4 || ldw % 4 || (uintptr_t)h % 16 || (uintptr_t)W % 16)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (H <= kTile)
-    return launch_grads<1>(h, W, bias, targets, logz, g, dh, dW, db, part_dh, B, H, N, n_splits,
-                           cols_per_split, st);
-  if (H <= 2 * kTile)
-    return launch_grads<2>(h, W, bias, targets, logz, g, dh, dW, db, part_dh, B, H, N, n_splits,
-                           cols_per_split, st);
-  return launch_grads<4>(h, W, bias, targets, logz, g, dh, dW, db, part_dh, B, H, N, n_splits,
-                         cols_per_split, st);
+  return launch_grads(h, ldh, W, ldw, bias, targets, logz, g, dh, dW, db, part_dh, B, H, N,
+                      n_splits, cols_per_split, (cudaStream_t)stream);
 }

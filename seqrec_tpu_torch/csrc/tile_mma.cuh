@@ -1,5 +1,6 @@
 // A 64 x 64 f32 tile product on the CUDA cores, shared by the training
-// kernels (gru_scan_train.cu, lstm_scan_train.cu, streaming_cce.cu).
+// scans' dW products (gru_scan_train.cu, lstm_scan_train.cu) and K2's
+// stats (streaming_cce.cu); K2's gradients use block_mma.cuh.
 //
 // A block of kTileThreads threads owns one 64 x 64 output tile; thread
 // (ty, tx) = (tid / 16, tid % 16) holds the 4 x 4 outputs (ty + 16 i,
@@ -54,16 +55,6 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst, const float* 
     const int k = e / kTile, c = e - k * kTile;
     const bool ok = k0 + k < k_end && c0 + c < c_end;
     dst[k * kTS + c] = ok ? src[(size_t)(k0 + k) * ld + c0 + c] : 0.0f;
-  }
-}
-
-// The transpose: dst[c][k] = src[(k0 + k) * ld + c0 + c], same bounds.
-__device__ __forceinline__ void load_tile_t(float* __restrict__ dst, const float* __restrict__ src,
-                                            size_t ld, int k0, int k_end, int c0, int c_end) {
-  for (int e = threadIdx.x; e < kTile * kTile; e += kTileThreads) {
-    const int k = e / kTile, c = e - k * kTile;
-    const bool ok = k0 + k < k_end && c0 + c < c_end;
-    dst[c * kTS + k] = ok ? src[(size_t)(k0 + k) * ld + c0 + c] : 0.0f;
   }
 }
 

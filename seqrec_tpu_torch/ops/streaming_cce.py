@@ -27,8 +27,9 @@ from seqrec_tpu_torch.ops.core import check_tensors
 # catalogs at least this large route RNNOneHot's training loss through the
 # streaming op (the JAX package's switch; not re-derived for the H100 yet)
 STREAMING_CCE_MIN_ITEMS = 16384
-TILE = 64  # rows and columns of one logit tile (csrc/tile_mma.cuh kTile)
-MAX_H = 256  # the gradient kernel keeps ceil(H / 64) <= 4 register tiles
+TILE = 64  # rows and columns of one stats logit tile (csrc/tile_mma.cuh kTile)
+GRAD_TILE = 128  # rows, columns and H chunk of one gradient tile (csrc/block_mma.cuh kBT)
+MAX_H = 256  # the gradient kernels take H in at most two 128-wide chunks
 
 
 def cce_stats_plain(h, W, b):
@@ -49,14 +50,28 @@ def cce_grads_plain(h, W, b, targets, logz, g):
 
 
 def split_plan(B: int, N: int, n_sm: int) -> tuple[int, int]:
-    """(n_splits, cols_per_split) of the catalog for the stats and dh
-    kernels: about two blocks per SM over the row tiles, whole 64-column
-    tiles per split, no split empty."""
+    """(n_splits, cols_per_split) of the catalog for the stats kernel:
+    about two blocks per SM over the row tiles, whole 64-column tiles per
+    split, no split empty."""
     row_tiles = -(-B // TILE)
     col_tiles = -(-N // TILE)
     n_splits = max(1, min(-(-2 * n_sm // row_tiles), col_tiles))
     cols = -(-col_tiles // n_splits) * TILE
     return -(-N // cols), cols
+
+
+def grads_plan(B: int, H: int, N: int, n_sm: int) -> tuple[int, int, int]:
+    """(n_splits, cols_per_split, h_chunks) of the gradient kernels: the
+    dh kernel's grid of (row tiles, catalog splits, H chunks) about one
+    block per SM (each holds a whole SM's share of shared memory and
+    registers), whole 128-column tiles per split, no split empty; the
+    scratch is n_splits partial dh [B, H]."""
+    row_tiles = -(-B // GRAD_TILE)
+    col_tiles = -(-N // GRAD_TILE)
+    h_chunks = -(-H // GRAD_TILE)
+    n_splits = max(1, min(col_tiles, n_sm // (row_tiles * h_chunks)))
+    cols = -(-col_tiles // n_splits) * GRAD_TILE
+    return -(-N // cols), cols, h_chunks
 
 
 def _library():
@@ -65,7 +80,9 @@ def _library():
     if stats.argtypes is None:
         stats.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         stats.restype = ctypes.c_int
-        grads.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        grads.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        )
         grads.restype = ctypes.c_int
     return stats, grads
 
@@ -76,9 +93,21 @@ def _check(fn: str, h, expected: dict) -> None:
         raise ValueError(f"{fn}: the kernel needs B, H and N >= 1")
 
 
-def _plan(h, N):
-    n_sm = torch.cuda.get_device_properties(h.device).multi_processor_count
-    return split_plan(h.shape[0], N, n_sm)
+def _n_sm(h):
+    return torch.cuda.get_device_properties(h.device).multi_processor_count
+
+
+def _rows_16b(x):
+    """x [R, C] itself when its rows start 16-byte aligned (C a multiple
+    of 4, the data aligned), else a copy with C padded to a multiple of 4
+    (the gradient kernels copy 16-byte chunks). Returns (tensor, row
+    stride)."""
+    R, C = x.shape
+    if C % 4 == 0 and x.data_ptr() % 16 == 0:
+        return x, C
+    padded = torch.zeros((R, -(-C // 4) * 4), dtype=x.dtype, device=x.device)
+    padded[:, :C] = x
+    return padded, padded.shape[1]
 
 
 def cce_stats(h, W, b):
@@ -90,7 +119,7 @@ def cce_stats(h, W, b):
     N = W.shape[1]
     f32 = torch.float32
     _check("cce_stats", h, {"h": (h, f32, (B, H)), "W": (W, f32, (H, N)), "b": (b, f32, (N,))})
-    n_splits, cols = _plan(h, N)
+    n_splits, cols = split_plan(B, N, _n_sm(h))
     part = torch.empty((2, n_splits, B), dtype=f32, device=h.device)
     m = torch.empty(B, dtype=f32, device=h.device)
     s = torch.empty(B, dtype=f32, device=h.device)
@@ -122,15 +151,16 @@ def cce_grads(h, W, b, targets, logz, g):
     })
     if H > MAX_H:
         raise ValueError(f"cce_grads: the kernel takes H <= {MAX_H}, got {H}")
-    n_splits, cols = _plan(h, N)
+    n_splits, cols, _ = grads_plan(B, H, N, _n_sm(h))
     dh = torch.empty((B, H), dtype=f32, device=h.device)
     dW = torch.empty((H, N), dtype=f32, device=h.device)
     db = torch.empty(N, dtype=f32, device=h.device)
     part = torch.empty((n_splits, B, H), dtype=f32, device=h.device)
+    (hk, ldh), (Wk, ldw) = _rows_16b(h), _rows_16b(W)
     _, grads = _library()
     with torch.cuda.device(h.device):
         err = grads(
-            h.data_ptr(), W.data_ptr(), b.data_ptr(), targets.data_ptr(), logz.data_ptr(),
+            hk.data_ptr(), ldh, Wk.data_ptr(), ldw, b.data_ptr(), targets.data_ptr(), logz.data_ptr(),
             g.data_ptr(), dh.data_ptr(), dW.data_ptr(), db.data_ptr(), part.data_ptr(),
             B, H, N, n_splits, cols, torch.cuda.current_stream().cuda_stream,
         )

@@ -19,7 +19,13 @@ from seqrec_tpu.ops.pallas_rnn import gru_scan as jax_gru_scan
 from seqrec_tpu.ops.pallas_topk import fused_score_topk as jax_fused_score_topk
 from seqrec_tpu_torch.models.recurrent import RecurrentLayers
 from seqrec_tpu_torch.ops.core import gather_sum, masked_top_k
-from seqrec_tpu_torch.ops.rnn_scan import gru_scan, gru_scan_plain
+from seqrec_tpu_torch.ops.rnn_scan import (
+    gru_cluster_smem,
+    gru_cluster_units,
+    gru_scan,
+    gru_scan_plain,
+    gru_scan_plan,
+)
 from seqrec_tpu_torch.ops.score_topk import fused_score_topk, fused_score_topk_plain, split_plan
 
 B, L, H = 9, 7, 12  # ragged: no size is a power of two
@@ -163,7 +169,7 @@ def test_wrappers_on_cpu_tensors_run_the_plain_version_and_count_no_launch():
     args = tuple(map(torch.from_numpy, _topk_inputs(50, 4, seed=5)))
     for got, want in zip(fused_score_topk(*args, k=5), fused_score_topk_plain(*args, k=5)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert gru_scan.launches == 0 and fused_score_topk.launches == 0
+    assert gru_scan.launches == 0 and gru_scan.cluster_launches == 0 and fused_score_topk.launches == 0
 
 
 @pytest.mark.parametrize("B,N,k", [(64, 3706, 10), (512, 200_000, 10), (5, 100, 64), (1, 10, 1)])
@@ -171,3 +177,34 @@ def test_split_plan_covers_the_catalog_in_whole_tiles(B, N, k):
     n_splits, cols = split_plan(B, N, k, n_sm=132)
     assert cols % 256 == 0 and (n_splits - 1) * cols < N <= n_splits * cols
     assert n_splits * k <= 2048
+
+
+H100_SMS, H100_SMEM_OPTIN = 132, 232_448
+
+
+@pytest.mark.parametrize("B,H", [(64, 50), (512, 256), (1, 256), (513, 256), (1024, 250), (64, 256)])
+def test_gru_scan_plan_splits_w_hid_over_a_cluster_where_it_does_not_fit(B, H):
+    path, C, R = gru_scan_plan(B, H, H100_SMS, H100_SMEM_OPTIN)
+    w_fits = min(8, -(-B // H100_SMS)) * 16 * H + 12 * H * H <= H100_SMEM_OPTIN
+    assert path == ("shared" if w_fits else "cluster")
+    if path == "shared":
+        assert C == 1 and 1 <= R <= 8
+        return
+    assert 2 <= C <= 8
+    units = gru_cluster_units(H, C)
+    assert [u for q0, q1 in units for u in range(q0, q1)] == list(range(H))
+    assert max(q1 - q0 for q0, q1 in units) - min(q1 - q0 for q0, q1 in units) <= 1
+    tiles = [range(r0, min(B, r0 + R)) for r0 in range(0, B, R)]
+    assert [b for tile in tiles for b in tile] == list(range(B))
+    assert gru_cluster_smem(H, C, R) <= H100_SMEM_OPTIN
+
+
+def test_gru_scan_plan_follows_the_cards_cluster_capacity():
+    """The card holds 15 clusters of 8 at the serving shape: 16 tiles of 32
+    rows would take two waves, so the plan takes 13 tiles of 40; past the
+    reach of a cluster slice it keeps the single-block L2 kernel."""
+    held = {64: 15, 48: 15, 40: 15, 32: 15, 16: 15, 8: 30}
+    assert gru_scan_plan(512, 256, H100_SMS, H100_SMEM_OPTIN) == ("cluster", 8, 32)
+    assert gru_scan_plan(512, 256, H100_SMS, H100_SMEM_OPTIN, held) == ("cluster", 8, 40)
+    assert gru_scan_plan(64, 256, H100_SMS, H100_SMEM_OPTIN, held) == ("cluster", 8, 8)
+    assert gru_scan_plan(512, 512, H100_SMS, H100_SMEM_OPTIN)[0] == "l2"

@@ -34,10 +34,14 @@ from seqrec_tpu_torch.ops.rnn_scan_train import (
     gru_scan_train_plain,
 )
 from seqrec_tpu_torch.ops.streaming_cce import (
+    GRAD_TILE,
+    MAX_H,
+    _rows_16b,
     cce_grads,
     cce_grads_plain,
     cce_stats,
     cce_stats_plain,
+    grads_plan,
     streaming_cce,
 )
 
@@ -118,6 +122,33 @@ def test_cce_stats_and_grads_plain_match_pallas_interpret(N):
         np.testing.assert_allclose(gt.numpy(), np.asarray(wt), rtol=1e-4, atol=1e-6, err_msg=name)
     np.testing.assert_array_equal(got[0].numpy()[3], 0.0)
     assert cce_stats.launches == 0 and cce_grads.launches == 0
+
+
+@pytest.mark.parametrize(
+    "B,H,N", [(1024, 128, 50_000), (1024, 256, 50_000), (1000, 100, 50_001), (16, 50, 3706), (5, 256, 300), (70, 12, 1000)]
+)
+def test_grads_plan_covers_the_catalog_in_whole_tiles(B, H, N):
+    """The gradient kernels' plan: whole 128-column tiles per split, no
+    split empty, H in at most two 128-wide chunks, about one dh block per
+    SM, and a dh scratch of n_splits [B, H] partials."""
+    n_splits, cols, h_chunks = grads_plan(B, H, N, n_sm=132)
+    assert cols % GRAD_TILE == 0 and (n_splits - 1) * cols < N <= n_splits * cols
+    assert h_chunks == -(-H // GRAD_TILE) and h_chunks * GRAD_TILE >= H and H <= MAX_H
+    dh_blocks = -(-B // GRAD_TILE) * n_splits * h_chunks
+    assert dh_blocks <= 132 or n_splits == 1
+    assert n_splits * B * H * 4 <= 16 * 1024 * 1024 * h_chunks  # the scratch stays small
+    if (B, H, N) == (1024, 128, 50_000):
+        assert (n_splits, cols, h_chunks) == (16, 3200, 1)
+
+
+@pytest.mark.parametrize("C", [128, 3706, 49_999])
+def test_gradient_operands_are_padded_to_16_byte_rows(C):
+    x = torch.from_numpy(np.random.default_rng(C).normal(size=(3, C)).astype(np.float32))
+    rows, ld = _rows_16b(x)
+    assert ld % 4 == 0 and ld >= C and rows.data_ptr() % 16 == 0
+    assert (rows is x) == (C % 4 == 0)
+    torch.testing.assert_close(rows[:, :C], x, rtol=0, atol=0)
+    assert not rows[:, C:].any()
 
 
 def test_streaming_cce_matches_jax_and_the_dense_loss():
