@@ -13,11 +13,14 @@ Phases, each printing one JSON line with its seconds:
    (the training kernels against autograd through the plain scan and the
    dense head), at the shapes of the main paths and at large shapes, plus
    edge cases (K3's cluster path: ragged tiles, uneven unit splits, two
-   units a lane, empty rows, masks with holes; K2's gradients: H=256,
-   ragged shapes, a row with g = 0, the same bits on two calls) and a
+   units a lane, empty rows, masks with holes; K4: one row, a ragged row
+   tile, k = 64, a catalog under one tile, rows with every item seen, a
+   ragged 200,001-item catalog; K2's stats and gradients: H=256, ragged
+   shapes, a row with g = 0, the same bits on two calls) and a
    bidirectional LSTM tower against the same tower on the CPU, and time
    the kernel, the plain version and a PyTorch library yardstick beside
-   the kernel's bound: per call with CUDA events (median
+   the kernel's bound (for the 3xTF32 kernels K2 and K4 also the f32
+   bound): per call with CUDA events (median
    of at least 20 runs after warm-up; host launch time included) and as
    device time from torch.profiler (mean of 20 calls).
 3. main_path (serving): write an ML-1M-scale synthetic dataset, save a
@@ -177,6 +180,24 @@ def device_events(fn, reps: int = 1) -> dict:
     }
 
 
+def kernel_name(key: str) -> str:
+    """A profiler key's function name, without namespace, template or
+    arguments."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].split()[-1]
+
+
+def port_kernel_names() -> set:
+    """Names of the kernels in the port's CUDA sources."""
+    import glob
+    import re
+
+    names = set()
+    for path in glob.glob(os.path.join(ROOT, "seqrec_tpu_torch", "csrc", "*.cu*")):
+        with open(path) as f:
+            names.update(re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\) )?(\w+)\(", f.read()))
+    return names
+
+
 def device_ms(fn, reps: int = 20) -> float:
     """Device time of one call of ``fn`` in ms (profiler; no launch gaps)."""
     fn()
@@ -187,6 +208,16 @@ def bound_ms(flops: float, n_bytes: float):
     """Least time for the work on the card and what sets it."""
     t_ops, t_bytes = flops / F32_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def product_bounds(flops: float, n_bytes: float) -> dict:
+    """Bounds of work whose products run as 3xTF32 on the tensor cores
+    (block_mma.cuh): three TF32 passes at the TF32 peak, and, beside it,
+    the same products as f32 FMA on the CUDA cores. ``bound_ms`` is the
+    3xTF32 one, the lesser."""
+    t_tf32, t_bytes = 3 * flops / TF32_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_tf32, t_bytes), "bound_by": "operations" if t_tf32 >= t_bytes else "bytes",
+            "bound_f32_ms": bound_ms(flops, n_bytes)[0], "bound_tf32x3_ms": max(t_tf32, t_bytes)}
 
 
 # ----------------------------------------------------------------------
@@ -623,6 +654,7 @@ def check_cce(B, H, N, seed, timed=True):
     g = torch.tensor(rng.uniform(0.5, 1.5, size=B) / B, dtype=torch.float32, device="cuda")
     g[0] = 0.0  # a row with no cotangent contributes nothing
     m_k, s_k = cce_stats(h, w, b)
+    m_again, s_again = cce_stats(h, w, b)
     m_p, s_p = cce_stats_plain(h, w, b)
     logz = m_p + torch.log(s_p)
     grads_k = cce_grads(h, w, b, targets, logz, g)
@@ -637,12 +669,14 @@ def check_cce(B, H, N, seed, timed=True):
         raise AssertionError(f"streaming cce disagrees with its plain version at {(B, H, N)}: {errs}")
     if not all(torch.equal(x, y) for x, y in zip(grads_k, grads_again)):
         raise AssertionError(f"two calls of cce_grads at {(B, H, N)} give different bits")
+    if not (torch.equal(m_k, m_again) and torch.equal(s_k, s_again)):
+        raise AssertionError(f"two calls of cce_stats at {(B, H, N)} give different bits")
     if grads_k[0][0].any():
         raise AssertionError("cce_grads gave a row with g = 0 a gradient")
     out = {
         "kernel": "streaming_cce", "shape": {"B": B, "H": H, "N": N}, "max_abs_err": errs,
-        "tolerance": "rtol 1e-4 + atol 1e-5*max|plain| (f32 stats; 3xTF32 gradients; sums over N or B in another order)",
-        "grads_same_bits_twice": True, "g0_row_dh_zero": True,
+        "tolerance": "rtol 1e-4 + atol 1e-5*max|plain| (3xTF32 products; sums over N or B in another order)",
+        "stats_same_bits_twice": True, "grads_same_bits_twice": True, "g0_row_dh_zero": True,
     }
     if not timed:
         return out
@@ -662,18 +696,14 @@ def check_cce(B, H, N, seed, timed=True):
     plain_stats = lambda: cce_stats_plain(h, w, b)  # noqa: E731
     plain_grads = lambda: cce_grads_plain(h, w, b, targets, logz, g)  # noqa: E731
     out["stats"] = dict(
-        zip(("bound_ms", "bound_by"), bound_ms(2 * B * H * N, 4 * (B * H + H * N + N + 2 * B))),
+        product_bounds(2 * B * H * N, 4 * (B * H + H * N + N + 2 * B)),
         kernel_ms=time_ms(stats), plain_ms=time_ms(plain_stats), library_ms=time_ms(lib_stats),
         kernel_device_ms=device_ms(stats), plain_device_ms=device_ms(plain_stats),
         library_device_ms=device_ms(lib_stats),
     )
-    grads_bytes = 4 * (2 * (B * H + H * N + N) + 3 * B)
-    # three products (6 B H N): as f32 FMA, and as the kernels run them,
-    # three TF32 passes on the tensor cores; bound_ms is the lesser
-    t_tf32, t_bytes = 3 * 6 * B * H * N / TF32_FLOPS * 1e3, grads_bytes / HBM_BYTES_PER_S * 1e3
+    # three products (6 B H N)
     out["grads"] = dict(
-        bound_ms=max(t_tf32, t_bytes), bound_by="operations" if t_tf32 >= t_bytes else "bytes",
-        bound_f32_ms=bound_ms(6 * B * H * N, grads_bytes)[0], bound_tf32x3_ms=max(t_tf32, t_bytes),
+        product_bounds(6 * B * H * N, 4 * (2 * (B * H + H * N + N) + 3 * B)),
         kernel_ms=time_ms(grads), plain_ms=time_ms(plain_grads), library_ms=time_ms(lib_grads),
         kernel_device_ms=device_ms(grads), plain_device_ms=device_ms(plain_grads),
         library_device_ms=device_ms(lib_grads),
@@ -742,8 +772,11 @@ def compare_topk(got_v, got_i, plain_v, plain_i, next_v, k):
 
 
 def check_topk(B, H, N, S, k, seed, seen_all_rows=0, timed=True, with_seen=True):
+    """K4 against its plain version; timed, also the wrapper's operand
+    pad alone (rows of a multiple of 4 floats), which its times include."""
     import torch
 
+    from seqrec_tpu_torch.ops.core import rows_16b
     from seqrec_tpu_torch.ops.score_topk import fused_score_topk, fused_score_topk_plain
 
     a = topk_inputs(B, H, N, S, seed, "cuda", seen_all_rows)
@@ -758,19 +791,18 @@ def check_topk(B, H, N, S, k, seed, seen_all_rows=0, timed=True, with_seen=True)
         "tolerance": "values rtol 1e-5 atol 1e-6; ids equal where the k/k+1 gap > 1e-4 max|score|",
     }
     if timed:
-        flops = 2 * B * H * N
         n_bytes = 4 * (B * H + H * N + N + 2 * B * S + 2 * B * k)
-        bound, bound_by = bound_ms(flops, n_bytes)
         reps = 20 if N > 100_000 else 30
         out.update(
+            product_bounds(2 * B * H * N, n_bytes),
             kernel_ms=time_ms(lambda: fused_score_topk(*args, k=k), reps=reps),
             plain_ms=time_ms(lambda: fused_score_topk_plain(*args, k=k), reps=reps),
             library_ms=time_ms(lambda: torch_topk(*args, k), reps=reps),
             kernel_device_ms=device_ms(lambda: fused_score_topk(*args, k=k)),
             plain_device_ms=device_ms(lambda: fused_score_topk_plain(*args, k=k)),
             library_device_ms=device_ms(lambda: torch_topk(*args, k)),
+            pad_device_ms=device_ms(lambda: (rows_16b(a["h"]), rows_16b(a["w_out"]))),
             library="h @ W + b, -inf scatter_add at the seen ids, torch.topk",
-            bound_ms=bound, bound_by=bound_by,
         )
     return out
 
@@ -915,7 +947,8 @@ def steady_state(argv, ds_dir, steps, warmup, profile_steps, card):
     """Train steps of the CLI's predictor outside the CLI: sequences/s over
     ``steps`` steps after ``warmup`` (host clock to a synchronize), then the
     device time of ``profile_steps`` steps from torch.profiler, its share of
-    the same steps' wall time and the largest kernels (ms per step)."""
+    the same steps' wall time, the largest kernels and every kernel of the
+    port's CUDA sources (ms per step)."""
     import torch
 
     import seqrec_tpu_torch.utils.command_parser as parse
@@ -941,12 +974,17 @@ def steady_state(argv, ds_dir, steps, warmup, profile_steps, card):
     events = device_events(lambda: [model.train_function(b) for b in batches])
     per_step = {k: v / profile_steps for k, v in events.items()}
     device_ms = sum(per_step.values())
+    ours, port_ms = port_kernel_names(), {}
+    for key, ms in per_step.items():  # template instances summed under one name
+        if kernel_name(key) in ours:
+            port_ms[kernel_name(key)] = port_ms.get(kernel_name(key), 0.0) + ms
     torch.cuda.reset_peak_memory_stats()
     model.train_function(next(gen))
     return {
         "sequences_per_s": model.batch_size / step_s, "step_ms": step_s * 1e3, "steps_timed": steps,
         "device_ms_per_step": device_ms, "device_busy_share": device_ms / (step_s * 1e3),
         "top_kernels_ms_per_step": dict(sorted(per_step.items(), key=lambda kv: -kv[1])[:8]),
+        "port_kernels_ms_per_step": dict(sorted(port_ms.items(), key=lambda kv: -kv[1])),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card,
     }
 
@@ -1220,7 +1258,10 @@ def main() -> int:
     for res in (main_shape["gru_scan"], main_shape["fused_score_topk"], k1, k2, k6, k5):
         emit({"phase": "kernels", "at": "main-path shape", **res})
     emit({"phase": "kernels", "at": "large shape", **k3_large})
-    emit({"phase": "kernels", "at": "large shape", **check_topk(512, 256, 200_000, 30, 10, seed=4)})
+    k4_gru256 = check_topk(512, 256, 49_999, 30, 10, seed=8)  # the GRU-256 serving pass's chunk
+    k4_large = check_topk(512, 256, 200_000, 30, 10, seed=4)
+    emit({"phase": "kernels", "at": "GRU-256 serving shape", **k4_gru256})
+    emit({"phase": "kernels", "at": "large shape", **k4_large})
     emit({"phase": "kernels", "at": "large shape", **check_gru_train(1024, 30, 128, 100.0, seed=13)})
     # K6 at the GRU serving shape, beside K3's
     emit({"phase": "kernels", "at": "serving shape", **check_lstm(64, 30, 50, seed=22)})
@@ -1228,9 +1269,17 @@ def main() -> int:
     k2_flagship = check_cce(16, 50, 3706, seed=14)
     emit({"phase": "kernels", "at": "flagship shape", **k2_flagship})
     edge = [
+        # K4: under one tile with every item seen in two rows, no seen ids,
+        # k = 64, one row, a ragged row tile, every item of a two-tile
+        # catalog seen (S = 200), a ragged 200,001-item catalog
         check_topk(6, 50, 25, 30, 10, seed=5, seen_all_rows=2, timed=False),
         check_topk(64, 50, 3706, 30, 10, seed=6, timed=False, with_seen=False),
         check_topk(33, 64, 1000, 5, 64, seed=7, timed=False),
+        check_topk(64, 50, 3706, 30, 64, seed=9, timed=False),
+        check_topk(1, 50, 3706, 30, 10, seed=10, timed=False),
+        check_topk(129, 50, 3706, 30, 10, seed=19, timed=False),
+        check_topk(16, 50, 150, 200, 10, seed=20, seen_all_rows=3, timed=False),
+        check_topk(64, 256, 200_001, 30, 10, seed=27, timed=False),
         check_gru_train(16, 30, 50, 0.01, seed=12, timed=False),  # the clip binds
         check_gru_train(9, 7, 12, 0.05, seed=17, timed=False),
         check_cce(70, 12, 1000, seed=16, timed=False),
@@ -1247,9 +1296,9 @@ def main() -> int:
         check_gru(64, 30, 256, seed=44, timed=False, holes=True, path="cluster"),
         check_gru(64, 30, 256, seed=45, timed=False, path="cluster"),
         check_gru(64, 30, 300, seed=48, timed=False, path="cluster"),  # two units a lane
-        # K2's gradients: two H chunks at the large catalog; ragged B, H and N
-        # (a padded W); every check_cce has a row with g = 0 and compares
-        # two calls bit for bit
+        # K2: two H chunks at the large catalog; ragged B, H and N (a padded
+        # W); every check_cce has a row with g = 0 and compares two calls of
+        # the stats and of the gradients bit for bit
         check_cce(1024, 256, 50_000, seed=46, timed=False),
         check_cce(1000, 100, 50_001, seed=47, timed=False),
     ]
@@ -1293,6 +1342,18 @@ def main() -> int:
             "cluster_launches_serving_pass_gru256": gru256["gru_scan_cluster"],
         },
     )
+    # this PR's redesigns: K4 and K2's stats on 3xTF32 tensor-core tiles
+    topk = next(e for e in summary if e["name"] == "fused_score_topk")
+    device_keys = ("kernel_device_ms", "plain_device_ms", "library_device_ms", "bound_f32_ms", "bound_tf32x3_ms")
+    topk.update({key: main_shape["fused_score_topk"][key] for key in device_keys},
+                pad_device_ms=main_shape["fused_score_topk"]["pad_device_ms"])
+    for at, res in (("at_B512_H256_N49999", k4_gru256), ("at_B512_H256_N200000", k4_large)):
+        topk[at] = {key: res[key] for key in ("kernel_ms", *device_keys, "pad_device_ms", "max_abs_err")}
+    topk["launches_serving_pass_gru256"] = gru256["fused_score_topk"]
+    stats = next(e for e in summary if e["name"] == "cce_stats")
+    stats.update({key: k2["stats"][key] for key in device_keys},
+                 at_B16_H50_N3706={key: k2_flagship["stats"][key] for key in ("kernel_ms", *device_keys)},
+                 launches_lstm_path=lstm_train["cce_stats"])
     grads = next(e for e in summary if e["name"] == "cce_grads")
     grads.update(
         kernel_device_ms=k2["grads"]["kernel_device_ms"], plain_device_ms=k2["grads"]["plain_device_ms"],

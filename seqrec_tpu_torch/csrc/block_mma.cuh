@@ -1,6 +1,7 @@
-// A 128 x 128 block product with f32 accuracy on the tensor cores (3xTF32)
-// for K2's gradients (streaming_cce.cu), its streamed operands brought in
-// by a ring of three cp.async stages.
+// A 128 x 128 block product with f32 accuracy on the tensor cores (3xTF32),
+// its streamed operands brought in by a ring of three cp.async stages:
+// K2's stats and gradients (streaming_cce.cu) and K4 (score_topk.cu) all
+// take their logits tiles (h W) from logits_block below.
 //
 // 3xTF32: each f32 operand x splits into a TF32 head big (x's top 11
 // significant bits) and a tail small = x - big (of which the tensor cores
@@ -197,6 +198,24 @@ __device__ __forceinline__ void pipeline(int n_slices, float* ring, Stage stage,
     cp_async_commit();
     mma(s, ring + (s % kStages) * kSlot);
   }
+}
+
+// acc = (h W)[row0 + frag_row, col0 + frag_col] for one 128 x 128 tile
+// (no bias); rows past B and columns past N hold 0. h [B, H] and W [H, N]
+// are read with row strides ldh and ldw (multiples of 4, rows 16-byte
+// aligned). On return every warp may still be reading the ring.
+__device__ __forceinline__ void logits_block(const float* __restrict__ h, size_t ldh,
+                                             const float* __restrict__ W, size_t ldw, int B, int H,
+                                             int N, int row0, int col0, float* ring,
+                                             float acc[4][4][4]) {
+  zero_block(acc);
+  pipeline(
+      (H + kBK - 1) / kBK, ring,
+      [&](int s, float* slot) {
+        stage_x_major(slot, h, ldh, row0, B, s * kBK, H);           // A (row, k) = h[row0 + row, k]
+        stage_k_major(slot + kSlice, W, ldw, col0, N, s * kBK, H);  // B (col, k) = W[k, col0 + col]
+      },
+      [&](int, const float* slot) { mma_slice<true, kXS, false, kKS>(slot, slot + kSlice, acc); });
 }
 
 }  // namespace

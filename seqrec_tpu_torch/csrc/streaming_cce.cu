@@ -11,23 +11,26 @@
 // rows with g = 0 contribute nothing.
 //
 // What bounds it on an H100: operations. At B=1024, H=128, N=50,000 the
-// stats are 2 B H N = 13 GFLOP (f32 FMA: 0.20 ms at 67 TFLOP/s) and the
-// gradients need three products, 39 GFLOP (0.59 ms as f32 FMA, 0.24 ms as
-// three TF32 passes at 495 TFLOP/s), against a few MB of inputs and
-// outputs.
+// stats are 2 B H N = 13 GFLOP (0.20 ms as f32 FMA at 67 TFLOP/s, 0.08 ms
+// as three TF32 passes at 495 TFLOP/s) and the gradients need three
+// products, 39 GFLOP (0.59 ms as f32 FMA, 0.24 ms as three TF32 passes),
+// against a few MB of inputs and outputs.
 //
 // The TPU kernel carries its sums across a sequential grid; CUDA blocks
-// run in no order, so:
-// - stats: 64 x 64 logit tiles of f32 FMA from tile_mma.cuh. The catalog
-//   is cut into splits; the block of (row tile, split) keeps an online
-//   (m, s) per row over its split's column tiles (m starts at -inf; every
-//   tile holds at least one real column, so m is finite after the first
-//   tile and the first rescale is exp(-inf) = 0). A merge kernel combines
-//   the splits, as K4 merges its partial top-k.
-// - gradients: 128 x 128 tiles from block_mma.cuh: 3xTF32 products on the
-//   tensor cores (about f32 accuracy) with the streamed operands in a
-//   three-stage ring of 16-byte cp.async copies. dz never leaves shared
-//   memory.
+// run in no order, so the catalog is cut into splits, and every product is
+// a 128 x 128 logits tile from block_mma.cuh's logits_block: 3xTF32 on the
+// tensor cores (about f32 accuracy), the streamed operands in a
+// three-stage ring of 16-byte cp.async copies (h and W come with row
+// strides that are multiples of 4 floats: the wrapper pads them once a
+// step).
+// - stats: the block of (row tile, split) walks its split's column tiles.
+//   Each thread keeps an online (m, s) for each of its 8 rows over its 8
+//   columns of every tile (m starts at -inf; a thread may see only masked
+//   columns, and then rescales against 0, not -inf). At the end the 4
+//   lanes that share a row merge theirs by shuffles, then the 4 warps
+//   through shared memory, in a fixed order. A merge kernel combines the
+//   splits, as K4 merges its partial top-k.
+// - gradients: dz never leaves shared memory.
 //   - dW and db: the block of (column tile, H chunk) owns
 //     dW[chunk, tile] (and db[tile] in the first chunk) and walks every
 //     row tile: logits, dz, dW += h^T dz. Each output is written once.
@@ -42,95 +45,109 @@
 #include <math.h>
 
 #include "block_mma.cuh"
-#include "tile_mma.cuh"
+#include "split_sum.cuh"
 
 namespace {
 
-// acc[i][j] = z[row0 + ty + 16 i, col0 + tx + 16 j] (h W + b); rows past B
-// and columns past N hold b or 0 and must be masked by the caller.
-__device__ __forceinline__ void logits_tile(const float* __restrict__ h, const float* __restrict__ W,
-                                            const float* __restrict__ bias, int B, int H, int N,
-                                            int row0, int col0, float* As, float* Bs,
-                                            float acc[4][4]) {
-  zero_acc(acc);
-  for (int k0 = 0; k0 < H; k0 += kTile) {
-    __syncthreads();
-    // As[k][r] = h[row0 + r, k0 + k]; Bs[k][c] = W[k0 + k, col0 + c]
-    for (int e = threadIdx.x; e < kTile * kTile; e += kTileThreads) {
-      const int r = e / kTile, k = e - r * kTile;
-      const bool ok = row0 + r < B && k0 + k < H;
-      As[k * kTS + r] = ok ? h[(size_t)(row0 + r) * H + k0 + k] : 0.0f;
+// the bias of the thread's 8 columns (frag_col(nt, e)) of a column tile,
+// 0 at and past end
+__device__ __forceinline__ void load_col_bias(float bj[4][2], const float* __restrict__ bias,
+                                              int end, int col0) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = col0 + frag_col(nt, e);
+      bj[nt][e] = col < end ? bias[col] : 0.0f;
     }
-    load_tile(Bs, W, N, k0, H, col0, N);
-    __syncthreads();
-    tile_mma(As, Bs, min(kTile, H - k0), acc);
-  }
-  const int tx = threadIdx.x & 15;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = col0 + tx + 16 * j;
-    const float bj = col < N ? bias[col] : 0.0f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i][j] += bj;
   }
 }
 
-__device__ __forceinline__ float reduce16_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// (m, s) of one row merged with (mo, so); m = -inf (no column yet) has
+// s = 0. Symmetric to the bit, so two lanes that swap theirs agree.
+__device__ __forceinline__ void lse_merge(float& m, float& s, float mo, float so) {
+  const float mx = fmaxf(m, mo);
+  const float ref = mx == -INFINITY ? 0.0f : mx;
+  s = s * expf(m - ref) + so * expf(mo - ref);
+  m = mx;
 }
 
-__device__ __forceinline__ float reduce16_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+constexpr size_t kStatsSmem = (size_t)(kStages * kSlot + 2 * 4 * kBT) * sizeof(float);
 
 // grid (row tiles, splits): part_m/part_s [n_splits, B]
-__global__ void __launch_bounds__(kTileThreads) stats_partial_kernel(
-    const float* __restrict__ h, const float* __restrict__ W, const float* __restrict__ bias,
-    float* __restrict__ part_m, float* __restrict__ part_s, int B, int H, int N,
-    int cols_per_split) {
-  __shared__ float As[kTile * kTS];
-  __shared__ float Bs[kTile * kTS];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int row0 = blockIdx.x * kTile;
+__global__ void __launch_bounds__(kBThreads, 1) stats_partial_kernel(
+    const float* __restrict__ h, size_t ldh, const float* __restrict__ W, size_t ldw,
+    const float* __restrict__ bias, float* __restrict__ part_m, float* __restrict__ part_s, int B,
+    int H, int N, int cols_per_split) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* red = ring + kStages * kSlot;  // [m of warp column 0..3 | s of 0..3][row]
+  const int row0 = blockIdx.x * kBT;
   const int c_begin = blockIdx.y * cols_per_split;
   const int c_end = min(N, c_begin + cols_per_split);
-  float m_run[4], s_run[4], acc[4][4];
+  float m_run[4][2], s_run[4][2], acc[4][4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    s_run[i] = 0.0f;
-  }
-  for (int col0 = c_begin; col0 < c_end; col0 += kTile) {
-    logits_tile(h, W, bias, B, H, N, row0, col0, As, Bs, acc);
+  for (int mt = 0; mt < 4; ++mt) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float v[4], cm = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = col0 + tx + 16 * j < c_end ? acc[i][j] : -INFINITY;
-        cm = fmaxf(cm, v[j]);
-      }
-      const float m_new = fmaxf(m_run[i], reduce16_max(cm));
-      float ps = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ps += expf(v[j] - m_new);
-      s_run[i] = s_run[i] * expf(m_run[i] - m_new) + reduce16_sum(ps);
-      m_run[i] = m_new;
+    for (int half = 0; half < 2; ++half) {
+      m_run[mt][half] = -INFINITY;
+      s_run[mt][half] = 0.0f;
     }
   }
-  if (tx == 0) {
+  for (int col0 = c_begin; col0 < c_end; col0 += kBT) {
+    float bj[4][2];
+    load_col_bias(bj, bias, c_end, col0);
+    logits_block(h, ldh, W, ldw, B, H, N, row0, col0, ring, acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + ty + 16 * i;
-      if (row < B) {
-        part_m[(size_t)blockIdx.y * B + row] = m_run[i];
-        part_s[(size_t)blockIdx.y * B + row] = s_run[i];
+    for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float v[8], cm = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool real = col0 + frag_col(nt, e) < c_end;
+            v[2 * nt + e] = real ? acc[mt][nt][2 * half + e] + bj[nt][e] : -INFINITY;
+            cm = fmaxf(cm, v[2 * nt + e]);
+          }
+        }
+        const float mx = fmaxf(m_run[mt][half], cm);
+        const float ref = mx == -INFINITY ? 0.0f : mx;
+        float ps = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ps += expf(v[j] - ref);
+        s_run[mt][half] = s_run[mt][half] * expf(m_run[mt][half] - ref) + ps;
+        m_run[mt][half] = mx;
       }
     }
+  }
+  const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float m = m_run[mt][half], s = s_run[mt][half];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of the row
+        const float mo = __shfl_xor_sync(0xffffffffu, m, off);
+        const float so = __shfl_xor_sync(0xffffffffu, s, off);
+        lse_merge(m, s, mo, so);
+      }
+      if ((lane & 3) == 0) {
+        const int r = frag_row(mt, 2 * half);
+        red[wn * kBT + r] = m;
+        red[(4 + wn) * kBT + r] = s;
+      }
+    }
+  }
+  __syncthreads();
+  const int r = threadIdx.x, row = row0 + r;
+  if (r < kBT && row < B) {  // the 4 warp columns, in order
+    float m = red[r], s = red[4 * kBT + r];
+    for (int q = 1; q < 4; ++q) lse_merge(m, s, red[q * kBT + r], red[(4 + q) * kBT + r]);
+    part_m[(size_t)blockIdx.y * B + row] = m;
+    part_s[(size_t)blockIdx.y * B + row] = s;
   }
 }
 
@@ -146,23 +163,6 @@ __global__ void stats_merge_kernel(const float* __restrict__ part_m, const float
     acc += part_s[(size_t)k * B + row] * expf(part_m[(size_t)k * B + row] - mx);
   m[row] = mx;
   s[row] = acc;
-}
-
-// acc = (h W)[row0 + frag_row, col0 + frag_col] for one 128 x 128 tile
-// (b not added); rows past B and columns past N hold 0. h and W have row
-// strides ldh and ldw (multiples of 4).
-__device__ __forceinline__ void logits_block(const float* __restrict__ h, size_t ldh,
-                                             const float* __restrict__ W, size_t ldw, int B, int H,
-                                             int N, int row0, int col0, float* ring,
-                                             float acc[4][4][4]) {
-  zero_block(acc);
-  pipeline(
-      (H + kBK - 1) / kBK, ring,
-      [&](int s, float* slot) {
-        stage_x_major(slot, h, ldh, row0, B, s * kBK, H);           // A (row, k) = h[row0 + row, k]
-        stage_k_major(slot + kSlice, W, ldw, col0, N, s * kBK, H);  // B (col, k) = W[k, col0 + col]
-      },
-      [&](int, const float* slot) { mma_slice<true, kXS, false, kKS>(slot, slot + kSlice, acc); });
 }
 
 // What dz needs of the thread's 8 rows (frag_row(mt, 2 half)) of a row
@@ -184,19 +184,6 @@ __device__ __forceinline__ void load_row_terms(RowTerms& rt, const int* __restri
       rt.lz[mt][half] = real ? logz[row] : 0.0f;
       rt.g[mt][half] = real ? g[row] : 0.0f;  // 0 outside the batch: dz = 0 there
       rt.tg[mt][half] = real ? targets[row] : -1;
-    }
-  }
-}
-
-// the bias of the thread's 8 columns (frag_col(nt, e)) of a column tile
-__device__ __forceinline__ void load_col_bias(float bj[4][2], const float* __restrict__ bias,
-                                              int N, int col0) {
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = col0 + frag_col(nt, e);
-      bj[nt][e] = col < N ? bias[col] : 0.0f;
     }
   }
 }
@@ -366,45 +353,47 @@ int launch_grads(const float* h, int ldh, const float* W, int ldw, const float* 
   return launch_sum_splits(part_dh, dh, n_splits, (size_t)B * H, s);
 }
 
-bool valid_plan(int B, int H, int N, int n_splits, int cols_per_split, int tile) {
+// the catalog cut into n_splits ranges of cols_per_split (a multiple of
+// 128) columns, none empty; h and W read with row strides ldh >= H and
+// ldw >= N, multiples of 4, from 16-byte aligned addresses
+bool valid_call(const float* h, int ldh, const float* W, int ldw, int B, int H, int N,
+                int n_splits, int cols_per_split) {
   return B > 0 && H > 0 && N > 0 && n_splits > 0 && cols_per_split > 0 &&
-         cols_per_split % tile == 0 && (long long)(n_splits - 1) * cols_per_split < N &&
-         (long long)n_splits * cols_per_split >= N;
+         cols_per_split % kBT == 0 && (long long)(n_splits - 1) * cols_per_split < N &&
+         (long long)n_splits * cols_per_split >= N && ldh >= H && ldw >= N && ldh % 4 == 0 &&
+         ldw % 4 == 0 && (uintptr_t)h % 16 == 0 && (uintptr_t)W % 16 == 0;
 }
 
 }  // namespace
 
-// (m, s) [B] from h [B, H], W [H, N], b [N]; scratch part_m, part_s
-// [n_splits, B]; the catalog is cut into n_splits ranges of cols_per_split
-// (a multiple of 64) columns, none empty.
-extern "C" int seqrec_cce_stats_f32(const float* h, const float* W, const float* bias,
-                                    float* part_m, float* part_s, float* m, float* s, int B,
-                                    int H, int N, int n_splits, int cols_per_split,
-                                    void* stream) {
-  if (!valid_plan(B, H, N, n_splits, cols_per_split, kTile)) return (int)cudaErrorInvalidValue;
+// (m, s) [B] from h [B, H], W [H, N], b [N] (h and W as valid_call
+// says); scratch part_m, part_s [n_splits, B].
+extern "C" int seqrec_cce_stats_f32(const float* h, int ldh, const float* W, int ldw,
+                                    const float* bias, float* part_m, float* part_s, float* m,
+                                    float* s, int B, int H, int N, int n_splits,
+                                    int cols_per_split, void* stream) {
+  if (!valid_call(h, ldh, W, ldw, B, H, N, n_splits, cols_per_split)) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(stats_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)kStatsSmem);
+  if (err) return err;
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid((B + kTile - 1) / kTile, n_splits);
-  stats_partial_kernel<<<grid, kTileThreads, 0, st>>>(h, W, bias, part_m, part_s, B, H, N,
-                                                      cols_per_split);
-  int err = (int)cudaGetLastError();
+  stats_partial_kernel<<<dim3((B + kBT - 1) / kBT, n_splits), kBThreads, kStatsSmem, st>>>(
+      h, ldh, W, ldw, bias, part_m, part_s, B, H, N, cols_per_split);
+  err = (int)cudaGetLastError();
   if (err) return err;
   stats_merge_kernel<<<(B + 255) / 256, 256, 0, st>>>(part_m, part_s, m, s, B, n_splits);
   return (int)cudaGetLastError();
 }
 
-// dh [B, H], dW [H, N], db [N] from h, W, b, targets int32 [B] (each in
-// [0, N)), logz [B] and the upstream cotangent g [B]; h and W are read
-// with row strides ldh >= H and ldw >= N, multiples of 4, from 16-byte
-// aligned addresses; scratch part_dh [n_splits, B, H]; the catalog cut
-// into n_splits ranges of cols_per_split (a multiple of 128) columns,
-// none empty. H up to 256.
+// dh [B, H], dW [H, N], db [N] from h, W, b (h and W as valid_call says),
+// targets int32 [B] (each in [0, N)), logz [B] and the upstream cotangent
+// g [B]; scratch part_dh [n_splits, B, H]. H up to 256.
 extern "C" int seqrec_cce_grads_f32(const float* h, int ldh, const float* W, int ldw,
                                     const float* bias, const int* targets, const float* logz,
                                     const float* g, float* dh, float* dW, float* db,
                                     float* part_dh, int B, int H, int N, int n_splits,
                                     int cols_per_split, void* stream) {
-  if (!valid_plan(B, H, N, n_splits, cols_per_split, kBT) || H > 2 * kBT || ldh < H ||
-      ldw < N || ldh % 4 || ldw % 4 || (uintptr_t)h % 16 || (uintptr_t)W % 16)
+  if (!valid_call(h, ldh, W, ldw, B, H, N, n_splits, cols_per_split) || H > 2 * kBT)
     return (int)cudaErrorInvalidValue;
   return launch_grads(h, ldh, W, ldw, bias, targets, logz, g, dh, dW, db, part_dh, B, H, N,
                       n_splits, cols_per_split, (cudaStream_t)stream);

@@ -1,6 +1,6 @@
-// A 64 x 64 f32 tile product on the CUDA cores, shared by the training
-// scans' dW products (gru_scan_train.cu, lstm_scan_train.cu) and K2's
-// stats (streaming_cce.cu); K2's gradients use block_mma.cuh.
+// A 64 x 64 f32 tile product on the CUDA cores for the training scans' dW
+// products (gru_scan_train.cu, lstm_scan_train.cu); K2 and K4 take their
+// products from block_mma.cuh.
 //
 // A block of kTileThreads threads owns one 64 x 64 output tile; thread
 // (ty, tx) = (tid / 16, tid % 16) holds the 4 x 4 outputs (ty + 16 i,
@@ -10,11 +10,12 @@
 //   acc[i][j] += sum_k As[k][ty + 16 i] * Bs[k][tx + 16 j].
 // Every step reads 4 + 4 shared floats for 16 FMAs; the callers accept
 // that (about a quarter of the f32 peak) for a first, simple kernel.
-// TF32 and the tensor cores (wgmma) are left for a later version.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "split_sum.cuh"
 
 namespace {
 
@@ -88,24 +89,6 @@ __global__ void __launch_bounds__(kTileThreads) atb_partial_kernel(
       if (m < M && n < N) out[(size_t)m * N + n] = acc[i][j];
     }
   }
-}
-
-// out[i] = sum_s part[s * count + i], in split order (deterministic).
-__global__ void sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                  int n_splits, size_t count) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float acc = 0.0f;
-  for (int s = 0; s < n_splits; ++s) acc += part[(size_t)s * count + i];
-  out[i] = acc;
-}
-
-inline int launch_sum_splits(const float* part, float* out, int n_splits, size_t count,
-                             cudaStream_t stream) {
-  const int threads = 256;
-  const unsigned grid = (unsigned)((count + threads - 1) / threads);
-  if (grid) sum_splits_kernel<<<grid, threads, 0, stream>>>(part, out, n_splits, count);
-  return (int)cudaGetLastError();
 }
 
 // out [M, N] = A^T Bm for A [K, M], Bm [K, N]: the K rows cut into n_splits

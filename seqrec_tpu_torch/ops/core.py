@@ -34,18 +34,41 @@ def maybe_grad_clip(x: torch.Tensor, limit: float) -> torch.Tensor:
     return grad_clip(x, limit) if limit and x.requires_grad else x
 
 
-def check_tensors(fn: str, device, expected: dict) -> None:
+def check_tensors(fn: str, device, expected: dict, rows=()) -> None:
     """Raise unless every ``name: (tensor, dtype, shape)`` of ``expected``
     is a contiguous tensor of that dtype and shape on ``device``, and
     ``device`` is a CUDA device (the kernels' wrappers check their inputs
-    with this before passing pointers)."""
+    with this before passing pointers). The 2-D tensors named in ``rows``
+    need only contiguous rows: a row stride of at least their width."""
     if device.type != "cuda":
         raise ValueError(f"{fn}: no kernel for device {device}")
     for name, (t, dtype, shape) in expected.items():
-        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        dense = has_dense_rows(t) if name in rows else t.is_contiguous()
+        if t.device != device or t.dtype != dtype or not dense:
             raise ValueError(f"{fn}: {name} must be a contiguous {dtype} tensor on {device}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def has_dense_rows(x: torch.Tensor) -> bool:
+    """x is 2-D with contiguous rows that do not overlap."""
+    if x.dim() != 2:
+        return False
+    return (x.shape[1] <= 1 or x.stride(1) == 1) and (x.shape[0] <= 1 or x.stride(0) >= x.shape[1])
+
+
+def rows_16b(x: torch.Tensor) -> torch.Tensor:
+    """x [R, C] itself when its rows start 16-byte aligned (contiguous rows,
+    a row stride that is a multiple of 4, aligned data), else a copy whose
+    rows are padded with zeros to a multiple of 4 floats, as its [R, C]
+    view: the block products of K2 and K4 copy 16-byte chunks and read the
+    row stride from ``x.stride(0)``."""
+    C = x.shape[1]
+    if has_dense_rows(x) and x.stride(0) % 4 == 0 and x.data_ptr() % 16 == 0:
+        return x
+    if C % 4 == 0:  # misaligned or strided: a fresh copy is aligned
+        return x.clone(memory_format=torch.contiguous_format)
+    return torch.nn.functional.pad(x, (0, -C % 4))[:, :C]  # one kernel on the card
 
 
 def gather_sum(table: torch.Tensor, ids: torch.Tensor, id_mask: torch.Tensor | None = None):

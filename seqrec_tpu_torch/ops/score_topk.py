@@ -8,9 +8,9 @@ package's CPU path (``masked_top_k`` -> ``lax.top_k``) returns, rows with
 fewer than k unmasked items included.
 
 On a CUDA tensor :func:`fused_score_topk` launches the two kernels of
-``csrc/score_topk.cu`` (per-split partial top-k, then a merge) for any
-catalog size and k <= 64; on a CPU tensor it runs
-:func:`fused_score_topk_plain`.
+``csrc/score_topk.cu`` (per-split partial top-k on 3xTF32 tensor-core
+logits tiles, then a merge) for any catalog size and k <= 64; on a CPU
+tensor it runs :func:`fused_score_topk_plain`.
 """
 
 from __future__ import annotations
@@ -20,12 +20,13 @@ import ctypes
 import torch
 
 from seqrec_tpu_torch.ops import _build
-from seqrec_tpu_torch.ops.core import check_tensors, mask_seen, top_k_sorted
+from seqrec_tpu_torch.ops.core import check_tensors, mask_seen, rows_16b, top_k_sorted
 
 MAX_K = 64  # the kernel's per-row list length (csrc/score_topk.cu kMaxK)
-TILE_COLS = 256  # catalog columns of one tile (kThreads)
-ROWS_PER_BLOCK = 16  # batch rows of one block (kRows)
+TILE = 128  # rows and columns of one logits tile (csrc/block_mma.cuh kBT)
 MAX_CANDIDATES = 2048  # splits * k candidates the merge kernel ranks per row
+RING_BYTES = 3 * 2 * TILE * 36 * 4  # block_mma.cuh's copy ring; the spilled tile reuses it
+H100_SMEM_OPTIN = 232_448  # shared memory a block may use on an H100
 
 
 def fused_score_topk_plain(h, w_out, b_out, seen_ids=None, seen_mask=None, k: int = 10):
@@ -34,21 +35,41 @@ def fused_score_topk_plain(h, w_out, b_out, seen_ids=None, seen_mask=None, k: in
     return top_k_sorted(mask_seen(h @ w_out + b_out, seen_ids, seen_mask), k)
 
 
-def split_plan(B: int, N: int, k: int, n_sm: int) -> tuple[int, int]:
-    """(n_splits, cols_per_split) for the partial kernel: enough catalog
-    splits for about two blocks per SM, whole tiles per split, and at most
-    MAX_CANDIDATES candidates per row for the merge."""
-    row_tiles = -(-B // ROWS_PER_BLOCK)
-    col_tiles = -(-N // TILE_COLS)
-    n_splits = max(1, min(-(-2 * n_sm // row_tiles), col_tiles, MAX_CANDIDATES // k))
-    cols_per_split = -(-col_tiles // n_splits) * TILE_COLS
-    return -(-N // cols_per_split), cols_per_split
+def partial_smem(k: int) -> int:
+    """Bytes of shared memory of the partial kernel: the copy ring (which
+    later holds the spilled logits tile) and each row's sorted list. The
+    seen ids are read from device memory, so S does not count."""
+    return RING_BYTES + TILE * k * 8
+
+
+def split_plan(B: int, N: int, k: int, n_sm: int, smem_optin: int = H100_SMEM_OPTIN) -> tuple[int, int, int]:
+    """(n_splits, cols_per_split, groups) of the partial kernel: whole
+    128-column tiles per split, no split empty, at most MAX_CANDIDATES
+    candidates per row for the merge, and one block per SM (a block holds
+    most of an SM's shared memory). Where the logits tiles alone would
+    leave most SMs idle, ``groups`` blocks (up to 8, at least 8 rows each)
+    share each tile, each inserting for its slice of the tile's rows.
+    Raises on a k or a shared-memory size the kernel cannot take."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"fused_score_topk: the kernel takes 1 <= k <= {MAX_K}, got {k}")
+    if partial_smem(k) > smem_optin:
+        raise ValueError(f"fused_score_topk: k={k} needs {partial_smem(k)} bytes of shared memory, "
+                         f"the card gives a block {smem_optin}")
+    row_tiles = -(-B // TILE)
+    col_tiles = -(-N // TILE)
+    groups = 1
+    if 2 * row_tiles * col_tiles < n_sm:
+        while groups < 8 and 8 * groups < min(B, TILE):
+            groups *= 2
+    n_splits = max(1, min(col_tiles, MAX_CANDIDATES // k, n_sm // (row_tiles * groups)))
+    cols_per_split = -(-col_tiles // n_splits) * TILE
+    return -(-N // cols_per_split), cols_per_split, groups
 
 
 def _library():
     fn = _build.load("score_topk").seqrec_score_topk_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -56,7 +77,9 @@ def _library():
 def fused_score_topk(h, w_out, b_out, seen_ids=None, seen_mask=None, k: int = 10):
     """Top-k (values f32 [B, k], ids int32 [B, k]) of h [B, H] · w_out [H, N]
     + b_out [N], with seen_ids int32 [B, S] masked where seen_mask [B, S]
-    is > 0 (both None: nothing masked)."""
+    is > 0 (both None: nothing masked). h and w_out need contiguous rows;
+    where a row is not a multiple of 16 bytes, they are copied with padded
+    rows (:func:`rows_16b`)."""
     if h.device.type == "cpu":
         return fused_score_topk_plain(h, w_out, b_out, seen_ids, seen_mask, k)
     if not 1 <= k <= MAX_K:
@@ -74,22 +97,24 @@ def fused_score_topk(h, w_out, b_out, seen_ids=None, seen_mask=None, k: int = 10
     if S:
         expected["seen_ids"] = (seen_ids, torch.int32, (B, S))
         expected["seen_mask"] = (seen_mask, torch.float32, (B, S))
-    check_tensors("fused_score_topk", h.device, expected)
+    check_tensors("fused_score_topk", h.device, expected, rows=("h", "w_out"))
     values = torch.empty((B, k), dtype=torch.float32, device=h.device)
     ids = torch.empty((B, k), dtype=torch.int32, device=h.device)
     if B == 0:
         return values, ids
+    # the kernel checks the card's own shared-memory limit again
     n_sm = torch.cuda.get_device_properties(h.device).multi_processor_count
-    n_splits, cols_per_split = split_plan(B, N, k, n_sm)
+    n_splits, cols_per_split, groups = split_plan(B, N, k, n_sm)
+    h, w_out = rows_16b(h), rows_16b(w_out)
     part_v = torch.empty((B, n_splits, k), dtype=torch.float32, device=h.device)
     part_i = torch.empty((B, n_splits, k), dtype=torch.int32, device=h.device)
     fn = _library()
     with torch.cuda.device(h.device):
         err = fn(
-            h.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
+            h.data_ptr(), h.stride(0), w_out.data_ptr(), w_out.stride(0), b_out.data_ptr(),
             seen_ids.data_ptr() if S else None, seen_mask.data_ptr() if S else None,
             part_v.data_ptr(), part_i.data_ptr(), values.data_ptr(), ids.data_ptr(),
-            B, H, N, S, k, n_splits, cols_per_split,
+            B, H, N, S, k, n_splits, cols_per_split, groups,
             torch.cuda.current_stream().cuda_stream,
         )
     if err:

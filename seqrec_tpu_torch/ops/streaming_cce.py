@@ -11,8 +11,11 @@ columns outside the kernel, as in the JAX package. On CPU tensors
 :func:`cce_stats_plain` and :func:`cce_grads_plain` compute the same from
 the dense logits.
 
-The kernel masks the ragged catalog edge itself: there is no column
-padding and no chunk-size choice. Targets outside ``[0, N)`` raise.
+The kernels mask the ragged catalog edge themselves: there is no chunk-size
+choice. They copy h and W in 16-byte chunks, so rows whose length is not a
+multiple of 4 floats are padded (:func:`rows_16b`): once a step in the
+forward, which passes the padded tensors on to the backward. Targets
+outside ``[0, N)`` raise.
 """
 
 from __future__ import annotations
@@ -22,13 +25,13 @@ import ctypes
 import torch
 
 from seqrec_tpu_torch.ops import _build
-from seqrec_tpu_torch.ops.core import check_tensors
+from seqrec_tpu_torch.ops.core import check_tensors, rows_16b
 
 # catalogs at least this large route RNNOneHot's training loss through the
 # streaming op (the JAX package's switch; not re-derived for the H100 yet)
 STREAMING_CCE_MIN_ITEMS = 16384
-TILE = 64  # rows and columns of one stats logit tile (csrc/tile_mma.cuh kTile)
-GRAD_TILE = 128  # rows, columns and H chunk of one gradient tile (csrc/block_mma.cuh kBT)
+TILE = 128  # rows, columns and H chunk of one logits tile (csrc/block_mma.cuh kBT)
+STATS_SMEM = (3 * 2 * TILE * 36 + 8 * TILE) * 4  # the stats kernel's ring and row sums (kStatsSmem)
 MAX_H = 256  # the gradient kernels take H in at most two 128-wide chunks
 
 
@@ -49,36 +52,32 @@ def cce_grads_plain(h, W, b, targets, logz, g):
     return dz @ W.t(), h.t() @ dz, dz.sum(dim=0)
 
 
-def split_plan(B: int, N: int, n_sm: int) -> tuple[int, int]:
-    """(n_splits, cols_per_split) of the catalog for the stats kernel:
-    about two blocks per SM over the row tiles, whole 64-column tiles per
-    split, no split empty."""
+def split_plan(B: int, N: int, n_sm: int, h_chunks: int = 1) -> tuple[int, int]:
+    """(n_splits, cols_per_split) of the catalog for a grid of (row tiles,
+    catalog splits, h_chunks): about one block per SM (each holds most of
+    an SM's shared memory and registers), whole 128-column tiles per
+    split, no split empty. The stats kernel's plan (h_chunks = 1)."""
     row_tiles = -(-B // TILE)
     col_tiles = -(-N // TILE)
-    n_splits = max(1, min(-(-2 * n_sm // row_tiles), col_tiles))
+    n_splits = max(1, min(col_tiles, n_sm // (row_tiles * h_chunks)))
     cols = -(-col_tiles // n_splits) * TILE
     return -(-N // cols), cols
 
 
 def grads_plan(B: int, H: int, N: int, n_sm: int) -> tuple[int, int, int]:
     """(n_splits, cols_per_split, h_chunks) of the gradient kernels: the
-    dh kernel's grid of (row tiles, catalog splits, H chunks) about one
-    block per SM (each holds a whole SM's share of shared memory and
-    registers), whole 128-column tiles per split, no split empty; the
-    scratch is n_splits partial dh [B, H]."""
-    row_tiles = -(-B // GRAD_TILE)
-    col_tiles = -(-N // GRAD_TILE)
-    h_chunks = -(-H // GRAD_TILE)
-    n_splits = max(1, min(col_tiles, n_sm // (row_tiles * h_chunks)))
-    cols = -(-col_tiles // n_splits) * GRAD_TILE
-    return -(-N // cols), cols, h_chunks
+    dh kernel's grid of (row tiles, catalog splits, H chunks) as
+    :func:`split_plan` lays it out; the scratch is n_splits partial dh
+    [B, H]."""
+    h_chunks = -(-H // TILE)
+    return (*split_plan(B, N, n_sm, h_chunks), h_chunks)
 
 
 def _library():
     lib = _build.load("streaming_cce")
     stats, grads = lib.seqrec_cce_stats_f32, lib.seqrec_cce_grads_f32
     if stats.argtypes is None:
-        stats.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        stats.argtypes = [ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         stats.restype = ctypes.c_int
         grads.argtypes = (
             [ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -88,7 +87,7 @@ def _library():
 
 
 def _check(fn: str, h, expected: dict) -> None:
-    check_tensors(fn, h.device, expected)
+    check_tensors(fn, h.device, expected, rows=("h", "W"))
     if 0 in h.shape or expected["W"][0].shape[1] == 0:
         raise ValueError(f"{fn}: the kernel needs B, H and N >= 1")
 
@@ -97,22 +96,10 @@ def _n_sm(h):
     return torch.cuda.get_device_properties(h.device).multi_processor_count
 
 
-def _rows_16b(x):
-    """x [R, C] itself when its rows start 16-byte aligned (C a multiple
-    of 4, the data aligned), else a copy with C padded to a multiple of 4
-    (the gradient kernels copy 16-byte chunks). Returns (tensor, row
-    stride)."""
-    R, C = x.shape
-    if C % 4 == 0 and x.data_ptr() % 16 == 0:
-        return x, C
-    padded = torch.zeros((R, -(-C // 4) * 4), dtype=x.dtype, device=x.device)
-    padded[:, :C] = x
-    return padded, padded.shape[1]
-
-
 def cce_stats(h, W, b):
     """(m, s) [B] of the logits h W + b; CUDA tensors launch K2's stats
-    kernels, CPU tensors run :func:`cce_stats_plain`."""
+    kernels, CPU tensors run :func:`cce_stats_plain`. h and W need
+    contiguous rows (padded here where they are not 16-byte rows)."""
     if h.device.type == "cpu":
         return cce_stats_plain(h, W, b)
     B, H = h.shape
@@ -123,11 +110,12 @@ def cce_stats(h, W, b):
     part = torch.empty((2, n_splits, B), dtype=f32, device=h.device)
     m = torch.empty(B, dtype=f32, device=h.device)
     s = torch.empty(B, dtype=f32, device=h.device)
+    h, W = rows_16b(h), rows_16b(W)
     stats, _ = _library()
     with torch.cuda.device(h.device):
         err = stats(
-            h.data_ptr(), W.data_ptr(), b.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-            m.data_ptr(), s.data_ptr(), B, H, N, n_splits, cols,
+            h.data_ptr(), h.stride(0), W.data_ptr(), W.stride(0), b.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), m.data_ptr(), s.data_ptr(), B, H, N, n_splits, cols,
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
@@ -139,7 +127,8 @@ def cce_stats(h, W, b):
 def cce_grads(h, W, b, targets, logz, g):
     """(dh, dW, db) of sum_i g[i] * CCE_i; targets int32 [B] in [0, N),
     logz and g f32 [B]. CUDA tensors launch K2's gradient kernels, CPU
-    tensors run :func:`cce_grads_plain`."""
+    tensors run :func:`cce_grads_plain`. h and W need contiguous rows
+    (padded here where they are not 16-byte rows)."""
     if h.device.type == "cpu":
         return cce_grads_plain(h, W, b, targets, logz, g)
     B, H = h.shape
@@ -156,11 +145,11 @@ def cce_grads(h, W, b, targets, logz, g):
     dW = torch.empty((H, N), dtype=f32, device=h.device)
     db = torch.empty(N, dtype=f32, device=h.device)
     part = torch.empty((n_splits, B, H), dtype=f32, device=h.device)
-    (hk, ldh), (Wk, ldw) = _rows_16b(h), _rows_16b(W)
+    h, W = rows_16b(h), rows_16b(W)
     _, grads = _library()
     with torch.cuda.device(h.device):
         err = grads(
-            hk.data_ptr(), ldh, Wk.data_ptr(), ldw, b.data_ptr(), targets.data_ptr(), logz.data_ptr(),
+            h.data_ptr(), h.stride(0), W.data_ptr(), W.stride(0), b.data_ptr(), targets.data_ptr(), logz.data_ptr(),
             g.data_ptr(), dh.data_ptr(), dW.data_ptr(), db.data_ptr(), part.data_ptr(),
             B, H, N, n_splits, cols, torch.cuda.current_stream().cuda_stream,
         )
@@ -184,6 +173,8 @@ class _StreamingCCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, W, b, targets):
         h, W, b = h.contiguous(), W.contiguous(), b.contiguous()
+        if h.is_cuda:  # once a step, for both kernels
+            h, W = rows_16b(h), rows_16b(W)
         targets = targets.to(torch.int32).contiguous()
         m, s = cce_stats(h, W, b)
         ctx.save_for_backward(h, W, b, targets, m, s)

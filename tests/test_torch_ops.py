@@ -26,7 +26,15 @@ from seqrec_tpu_torch.ops.rnn_scan import (
     gru_scan_plain,
     gru_scan_plan,
 )
-from seqrec_tpu_torch.ops.score_topk import fused_score_topk, fused_score_topk_plain, split_plan
+from seqrec_tpu_torch.ops.score_topk import (
+    MAX_CANDIDATES,
+    MAX_K,
+    TILE,
+    fused_score_topk,
+    fused_score_topk_plain,
+    partial_smem,
+    split_plan,
+)
 
 B, L, H = 9, 7, 12  # ragged: no size is a power of two
 
@@ -172,11 +180,92 @@ def test_wrappers_on_cpu_tensors_run_the_plain_version_and_count_no_launch():
     assert gru_scan.launches == 0 and gru_scan.cluster_launches == 0 and fused_score_topk.launches == 0
 
 
-@pytest.mark.parametrize("B,N,k", [(64, 3706, 10), (512, 200_000, 10), (5, 100, 64), (1, 10, 1)])
+@pytest.mark.parametrize(
+    "B,N,k",
+    [(64, 3706, 10), (512, 200_000, 10), (5, 100, 64), (1, 10, 1), (512, 49_999, 10), (129, 3706, 10),
+     (6, 25, 10), (64, 3706, 64), (40, 200_001, 10), (4096, 3706, 10)],
+)
 def test_split_plan_covers_the_catalog_in_whole_tiles(B, N, k):
-    n_splits, cols = split_plan(B, N, k, n_sm=132)
-    assert cols % 256 == 0 and (n_splits - 1) * cols < N <= n_splits * cols
-    assert n_splits * k <= 2048
+    """K4's plan: whole 128-column tiles per split, no split empty, the
+    merge's candidate cap, one block per SM at most, row groups of at
+    least 8 rows only where the logits tiles leave most SMs idle, and a
+    partial kernel that fits an H100 block for every k up to 64 (the seen
+    ids, S of them a row, stay in device memory); past that it raises."""
+    n_splits, cols, groups = split_plan(B, N, k, n_sm=132)
+    assert cols % TILE == 0 and (n_splits - 1) * cols < N <= n_splits * cols
+    assert n_splits * k <= MAX_CANDIDATES
+    row_tiles = -(-B // TILE)
+    assert row_tiles * n_splits * groups <= 132 or n_splits == 1
+    assert groups in (1, 2, 4, 8)
+    if groups > 1:
+        assert -(-min(B, TILE) // groups) >= 8 and 2 * row_tiles * -(-N // TILE) < 132
+    assert partial_smem(k) <= partial_smem(MAX_K) <= H100_SMEM_OPTIN
+    with pytest.raises(ValueError, match="1 <= k"):
+        split_plan(B, N, MAX_K + 1, n_sm=132)
+    with pytest.raises(ValueError, match="shared memory"):
+        split_plan(B, N, k, n_sm=132, smem_optin=partial_smem(k) - 1)
+
+
+def _tf32(x):
+    """x with the low 13 mantissa bits cleared: a TF32 value, as the
+    tensor cores read an f32 register (and as split_tf32 masks the head)."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mma_3xtf32(a, b):
+    """a [M, K] @ b [K, N] in f32 as block_mma.cuh's mma_slice runs it:
+    each operand split into head = tf32(x) and tail = x - head (read
+    truncated to TF32), and per 8-deep k step three m16n8k8 products
+    (tail*head, head*tail, head*head) added to the f32 sum."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k0 in range(0, a.shape[1], 8):
+        ks = slice(k0, k0 + 8)
+        for x, y in ((a_small, b_big), (a_big, b_small), (a_big, b_big)):
+            acc = acc + x[:, ks] @ y[ks]
+    return acc
+
+
+@pytest.mark.parametrize(
+    "B,H,N",
+    # K4 at the flagship's serving chunk and at GRU-256 serving (rows cut
+    # to 16), K2's stats at the large-catalog training shape (rows cut to 16)
+    [(64, 50, 3706), (16, 256, 49_999), (16, 128, 50_000)],
+    ids=["k4-B64-H50-N3706", "k4-H256-N49999", "k2-H128-N50000"],
+)
+def test_3xtf32_products_stay_inside_the_kernel_tolerances(B, H, N):
+    """The 3xTF32 split of block_mma.cuh, emulated on the CPU, against
+    float64: scores within K4's value tolerance (rtol 1e-5, atol 1e-6),
+    top-10 ids equal wherever the 10th/11th gap exceeds 1e-4 max|score|,
+    and log-sum-exp stats (m, s) within K2's (rtol 1e-4 + atol 1e-5
+    max|s|). One TF32 pass alone would miss the score tolerance."""
+    rng = np.random.default_rng(H + N)
+    limit = np.sqrt(6.0 / (H + N))
+    h = rng.uniform(-1, 1, (B, H)).astype(np.float32)
+    w = rng.uniform(-limit, limit, (H, N)).astype(np.float32)
+    b = rng.normal(0.0, 0.1, N).astype(np.float32)
+    ref = h.astype(np.float64) @ w.astype(np.float64) + b
+    got = (_mma_3xtf32(torch.from_numpy(h), torch.from_numpy(w)) + torch.from_numpy(b)).double().numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    one_pass = (_tf32(torch.from_numpy(h)) @ _tf32(torch.from_numpy(w)) + torch.from_numpy(b)).double().numpy()
+    assert not np.allclose(one_pass, ref, rtol=1e-5, atol=1e-6)
+
+    k = 10
+    order = np.argsort(-ref, axis=1, kind="stable")
+    top_ref = np.take_along_axis(ref, order[:, : k + 1], 1)
+    clean = top_ref[:, k - 1] - top_ref[:, k] > 1e-4 * np.abs(ref).max()
+    assert clean.any()
+    got_ids = np.sort(np.argsort(-got, axis=1, kind="stable")[:, :k], axis=1)
+    np.testing.assert_array_equal(got_ids[clean], np.sort(order[:, :k], axis=1)[clean])
+
+    m_ref = ref.max(axis=1)
+    s_ref = np.exp(ref - m_ref[:, None]).sum(axis=1)
+    got = got.astype(np.float32)
+    m = got.max(axis=1)
+    s = np.exp(got - m[:, None]).sum(axis=1, dtype=np.float32)
+    np.testing.assert_allclose(m, m_ref, rtol=1e-4, atol=1e-5 * np.abs(m_ref).max())
+    np.testing.assert_allclose(s, s_ref, rtol=1e-4, atol=1e-5 * s_ref.max())
 
 
 H100_SMS, H100_SMEM_OPTIN = 132, 232_448

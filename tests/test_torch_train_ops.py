@@ -26,7 +26,7 @@ from seqrec_tpu.ops.streaming_cce import _pad_cols
 from seqrec_tpu.ops.streaming_cce import streaming_cce as jax_streaming_cce
 from seqrec_tpu_torch.models import updates
 from seqrec_tpu_torch.ops import losses
-from seqrec_tpu_torch.ops.core import gather_sum, grad_clip
+from seqrec_tpu_torch.ops.core import gather_sum, grad_clip, rows_16b
 from seqrec_tpu_torch.ops.rnn_scan_train import (
     gru_scan_train,
     gru_scan_train_bwd,
@@ -34,14 +34,15 @@ from seqrec_tpu_torch.ops.rnn_scan_train import (
     gru_scan_train_plain,
 )
 from seqrec_tpu_torch.ops.streaming_cce import (
-    GRAD_TILE,
     MAX_H,
-    _rows_16b,
+    STATS_SMEM,
+    TILE,
     cce_grads,
     cce_grads_plain,
     cce_stats,
     cce_stats_plain,
     grads_plan,
+    split_plan,
     streaming_cce,
 )
 
@@ -132,23 +133,56 @@ def test_grads_plan_covers_the_catalog_in_whole_tiles(B, H, N):
     split empty, H in at most two 128-wide chunks, about one dh block per
     SM, and a dh scratch of n_splits [B, H] partials."""
     n_splits, cols, h_chunks = grads_plan(B, H, N, n_sm=132)
-    assert cols % GRAD_TILE == 0 and (n_splits - 1) * cols < N <= n_splits * cols
-    assert h_chunks == -(-H // GRAD_TILE) and h_chunks * GRAD_TILE >= H and H <= MAX_H
-    dh_blocks = -(-B // GRAD_TILE) * n_splits * h_chunks
+    assert cols % TILE == 0 and (n_splits - 1) * cols < N <= n_splits * cols
+    assert h_chunks == -(-H // TILE) and h_chunks * TILE >= H and H <= MAX_H
+    dh_blocks = -(-B // TILE) * n_splits * h_chunks
     assert dh_blocks <= 132 or n_splits == 1
     assert n_splits * B * H * 4 <= 16 * 1024 * 1024 * h_chunks  # the scratch stays small
     if (B, H, N) == (1024, 128, 50_000):
         assert (n_splits, cols, h_chunks) == (16, 3200, 1)
 
 
+@pytest.mark.parametrize("B,N", [(1024, 50_000), (1024, 49_999), (1000, 50_001), (16, 3706), (1, 300), (5000, 200_000)])
+def test_stats_split_plan_fills_the_card_in_whole_tiles(B, N):
+    """K2 stats' plan: whole 128-column tiles per split, no split empty,
+    one block per SM at most and at least half the card unless every tile
+    has its own split; the kernel's shared memory fits an H100 block."""
+    n_splits, cols = split_plan(B, N, n_sm=132)
+    assert cols % TILE == 0 and (n_splits - 1) * cols < N <= n_splits * cols
+    blocks = -(-B // TILE) * n_splits
+    assert blocks <= 132 or n_splits == 1
+    assert blocks >= 66 or n_splits == -(-N // TILE)
+    assert STATS_SMEM <= 232_448
+    if (B, N) == (1024, 50_000):
+        assert (n_splits, cols) == (16, 3200)
+
+
 @pytest.mark.parametrize("C", [128, 3706, 49_999])
 def test_gradient_operands_are_padded_to_16_byte_rows(C):
     x = torch.from_numpy(np.random.default_rng(C).normal(size=(3, C)).astype(np.float32))
-    rows, ld = _rows_16b(x)
-    assert ld % 4 == 0 and ld >= C and rows.data_ptr() % 16 == 0
+    rows = rows_16b(x)
+    ld = rows.stride(0)
+    assert ld % 4 == 0 and ld >= C and rows.stride(1) == 1 and rows.data_ptr() % 16 == 0
     assert (rows is x) == (C % 4 == 0)
-    torch.testing.assert_close(rows[:, :C], x, rtol=0, atol=0)
-    assert not rows[:, C:].any()
+    torch.testing.assert_close(rows, x, rtol=0, atol=0)
+    assert not rows.as_strided((3, ld), (ld, 1))[:, C:].any()
+    assert rows_16b(rows) is rows  # padded once, passed through after
+
+
+@pytest.mark.parametrize("B,H,N", [(64, 50, 3706), (512, 256, 49_999)])
+def test_score_topk_operands_are_padded_to_16_byte_rows(B, H, N):
+    """K4's operands at its path shapes: h [B, H] and W_out [H, N] get
+    rows of a multiple of 4 floats (H=50 -> 52, N=3,706 -> 3,708 and
+    49,999 -> 50,000, H=256 as it is), the values unchanged."""
+    rng = np.random.default_rng(N)
+    h = torch.from_numpy(rng.random((B, H), dtype=np.float32))
+    w = torch.from_numpy(rng.random((H, N), dtype=np.float32))
+    for x, C in ((h, H), (w, N)):
+        rows = rows_16b(x)
+        assert rows.stride(0) == -(-C // 4) * 4 and rows.data_ptr() % 16 == 0
+        assert (rows is x) == (C % 4 == 0)
+        torch.testing.assert_close(rows, x, rtol=0, atol=0)
+    torch.testing.assert_close(rows_16b(h) @ rows_16b(w), h @ w, rtol=0, atol=0)
 
 
 def test_streaming_cce_matches_jax_and_the_dense_loss():
