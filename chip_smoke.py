@@ -16,7 +16,11 @@ Phases, each printing one JSON line with its seconds:
    units a lane, empty rows, masks with holes; K4: one row, a ragged row
    tile, k = 64, a catalog under one tile, rows with every item seen, a
    ragged 200,001-item catalog; K2's stats and gradients: H=256, ragged
-   shapes, a row with g = 0, the same bits on two calls) and a
+   shapes, a row with g = 0, the same bits on two calls; K1 and K5 on
+   each path of their plan (reg, cluster, and K1's l2 backward): one row,
+   a ragged cluster tile, H not divisible by the cluster, a row of length
+   0, a mask with holes, a clip that binds at H=128, the same bits on two
+   calls) and a
    bidirectional LSTM tower against the same tower on the CPU, and time
    the kernel, the plain version and a PyTorch library yardstick beside
    the kernel's bound (for the 3xTF32 kernels K2 and K4 also the f32
@@ -210,14 +214,27 @@ def bound_ms(flops: float, n_bytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def product_bounds(flops: float, n_bytes: float) -> dict:
-    """Bounds of work whose products run as 3xTF32 on the tensor cores
-    (block_mma.cuh): three TF32 passes at the TF32 peak, and, beside it,
-    the same products as f32 FMA on the CUDA cores. ``bound_ms`` is the
-    3xTF32 one, the lesser."""
-    t_tf32, t_bytes = 3 * flops / TF32_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+def product_bounds(flops: float, n_bytes: float, f32_flops: float = 0.0) -> dict:
+    """Bounds of work whose products of ``flops`` run as 3xTF32 on the
+    tensor cores (block_mma.cuh) beside ``f32_flops`` of f32 FMA: three
+    TF32 passes at the TF32 peak, and, beside it, every product as f32 FMA
+    on the CUDA cores. ``bound_ms`` is the 3xTF32 one, the lesser."""
+    t_tf32 = (3 * flops / TF32_FLOPS + f32_flops / F32_FLOPS) * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_tf32, t_bytes), "bound_by": "operations" if t_tf32 >= t_bytes else "bytes",
-            "bound_f32_ms": bound_ms(flops, n_bytes)[0], "bound_tf32x3_ms": max(t_tf32, t_bytes)}
+            "bound_f32_ms": bound_ms(flops + f32_flops, n_bytes)[0], "bound_tf32x3_ms": max(t_tf32, t_bytes)}
+
+
+def train_scan_bwd_bounds(fwd_flops: float, n_bytes: float, path: str) -> dict:
+    """Bounds of a training scan's backward: the hid recompute (it is given
+    the states hs, not the gates) and the dh product as f32 FMA, and dW =
+    hs^T dhid as 3xTF32 where it runs on block_mma.cuh (the cluster and l2
+    paths); on the reg path dW is f32 FMA in registers, and ``bound_ms`` is
+    the f32 one."""
+    out = product_bounds(fwd_flops, n_bytes, f32_flops=2 * fwd_flops)
+    if path == "reg":
+        out["bound_ms"], out["bound_by"] = bound_ms(3 * fwd_flops, n_bytes)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -359,23 +376,46 @@ def cudnn_gru_train(x_pre, mask, w_hid, h0, dh):
     return forward, backward
 
 
-def check_gru_train(B, L, H, clip, seed, timed=True):
+def same_bits_twice(name, shape, first, again) -> None:
+    import torch
+
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"two calls of {name} at {shape} give different bits")
+
+
+def check_empty_row(name, dx, dh0, dh) -> None:
+    """A row of length 0 (row 0) gets no dx and passes dh through to dh0."""
+    import torch
+
+    if dx[0].any() or not torch.equal(dh0[0], dh[0]):
+        raise AssertionError(f"{name} gave a row of length 0 a gradient")
+
+
+def check_gru_train(B, L, H, clip, seed, timed=True, empty_row=False, holes=False):
     """K1 forward (final state) and backward (dx, dh0, dW) against autograd
-    through the plain scan, for a random upstream cotangent dh."""
+    through the plain scan, for a random upstream cotangent dh; both on the
+    path their plan picks, each called twice for the same bits."""
     import torch
 
     from seqrec_tpu_torch.ops.rnn_scan_train import (
         gru_scan_train_bwd,
         gru_scan_train_fwd,
         gru_scan_train_plain,
+        gru_train_plan,
     )
 
-    a = gru_inputs(B, L, H, seed, "cuda")
+    a = gru_inputs(B, L, H, seed, "cuda", empty_row, holes)
     x, m, w, h0 = a["x_pre"], a["mask"], a["w_hid"], a["h0"]
     dh = torch.tensor(np.random.default_rng(seed + 100).normal(0, 1, size=(B, H)),
                       dtype=torch.float32, device="cuda")
     h_k, hs = gru_scan_train_fwd(x, m, w, h0)
     dx_k, dh0_k, dw_k = gru_scan_train_bwd(x, m, w, hs, dh, clip)
+    same_bits_twice("gru_scan_train_fwd", (B, L, H), (h_k, hs), gru_scan_train_fwd(x, m, w, h0))
+    same_bits_twice("gru_scan_train_bwd", (B, L, H), (dx_k, dh0_k, dw_k), gru_scan_train_bwd(x, m, w, hs, dh, clip))
+    if empty_row:
+        check_empty_row("gru_scan_train", dx_k, dh0_k, dh)
+        if not torch.equal(h_k[0], h0[0]):
+            raise AssertionError("gru_scan_train_fwd changed the state of a row of length 0")
     leaves = [t.clone().requires_grad_() for t in (x, w, h0)]
     h_p = gru_scan_train_plain(leaves[0], m, leaves[1], leaves[2], clip)
     dx_p, dw_p, dh0_p = torch.autograd.grad(h_p, leaves, dh, retain_graph=True)
@@ -392,8 +432,10 @@ def check_gru_train(B, L, H, clip, seed, timed=True):
     dw_free = torch.autograd.grad(gru_scan_train_plain(leaves2[0], m, leaves2[1], leaves2[2], 0.0), leaves2[1], dh)[0]
     out = {
         "kernel": "gru_scan_train", "shape": {"B": B, "L": L, "H": H}, "grad_clip": clip,
+        "plan": {d: list(gru_train_plan(B, H, x.device, d == "bwd")) for d in ("fwd", "bwd")},
         "max_abs_err": errs, "clip_moves_dW_by": (dw_p - dw_free).abs().max().item(),
         "tolerance": "rtol 1e-4 + atol 1e-5*max|plain| (f32; dW sums B*L products in another order)",
+        "same_bits_twice": True,
     }
     if not timed:
         return out
@@ -418,7 +460,7 @@ def check_gru_train(B, L, H, clip, seed, timed=True):
         library_device_ms=device_ms(lib_fwd),
     )
     out["bwd"] = dict(
-        zip(("bound_ms", "bound_by"), bound_ms(3 * fwd_flops, bwd_bytes)),
+        train_scan_bwd_bounds(fwd_flops, bwd_bytes, out["plan"]["bwd"][0]),
         kernel_ms=time_ms(bwd), plain_ms=time_ms(plain_bwd), library_ms=time_ms(lib_bwd),
         kernel_device_ms=device_ms(bwd), plain_device_ms=device_ms(plain_bwd),
         library_device_ms=device_ms(lib_bwd),
@@ -430,16 +472,19 @@ def check_gru_train(B, L, H, clip, seed, timed=True):
 # ----------------------------------------------------------------------
 # K6 and K5: LSTM eval scan, LSTM training scan forward and backward
 # ----------------------------------------------------------------------
-def lstm_inputs(B, L, H, seed, device, empty_row=False):
+def lstm_inputs(B, L, H, seed, device, empty_row=False, holes=False):
     import torch
 
     rng = np.random.default_rng(seed)
     lengths = rng.integers(1, L + 1, size=B)
     if empty_row:
         lengths[0] = 0  # keeps (h0, c0)
+    mask = np.arange(L)[None, :] < lengths[:, None]
+    if holes:
+        mask[:, [3, 7]] = False  # interior steps skipped: (h, c) carried through
     arrays = {
         "x_pre": rng.normal(0.0, 0.5, size=(B, L, 4 * H)),
-        "mask": (np.arange(L)[None, :] < lengths[:, None]),
+        "mask": mask,
         "w_hid": rng.normal(0.0, 0.1, size=(H, 4 * H)),
         "peep": rng.normal(0.0, 0.1, size=(3, H)),
         "h0": rng.normal(0.0, 0.1, size=(B, H)),
@@ -519,24 +564,32 @@ def check_lstm(B, L, H, seed, timed=True, empty_row=False):
     return out
 
 
-def check_lstm_train(B, L, H, clip, seed, timed=True):
+def check_lstm_train(B, L, H, clip, seed, timed=True, empty_row=False, holes=False):
     """K5 forward (final state) and backward (dx, dW, dpeep, dh0, dc0)
     against autograd through the plain scan, for a random upstream
-    cotangent dh."""
+    cotangent dh; both on the path their plan picks, each called twice for
+    the same bits."""
     import torch
 
     from seqrec_tpu_torch.ops.lstm_scan_train import (
         lstm_scan_train_bwd,
         lstm_scan_train_fwd,
         lstm_scan_train_plain,
+        lstm_train_plan,
     )
 
-    a = lstm_inputs(B, L, H, seed, "cuda")
+    a = lstm_inputs(B, L, H, seed, "cuda", empty_row, holes)
     x, m, w, p, h0, c0 = (a[k] for k in ("x_pre", "mask", "w_hid", "peep", "h0", "c0"))
     dh = torch.tensor(np.random.default_rng(seed + 100).normal(0, 1, size=(B, H)),
                       dtype=torch.float32, device="cuda")
     h_k, hs, cs = lstm_scan_train_fwd(x, m, w, p, h0, c0)
     grads_k = lstm_scan_train_bwd(x, m, w, p, hs, cs, dh, clip)
+    same_bits_twice("lstm_scan_train_fwd", (B, L, H), (h_k, hs, cs), lstm_scan_train_fwd(x, m, w, p, h0, c0))
+    same_bits_twice("lstm_scan_train_bwd", (B, L, H), grads_k, lstm_scan_train_bwd(x, m, w, p, hs, cs, dh, clip))
+    if empty_row:
+        check_empty_row("lstm_scan_train", grads_k[0], grads_k[3], dh)
+        if grads_k[4][0].any() or not torch.equal(h_k[0], h0[0]):
+            raise AssertionError("lstm_scan_train changed a row of length 0 or gave it a dc0")
     leaves = [t.clone().requires_grad_() for t in (x, w, p, h0, c0)]
     h_p = lstm_scan_train_plain(leaves[0], m, *leaves[1:], clip)
     grads_p = torch.autograd.grad(h_p, leaves, dh, retain_graph=True)
@@ -555,7 +608,8 @@ def check_lstm_train(B, L, H, clip, seed, timed=True):
     dw_free = torch.autograd.grad(free, leaves2[1], dh)[0]
     out = {
         "kernel": "lstm_scan_train", "shape": {"B": B, "L": L, "H": H}, "grad_clip": clip,
-        "max_abs_err": errs, "clip_moves_dW_by": (grads_p[1] - dw_free).abs().max().item(),
+        "plan": {d: list(lstm_train_plan(B, H, x.device, d == "bwd")) for d in ("fwd", "bwd")},
+        "same_bits_twice": True, "max_abs_err": errs, "clip_moves_dW_by": (grads_p[1] - dw_free).abs().max().item(),
         "tolerance": "rtol 1e-4 + atol 1e-5*max|plain| (f32; dW and dpeep sum B*L products in another order)",
     }
     if not timed:
@@ -585,7 +639,7 @@ def check_lstm_train(B, L, H, clip, seed, timed=True):
         library_device_ms=device_ms(lib_fwd),
     )
     out["bwd"] = dict(
-        zip(("bound_ms", "bound_by"), bound_ms(3 * flops, bwd_bytes)),
+        train_scan_bwd_bounds(flops, bwd_bytes, out["plan"]["bwd"][0]),
         kernel_ms=time_ms(bwd), plain_ms=time_ms(plain_bwd), library_ms=time_ms(lib_bwd),
         kernel_device_ms=device_ms(bwd), plain_device_ms=device_ms(plain_bwd),
         library_device_ms=device_ms(lib_bwd),
@@ -1243,6 +1297,8 @@ def main() -> int:
     # the LSTM path's shapes: its eval chunk is -b 1024 too, so K6 has one shape there
     k6 = check_lstm(1024, 30, 128, seed=21)
     k5 = check_lstm_train(1024, 30, 128, 100.0, seed=23)
+    k1_large = check_gru_train(1024, 30, 128, 100.0, seed=13)  # GRU-128's shape
+    k5_small = check_lstm_train(16, 30, 50, 100.0, seed=28)  # the flagship's shape in an LSTM
     main_shape = {
         "gru_scan": check_gru(64, 30, 50, seed=1, path="shared"),
         "fused_score_topk": check_topk(64, 50, 3706, 30, 10, seed=2),
@@ -1262,7 +1318,8 @@ def main() -> int:
     k4_large = check_topk(512, 256, 200_000, 30, 10, seed=4)
     emit({"phase": "kernels", "at": "GRU-256 serving shape", **k4_gru256})
     emit({"phase": "kernels", "at": "large shape", **k4_large})
-    emit({"phase": "kernels", "at": "large shape", **check_gru_train(1024, 30, 128, 100.0, seed=13)})
+    emit({"phase": "kernels", "at": "large shape", **k1_large})
+    emit({"phase": "kernels", "at": "flagship shape", **k5_small})
     # K6 at the GRU serving shape, beside K3's
     emit({"phase": "kernels", "at": "serving shape", **check_lstm(64, 30, 50, seed=22)})
     # K2 at the flagship's shape: the dense head's cost against the streaming kernels
@@ -1287,6 +1344,25 @@ def main() -> int:
         check_lstm_train(16, 30, 50, 0.01, seed=24, timed=False),  # the clip binds
         check_lstm_train(9, 7, 12, 0.05, seed=25, timed=False),
         check_lstm(9, 7, 12, seed=26, timed=False, empty_row=True),  # a row of length 0 keeps h0
+        # K1 and K5 on their reg path (one row; a row of length 0 and a mask
+        # with holes), their cluster path (one row, a ragged tile, H not
+        # divisible by C, a row of length 0, holes, a clip that binds at
+        # GRU-128's and LSTM-128's shapes) and K1's l2 backward (H=256)
+        check_gru_train(1, 30, 50, 100.0, seed=50, timed=False),
+        check_lstm_train(1, 30, 50, 100.0, seed=51, timed=False),
+        check_gru_train(16, 30, 50, 100.0, seed=52, timed=False, empty_row=True, holes=True),
+        check_lstm_train(16, 30, 50, 100.0, seed=53, timed=False, empty_row=True, holes=True),
+        check_gru_train(1, 30, 128, 100.0, seed=54, timed=False),
+        check_lstm_train(1, 30, 128, 100.0, seed=55, timed=False),
+        check_gru_train(1025, 30, 128, 100.0, seed=56, timed=False),
+        check_lstm_train(1025, 30, 130, 100.0, seed=57, timed=False),
+        check_gru_train(64, 30, 100, 100.0, seed=58, timed=False, empty_row=True),
+        check_lstm_train(64, 30, 100, 100.0, seed=59, timed=False, holes=True),
+        check_gru_train(64, 30, 130, 100.0, seed=60, timed=False, holes=True),
+        check_lstm_train(64, 30, 130, 100.0, seed=61, timed=False, empty_row=True),
+        check_gru_train(1024, 30, 128, 0.01, seed=62, timed=False),  # the clip binds
+        check_lstm_train(1024, 30, 128, 0.01, seed=63, timed=False),  # the clip binds
+        check_gru_train(64, 30, 256, 100.0, seed=64, timed=False),
         # K3's cluster path: one row, a ragged tile, C not dividing H, a row
         # of length 0, a mask with holes, a small batch
         check_gru(1, 30, 256, seed=40, timed=False, path="cluster"),
@@ -1302,12 +1378,14 @@ def main() -> int:
         check_cce(1024, 256, 50_000, seed=46, timed=False),
         check_cce(1000, 100, 50_001, seed=47, timed=False),
     ]
-    if not all(e.get("clip_moves_dW_by", 1.0) > 0 for e in edge):
+    small_clip = [e for e in edge if e.get("grad_clip", 1.0) < 0.1]
+    if len(small_clip) != 6 or not all(e["clip_moves_dW_by"] > 0 for e in small_clip):
         raise AssertionError("a small grad_clip did not bind")
     tower = check_lstm_tower()
     emit({"phase": "kernels", "at": "edge cases", "checks": [e["shape"] for e in edge],
           "max_abs_err": [e["max_abs_err"] for e in edge], "tower": tower,
-          "clip_moves_dW_by": [e["clip_moves_dW_by"] for e in edge if "clip_moves_dW_by" in e],
+          "clip_moves_dW_by": [e["clip_moves_dW_by"] for e in small_clip],
+          "train_scan_plans": [[e["kernel"], e["shape"], e["plan"]] for e in edge if "plan" in e and "grad_clip" in e],
           "ok": True, "seconds": time.perf_counter() - t0})
 
     serving = main_path(card)
@@ -1361,6 +1439,17 @@ def main() -> int:
         bound_tf32x3_ms=k2["grads"]["bound_tf32x3_ms"],
         at_B16_H50_N3706={k: k2_flagship["grads"][k] for k in ("kernel_ms", "kernel_device_ms", "bound_ms")},
     )
+    # this PR's redesigns: K1 and K5 at the flagship's and the large paths' shapes
+    scan_keys = ("kernel_ms", "kernel_device_ms", "plain_device_ms", "library_device_ms", "bound_ms")
+    for name, res, other, at in (("gru_scan_train", k1, k1_large, "at_B1024_L30_H128"),
+                                 ("lstm_scan_train", k5, k5_small, "at_B16_L30_H50")):
+        for d in ("fwd", "bwd"):
+            keys = scan_keys + (("bound_f32_ms", "bound_tf32x3_ms") if d == "bwd" else ())
+            entry = next(e for e in summary if e["name"] == f"{name}_{d}")
+            entry.update({key: res[d][key] for key in keys[1:]}, plan=res["plan"][d], same_bits_twice=True)
+            entry[at] = {**{key: other[d][key] for key in keys}, "plan": other["plan"][d]}
+    for name in ("gru_scan_train_fwd", "gru_scan_train_bwd"):
+        next(e for e in summary if e["name"] == name)["launches_gru128_path"] = large[name]
     print(card_line(), flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {

@@ -32,41 +32,24 @@
 // orders those stores before the next step's reads, and the other buffer
 // is not read until after the next barrier. The step's x_pre and mask are
 // loaded into registers before the product, so their latency hides behind
-// it. Rows past B compute on zeros and are never written out. Written so a
-// later LSTM or training scan can reuse the split (cluster_launch, the
-// unit split and the broadcast store are cell-independent).
+// it. Rows past B compute on zeros and are never written out. The
+// cell-independent pieces (the unit split, the barrier, the launch) are in
+// cluster_common.cuh, shared with the training scans' cluster paths.
 
 #pragma once
 
 #include <cooperative_groups.h>
 
+#include "cluster_common.cuh"
 #include "scan_common.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kClusterMax = 8;  // the portable cluster size
-constexpr int kClusterWarps = 8;
-constexpr int kClusterThreads = 32 * kClusterWarps;
-
-// first unit of CTA q of C over H hidden units
-__host__ __device__ inline int unit_begin(int q, int H, int C) { return q * H / C; }
-// row stride of the h buffers: H padded to a float4
-__host__ __device__ inline int h_stride(int H) { return (H + 3) & ~3; }
-
 inline size_t gru_cluster_smem(int H, int C, int R) {
   const size_t U = (size_t)(H + C - 1) / C;
   return sizeof(float) * ((size_t)h_stride(H) * 3 * U + 2 * (size_t)R * h_stride(H));
-}
-
-// Arrive at the cluster barrier (the stores before it are released to
-// the cluster) / wait for every CTA to arrive (and acquire their stores).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // x_pre's three gate inputs and the mask of step t for the thread's rows
@@ -199,40 +182,6 @@ __global__ void __launch_bounds__(kClusterThreads, 1) gru_cluster_kernel(
   }
 }
 
-// The configuration of `clusters` clusters of C CTAs of kClusterThreads
-// threads with `smem` bytes of dynamic shared memory each; `attr` holds
-// the cluster size and must outlive the configuration.
-inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int clusters, int C,
-                                         size_t smem, cudaStream_t stream) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = (unsigned)C;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)clusters * (unsigned)C);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// Launch `kernel` in that configuration; returns the launch error (a
-// refused launch is reported, never replaced).
-template <typename... Params, typename... Args>
-int cluster_launch(void (*kernel)(Params...), int clusters, int C, size_t smem,
-                   cudaStream_t stream, Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(&attr, clusters, C, smem, stream);
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 // The kernel instance of R rows (R / 8 rows a thread) and ceil(U / 32)
 // units a lane; nullptr where there is none.
 template <int kUPT>
@@ -269,9 +218,8 @@ int gru_cluster_capacity(int H, int C, int R, int* n_clusters) {
   auto kernel = gru_cluster_instance(R, (H + C - 1) / C);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = gru_cluster_smem(H, C, R);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const int err = allow_smem_once((const void*)kernel, smem);
+  if (err) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(&attr, 1, C, smem, nullptr);
   return (int)cudaOccupancyMaxActiveClusters(n_clusters, (void*)kernel, &cfg);

@@ -12,30 +12,29 @@
 //   dh_{t-1} = dh (1 - u) + dhid . W_hid^T, or dh itself on masked steps
 //   dW_hid = sum over steps and rows of h_{t-1}^T dhid.
 //
-// What bounds it on an H100: like the forward, the reverse walk is L
-// dependent steps, latency-bound at the flagship shape (B=16, L=30, H=50);
+// What bounds it on an H100: the walk is L dependent steps, latency-bound
+// at the flagship shape (B=16, L=30, H=50: 21.6 MFLOP for the backward);
 // at B=1024, H=128 the three per-step products (recompute hid, dhid . W^T,
 // and dW) dominate: 3 x 2 B L H 3H = 9.1 GFLOP of f32 FMAs.
 //
-// Design:
-// - forward: the eval scan of gru_forward.cuh with the h_{t-1} store.
-// - backward scan: one block per tile of rows (as in the forward) walks
-//   t = L-1 .. 0 with dh in shared memory. Per step: load h_{t-1} of the
-//   tile; threads over gate columns recompute hid = h_{t-1} W (one W
-//   element feeds every row from a register); threads over (row, unit)
-//   form dx and dhid; threads over units form dh_{t-1} from a transposed
-//   copy W^T [3H, H] (so neighbouring threads read neighbouring floats).
-//   W and W^T sit in shared memory when both fit (H=50: 60 KB) and are
-//   read through L2 otherwise (H=128: 393 KB).
-// - dW: a sum over B x L rows. CUDA blocks run in no order, so instead of
-//   carrying a sum across blocks the scan writes each step's dhid to
-//   scratch [L, B, 3H], and dW = hs^T dhid is a split-K tiled product
-//   (tile_mma.cuh) whose per-split partials are summed in split order by
-//   a second kernel. No atomics: the result is the same run after run.
-// Any H and L are taken as they are (no lane padding, no time chunks).
+// Design: three paths, chosen by the wrapper's plan (scan_train.cuh):
+// - reg (H <= 50): W_hid in registers, forward and backward, dW summed in
+//   registers inside the scan (scan_train_reg.cuh);
+// - cluster (H up to 32 units a CTA of 8): W_hid split over a thread-block
+//   cluster (scan_train_cluster.cuh); the backward writes each step's dhid
+//   to scratch [L, B, 3H], and dW = hs^T dhid is a split-K 3xTF32 product
+//   (scan_train.cuh launch_dw) whose partials are summed in split order;
+// - l2 (larger H): the kernels below, the first port: one block per tile
+//   of rows walks t = L-1 .. 0 with dh in shared memory. Per step: load
+//   h_{t-1}; threads over gate columns recompute hid = h_{t-1} W; threads
+//   over (row, unit) form dx and dhid; threads over units form dh_{t-1}
+//   from a transposed copy W^T [3H, H], read through L2 with W; dW as on
+//   the cluster path.
+// No atomics: the result is the same run after run. Any H and L are taken
+// as they are (no lane padding, no time chunks).
 
 #include "gru_forward.cuh"
-#include "tile_mma.cuh"
+#include "scan_train.cuh"
 
 namespace {
 
@@ -149,28 +148,53 @@ __global__ void __launch_bounds__(kThreads) gru_backward_kernel(
 
 extern "C" int seqrec_gru_train_fwd_f32(const float* x, const float* mask, const float* w,
                                         const float* h0, float* out, float* hs, int B, int L,
-                                        int H, void* stream) {
-  return launch_gru_forward<true>(x, mask, w, h0, out, hs, B, L, H, stream);
+                                        int H, int path, int C, int R, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (path == kPathL2) return launch_gru_forward<true>(x, mask, w, h0, out, hs, B, L, H, stream);
+  return train_forward<false>(x, mask, w, nullptr, h0, nullptr, out, hs, nullptr, B, L, H, path, C,
+                              R, (cudaStream_t)stream);
 }
 
 // dh [B, H] -> dx [B, L, 3H], dh0 [B, H], dw [H, 3H]. Scratch from the
-// caller: dhid [L, B, 3H] and part [n_splits, H, 3H]; the K = L * B rows of
-// the dW product are cut into n_splits ranges of k_per_split rows.
+// caller, by path: reg: part [ceil(B / R), H, 3H] where that is over 1
+// block; cluster and l2: dhid [L, B, 3H] and part [n_splits, H, 3H] (the
+// K = L * B rows of the dW product in n_splits ranges of k_per_split
+// rows); l2 also wt = W^T [3H, H].
 extern "C" int seqrec_gru_train_bwd_f32(const float* x, const float* mask, const float* w,
                                         const float* wt, const float* hs, const float* dh,
                                         float* dx, float* dh0, float* dw, float* dhid,
-                                        float* part, int B, int L, int H, int n_splits,
-                                        int k_per_split, float clip, void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || n_splits <= 0 || k_per_split <= 0 ||
-      (long long)n_splits * k_per_split < (long long)L * B)
-    return (int)cudaErrorInvalidValue;
-  const int rows = scan_rows_per_block(B);
-  const size_t base = (size_t)rows * 6 * H * sizeof(float);  // hp, dh, dd [rows, H] + hid [rows, 3H]
-  const size_t w_bytes = (size_t)2 * 3 * H * H * sizeof(float);  // W and W^T
+                                        float* part, int B, int L, int H, int path, int C, int R,
+                                        int n_splits, int k_per_split, float clip, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int err = launch_scan(gru_backward_kernel<true>, gru_backward_kernel<false>, base, w_bytes,
-                              (B + rows - 1) / rows, s, x, mask, w, wt, hs, dh, dx, dh0, dhid, B,
-                              L, H, rows, clip);
+  if (path == kPathReg)
+    return train_backward_reg<false>(x, mask, w, nullptr, hs, nullptr, dh, dx, dh0, nullptr, dw,
+                                     nullptr, part, nullptr, B, L, H, R, clip, s);
+  if (n_splits <= 0 || k_per_split <= 0 || (long long)n_splits * k_per_split < (long long)L * B)
+    return (int)cudaErrorInvalidValue;
+  int err;
+  if (path == kPathCluster) {
+    err = train_backward_cluster<false>(x, mask, w, nullptr, hs, nullptr, dh, dx, dh0, nullptr, dhid,
+                                        nullptr, nullptr, B, L, H, C, R, clip, s);
+  } else if (path == kPathL2 && R <= kMaxRows && wt != nullptr) {
+    const size_t base = l2_train_floats(3, 1, H, R) * sizeof(float);
+    const size_t w_bytes = (size_t)2 * 3 * H * H * sizeof(float);  // W and W^T
+    err = launch_scan(gru_backward_kernel<true>, gru_backward_kernel<false>, base, w_bytes,
+                      (B + R - 1) / R, s, x, mask, w, wt, hs, dh, dx, dh0, dhid, B, L, H, R, clip);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   if (err) return err;
-  return launch_atb(hs, dhid, part, dw, L * B, H, 3 * H, n_splits, k_per_split, s);
+  return launch_dw(hs, dhid, part, dw, L * B, H, 3 * H, n_splits, k_per_split, s);
+}
+
+// Clusters of the forward (backward = 0) or backward cluster kernel at
+// (H, C, R) that the card holds at once.
+extern "C" int seqrec_gru_train_capacity(int backward, int H, int C, int R, int* n_clusters) {
+  return train_cluster_capacity<false>(backward, H, C, R, n_clusters);
+}
+
+// Shared-memory bytes of one block of the path's kernel (-1: none takes it).
+extern "C" long long seqrec_gru_train_smem(int backward, int path, int H, int C, int R) {
+  return train_smem_bytes<false>(backward, path, H, C, R);
 }

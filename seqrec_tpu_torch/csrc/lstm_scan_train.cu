@@ -24,28 +24,29 @@
 // B=1024, L=30, H=128 its three products (recompute hid, dpre . W^T, and
 // dW) are 3 x 2 B L H 4H = 12.1 GFLOP of f32 FMAs (0.18 ms at 67 TFLOP/s).
 //
-// Design:
-// - forward: the eval scan of lstm_forward.cuh with the h_{t-1}, c_{t-1}
-//   stores.
-// - backward scan: one block per tile of rows walks t = L-1 .. 0 with dh
-//   and dc in shared memory. Per step: load h_{t-1}, c_{t-1} of the tile;
-//   threads over gate columns recompute hid = h_{t-1} W; threads over
-//   (row, unit) form the gate cotangents, dx, dc_{t-1} and the row's
-//   dpeep terms; threads over units form dh_{t-1} from a transposed copy
-//   W^T [4H, H] (neighbouring threads read neighbouring floats), and
-//   threads over the 3H peephole columns add the tile's dpeep terms, in
-//   row order, to a per-block sum. W and W^T sit in shared memory when
-//   both fit (H=50: 80 KB) and are read through L2 otherwise (H=128:
-//   512 KB).
-// - dW = hs^T dpre: the scan writes each step's clipped, masked dpre to
-//   scratch [L, B, 4H], and a split-K tiled product (tile_mma.cuh) sums it
-//   with per-split partials added in split order. dpeep: the per-block
-//   sums [n_blocks, 3H] are added in block order. No atomics: the result
-//   is the same run after run.
-// Any H and L are taken as they are (no lane padding, no time chunks).
+// Design: three paths, chosen by the wrapper's plan (scan_train.cuh):
+// - reg (H <= 50): W_hid in registers, forward and backward, dW and dpeep
+//   summed inside the scan (scan_train_reg.cuh);
+// - cluster (H up to 32 units a CTA of 8): W_hid split over a thread-block
+//   cluster (scan_train_cluster.cuh); the backward writes each step's
+//   clipped, masked dpre to scratch [L, B, 4H], dW = hs^T dpre is a
+//   split-K 3xTF32 product (scan_train.cuh launch_dw) with the partials
+//   added in split order, and the per-cluster dpeep sums in cluster order;
+// - l2 (larger H): the kernels below, the first port. Forward: the eval
+//   scan of lstm_forward.cuh with the h_{t-1}, c_{t-1} stores. Backward:
+//   one block per tile of rows walks t = L-1 .. 0 with dh and dc in shared
+//   memory. Per step: load h_{t-1}, c_{t-1}; threads over gate columns
+//   recompute hid = h_{t-1} W; threads over (row, unit) form the gate
+//   cotangents, dx, dc_{t-1} and the row's dpeep terms; threads over units
+//   form dh_{t-1} from a transposed copy W^T [4H, H] (read through L2 with
+//   W), and threads over the 3H peephole columns add the tile's dpeep
+//   terms, in row order, to a per-block sum, the blocks' sums then added
+//   in block order; dW as on the cluster path.
+// No atomics: the result is the same run after run. Any H and L are taken
+// as they are (no lane padding, no time chunks).
 
 #include "lstm_forward.cuh"
-#include "tile_mma.cuh"
+#include "scan_train.cuh"
 
 namespace {
 
@@ -176,36 +177,62 @@ __global__ void __launch_bounds__(kThreads) lstm_backward_kernel(
 extern "C" int seqrec_lstm_train_fwd_f32(const float* x, const float* mask, const float* w,
                                          const float* peep, const float* h0, const float* c0,
                                          float* out, float* hs, float* cs, int B, int L, int H,
-                                         void* stream) {
-  return launch_lstm_forward<true>(x, mask, w, peep, h0, c0, out, hs, cs, B, L, H, stream);
+                                         int path, int C, int R, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (path == kPathL2)
+    return launch_lstm_forward<true>(x, mask, w, peep, h0, c0, out, hs, cs, B, L, H, stream);
+  return train_forward<true>(x, mask, w, peep, h0, c0, out, hs, cs, B, L, H, path, C, R,
+                             (cudaStream_t)stream);
 }
 
 // dh [B, H] -> dx [B, L, 4H], dh0, dc0 [B, H], dw [H, 4H], dpeep [3, H].
-// Scratch from the caller: dpre [L, B, 4H], part [n_splits, H, 4H] and
-// peep_part [B, 3H] (one row per row block, of which there are at most B);
-// the K = L * B rows of the dW product are cut into n_splits ranges of
-// k_per_split rows.
+// Scratch from the caller, by path: reg: part [ceil(B / R), H, 4H] and
+// peep_part [ceil(B / R), 3H] where that is over 1 block; cluster: dpre
+// [L, B, 4H], part [n_splits, H, 4H] (the K = L * B rows of the dW product
+// in n_splits ranges of k_per_split rows) and peep_part [ceil(B / R), 3H]
+// where that is over 1 cluster; l2: the same (peep_part over 1 block) and
+// wt = W^T [4H, H].
 extern "C" int seqrec_lstm_train_bwd_f32(const float* x, const float* mask, const float* w,
                                          const float* wt, const float* peep, const float* hs,
                                          const float* cs, const float* dh, float* dx, float* dh0,
                                          float* dc0, float* dw, float* dpeep, float* dpre,
                                          float* part, float* peep_part, int B, int L, int H,
-                                         int n_splits, int k_per_split, float clip,
-                                         void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || n_splits <= 0 || k_per_split <= 0 ||
-      (long long)n_splits * k_per_split < (long long)L * B)
-    return (int)cudaErrorInvalidValue;
-  const int rows = scan_rows_per_block(B);
-  const int blocks = (B + rows - 1) / rows;
-  // hp, cp, dh, dc [rows, H] + hid [rows, 4H] + dp [rows, 3H] + pacc [3H] + keep [rows]
-  const size_t base = ((size_t)rows * 11 * H + 3 * H + rows) * sizeof(float);
-  const size_t w_bytes = (size_t)2 * 4 * H * H * sizeof(float);  // W and W^T
+                                         int path, int C, int R, int n_splits, int k_per_split,
+                                         float clip, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int err = launch_scan(lstm_backward_kernel<true>, lstm_backward_kernel<false>, base, w_bytes,
-                        blocks, s, x, mask, w, wt, peep, hs, cs, dh, dx, dh0, dc0, dpre,
-                        peep_part, B, L, H, rows, clip);
+  if (path == kPathReg)
+    return train_backward_reg<true>(x, mask, w, peep, hs, cs, dh, dx, dh0, dc0, dw, dpeep, part,
+                                    peep_part, B, L, H, R, clip, s);
+  if (n_splits <= 0 || k_per_split <= 0 || (long long)n_splits * k_per_split < (long long)L * B)
+    return (int)cudaErrorInvalidValue;
+  int err;
+  if (path == kPathCluster) {
+    err = train_backward_cluster<true>(x, mask, w, peep, hs, cs, dh, dx, dh0, dc0, dpre, dpeep,
+                                       peep_part, B, L, H, C, R, clip, s);
+  } else if (path == kPathL2 && R <= kMaxRows && wt != nullptr) {
+    const int blocks = (B + R - 1) / R;
+    if (blocks > 1 && peep_part == nullptr) return (int)cudaErrorInvalidValue;
+    const size_t base = l2_train_floats(4, 1, H, R) * sizeof(float);
+    const size_t w_bytes = (size_t)2 * 4 * H * H * sizeof(float);  // W and W^T
+    err = launch_scan(lstm_backward_kernel<true>, lstm_backward_kernel<false>, base, w_bytes,
+                      blocks, s, x, mask, w, wt, peep, hs, cs, dh, dx, dh0, dc0, dpre,
+                      blocks > 1 ? peep_part : dpeep, B, L, H, R, clip);
+    if (!err && blocks > 1) err = launch_sum_splits(peep_part, dpeep, blocks, (size_t)3 * H, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   if (err) return err;
-  err = launch_atb(hs, dpre, part, dw, L * B, H, 4 * H, n_splits, k_per_split, s);
-  if (err) return err;
-  return launch_sum_splits(peep_part, dpeep, blocks, (size_t)3 * H, s);
+  return launch_dw(hs, dpre, part, dw, L * B, H, 4 * H, n_splits, k_per_split, s);
+}
+
+// Clusters of the forward (backward = 0) or backward cluster kernel at
+// (H, C, R) that the card holds at once.
+extern "C" int seqrec_lstm_train_capacity(int backward, int H, int C, int R, int* n_clusters) {
+  return train_cluster_capacity<true>(backward, H, C, R, n_clusters);
+}
+
+// Shared-memory bytes of one block of the path's kernel (-1: none takes it).
+extern "C" long long seqrec_lstm_train_smem(int backward, int path, int H, int C, int R) {
+  return train_smem_bytes<true>(backward, path, H, C, R);
 }

@@ -1,5 +1,5 @@
 // The ordered sum of partial results over catalog or row splits, shared by
-// the training scans' dW products (tile_mma.cuh) and K2's dh
+// the training scans' dW products and dpeep sums (scan_train.cuh) and K2's dh
 // (streaming_cce.cu). No atomics: the same bits run after run.
 
 #pragma once

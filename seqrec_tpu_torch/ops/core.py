@@ -8,6 +8,8 @@ their ids in ascending order.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -48,6 +50,14 @@ def check_tensors(fn: str, device, expected: dict, rows=()) -> None:
             raise ValueError(f"{fn}: {name} must be a contiguous {dtype} tensor on {device}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def on_device(device):
+    """A context that makes ``device`` current for a launch; nothing to do
+    (and no host cost) when it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def has_dense_rows(x: torch.Tensor) -> bool:

@@ -11,10 +11,11 @@ dpeepholes [3, H] (taken before the clip), dh0 and dc0.
 
 On a CUDA tensor :func:`lstm_scan_train` runs an autograd Function whose
 forward launches :func:`lstm_scan_train_fwd` and whose backward launches
-:func:`lstm_scan_train_bwd`, the kernels of ``csrc/lstm_scan_train.cu``;
-on a CPU tensor it runs :func:`lstm_scan_train_plain`, the plain masked
-loop with the same clip, differentiated by autograd. The chip check holds
-the kernels against that plain version.
+:func:`lstm_scan_train_bwd`, the kernels of ``csrc/lstm_scan_train.cu`` on
+the path ``ops/rnn_scan_train.py:train_scan_plan`` picks; on a CPU tensor
+it runs :func:`lstm_scan_train_plain`, the plain masked loop with the same
+clip, differentiated by autograd. The chip check holds the kernels
+against that plain version.
 """
 
 from __future__ import annotations
@@ -24,9 +25,9 @@ import ctypes
 import torch
 
 from seqrec_tpu_torch.ops import _build
-from seqrec_tpu_torch.ops.core import check_tensors
-from seqrec_tpu_torch.ops.rnn_scan import lstm_step
-from seqrec_tpu_torch.ops.rnn_scan_train import dw_split_plan
+from seqrec_tpu_torch.ops.core import check_tensors, on_device
+from seqrec_tpu_torch.ops.rnn_scan import device_limits, lstm_step
+from seqrec_tpu_torch.ops.rnn_scan_train import PATHS, device_train_plan, dw_split_plan
 
 
 def lstm_scan_train_plain(x_pre, mask, w_hid, peepholes, h0, c0, grad_clip: float = 0.0):
@@ -39,15 +40,31 @@ def lstm_scan_train_plain(x_pre, mask, w_hid, peepholes, h0, c0, grad_clip: floa
     return h
 
 
+_lib = None
+
+
 def _library():
+    global _lib
+    if _lib is not None:
+        return _lib
     lib = _build.load("lstm_scan_train")
     fwd, bwd = lib.seqrec_lstm_train_fwd_f32, lib.seqrec_lstm_train_bwd_f32
     if fwd.argtypes is None:
-        fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fwd.restype = ctypes.c_int
-        bwd.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        bwd.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         bwd.restype = ctypes.c_int
-    return fwd, bwd
+        lib.seqrec_lstm_train_capacity.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.seqrec_lstm_train_capacity.restype = ctypes.c_int
+        lib.seqrec_lstm_train_smem.argtypes = [ctypes.c_int] * 5
+        lib.seqrec_lstm_train_smem.restype = ctypes.c_longlong
+    _lib = lib
+    return lib
+
+
+def lstm_train_plan(B: int, H: int, device, backward: bool) -> tuple[str, int, int]:
+    """K5's (path, C, R) on ``device`` (rnn_scan_train.train_scan_plan)."""
+    return device_train_plan("lstm", B, H, device, backward, _library)
 
 
 def _shapes(x_pre, mask, w_hid, peepholes, H):
@@ -72,18 +89,18 @@ def lstm_scan_train_fwd(x_pre, mask, w_hid, peepholes, h0, c0):
     if B == 0 or L == 0:
         raise ValueError("lstm_scan_train_fwd: the kernel needs B >= 1 and L >= 1")
     dev = x_pre.device
+    path, C, R = lstm_train_plan(B, H, dev, backward=False)
     out = torch.empty((B, H), dtype=f32, device=dev)
     hs = torch.empty((L, B, H), dtype=f32, device=dev)
     cs = torch.empty((L, B, H), dtype=f32, device=dev)
-    fwd, _ = _library()
-    with torch.cuda.device(dev):
-        err = fwd(
+    with on_device(dev):
+        err = _library().seqrec_lstm_train_fwd_f32(
             x_pre.data_ptr(), mask.data_ptr(), w_hid.data_ptr(), peepholes.data_ptr(), h0.data_ptr(),
-            c0.data_ptr(), out.data_ptr(), hs.data_ptr(), cs.data_ptr(), B, L, H,
+            c0.data_ptr(), out.data_ptr(), hs.data_ptr(), cs.data_ptr(), B, L, H, PATHS[path], C, R,
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
-        raise RuntimeError(f"lstm_scan_train_fwd kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"lstm_scan_train_fwd kernel launch ({path} path) failed with CUDA error {err}")
     lstm_scan_train_fwd.launches += 1
     return out, hs, cs
 
@@ -102,28 +119,37 @@ def lstm_scan_train_bwd(x_pre, mask, w_hid, peepholes, hs, cs, dh, grad_clip: fl
     if B == 0 or L == 0:
         raise ValueError("lstm_scan_train_bwd: the kernel needs B >= 1 and L >= 1")
     dev = x_pre.device
+    path, C, R = lstm_train_plan(B, H, dev, backward=True)
     G = 4 * H
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits, per_split = dw_split_plan(L * B, H, G, n_sm)
-    w_t = w_hid.t().contiguous()
     dx = torch.empty((B, L, G), dtype=f32, device=dev)
     dh0 = torch.empty((B, H), dtype=f32, device=dev)
     dc0 = torch.empty((B, H), dtype=f32, device=dev)
     dw = torch.empty((H, G), dtype=f32, device=dev)
     dpeep = torch.empty((3, H), dtype=f32, device=dev)
-    dpre = torch.empty((L, B, G), dtype=f32, device=dev)
-    part = torch.empty((n_splits, H, G), dtype=f32, device=dev)
-    peep_part = torch.empty((B, 3 * H), dtype=f32, device=dev)  # one row per row block, at most B
-    _, bwd = _library()
-    with torch.cuda.device(dev):
-        err = bwd(
-            x_pre.data_ptr(), mask.data_ptr(), w_hid.data_ptr(), w_t.data_ptr(), peepholes.data_ptr(),
+    w_t = dpre = part = peep_part = None
+    n_splits = per_split = 0
+    blocks = -(-B // R)  # row tiles (reg, l2) or clusters: one dpeep partial each
+    if path == "reg":
+        if blocks > 1:
+            part = torch.empty((blocks, H, G), dtype=f32, device=dev)
+    else:
+        n_splits, per_split = dw_split_plan(L * B, H, G, device_limits(dh0.device.index)[0])
+        dpre = torch.empty((L, B, G), dtype=f32, device=dev)
+        part = torch.empty((n_splits, H, G), dtype=f32, device=dev)
+        if path == "l2":
+            w_t = w_hid.t().contiguous()
+    if blocks > 1:
+        peep_part = torch.empty((blocks, 3 * H), dtype=f32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with on_device(dev):
+        err = _library().seqrec_lstm_train_bwd_f32(
+            x_pre.data_ptr(), mask.data_ptr(), w_hid.data_ptr(), ptr(w_t), peepholes.data_ptr(),
             hs.data_ptr(), cs.data_ptr(), dh.data_ptr(), dx.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            dw.data_ptr(), dpeep.data_ptr(), dpre.data_ptr(), part.data_ptr(), peep_part.data_ptr(),
-            B, L, H, n_splits, per_split, float(grad_clip or 0.0), torch.cuda.current_stream().cuda_stream,
+            dw.data_ptr(), dpeep.data_ptr(), ptr(dpre), ptr(part), ptr(peep_part), B, L, H, PATHS[path], C, R,
+            n_splits, per_split, float(grad_clip or 0.0), torch.cuda.current_stream().cuda_stream,
         )
     if err:
-        raise RuntimeError(f"lstm_scan_train_bwd kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"lstm_scan_train_bwd kernel launch ({path} path) failed with CUDA error {err}")
     lstm_scan_train_bwd.launches += 1
     return dx, dw, dpeep, dh0, dc0
 

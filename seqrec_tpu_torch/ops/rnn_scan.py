@@ -131,10 +131,9 @@ _limits: dict[int, tuple[int, int]] = {}
 _capacity: dict[tuple[int, int], dict[int, int]] = {}
 
 
-def _device_plan(B, H, device):
-    """gru_scan_plan on ``device``'s SM count, opt-in shared memory and
-    cluster capacity."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
+def device_limits(index: int) -> tuple[int, int]:
+    """(SM count, opt-in shared memory a block may use) of CUDA device
+    ``index``, read once."""
     if index not in _limits:
         n_sm, smem = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(index):
@@ -142,7 +141,14 @@ def _device_plan(B, H, device):
         if err:
             raise RuntimeError(f"gru_scan: reading the device limits failed with CUDA error {err}")
         _limits[index] = (n_sm.value, smem.value)
-    n_sm, smem = _limits[index]
+    return _limits[index]
+
+
+def _device_plan(B, H, device):
+    """gru_scan_plan on ``device``'s SM count, opt-in shared memory and
+    cluster capacity."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    n_sm, smem = device_limits(index)
     if gru_scan_plan(B, H, n_sm, smem)[0] != "cluster":
         return gru_scan_plan(B, H, n_sm, smem)
     if (index, H) not in _capacity:

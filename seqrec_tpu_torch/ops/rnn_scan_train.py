@@ -1,4 +1,5 @@
-"""Differentiable GRU time scan for training (kernel K1).
+"""Differentiable GRU time scan for training (kernel K1), and the plan of
+both training scans (K1 and K5).
 
 Counterpart of ``seqrec_tpu/ops/pallas_rnn_train.py:gru_scan_train``: the
 final GRU state [B, H] of ``x_pre [B, L, 3H]`` (gate order
@@ -10,10 +11,11 @@ dh0.
 
 On a CUDA tensor :func:`gru_scan_train` runs an autograd Function whose
 forward launches :func:`gru_scan_train_fwd` and whose backward launches
-:func:`gru_scan_train_bwd`, the kernels of ``csrc/gru_scan_train.cu``; on
-a CPU tensor it runs :func:`gru_scan_train_plain`, the plain masked loop
-with the same clip, differentiated by autograd. The chip check holds the
-kernels against that plain version.
+:func:`gru_scan_train_bwd`, the kernels of ``csrc/gru_scan_train.cu`` on
+the path :func:`train_scan_plan` picks; on a CPU tensor it runs
+:func:`gru_scan_train_plain`, the plain masked loop with the same clip,
+differentiated by autograd. The chip check holds the kernels against that
+plain version.
 """
 
 from __future__ import annotations
@@ -23,10 +25,20 @@ import ctypes
 import torch
 
 from seqrec_tpu_torch.ops import _build
-from seqrec_tpu_torch.ops.core import check_tensors
-from seqrec_tpu_torch.ops.rnn_scan import gru_step
+from seqrec_tpu_torch.ops.core import check_tensors, on_device
+from seqrec_tpu_torch.ops.rnn_scan import device_limits, gru_step
 
-TILE = 64  # rows of one dW split (csrc/tile_mma.cuh kTile)
+TILE = 64  # the dW splits' rows come in whole multiples of this (two 32-row slices)
+DW_TILE = 128  # rows and columns of one dW output tile (csrc/block_mma.cuh kBT)
+PATHS = {"reg": 0, "cluster": 1, "l2": 2}  # csrc/scan_train.cuh kPath*
+REG_MAX_H = 50  # csrc/scan_train_reg.cuh kRegMaxH
+REG_MAX_ROWS = 16
+REG_HS, REG_GS = 52, 208  # row strides of its h and hid buffers
+CLUSTER_CTAS = (2, 4, 8)
+CLUSTER_ROWS = (32, 24, 16, 8)  # csrc/scan_train.cuh cluster_*_instance
+CLUSTER_UNITS = 32  # units of one CTA: one a lane
+CLUSTER_STEP_ROWS = 24  # a step's fixed cost in rows of product (ops/rnn_scan.py's)
+L2_MAX_ROWS = 8  # csrc/scan_common.cuh kMaxRows
 
 
 def gru_scan_train_plain(x_pre, mask, w_hid, h0, grad_clip: float = 0.0):
@@ -39,26 +51,149 @@ def gru_scan_train_plain(x_pre, mask, w_hid, h0, grad_clip: float = 0.0):
 
 
 def dw_split_plan(K: int, H: int, G: int, n_sm: int) -> tuple[int, int]:
-    """(n_splits, rows_per_split) of the K = L*B rows of dW = hs^T dpre,
-    dW [H, G] (G = 3H for the GRU, 4H for the LSTM): about two blocks per
-    SM over the output tiles, whole tiles of rows per split, no split
-    empty."""
-    out_tiles = -(-H // TILE) * -(-G // TILE)
+    """(n_splits, rows_per_split) of the K = L*B rows of dW = hs^T dpre on
+    the cluster and l2 paths, dW [H, G] (G = 3H for the GRU, 4H for the
+    LSTM): about one block per SM over the 128 x 128 output tiles, whole
+    multiples of TILE rows per split, no split empty."""
+    out_tiles = -(-H // DW_TILE) * -(-G // DW_TILE)
     k_tiles = -(-K // TILE)
-    n_splits = max(1, min(-(-2 * n_sm // out_tiles), k_tiles))
+    n_splits = max(1, min(-(-n_sm // out_tiles), k_tiles))
     per_split = -(-k_tiles // n_splits) * TILE
     return -(-K // per_split), per_split
 
 
+def _h4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def train_scan_smem(cell: str, path: str, H: int, C: int, R: int, backward: bool) -> int:
+    """Shared-memory bytes of one block (CTA) of a training scan's kernel
+    (csrc/scan_train_reg.cuh reg_*_floats, scan_train_cluster.cuh
+    cluster_*_floats, and the l2 kernels' state)."""
+    n = 3 if cell == "gru" else 4
+    if path == "reg":
+        floats = R * (9 * REG_HS + 2 * REG_GS + 3 * n * H + 3 + 3 * H) if backward else R * (
+            2 * REG_HS + REG_GS + 2 * n * H + 2)
+    elif path == "cluster":
+        U, Hp, Gp = -(-H // C), _h4(H), _h4(n * H)
+        floats = Hp * n * U + 2 * R * Hp + (Gp * U + 2 * R * Gp if backward else 0)
+    elif cell == "gru":
+        floats = R * (6 if backward else 4) * H
+    else:
+        floats = R * 11 * H + 3 * H + R if backward else R * 6 * H
+    return 4 * floats
+
+
+def train_scan_plan(cell: str, B: int, H: int, n_sm: int, smem_optin: int, backward: bool = True,
+                    capacity=None) -> tuple[str, int, int]:
+    """(path, C, R) of the training scan of ``cell`` ("gru": K1, "lstm":
+    K5), forward or backward, at batch B and hidden size H on a card of
+    ``n_sm`` SMs and ``smem_optin`` bytes of shared memory a block may use;
+    ``capacity`` maps (C, R) to the clusters of that shape the card holds
+    at once (default: one per C SMs).
+
+    - ``"reg"`` (H <= 50): W_hid in registers, one block per tile of R =
+      ceil(B / SMs) rows (at most 16); C = 1.
+    - ``"cluster"``: clusters of C CTAs of at most 32 units each, R rows a
+      cluster, W_hid split over the CTAs. (C, R) is the shape whose waves
+      of clusters times (R + 24), a step's product plus its fixed cost, is
+      least; ties go to the smaller C, then the larger R.
+    - ``"l2"``: the single-block kernels reading W_hid through L2, where no
+      cluster slice fits; R = ceil(B / SMs), at most 8; C = 1.
+
+    Raises ValueError for an empty batch or where no kernel fits.
+    """
+    if B < 1 or H < 1:
+        raise ValueError(f"train_scan_plan: no kernel for B={B}, H={H}")
+    rows = max(1, -(-B // n_sm))
+    if H <= REG_MAX_H:
+        R = min(REG_MAX_ROWS, rows)
+        if train_scan_smem(cell, "reg", H, 1, R, backward) <= smem_optin:
+            return "reg", 1, R
+    best = None
+    for C in CLUSTER_CTAS:
+        if H < C or -(-H // C) > CLUSTER_UNITS:
+            continue
+        for R in CLUSTER_ROWS:
+            if train_scan_smem(cell, "cluster", H, C, R, backward) > smem_optin:
+                continue
+            held = capacity[C, R] if capacity is not None else max(1, n_sm // C)
+            cost = -(-(-(-B // R)) // max(1, held)) * (R + CLUSTER_STEP_ROWS)
+            if best is None or cost < best[0]:
+                best = (cost, C, R)
+    if best is not None:
+        return "cluster", best[1], best[2]
+    R = min(L2_MAX_ROWS, rows)
+    if train_scan_smem(cell, "l2", H, 1, R, backward) > smem_optin:
+        raise ValueError(f"train_scan_plan: no {cell} training kernel takes H={H}")
+    return "l2", 1, R
+
+
+_plans: dict = {}
+
+
+def device_train_plan(cell: str, B: int, H: int, device, backward: bool, library):
+    """train_scan_plan on ``device``'s SM count, opt-in shared memory and
+    the cluster capacity that ``library()``'s ``seqrec_<cell>_train_capacity``
+    measures, cached per device and shape (a lookup on later calls). The
+    first plan of a shape holds train_scan_smem against the kernels' own
+    sizes (``seqrec_<cell>_train_smem``) and raises if they differ."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, cell, B, H, backward)
+    plan = _plans.get(key)
+    if plan is not None:
+        return plan
+    lib = library()
+    n_sm, smem = device_limits(index)
+    held = None
+    if train_scan_plan(cell, B, H, n_sm, smem, backward)[0] == "cluster":
+        fn, held = getattr(lib, f"seqrec_{cell}_train_capacity"), {}
+        with torch.cuda.device(index):
+            for C in CLUSTER_CTAS:
+                for R in CLUSTER_ROWS:
+                    if H < C or -(-H // C) > CLUSTER_UNITS or train_scan_smem(cell, "cluster", H, C, R, backward) > smem:
+                        continue
+                    n = ctypes.c_int(0)
+                    err = fn(int(backward), H, C, R, ctypes.byref(n))
+                    if err:
+                        raise RuntimeError(f"{cell}_scan_train: reading the cluster capacity failed with CUDA error {err}")
+                    held[C, R] = n.value
+    plan = train_scan_plan(cell, B, H, n_sm, smem, backward, held)
+    path, C, R = plan
+    want = train_scan_smem(cell, path, H, C, R, backward)
+    got = getattr(lib, f"seqrec_{cell}_train_smem")(int(backward), PATHS[path], H, C, R)
+    if got != want:
+        raise RuntimeError(f"{cell}_scan_train: the plan {plan} at H={H} counts {want} bytes of shared memory, "
+                           f"its kernel {got}")
+    _plans[key] = plan
+    return plan
+
+
+_lib = None
+
+
 def _library():
+    global _lib
+    if _lib is not None:
+        return _lib
     lib = _build.load("gru_scan_train")
     fwd, bwd = lib.seqrec_gru_train_fwd_f32, lib.seqrec_gru_train_bwd_f32
     if fwd.argtypes is None:
-        fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fwd.restype = ctypes.c_int
-        bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         bwd.restype = ctypes.c_int
-    return fwd, bwd
+        lib.seqrec_gru_train_capacity.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.seqrec_gru_train_capacity.restype = ctypes.c_int
+        lib.seqrec_gru_train_smem.argtypes = [ctypes.c_int] * 5
+        lib.seqrec_gru_train_smem.restype = ctypes.c_longlong
+    _lib = lib
+    return lib
+
+
+def gru_train_plan(B: int, H: int, device, backward: bool) -> tuple[str, int, int]:
+    """K1's (path, C, R) on ``device`` (train_scan_plan)."""
+    return device_train_plan("gru", B, H, device, backward, _library)
 
 
 def gru_scan_train_fwd(x_pre, mask, w_hid, h0):
@@ -73,16 +208,17 @@ def gru_scan_train_fwd(x_pre, mask, w_hid, h0):
     })
     if B == 0 or L == 0:
         raise ValueError("gru_scan_train_fwd: the kernel needs B >= 1 and L >= 1")
-    out = torch.empty((B, H), dtype=torch.float32, device=x_pre.device)
-    hs = torch.empty((L, B, H), dtype=torch.float32, device=x_pre.device)
-    fwd, _ = _library()
-    with torch.cuda.device(x_pre.device):
-        err = fwd(
+    dev = x_pre.device
+    path, C, R = gru_train_plan(B, H, dev, backward=False)
+    out = torch.empty((B, H), dtype=f32, device=dev)
+    hs = torch.empty((L, B, H), dtype=f32, device=dev)
+    with on_device(dev):
+        err = _library().seqrec_gru_train_fwd_f32(
             x_pre.data_ptr(), mask.data_ptr(), w_hid.data_ptr(), h0.data_ptr(), out.data_ptr(),
-            hs.data_ptr(), B, L, H, torch.cuda.current_stream().cuda_stream,
+            hs.data_ptr(), B, L, H, PATHS[path], C, R, torch.cuda.current_stream().cuda_stream,
         )
     if err:
-        raise RuntimeError(f"gru_scan_train_fwd kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"gru_scan_train_fwd kernel launch ({path} path) failed with CUDA error {err}")
     gru_scan_train_fwd.launches += 1
     return out, hs
 
@@ -101,24 +237,31 @@ def gru_scan_train_bwd(x_pre, mask, w_hid, hs, dh, grad_clip: float):
     if B == 0 or L == 0:
         raise ValueError("gru_scan_train_bwd: the kernel needs B >= 1 and L >= 1")
     dev = x_pre.device
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits, per_split = dw_split_plan(L * B, H, 3 * H, n_sm)
-    w_t = w_hid.t().contiguous()
-    dx = torch.empty((B, L, 3 * H), dtype=torch.float32, device=dev)
-    dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
-    dw = torch.empty((H, 3 * H), dtype=torch.float32, device=dev)
-    dhid = torch.empty((L, B, 3 * H), dtype=torch.float32, device=dev)
-    part = torch.empty((n_splits, H, 3 * H), dtype=torch.float32, device=dev)
-    _, bwd = _library()
-    with torch.cuda.device(dev):
-        err = bwd(
-            x_pre.data_ptr(), mask.data_ptr(), w_hid.data_ptr(), w_t.data_ptr(), hs.data_ptr(),
-            dh.data_ptr(), dx.data_ptr(), dh0.data_ptr(), dw.data_ptr(), dhid.data_ptr(),
-            part.data_ptr(), B, L, H, n_splits, per_split, float(grad_clip or 0.0),
-            torch.cuda.current_stream().cuda_stream,
+    path, C, R = gru_train_plan(B, H, dev, backward=True)
+    G = 3 * H
+    dx = torch.empty((B, L, G), dtype=f32, device=dev)
+    dh0 = torch.empty((B, H), dtype=f32, device=dev)
+    dw = torch.empty((H, G), dtype=f32, device=dev)
+    w_t = dhid = part = None
+    n_splits = per_split = 0
+    if path == "reg":
+        if B > R:
+            part = torch.empty((-(-B // R), H, G), dtype=f32, device=dev)
+    else:
+        n_splits, per_split = dw_split_plan(L * B, H, G, device_limits(dh0.device.index)[0])
+        dhid = torch.empty((L, B, G), dtype=f32, device=dev)
+        part = torch.empty((n_splits, H, G), dtype=f32, device=dev)
+        if path == "l2":
+            w_t = w_hid.t().contiguous()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with on_device(dev):
+        err = _library().seqrec_gru_train_bwd_f32(
+            x_pre.data_ptr(), mask.data_ptr(), w_hid.data_ptr(), ptr(w_t), hs.data_ptr(), dh.data_ptr(),
+            dx.data_ptr(), dh0.data_ptr(), dw.data_ptr(), ptr(dhid), ptr(part), B, L, H, PATHS[path], C, R,
+            n_splits, per_split, float(grad_clip or 0.0), torch.cuda.current_stream().cuda_stream,
         )
     if err:
-        raise RuntimeError(f"gru_scan_train_bwd kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"gru_scan_train_bwd kernel launch ({path} path) failed with CUDA error {err}")
     gru_scan_train_bwd.launches += 1
     return dx, dh0, dw
 

@@ -29,7 +29,19 @@ kernel runs on a path of ``chip_smoke.py``:
   ``--before`` (a checkout of that version), at B=64/H=50/N=3,706 and
   B=512/H=256 at N=49,999 and 200,000: without the product, without the
   ballot and insert, without the seen-id compare, without the merge
-  kernel, and with a merge kernel that returns at once (its launch alone).
+  kernel, and with a merge kernel that returns at once (its launch alone);
+- ``k1`` and ``k5``: K1 (GRU) and K5 (LSTM) training scans, forward and
+  backward, at B=16/L=30/H=50 (reg path; also with 2 to 16 rows a block)
+  and B=1024/L=30/H=128 (cluster path): without the hid recompute, without
+  the dh product, without the dW sums (reg) or the dW product (cluster),
+  with every step's copies reading step 0's rows (cache-hot, so the
+  loads' latency is all that goes), with the new h or dhid stored only into the
+  CTA's own buffer, and through the wrapper per call; with ``--before``
+  also the kernels of that checkout (one block per row tile, W_hid through
+  L2 at H=128, 64 x 64 f32 dW tiles) without the hid recompute, phase 3,
+  the step loads, the dW launches or the W_hid reads, its wrapper (device
+  properties, dW plan, transpose, allocations, launch) and its transpose
+  alone.
 
 A variant computes wrong values: it is only timed, with CUDA events (the
 mean of 50 back-to-back calls after one: launch gaps included) and with
@@ -381,7 +393,259 @@ def k2_stats_breakdown(card: str) -> None:
                           **timed(lambda: torch.logsumexp(h @ w + b, dim=1)), "card": card}), flush=True)
 
 
-PARTS = ("k3", "k2", "k2_stats", "k4", "k4_before")
+# K1 and K5 before their Hopper redesign: one block per tile of at most 8
+# rows, W_hid (and a transposed copy for the backward) in shared memory or
+# read through L2, the dW product on tile_mma.cuh's 64 x 64 f32 tiles
+STEP_LOADS_GRU = ("gru_scan_train.cu", "      if (mask[b * L + t] > 0.0f) {\n        const float* xt = x + (b * L + t) * G;",
+                  "      if (t >= 0) {\n        const float* xt = x + b * L * G;")
+SCAN_TRAIN_BEFORE_VARIANTS = {
+    "gru_fwd": {
+        "committed": [],
+        "no_product": [("gru_forward.cuh", "    rows_product(h, wr, hid, nullptr, rows, H, G);",
+                        "    if (L < 0) rows_product(h, wr, hid, nullptr, rows, H, G);")],
+        "no_step_loads": [("gru_forward.cuh", "      if (mask[b * L + t] > 0.0f) {\n        const float* xt = x + (b * L + t) * G;",
+                           "      if (t >= 0) {\n        const float* xt = x + b * L * G;")],
+        "no_w_reads": [("scan_common.cuh", "const float wk = w[(size_t)k * N + c];", "const float wk = 1e-3f * (float)(k - c);")],
+    },
+    "gru_bwd": {
+        "committed": [],
+        "no_hid_recompute": [("gru_scan_train.cu", "    rows_product(hp, wr, hid, nullptr, rows, H, G);",
+                              "    if (L < 0) rows_product(hp, wr, hid, nullptr, rows, H, G);")],
+        "no_phase3": [("gru_scan_train.cu", "    for (int k = threadIdx.x; k < H; k += kThreads) {",
+                       "    for (int k = threadIdx.x; k < (L < 0 ? H : 0); k += kThreads) {")],
+        "no_step_loads": [("gru_scan_train.cu", "i < rows * H; i += kThreads) hp[i] = hs_t[i];",
+                           "i < (L < 0 ? rows * H : 0); i += kThreads) hp[i] = hs_t[i];"), STEP_LOADS_GRU],
+        "no_dw": [("gru_scan_train.cu", "  return launch_atb(hs, dhid, part, dw, L * B, H, 3 * H, n_splits, k_per_split, s);",
+                   "  return B < 0 ? launch_atb(hs, dhid, part, dw, L * B, H, 3 * H, n_splits, k_per_split, s) : 0;")],
+        "no_w_reads": [("scan_common.cuh", "const float wk = w[(size_t)k * N + c];", "const float wk = 1e-3f * (float)(k - c);"),
+                       ("gru_scan_train.cu", "const float wk = wtr[c * H + k];", "const float wk = 1e-3f * (float)(k - c);")],
+    },
+    "lstm_fwd": {
+        "committed": [],
+        "no_product": [("lstm_forward.cuh", "    rows_product(h, wr, hid, nullptr, rows, H, G);",
+                        "    if (L < 0) rows_product(h, wr, hid, nullptr, rows, H, G);")],
+        "no_w_reads": [("scan_common.cuh", "const float wk = w[(size_t)k * N + c];", "const float wk = 1e-3f * (float)(k - c);")],
+    },
+    "lstm_bwd": {
+        "committed": [],
+        "no_hid_recompute": [("lstm_scan_train.cu", "    rows_product(hp, wr, hid, nullptr, rows, H, G);",
+                              "    if (L < 0) rows_product(hp, wr, hid, nullptr, rows, H, G);")],
+        "no_phase3": [("lstm_scan_train.cu", "    rows_product(hid, wtr, dh, keep, rows, G, H);",
+                       "    if (L < 0) rows_product(hid, wtr, dh, keep, rows, G, H);")],
+        "no_step_loads": [("lstm_scan_train.cu", "      hp[i] = hs[st + i];\n      cp[i] = cs[st + i];",
+                           "      hp[i] = hs[i];\n      cp[i] = cs[i];")],
+        "no_dw": [("lstm_scan_train.cu", "  err = launch_atb(hs, dpre, part, dw, L * B, H, 4 * H, n_splits, k_per_split, s);",
+                   "  err = B < 0 ? launch_atb(hs, dpre, part, dw, L * B, H, 4 * H, n_splits, k_per_split, s) : 0;")],
+        "no_w_reads": [("scan_common.cuh", "const float wk = w[(size_t)k * N + c];", "const float wk = 1e-3f * (float)(k - c);")],
+    },
+}
+SCAN_SHAPES = [(16, 30, 50), (1024, 30, 128)]  # (B, L, H): the flagship; GRU-128 and LSTM-128
+
+
+def scan_inputs(cell: str, B: int, L: int, H: int, seed: int = 5) -> dict:
+    """chip_smoke.py's scan inputs (ragged prefix masks) and an upstream
+    cotangent, on the card."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_gates = 3 if cell == "gru" else 4
+    lengths = rng.integers(1, L + 1, size=B)
+    arrays = {
+        "x": rng.normal(0, 0.5, (B, L, n_gates * H)), "m": np.arange(L)[None] < lengths[:, None],
+        "w": rng.normal(0, 0.1, (H, n_gates * H)), "p": rng.normal(0, 0.1, (3, H)),
+        "h0": rng.normal(0, 0.1, (B, H)), "c0": rng.normal(0, 0.1, (B, H)), "dh": rng.normal(0, 1, (B, H)),
+    }
+    return {k: torch.tensor(v, dtype=torch.float32, device="cuda") for k, v in arrays.items()}
+
+
+def before_dw_split_plan(K, H, G, n_sm, tile=64):
+    """The dW split of the kernels before the redesign (about two blocks
+    per SM over the 64 x 64 output tiles)."""
+    out_tiles = -(-H // tile) * -(-G // tile)
+    k_tiles = -(-K // tile)
+    n_splits = max(1, min(-(-2 * n_sm // out_tiles), k_tiles))
+    per_split = -(-k_tiles // n_splits) * tile
+    return -(-K // per_split), per_split
+
+
+def scan_train_before_breakdown(card: str, cell: str, csrc: str) -> None:
+    """K1 (cell "gru") or K5 ("lstm") before the redesign, from ``csrc``:
+    forward and backward cut part by part at SCAN_SHAPES, the per-call
+    transpose of W_hid apart, and the wrapper as it was (device
+    properties, dW plan, transpose, scratch allocations, launch) per call
+    against its device time."""
+    import torch
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    source = "gru_scan_train" if cell == "gru" else "lstm_scan_train"
+    libs = {d: build_variants(source, SCAN_TRAIN_BEFORE_VARIANTS[f"{cell}_{d}"], csrc=csrc, tag=f"-before-{d}")
+            for d in ("fwd", "bwd")}
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for B, L, H in SCAN_SHAPES:
+        a = scan_inputs(cell, B, L, H)
+        G = a["w"].shape[1]
+        stream = torch.cuda.current_stream().cuda_stream
+        e = lambda *s: torch.empty(*s, device="cuda")  # noqa: E731
+        out, hs, cs = e(B, H), e(L, B, H), e(L, B, H)
+        dx, dh0, dc0, dw, dpeep, scratch = e(B, L, G), e(B, H), e(B, H), e(H, G), e(3, H), e(L, B, G)
+        peep_part = e(B, 3 * H)
+        wt = a["w"].t().contiguous()
+        n_splits, per_split = before_dw_split_plan(L * B, H, G, n_sm)
+        part = e(n_splits, H, G)
+        P = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
+        for d, variants in libs.items():
+            for name, lib in variants.items():
+                if cell == "gru" and d == "fwd":
+                    fn = lib.seqrec_gru_train_fwd_f32
+                    fn.argtypes = [vp] * 6 + [ci] * 3 + [vp]
+                    args = P(a["x"], a["m"], a["w"], a["h0"], out, hs) + [B, L, H, stream]
+                elif cell == "gru":
+                    fn = lib.seqrec_gru_train_bwd_f32
+                    fn.argtypes = [vp] * 11 + [ci] * 5 + [cf, vp]
+                    args = P(a["x"], a["m"], a["w"], wt, hs, a["dh"], dx, dh0, dw, scratch, part) + [
+                        B, L, H, n_splits, per_split, 100.0, stream]
+                elif d == "fwd":
+                    fn = lib.seqrec_lstm_train_fwd_f32
+                    fn.argtypes = [vp] * 9 + [ci] * 3 + [vp]
+                    args = P(a["x"], a["m"], a["w"], a["p"], a["h0"], a["c0"], out, hs, cs) + [B, L, H, stream]
+                else:
+                    fn = lib.seqrec_lstm_train_bwd_f32
+                    fn.argtypes = [vp] * 16 + [ci] * 5 + [cf, vp]
+                    args = P(a["x"], a["m"], a["w"], wt, a["p"], hs, cs, a["dh"], dx, dh0, dc0, dw, dpeep, scratch,
+                             part, peep_part) + [B, L, H, n_splits, per_split, 100.0, stream]
+                fn.restype = ci
+                res = timed(lambda: checked(fn(*args)))
+                print(json.dumps({"kernel": f"{source} {d} before", "variant": name, "shape": [B, L, H], **res,
+                                  "card": card}), flush=True)
+            if d == "bwd":  # the wrapper as it was, around the committed variant
+                fn = variants["committed"].seqrec_gru_train_bwd_f32 if cell == "gru" else variants[
+                    "committed"].seqrec_lstm_train_bwd_f32
+
+                def wrapper():
+                    props = torch.cuda.get_device_properties(a["x"].device).multi_processor_count
+                    ns, ps = before_dw_split_plan(L * B, H, G, props)
+                    w_t = a["w"].t().contiguous()
+                    bufs = [e(B, L, G), e(B, H), e(H, G), e(L, B, G), e(ns, H, G)]
+                    if cell == "lstm":
+                        bufs += [e(B, H), e(3, H), e(B, 3 * H)]
+                        ptrs = P(a["x"], a["m"], a["w"], w_t, a["p"], hs, cs, a["dh"], bufs[0], bufs[1], bufs[5],
+                                 bufs[2], bufs[6], bufs[3], bufs[4], bufs[7])
+                    else:
+                        ptrs = P(a["x"], a["m"], a["w"], w_t, hs, a["dh"], *bufs)
+                    checked(fn(*ptrs, B, L, H, ns, ps, 100.0, torch.cuda.current_stream().cuda_stream))
+
+                print(json.dumps({"kernel": f"{source} bwd before", "variant": "wrapper as it was", "shape": [B, L, H],
+                                  **timed(wrapper), "card": card}), flush=True)
+        print(json.dumps({"kernel": f"{source} before", "variant": "transpose w_hid.t().contiguous()", "shape": [B, L, H],
+                          **timed(lambda: a["w"].t().contiguous()), "card": card}), flush=True)
+
+
+# K1 and K5 as committed: W_hid in registers (reg path, H <= 50) or split
+# over a thread-block cluster (cluster path), one part cut out at a time
+REG, CLU = "scan_train_reg.cuh", "scan_train_cluster.cuh"
+SCAN_TRAIN_VARIANTS = {
+    "committed": [],
+    "no_hid_recompute": [(REG, "    if (t >= 1) reg_hid(", "    if (t >= 1 && L < 0) reg_hid("),
+                         (CLU, "  for (int k = 0; k < Hp; k += 4) {", "  for (int k = 0; k < (U < 0 ? Hp : 0); k += 4) {")],
+    "no_dh_product": [(REG, "      for (int j = 0; j < kRegCC; ++j) s = fmaf(dr[j], wb[j], s);",
+                       "      for (int j = 0; j < (L < 0 ? kRegCC : 0); ++j) s = fmaf(dr[j], wb[j], s);"),
+                      (REG, "      for (int m = 1; m < kRegCS; m <<= 1)", "      for (int m = 1; m < (L < 0 ? kRegCS : 1); m <<= 1)"),
+                      (CLU, "    for (int c = 0; c < Gp; c += 4) {", "    for (int c = 0; c < (L < 0 ? Gp : 0); c += 4) {")],
+    "no_dw": [(REG, "      for (int i = 0; i < kRegKC; ++i) dwa[i] = fmaf(hr[i], dv, dwa[i]);",
+               "      for (int i = 0; i < (L < 0 ? kRegKC : 0); ++i) dwa[i] = fmaf(hr[i], dv, dwa[i]);"),
+              ("gru_scan_train.cu", "  return launch_dw(hs, dhid, part, dw,", "  if (B >= 0) return 0;\n  return launch_dw(hs, dhid, part, dw,"),
+              ("lstm_scan_train.cu", "  return launch_dw(hs, dpre, part, dw,", "  if (B >= 0) return 0;\n  return launch_dw(hs, dpre, part, dw,")],
+    # every step's copies read step 0's rows (cache-hot; the mask stays 1)
+    "step0_loads": [(REG, "    cp_async4(xb + e, x + ((size_t)(row0 + r) * L + t) * G + c);",
+                     "    cp_async4(xb + e, x + (size_t)(row0 + r) * L * G + c);"),
+                    (REG, "cp_async4(mb + r, mask + (size_t)(row0 + r) * L + t);", "cp_async4(mb + r, mask + (size_t)(row0 + r) * L);"),
+                    (REG, "    reg_prefetch_state(hs + ((size_t)t * B + row0) * H,", "    reg_prefetch_state(hs + (size_t)row0 * H,"),
+                    (REG, "    if (kLstm) reg_prefetch_state(cs + ((size_t)t * B + row0) * H,",
+                     "    if (kLstm) reg_prefetch_state(cs + (size_t)row0 * H,"),
+                    (CLU, "    const float* src = hs + ((size_t)t * B + row0) * H;", "    const float* src = hs + (size_t)row0 * H;")],
+    "own_buffer_stores_only": [(CLU, "for (int pr = 0; pr < C; ++pr) cluster.map_shared_rank(dn, pr)[e] = d[g];", "dn[e] = d[g];"),
+                               (CLU, "for (int pr = 0; pr < C; ++pr) cluster.map_shared_rank(hn, pr)[e] = h;", "hn[e] = h;")],
+}
+REG_ROWS = (1, 2, 4, 8, 16)  # reg-path tiles timed at B=16
+
+
+def scan_train_breakdown(card: str, cell: str) -> None:
+    """K1 (cell "gru") or K5 ("lstm") as committed at SCAN_SHAPES on its
+    plan's path, forward and backward, cut part by part; at B=16 the reg
+    path also with other row tiles; through the wrapper per call against
+    its device time."""
+    import torch
+
+    from seqrec_tpu_torch.ops import lstm_scan_train as lst
+    from seqrec_tpu_torch.ops import rnn_scan_train as rst
+    from seqrec_tpu_torch.ops.rnn_scan import device_limits
+
+    source = "gru_scan_train" if cell == "gru" else "lstm_scan_train"
+    libs = build_variants(source, SCAN_TRAIN_VARIANTS, tag="-now")
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    n_sm = device_limits(torch.cuda.current_device())[0]
+    plan_fn = rst.gru_train_plan if cell == "gru" else lst.lstm_train_plan
+    for B, L, H in SCAN_SHAPES:
+        a = scan_inputs(cell, B, L, H)
+        G = a["w"].shape[1]
+        e = lambda *sh: torch.empty(*sh, device="cuda")  # noqa: E731
+        out, hs, cs, dx, dh0, dc0 = e(B, H), e(L, B, H), e(L, B, H), e(B, L, G), e(B, H), e(B, H)
+        dw, dpeep, scratch, peep_part = e(H, G), e(3, H), e(L, B, G), e(B, 3 * H)
+        n_splits, per_split = rst.dw_split_plan(L * B, H, G, n_sm)
+        part = e(max(n_splits, B), H, G)
+        P = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
+        plans = {d: plan_fn(B, H, a["x"].device, d == "bwd") for d in ("fwd", "bwd")}
+
+        def call(lib, d, path, C, R):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = rst.PATHS[path]
+            if cell == "gru" and d == "fwd":
+                fn = lib.seqrec_gru_train_fwd_f32
+                fn.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+                args = P(a["x"], a["m"], a["w"], a["h0"], out, hs) + [B, L, H, code, C, R, stream]
+            elif cell == "gru":
+                fn = lib.seqrec_gru_train_bwd_f32
+                fn.argtypes = [vp] * 11 + [ci] * 8 + [cf, vp]
+                args = [*P(a["x"], a["m"], a["w"]), None, *P(hs, a["dh"], dx, dh0, dw, scratch, part),
+                        B, L, H, code, C, R, n_splits, per_split, 100.0, stream]
+            elif d == "fwd":
+                fn = lib.seqrec_lstm_train_fwd_f32
+                fn.argtypes = [vp] * 9 + [ci] * 6 + [vp]
+                args = P(a["x"], a["m"], a["w"], a["p"], a["h0"], a["c0"], out, hs, cs) + [B, L, H, code, C, R, stream]
+            else:
+                fn = lib.seqrec_lstm_train_bwd_f32
+                fn.argtypes = [vp] * 16 + [ci] * 8 + [cf, vp]
+                args = [*P(a["x"], a["m"], a["w"]), None, *P(a["p"], hs, cs, a["dh"], dx, dh0, dc0, dw, dpeep,
+                                                             scratch, part, peep_part),
+                        B, L, H, code, C, R, n_splits, per_split, 100.0, stream]
+            fn.restype = ci
+            return lambda: checked(fn(*args))
+
+        for d in ("fwd", "bwd"):
+            path, C, R = plans[d]
+            for name, lib in libs.items():
+                print(json.dumps({"kernel": f"{source} {d}", "variant": name, "shape": [B, L, H], "plan": [path, C, R],
+                                  **timed(call(lib, d, path, C, R)), "card": card}), flush=True)
+            if path == "reg":
+                for rows in REG_ROWS:
+                    if rows != R and rows <= B:
+                        print(json.dumps({"kernel": f"{source} {d}", "variant": f"committed, {rows}-row tiles",
+                                          "shape": [B, L, H], "plan": [path, C, rows],
+                                          **timed(call(libs["committed"], d, path, C, rows)), "card": card}), flush=True)
+        if cell == "gru":
+            _, hs_w = rst.gru_scan_train_fwd(a["x"], a["m"], a["w"], a["h0"])
+            calls = {"fwd": lambda: rst.gru_scan_train_fwd(a["x"], a["m"], a["w"], a["h0"]),
+                     "bwd": lambda: rst.gru_scan_train_bwd(a["x"], a["m"], a["w"], hs_w, a["dh"], 100.0)}
+        else:
+            _, hs_w, cs_w = lst.lstm_scan_train_fwd(a["x"], a["m"], a["w"], a["p"], a["h0"], a["c0"])
+            calls = {"fwd": lambda: lst.lstm_scan_train_fwd(a["x"], a["m"], a["w"], a["p"], a["h0"], a["c0"]),
+                     "bwd": lambda: lst.lstm_scan_train_bwd(a["x"], a["m"], a["w"], a["p"], hs_w, cs_w, a["dh"], 100.0)}
+        for d, fn in calls.items():
+            print(json.dumps({"kernel": f"{source} {d}", "variant": "committed, through the wrapper", "shape": [B, L, H],
+                              "plan": list(plans[d]), **timed(fn), "card": card}), flush=True)
+
+
+PARTS = ("k3", "k2", "k2_stats", "k4", "k4_before", "k1", "k5")
 
 
 def main(argv=None) -> int:
@@ -389,7 +653,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parts", nargs="+", choices=PARTS, default=[p for p in PARTS if p != "k4_before"])
-    parser.add_argument("--before", help="csrc directory of K4 before its redesign (for k4_before)")
+    parser.add_argument("--before", help="csrc directory of an older checkout: K4 before its redesign (for k4_before), "
+                        "K1 and K5 before theirs (timed beside the committed ones by k1 and k5)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_breakdown: no CUDA device is available", file=sys.stderr)
@@ -410,6 +675,11 @@ def main(argv=None) -> int:
         k4_breakdown(card)
     if "k4_before" in args.parts:
         k4_before_breakdown(card, args.before)
+    for part, cell in (("k1", "gru"), ("k5", "lstm")):
+        if part in args.parts:
+            if args.before:
+                scan_train_before_breakdown(card, cell, args.before)
+            scan_train_breakdown(card, cell)
     return 0
 
 

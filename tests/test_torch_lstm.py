@@ -100,7 +100,11 @@ def test_lstm_wrappers_run_plain_on_cpu_and_refuse_cpu_kernels():
     assert lstm_scan.launches == lstm_scan_train_fwd.launches == lstm_scan_train_bwd.launches == 0
 
 
-@pytest.mark.parametrize("K,H_,G", [(30 * 1024, 128, 512), (30 * 1024, 128, 384), (30 * 16, 50, 200), (63, 12, 48)])
+@pytest.mark.parametrize(
+    "K,H_,G",
+    [(30 * 1024, 128, 512), (30 * 1024, 128, 384), (30 * 16, 50, 200), (63, 12, 48), (30 * 1025, 130, 520),
+     (30 * 1024, 256, 768)],
+)
 def test_dw_split_plan_covers_the_rows_in_whole_tiles(K, H_, G):
     n_splits, per_split = dw_split_plan(K, H_, G, n_sm=132)
     assert per_split % TILE == 0 and (n_splits - 1) * per_split < K <= n_splits * per_split

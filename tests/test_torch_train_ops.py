@@ -1,8 +1,8 @@
 """The port's training ops (plain versions, on the CPU) against the JAX
 package: the GRU training scan (K1) and the streaming CCE (K2) against
 their Pallas kernels in interpret mode, the streaming op against JAX's and
-against the dense loss, grad_clip, the CCE losses and the five optimizers
-against optax.
+against the dense loss, grad_clip, the CCE losses the five optimizers
+against optax, and the plan of the GRU and LSTM training scans' kernels.
 
 Tolerances: f32 on both sides, sums taken in other orders. Values and
 per-element products agree to rtol 1e-5; sums over B*L (dW) or over the
@@ -28,10 +28,16 @@ from seqrec_tpu_torch.models import updates
 from seqrec_tpu_torch.ops import losses
 from seqrec_tpu_torch.ops.core import gather_sum, grad_clip, rows_16b
 from seqrec_tpu_torch.ops.rnn_scan_train import (
+    CLUSTER_ROWS,
+    CLUSTER_UNITS,
+    L2_MAX_ROWS,
+    REG_MAX_ROWS,
     gru_scan_train,
     gru_scan_train_bwd,
     gru_scan_train_fwd,
     gru_scan_train_plain,
+    train_scan_plan,
+    train_scan_smem,
 )
 from seqrec_tpu_torch.ops.streaming_cce import (
     MAX_H,
@@ -280,3 +286,85 @@ def test_optimizer_steps_follow_optax(make):
 def test_bf16_adam_moments_raise_later_slice():
     with pytest.raises(NotImplementedError, match="later slice"):
         updates.Adam(moment_dtype="bfloat16").init([torch.zeros(3)])
+
+
+H100_SMS, H100_SMEM_OPTIN = 132, 232_448
+# (cell, B, H) -> (path, C) of the forward and of the backward on an H100
+TRAIN_PLANS = {
+    ("gru", 16, 50): (("reg", 1), ("reg", 1)),  # the flagship
+    ("gru", 1024, 128): (("cluster", 4), ("cluster", 4)),  # GRU-128
+    ("lstm", 1024, 128): (("cluster", 4), ("cluster", 4)),  # LSTM-128
+    ("lstm", 16, 50): (("reg", 1), ("reg", 1)),
+    ("gru", 9, 12): (("reg", 1), ("reg", 1)),
+    ("lstm", 1025, 130): (("cluster", 8), ("cluster", 8)),  # a ragged tile, 130 units over 8 CTAs
+    ("gru", 1024, 256): (("cluster", 8), ("l2", 1)),  # the backward's two slices outgrow a CTA
+}
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("cell,B,H", list(TRAIN_PLANS))
+def test_train_scan_plan_covers_rows_and_units_within_shared_memory(cell, B, H, backward):
+    """K1's and K5's plan: the path and cluster size at the paths' shapes
+    and the edge shapes; every row in one tile, every unit in one CTA, no
+    CTA without units, each CTA's (block's) shared memory within an H100's
+    232,448 bytes."""
+    path, C, R = train_scan_plan(cell, B, H, H100_SMS, H100_SMEM_OPTIN, backward)
+    assert (path, C) == TRAIN_PLANS[cell, B, H][backward]
+    assert R in {"reg": range(1, REG_MAX_ROWS + 1), "cluster": CLUSTER_ROWS, "l2": range(1, L2_MAX_ROWS + 1)}[path]
+    tiles = -(-B // R)
+    assert tiles * R >= B and B - (tiles - 1) * R >= 1  # every row in a tile, the last tile not empty
+    assert train_scan_smem(cell, path, H, C, R, backward) <= H100_SMEM_OPTIN
+    # CTA q of C owns the units [q H // C, (q + 1) H // C) (csrc/cluster_common.cuh unit_begin)
+    begins = [q * H // C for q in range(C + 1)]
+    assert begins[0] == 0 and begins[-1] == H
+    assert all(1 <= q1 - q0 <= (CLUSTER_UNITS if path == "cluster" else H) for q0, q1 in zip(begins, begins[1:]))
+    assert (C > 1) == (path == "cluster")
+    if (cell, B, H) == ("gru", 16, 50):
+        assert R == 1  # 16 blocks of one row: the shortest step
+
+
+# (cell, path, H, C, R, backward) -> bytes of one block, counted by hand from
+# the buffer layouts in the comments of csrc/scan_train_reg.cuh,
+# scan_train_cluster.cuh and scan_train.cuh:l2_train_floats
+TRAIN_SMEM_BY_HAND = {
+    # W[:, cols(q)] 128 x 96 + W[units(q), :]^T 384 x 32 + h 2 x 24 x 128 + dhid 2 x 24 x 384
+    ("gru", "cluster", 128, 4, 24, True): 4 * (12_288 + 12_288 + 6_144 + 18_432),
+    # 128 x 128 + 512 x 32 + 2 x 16 x 128 + 2 x 16 x 512
+    ("lstm", "cluster", 128, 4, 16, True): 4 * (16_384 + 16_384 + 4_096 + 16_384),
+    # W[:, cols(q)] 128 x 96 + h 2 x 32 x 128
+    ("gru", "cluster", 128, 4, 32, False): 4 * (12_288 + 8_192),
+    # 17 units a CTA, H padded to 132: 132 x 68 + h 2 x 8 x 132
+    ("lstm", "cluster", 130, 8, 8, False): 4 * (8_976 + 2_112),
+    # hp, cp [3, 1, 52] + dh, dc, dd [1, 52] + hid [2, 1, 208] + x [3, 1, 150] + mask [3, 1] + dpeep [1, 150]
+    ("gru", "reg", 50, 1, 1, True): 4 * (312 + 156 + 416 + 450 + 3 + 150),
+    # h, c [1, 52] + hid [1, 208] + x [2, 1, 150] + mask [2, 1]
+    ("gru", "reg", 50, 1, 1, False): 4 * (104 + 208 + 300 + 2),
+    # 16 rows of 3 x 52 x 3 + 3 x 52 + 2 x 208 + 3 x 200 + 3 + 150
+    ("lstm", "reg", 50, 1, 16, True): 4 * 16 * (468 + 416 + 600 + 3 + 150),
+    # hp, dh, dd [8, 256] + hid [8, 768]
+    ("gru", "l2", 256, 1, 8, True): 4 * (3 * 2_048 + 6_144),
+    # hp, cp, dh, dc [8, 128] + hid [8, 512] + dp [8, 384] + pacc [384] + keep [8]
+    ("lstm", "l2", 128, 1, 8, True): 4 * (4 * 1_024 + 4_096 + 3_072 + 384 + 8),
+}
+
+
+@pytest.mark.parametrize("cell,path,H,C,R,backward", list(TRAIN_SMEM_BY_HAND))
+def test_train_scan_smem_matches_the_kernels_layouts(cell, path, H, C, R, backward):
+    """The plan's copy of each kernel's shared-memory size equals the
+    bytes counted by hand from the kernel's buffer layout (on the card the
+    plan also holds it against the kernel's own count)."""
+    assert train_scan_smem(cell, path, H, C, R, backward) == TRAIN_SMEM_BY_HAND[cell, path, H, C, R, backward]
+
+
+@pytest.mark.parametrize("cell,B,H", [("gru", 0, 50), ("lstm", 16, 0), ("gru", 1024, 5000), ("lstm", 1024, 4000)])
+def test_train_scan_plan_raises_where_no_kernel_fits(cell, B, H):
+    with pytest.raises(ValueError, match="no"):
+        train_scan_plan(cell, B, H, H100_SMS, H100_SMEM_OPTIN, backward=True)
+
+
+def test_train_scan_plan_follows_the_cards_cluster_capacity():
+    """Where the card holds two 80 KB CTAs an SM, GRU-128's forward takes
+    64 clusters of 16 rows in one wave rather than 32 of 32."""
+    assert train_scan_plan("gru", 1024, 128, H100_SMS, H100_SMEM_OPTIN, False) == ("cluster", 4, 32)
+    held = {(C, R): (66 if C == 4 else 33) for C in (4, 8) for R in (8, 16, 24, 32)}
+    assert train_scan_plan("gru", 1024, 128, H100_SMS, H100_SMEM_OPTIN, False, held) == ("cluster", 4, 16)
