@@ -20,7 +20,12 @@ Phases, each printing one JSON line with its seconds:
    each path of their plan (reg, cluster, and K1's l2 backward): one row,
    a ragged cluster tile, H not divisible by the cluster, a row of length
    0, a mask with holes, a clip that binds at H=128, the same bits on two
-   calls) and a
+   calls; K6 on each path of its plan: reg at B64/H50 and B9/L7/H12 with
+   a row of length 0, cluster at B1024/H128 and a ragged B with holes, l2
+   at H=300, the same bits on two calls; the gather-sum pair on real
+   batches of the flagship and the large catalog and at F=2 with id_mask
+   and pad slots, forward bit for bit at F=1, the same bits on two calls)
+   and a
    bidirectional LSTM tower against the same tower on the CPU, and time
    the kernel, the plain version and a PyTorch library yardstick beside
    the kernel's bound (for the 3xTF32 kernels K2 and K4 also the f32
@@ -35,21 +40,24 @@ Phases, each printing one JSON line with its seconds:
 4. main_path_train (flagship): with every counter at 0, train GRU-50 CCE
    (L=30, B=16, Adam 1e-3) through the train CLI on the card, with two
    validations; check that K1 (forward and backward), K3 and K4 ran and K2
-   did not (dense head); check that the first 20 step costs agree with the
+   did not (dense head), and the gather-sum kernels ran; check that the
+   first 20 step costs agree with the
    CLI on the CPU; test the trained checkpoint with the test CLI on the
    card; time steady training steps and profile them.
 5. main_path_train (large catalog): write a synthetic dataset of about
    50,000 items (streaming head), with every counter at 0 train GRU-128 at
    B=1024 for 30 steps and one validation through the train CLI; check
-   that K1 and K2 (stats and gradients) ran; time and profile steady steps.
+   that K1, K2 (stats and gradients) and the gather-sum kernels ran; time
+   and profile steady steps (no step may run PyTorch's
+   ``indexing_backward_kernel``).
 6. main_path_train (LSTM): on the same dataset, with every counter at 0
    train LSTM-128 at B=1024, Adam 2e-3 for 30 steps and one validation
    through the train CLI, saving the best checkpoint; check that K5
-   (forward and backward) and K2 ran and no GRU kernel did; check that the
-   first 5 step costs agree with the CLI on the CPU; with the counters at 0
-   again run the test CLI on the checkpoint on the card, check that K6 and
-   K4 ran and that the top-10 lists equal the CPU run's; time and profile
-   steady steps.
+   (forward and backward), K2 and the gather-sum kernels ran and no GRU
+   kernel did; check that the first 5 step costs agree with the CLI on the
+   CPU; with the counters at 0 again run the test CLI on the checkpoint on
+   the card, check that K6 (on its cluster path) and K4 ran and that the
+   top-10 lists equal the CPU run's; time and profile steady steps.
 7. serving_pass_gru256: GRU-256 (``bench_matrix.json`` row
    GRU-256-50000-f32-B1024) from seed 0 on the same catalog; with every
    counter at 0 serve 4096 users at eval chunks of 512, check that K3 ran
@@ -101,6 +109,9 @@ KERNELS = {
                             "seqrec_tpu/ops/pallas_lstm_train.py:80"),
     "lstm_scan_train_bwd": ("lstm_scan_train", "seqrec_tpu_torch/csrc/lstm_scan_train.cu",
                             "seqrec_tpu/ops/pallas_lstm_train.py:111"),
+    # not a Pallas kernel: the JAX package's gather-sum is XLA's gather and scatter-add
+    "gather_sum_fwd": ("gather_sum", "seqrec_tpu_torch/csrc/gather_sum.cu", "seqrec_tpu/ops/core.py:54"),
+    "gather_sum_bwd": ("gather_sum", "seqrec_tpu_torch/csrc/gather_sum.cu", "seqrec_tpu/ops/core.py:54"),
 }
 FLAGSHIP = [
     "-m", "RNN", "--loss", "CCE", "--r_t", "GRU", "--r_l", "50", "--max_length", "30",
@@ -129,6 +140,7 @@ def zero_counters() -> None:
     for name in KERNELS:
         wrapper(name).launches = 0
     wrapper("gru_scan").cluster_launches = 0
+    wrapper("lstm_scan").reg_launches = wrapper("lstm_scan").cluster_launches = 0
 
 
 def read_counters() -> dict:
@@ -166,22 +178,29 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_events(fn, reps: int = 1) -> dict:
+def device_events(fn, reps: int = 1, tries: int = 3) -> dict:
     """Device time in ms of each kernel or copy name over ``reps`` calls of
-    ``fn``, from torch.profiler's CUDA trace."""
+    ``fn``, from torch.profiler's CUDA trace. A trace with no device event
+    (the profiler drops one now and then) is taken again, up to ``tries``
+    times in all; after that ``fn`` is taken to launch nothing (as the
+    operand pad of already aligned rows does)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {
-        e.key: e.self_device_time_total / 1e3
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
-    }
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = {
+            e.key: e.self_device_time_total / 1e3
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+        }
+        if events:
+            break
+    return events
 
 
 def kernel_name(key: str) -> str:
@@ -527,23 +546,32 @@ def cudnn_lstm(a, requires_grad=False):
     return forward, [x, *state, lstm.weight_hh_l0]
 
 
-def check_lstm(B, L, H, seed, timed=True, empty_row=False):
-    """K6 against lstm_scan_plain on the card."""
+def check_lstm(B, L, H, seed, path, timed=True, empty_row=False, holes=False):
+    """K6 against lstm_scan_plain on the card, on ``path``, the path its
+    plan must pick and its launch must take; two calls give the same
+    bits."""
     import torch
 
-    from seqrec_tpu_torch.ops.rnn_scan import lstm_scan, lstm_scan_plain
+    from seqrec_tpu_torch.ops.rnn_scan import lstm_scan, lstm_scan_plain, lstm_scan_plan
 
-    a = lstm_inputs(B, L, H, seed, "cuda", empty_row)
+    a = lstm_inputs(B, L, H, seed, "cuda", empty_row, holes)
     args = (a["x_pre"], a["mask"], a["w_hid"], a["peep"], a["h0"], a["c0"])
+    plan = lstm_scan_plan(B, H, a["x_pre"].device)
+    before = (lstm_scan.reg_launches, lstm_scan.cluster_launches)
     got, want = lstm_scan(*args), lstm_scan_plain(*args)
+    same_bits_twice("lstm_scan", (B, L, H), (got,), (lstm_scan(*args),))
     torch.cuda.synchronize()
+    took = {0: "l2", 1: "reg", 2: "cluster"}[
+        (lstm_scan.reg_launches > before[0]) + 2 * (lstm_scan.cluster_launches > before[1])]
+    if took != plan[0] or took != path:
+        raise AssertionError(f"lstm_scan at {(B, L, H)} took the {took} path, plan {plan}, wanted {path}")
     err = (got - want).abs().max().item()
     if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
         raise AssertionError(f"lstm_scan disagrees with its plain version at {(B, L, H)}: max abs err {err}")
     if empty_row and not torch.equal(got[0], a["h0"][0]):
         raise AssertionError("lstm_scan changed the state of a row of length 0")
-    out = {"kernel": "lstm_scan", "shape": {"B": B, "L": L, "H": H}, "max_abs_err": err,
-           "tolerance": "rtol 1e-5, atol 1e-5"}
+    out = {"kernel": "lstm_scan", "shape": {"B": B, "L": L, "H": H}, "plan": list(plan), "max_abs_err": err,
+           "tolerance": "rtol 1e-5, atol 1e-5", "same_bits_twice": True}
     if not timed:
         return out
     library = cudnn_lstm(a)[0]
@@ -688,6 +716,146 @@ def check_lstm_tower():
         raise AssertionError(f"the bidirectional LSTM tower differs between cuda and cpu: {errs}")
     return {"check": "bidirectional LSTM tower [16, 12], cuda vs cpu", "max_abs_err": max(errs.values()),
             "tolerance": "rtol 1e-4 + atol 1e-5*max|cpu|"}
+
+
+# ----------------------------------------------------------------------
+# the gather-sum pair (not a Pallas kernel: XLA in the JAX package)
+# ----------------------------------------------------------------------
+def real_batch_ids(argv, ds_dir, n_batches=1) -> list:
+    """(rows of the input table, [(ids [B, L, F], prefix lengths [B])]) of
+    the first ``n_batches`` training batches of the CLI's predictor on
+    ``ds_dir``, as its packed batcher draws them (generator seed 1, as
+    steady_state's; the compact wire's dtype, id 0 at every padded step)."""
+    import seqrec_tpu_torch.utils.command_parser as parse
+    from seqrec_tpu_torch.data import DataHandler
+
+    args = parse.command_parser(parse.predictor_command_parser, argv=argv)
+    args.device = "cpu"
+    model = parse.get_predictor(args)
+    dataset = DataHandler(ds_dir)
+    model.prepare_model(dataset)
+    model.set_dataset(dataset)
+    gen = model._gen_packed_mini_batch(dataset.training_set, np.random.default_rng(1))
+    return model._input_size(), [(b["ids"], b["lengths"]) for b in (next(gen) for _ in range(n_batches))]
+
+
+def id_runs(ids, lengths) -> dict:
+    """What the batch's ids ask of the backward: slots, distinct ids, the
+    slots at id 0 (padded steps and real ones), the longest run of one id."""
+    valid = np.arange(ids.shape[1])[None, :] < lengths[:, None]
+    flat = ids[..., 0]
+    counts = np.bincount(ids[ids >= 0].astype(np.int64))
+    return {"slots": int(ids.size), "distinct_ids": int((counts > 0).sum()),
+            "id0_slots": int((flat == 0).sum()), "id0_padded_slots": int(((flat == 0) & ~valid).sum()),
+            "longest_run": int(counts.max()), "longest_run_id": int(counts.argmax())}
+
+
+def two_slot_ids(ids, lengths, n_items, seed=69):
+    """(ids [B, L, 2], id_mask [B, L, 2]) from a one-slot batch: the second
+    slot a rating bucket (n_items + 0..9, as --rating features give), a pad
+    slot (-1) on every third step and past each prefix, and an id_mask of
+    the prefix mask times uniform weights."""
+    rng = np.random.default_rng(seed)
+    valid = np.arange(ids.shape[1])[None, :] < lengths[:, None]
+    second = n_items + rng.integers(0, 10, size=ids.shape[:2])
+    second[:, ::3] = -1
+    second[~valid] = -1
+    both = np.stack([ids[..., 0].astype(np.int32), second.astype(np.int32)], axis=-1)
+    id_mask = valid[..., None] * rng.uniform(0.5, 1.5, size=both.shape)
+    return both, id_mask.astype(np.float32)
+
+
+def check_gather_sum(ids, D, N, seed, id_mask=None, timed=True):
+    """The gather-sum kernels against the plain version (ops/core.py:
+    gather_sum under autograd, whose CUDA backward is PyTorch's
+    indexing_backward_kernel): the forward bit for bit at F=1 (at F=2 to
+    rtol 1e-6), the table gradient within rtol 1e-5 + atol 1e-5*max|plain|
+    (f32 sums of up to ~10^4 rows in another order), the same bits on two
+    calls, and the autograd wrapper giving the kernels' own gradient.
+    Timed: the forward, the backward with and without its sort and plan,
+    the plain version (also the library call) and index_add_."""
+    import torch
+
+    from seqrec_tpu_torch.ops.core import gather_sum as plain
+    from seqrec_tpu_torch.ops.gather_sum import (
+        gather_sum,
+        gather_sum_bwd,
+        gather_sum_fwd,
+        gather_sum_table_grad,
+        segment_order,
+        segment_plan,
+    )
+
+    rng = np.random.default_rng(seed)
+    F = ids.shape[-1]
+    ids_t = torch.from_numpy(np.ascontiguousarray(ids)).cuda()
+    m = None if id_mask is None else torch.tensor(id_mask, dtype=torch.float32, device="cuda")
+    table = torch.tensor(rng.normal(0.0, 0.1, (N, D)), dtype=torch.float32, device="cuda")
+    g = torch.tensor(rng.normal(size=(*ids.shape[:-1], D)), dtype=torch.float32, device="cuda")
+    out_k = gather_sum_fwd(table, ids_t, m)
+    dt_k = gather_sum_table_grad(g, ids_t, m, N)
+    same_bits_twice("gather_sum_fwd", ids.shape, (out_k,), (gather_sum_fwd(table, ids_t, m),))
+    same_bits_twice("gather_sum_bwd", ids.shape, (dt_k,), (gather_sum_table_grad(g, ids_t, m, N),))
+    leaf = table.clone().requires_grad_()
+    dt_w = torch.autograd.grad(gather_sum(leaf, ids_t, m), leaf, g)[0]
+    out_p = plain(leaf, ids_t, m)
+    dt_p = torch.autograd.grad(out_p, leaf, g, retain_graph=True)[0]
+    torch.cuda.synchronize()
+    if not torch.equal(dt_w, dt_k):
+        raise AssertionError(f"gather_sum's autograd backward differs from its kernels at {ids.shape}")
+    fwd_err, fwd_ok = close(out_k, out_p.detach(), rtol=1e-6, atol_rel=1e-6)
+    if not (torch.equal(out_k, out_p) if F == 1 else fwd_ok):
+        raise AssertionError(f"gather_sum_fwd disagrees with its plain version at {ids.shape}: {fwd_err}")
+    bwd_err, bwd_ok = close(dt_k, dt_p, rtol=1e-5, atol_rel=1e-5)
+    if not bwd_ok:
+        raise AssertionError(f"gather_sum_bwd disagrees with its plain version at {ids.shape}: {bwd_err}")
+    out = {"kernel": "gather_sum", "shape": {"ids": list(ids.shape), "ids_dtype": str(ids.dtype), "D": D, "N": N},
+           "max_abs_err": {"fwd": fwd_err, "bwd": bwd_err}, "fwd_bit_equal": F == 1, "same_bits_twice": True,
+           "tolerance": "fwd bit-equal at F=1, else rtol 1e-6; table gradient rtol 1e-5 + atol 1e-5*max|plain| "
+                        "(f32 sums of up to ~10^4 rows in another order)"}
+    if not timed:
+        return out
+    sorted_ids, perm = segment_order(ids_t, N)
+    plan = segment_plan(sorted_ids, N)
+    P0 = int(np.prod(ids.shape[:-1]))
+    valid = ids >= 0
+    id_bytes = ids.dtype.itemsize * ids.size + (4 * ids.size if id_mask is not None else 0)
+    fwd_bytes = 4 * D * (len(np.unique(ids[valid])) + P0) + id_bytes
+    bwd_bytes = 4 * D * (P0 + N) + id_bytes
+    flops = 2 * int(valid.sum()) * D
+
+    def plain_fwd():
+        with torch.no_grad():
+            return plain(table, ids_t, m)
+
+    def plain_bwd():
+        return torch.autograd.grad(out_p, leaf, g, retain_graph=True)
+
+    fwd = lambda: gather_sum_fwd(table, ids_t, m)  # noqa: E731
+    bwd = lambda: gather_sum_table_grad(g, ids_t, m, N)  # noqa: E731
+    bwd_sorted = lambda: gather_sum_bwd(g, perm, m, plan, N, F)  # noqa: E731
+    bwd_events = device_events(bwd, reps=20)
+    plain_times = {d: (time_ms(fn), device_ms(fn)) for d, fn in (("fwd", plain_fwd), ("bwd", plain_bwd))}
+    # the plain version is also the one PyTorch call that computes the function
+    out["fwd"] = dict(
+        zip(("bound_ms", "bound_by"), bound_ms(flops, fwd_bytes)),
+        kernel_ms=time_ms(fwd), kernel_device_ms=device_ms(fwd),
+        library="the plain version: table[ids], the masks, a sum over F",
+    )
+    out["bwd"] = dict(
+        zip(("bound_ms", "bound_by"), bound_ms(flops, bwd_bytes)),
+        kernel_ms=time_ms(bwd), kernel_without_sort_ms=time_ms(bwd_sorted),
+        kernel_device_ms=sum(bwd_events.values()) / 20, kernel_without_sort_device_ms=device_ms(bwd_sorted),
+        kernel_device_ms_by_kernel={kernel_name(k): v / 20 for k, v in sorted(bwd_events.items(), key=lambda kv: -kv[1])},
+        library="the plain version's backward (autograd of table[ids]: indexing_backward_kernel)",
+    )
+    for d, (ms, dev_ms) in plain_times.items():
+        out[d].update(plain_ms=ms, plain_device_ms=dev_ms, library_ms=ms, library_device_ms=dev_ms)
+    if F == 1 and id_mask is None and valid.all():
+        flat_ids, rows = ids_t.reshape(-1).long(), g.reshape(-1, D)
+        index_add = lambda: torch.zeros(N, D, device="cuda").index_add_(0, flat_ids, rows)  # noqa: E731
+        out["bwd"].update(index_add_ms=time_ms(index_add), index_add_device_ms=device_ms(index_add))
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -1027,6 +1195,8 @@ def steady_state(argv, ds_dir, steps, warmup, profile_steps, card):
     batches = [next(gen) for _ in range(profile_steps)]
     events = device_events(lambda: [model.train_function(b) for b in batches])
     per_step = {k: v / profile_steps for k, v in events.items()}
+    if any("indexing_backward" in k for k in per_step):
+        raise AssertionError("a training step ran PyTorch's indexing_backward_kernel: the gather-sum kernels were bypassed")
     device_ms = sum(per_step.values())
     ours, port_ms = port_kernel_names(), {}
     for key, ms in per_step.items():  # template instances summed under one name
@@ -1059,7 +1229,8 @@ def main_path_train_flagship(card) -> dict:
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = read_counters()
-    ran = ("gru_scan_train_fwd", "gru_scan_train_bwd", "gru_scan", "fused_score_topk")
+    ran = ("gru_scan_train_fwd", "gru_scan_train_bwd", "gru_scan", "fused_score_topk", "gather_sum_fwd",
+           "gather_sum_bwd")
     if any(launches[k] == 0 for k in ran) or launches["cce_stats"] or launches["cce_grads"]:
         raise AssertionError(f"the flagship's training path launched {launches}")
     costs = progress_values(text, "Last train cost")
@@ -1108,7 +1279,7 @@ def main_path_train_large(card) -> dict:
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = read_counters()
-    ran = ("gru_scan_train_fwd", "gru_scan_train_bwd", "cce_stats", "cce_grads")
+    ran = ("gru_scan_train_fwd", "gru_scan_train_bwd", "cce_stats", "cce_grads", "gather_sum_fwd", "gather_sum_bwd")
     if any(launches[k] == 0 for k in ran):
         raise AssertionError(f"the large catalog's training path launched {launches}")
     emit({
@@ -1155,7 +1326,7 @@ def main_path_train_lstm(card) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     train_launches = read_counters()
-    ran = ("lstm_scan_train_fwd", "lstm_scan_train_bwd", "cce_stats", "cce_grads")
+    ran = ("lstm_scan_train_fwd", "lstm_scan_train_bwd", "cce_stats", "cce_grads", "gather_sum_fwd", "gather_sum_bwd")
     if any(train_launches[k] == 0 for k in ran) or any(train_launches[k] for k in KERNELS if k.startswith("gru_")):
         raise AssertionError(f"the LSTM training path launched {train_launches}")
 
@@ -1174,7 +1345,8 @@ def main_path_train_lstm(card) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     test_s = time.perf_counter() - t0
     serve_launches = read_counters()
-    if serve_launches["lstm_scan"] == 0 or serve_launches["fused_score_topk"] == 0:
+    serve_launches["lstm_scan_cluster"] = wrapper("lstm_scan").cluster_launches
+    if serve_launches["lstm_scan_cluster"] == 0 or serve_launches["fused_score_topk"] == 0:
         raise AssertionError(f"the LSTM serving path launched {serve_launches}")
     ev_cpu = run_cli(test_cli.main, test_argv + ["--device", "cpu"])[0]
     recs_gpu = [pred for _, pred in ev_gpu.instances]
@@ -1295,7 +1467,17 @@ def main() -> int:
     k1 = check_gru_train(16, 30, 50, 100.0, seed=11)  # the flagship's shape, clip inactive
     k2 = check_cce(1024, 128, 50_000, seed=15)  # the large catalog's shape
     # the LSTM path's shapes: its eval chunk is -b 1024 too, so K6 has one shape there
-    k6 = check_lstm(1024, 30, 128, seed=21)
+    k6 = check_lstm(1024, 30, 128, seed=21, path="cluster")
+    k6_small = check_lstm(64, 30, 50, seed=22, path="reg")  # the GRU serving chunk's shape in an LSTM
+    k3_gru128 = check_gru(1024, 30, 128, seed=5, path="shared")  # GRU-128's validation chunk
+    # the gather-sum pair on real batches: the flagship (int16 wire), GRU-128 and LSTM-128 (one batcher)
+    flagship_rows, [(ids_f, len_f)] = real_batch_ids(FLAGSHIP, ml1m_dataset())
+    large_rows, [(ids_l, len_l)] = real_batch_ids(LARGE, catalog50k_dataset())
+    gs_large = check_gather_sum(ids_l, 384, large_rows, seed=70)
+    gs_large["id_runs"] = id_runs(ids_l, len_l)
+    gs_lstm = check_gather_sum(ids_l, 512, large_rows, seed=71)
+    gs_flagship = check_gather_sum(ids_f, 150, flagship_rows, seed=72)
+    ids_2, mask_2 = two_slot_ids(ids_f, len_f, flagship_rows)
     k5 = check_lstm_train(1024, 30, 128, 100.0, seed=23)
     k1_large = check_gru_train(1024, 30, 128, 100.0, seed=13)  # GRU-128's shape
     k5_small = check_lstm_train(16, 30, 50, 100.0, seed=28)  # the flagship's shape in an LSTM
@@ -1310,9 +1492,14 @@ def main() -> int:
         "lstm_scan_train_fwd": {**k5, **k5["fwd"], "max_abs_err": k5["max_abs_err"]["h"]},
         "lstm_scan_train_bwd": {**k5, **k5["bwd"], "max_abs_err": max(
             k5["max_abs_err"][k] for k in ("dx", "dW", "dpeep", "dh0", "dc0"))},
+        "gather_sum_fwd": {**gs_large, **gs_large["fwd"], "max_abs_err": gs_large["max_abs_err"]["fwd"]},
+        "gather_sum_bwd": {**gs_large, **gs_large["bwd"], "max_abs_err": gs_large["max_abs_err"]["bwd"]},
     }
-    for res in (main_shape["gru_scan"], main_shape["fused_score_topk"], k1, k2, k6, k5):
+    for res in (main_shape["gru_scan"], main_shape["fused_score_topk"], k1, k2, k6, k5, gs_large):
         emit({"phase": "kernels", "at": "main-path shape", **res})
+    emit({"phase": "kernels", "at": "LSTM-128 batch", **gs_lstm})
+    emit({"phase": "kernels", "at": "flagship batch", **gs_flagship})
+    emit({"phase": "kernels", "at": "GRU-128 validation shape", **k3_gru128})
     emit({"phase": "kernels", "at": "large shape", **k3_large})
     k4_gru256 = check_topk(512, 256, 49_999, 30, 10, seed=8)  # the GRU-256 serving pass's chunk
     k4_large = check_topk(512, 256, 200_000, 30, 10, seed=4)
@@ -1321,7 +1508,7 @@ def main() -> int:
     emit({"phase": "kernels", "at": "large shape", **k1_large})
     emit({"phase": "kernels", "at": "flagship shape", **k5_small})
     # K6 at the GRU serving shape, beside K3's
-    emit({"phase": "kernels", "at": "serving shape", **check_lstm(64, 30, 50, seed=22)})
+    emit({"phase": "kernels", "at": "serving shape", **k6_small})
     # K2 at the flagship's shape: the dense head's cost against the streaming kernels
     k2_flagship = check_cce(16, 50, 3706, seed=14)
     emit({"phase": "kernels", "at": "flagship shape", **k2_flagship})
@@ -1343,7 +1530,14 @@ def main() -> int:
         check_cce(5, 256, 300, seed=18, timed=False),  # four register tiles of H
         check_lstm_train(16, 30, 50, 0.01, seed=24, timed=False),  # the clip binds
         check_lstm_train(9, 7, 12, 0.05, seed=25, timed=False),
-        check_lstm(9, 7, 12, seed=26, timed=False, empty_row=True),  # a row of length 0 keeps h0
+        check_lstm(9, 7, 12, seed=26, path="reg", timed=False, empty_row=True),  # a row of length 0 keeps h0
+        # K6's cluster path (one row; a ragged tile with holes and a row of
+        # length 0) and its l2 path (H=300: no cluster slice fits)
+        check_lstm(1, 30, 128, seed=65, path="cluster", timed=False),
+        check_lstm(1025, 30, 128, seed=66, path="cluster", timed=False, empty_row=True, holes=True),
+        check_lstm(64, 30, 300, seed=67, path="l2", timed=False, empty_row=True, holes=True),
+        # the gather-sum pair at F=2: a rating-bucket slot, pad slots, id_mask
+        check_gather_sum(ids_2, 150, flagship_rows + 10, seed=68, id_mask=mask_2, timed=False),
         # K1 and K5 on their reg path (one row; a row of length 0 and a mask
         # with holes), their cluster path (one row, a ragged tile, H not
         # divisible by C, a row of length 0, holes, a clip that binds at
@@ -1395,7 +1589,8 @@ def main() -> int:
     gru256 = serving_pass_gru256(card)
     path_of = {"gru_scan": serving, "fused_score_topk": serving, "gru_scan_train_fwd": flagship,
                "gru_scan_train_bwd": flagship, "cce_stats": large, "cce_grads": large,
-               "lstm_scan": lstm_serve, "lstm_scan_train_fwd": lstm_train, "lstm_scan_train_bwd": lstm_train}
+               "lstm_scan": lstm_serve, "lstm_scan_train_fwd": lstm_train, "lstm_scan_train_bwd": lstm_train,
+               "gather_sum_fwd": large, "gather_sum_bwd": large}
 
     summary = []
     for name, (_, source, replaces) in KERNELS.items():
@@ -1418,6 +1613,11 @@ def main() -> int:
             "max_abs_err": k3_large["max_abs_err"],
             "launches_serving_pass_gru256": gru256["gru_scan"],
             "cluster_launches_serving_pass_gru256": gru256["gru_scan_cluster"],
+        },
+        at_B1024_L30_H128={  # GRU-128's validation chunk
+            **{key: k3_gru128[key] for key in ("plan", "kernel_ms", "kernel_device_ms", "plain_device_ms",
+                                               "library_device_ms", "bound_ms", "max_abs_err")},
+            "launches_gru128_path": large["gru_scan"],
         },
     )
     # this PR's redesigns: K4 and K2's stats on 3xTF32 tensor-core tiles
@@ -1450,6 +1650,23 @@ def main() -> int:
             entry[at] = {**{key: other[d][key] for key in keys}, "plan": other["plan"][d]}
     for name in ("gru_scan_train_fwd", "gru_scan_train_bwd"):
         next(e for e in summary if e["name"] == name)["launches_gru128_path"] = large[name]
+    # this PR's redesigns: K6 on the training forward's kernels, the gather-sum pair
+    lstm = next(e for e in summary if e["name"] == "lstm_scan")
+    k6_keys = ("kernel_ms", "kernel_device_ms", "plain_device_ms", "library_device_ms", "bound_ms", "plan")
+    lstm.update({key: k6[key] for key in k6_keys[1:]}, same_bits_twice=True,
+                cluster_launches_test_cli=lstm_serve["lstm_scan_cluster"],
+                at_B64_L30_H50={key: k6_small[key] for key in k6_keys})
+    for name in ("gather_sum_fwd", "gather_sum_bwd"):
+        d = name.split("_")[-1]
+        entry = next(e for e in summary if e["name"] == name)
+        keys = ("kernel_ms", "kernel_device_ms", "plain_device_ms", "library_device_ms", "bound_ms")
+        keys += ("kernel_without_sort_ms", "kernel_without_sort_device_ms") if d == "bwd" else ()
+        entry.update({key: gs_large[d][key] for key in keys[1:]}, not_a_pallas_kernel=True,
+                     jax_counterpart="XLA gather and scatter-add (seqrec_tpu/ops/core.py:54)",
+                     id_runs_gru128=gs_large["id_runs"], same_bits_twice=True,
+                     launches_flagship=flagship[name], launches_lstm_path=lstm_train[name],
+                     at_LSTM128_D512={key: gs_lstm[d][key] for key in keys},
+                     at_flagship_D150={key: gs_flagship[d][key] for key in keys})
     print(card_line(), flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {

@@ -1,7 +1,9 @@
 // Launchers of the training scans' redesigned paths, shared by K1
 // (gru_scan_train.cu, kLstm = false) and K5 (lstm_scan_train.cu, kLstm =
-// true). The wrapper's plan (ops/rnn_scan_train.py:train_scan_plan) picks
-// the path and passes it as an int:
+// true); the LSTM eval scan K6 (lstm_scan.cu) launches the same forward
+// kernels without their state stores (kStoreStates = false). The
+// wrapper's plan (ops/rnn_scan_train.py:train_scan_plan) picks the path and
+// passes it as an int:
 //   kPathReg     W_hid in registers, one block per tile of R rows
 //                (scan_train_reg.cuh; H <= 50);
 //   kPathCluster W_hid split over clusters of C CTAs, R rows a cluster
@@ -116,13 +118,13 @@ inline int launch_dw(const float* A, const float* Bm, float* part, float* out, i
   return launch_sum_splits(part, out, n_splits, (size_t)M * N, stream);
 }
 
-template <bool kLstm>
-auto cluster_forward_instance(int R) -> decltype(&cluster_forward_kernel<kLstm, 1>) {
+template <bool kLstm, bool kStoreStates = true>
+auto cluster_forward_instance(int R) -> decltype(&cluster_forward_kernel<kLstm, 1, kStoreStates>) {
   switch (R) {
-    case 8: return cluster_forward_kernel<kLstm, 1>;
-    case 16: return cluster_forward_kernel<kLstm, 2>;
-    case 24: return cluster_forward_kernel<kLstm, 3>;
-    case 32: return cluster_forward_kernel<kLstm, 4>;
+    case 8: return cluster_forward_kernel<kLstm, 1, kStoreStates>;
+    case 16: return cluster_forward_kernel<kLstm, 2, kStoreStates>;
+    case 24: return cluster_forward_kernel<kLstm, 3, kStoreStates>;
+    case 32: return cluster_forward_kernel<kLstm, 4, kStoreStates>;
     default: return nullptr;
   }
 }
@@ -138,20 +140,22 @@ auto cluster_backward_instance(int R) -> decltype(&cluster_backward_kernel<kLstm
   }
 }
 
-// The forward on the reg or cluster path (h0, c0 -> out, hs, cs).
-template <bool kLstm>
+// The forward on the reg or cluster path (h0, c0 -> out, and with
+// kStoreStates the training scan's hs, cs; without, the eval scan's final
+// state alone, hs and cs unused).
+template <bool kLstm, bool kStoreStates = true>
 int train_forward(const float* x, const float* mask, const float* w, const float* peep,
                   const float* h0, const float* c0, float* out, float* hs, float* cs, int B, int L,
                   int H, int path, int C, int R, cudaStream_t stream) {
   constexpr int NG = kLstm ? 4 : 3;
   if (path == kPathReg) {
     if (!reg_shape_ok(H, R)) return (int)cudaErrorInvalidValue;
-    return reg_launch(reg_forward_kernel<kLstm>, (B + R - 1) / R,
+    return reg_launch(reg_forward_kernel<kLstm, kStoreStates>, (B + R - 1) / R,
                       sizeof(float) * reg_fwd_floats(NG, H, R), stream, x, mask, w, peep, h0, c0,
                       out, hs, cs, B, L, H, R);
   }
   if (path != kPathCluster || !cluster_shape_ok(H, C)) return (int)cudaErrorInvalidValue;
-  auto kernel = cluster_forward_instance<kLstm>(R);
+  auto kernel = cluster_forward_instance<kLstm, kStoreStates>(R);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   return cluster_launch(kernel, (B + R - 1) / R, C, sizeof(float) * cluster_fwd_floats(NG, H, C, R),
                         stream, x, mask, w, peep, h0, c0, out, hs, cs, B, L, H);
@@ -231,14 +235,15 @@ long long train_smem_bytes(int backward, int path, int H, int C, int R) {
   return (long long)(sizeof(float) * floats);
 }
 
-// How many clusters of the forward (backward = 0) or backward kernel at
-// (H, C, R) the card holds at once.
-template <bool kLstm>
+// How many clusters of the forward (backward = 0; the storing form, or
+// without kStoreStates the eval form) or backward kernel at (H, C, R) the
+// card holds at once.
+template <bool kLstm, bool kStoreStates = true>
 int train_cluster_capacity(int backward, int H, int C, int R, int* n_clusters) {
   constexpr int NG = kLstm ? 4 : 3;
   if (!cluster_shape_ok(H, C)) return (int)cudaErrorInvalidValue;
   const void* kernel = backward ? (const void*)cluster_backward_instance<kLstm>(R)
-                                : (const void*)cluster_forward_instance<kLstm>(R);
+                                : (const void*)cluster_forward_instance<kLstm, kStoreStates>(R);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * (backward ? cluster_bwd_floats(NG, H, C, R) : cluster_fwd_floats(NG, H, C, R));

@@ -123,7 +123,10 @@ __device__ __forceinline__ void cluster_hid(const float* __restrict__ h, const f
   }
 }
 
-template <bool kLstm, int kRPT>
+// kStoreStates: store h_{t-1} (and c_{t-1}) of every step into hs (cs), the
+// training scan's residuals; off for the eval scan (K6), which takes null
+// hs, cs.
+template <bool kLstm, int kRPT, bool kStoreStates = true>
 __global__ void __launch_bounds__(kClusterThreads, 1) cluster_forward_kernel(
     const float* __restrict__ x,     // [B, L, G]
     const float* __restrict__ mask,  // [B, L]
@@ -132,8 +135,8 @@ __global__ void __launch_bounds__(kClusterThreads, 1) cluster_forward_kernel(
     const float* __restrict__ h0,    // [B, H]
     const float* __restrict__ c0,    // [B, H] (LSTM)
     float* __restrict__ out,         // [B, H]
-    float* __restrict__ hs,          // [L, B, H]
-    float* __restrict__ cs,          // [L, B, H] (LSTM)
+    float* __restrict__ hs,          // [L, B, H] (kStoreStates)
+    float* __restrict__ cs,          // [L, B, H] (LSTM, kStoreStates)
     int B, int L, int H) {
   constexpr int NG = kLstm ? 4 : 3;
   constexpr int R = kRPT * kClusterWarps;
@@ -179,7 +182,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) cluster_forward_kernel(
       if (mine) {
         const int e = r * Hp + u0 + lane;
         float h = hc[e];
-        if (b < B) {
+        if (kStoreStates && b < B) {
           const size_t o = ((size_t)t * B + b) * H + u0 + lane;
           hs[o] = h;
           if (kLstm) cs[o] = c[i];

@@ -114,7 +114,10 @@ __device__ __forceinline__ void reg_prefetch_state(const float* __restrict__ src
   }
 }
 
-template <bool kLstm>
+// kStoreStates: store h_{t-1} (and c_{t-1}) of every step into hs (cs), the
+// training scan's residuals; off for the eval scan (K6), which takes null
+// hs, cs.
+template <bool kLstm, bool kStoreStates = true>
 __global__ void __launch_bounds__(kRegThreads, 1) reg_forward_kernel(
     const float* __restrict__ x,     // [B, L, G]
     const float* __restrict__ mask,  // [B, L]
@@ -123,8 +126,8 @@ __global__ void __launch_bounds__(kRegThreads, 1) reg_forward_kernel(
     const float* __restrict__ h0,    // [B, H]
     const float* __restrict__ c0,    // [B, H] (LSTM)
     float* __restrict__ out,         // [B, H]
-    float* __restrict__ hs,          // [L, B, H]: h_{t-1} of step t
-    float* __restrict__ cs,          // [L, B, H]: c_{t-1} of step t (LSTM)
+    float* __restrict__ hs,          // [L, B, H]: h_{t-1} of step t (kStoreStates)
+    float* __restrict__ cs,          // [L, B, H]: c_{t-1} of step t (LSTM, kStoreStates)
     int B, int L, int H, int R) {
   constexpr int NG = kLstm ? 4 : 3;
   extern __shared__ float smem[];
@@ -158,10 +161,12 @@ __global__ void __launch_bounds__(kRegThreads, 1) reg_forward_kernel(
     __syncthreads();
     for (int e = threadIdx.x; e < rows * H; e += kRegThreads) {
       const int r = e / H, j = e - r * H;
-      const size_t o = ((size_t)t * B + row0 + r) * H + j;
       float* hr = h + r * kRegHs + j;
-      hs[o] = *hr;
-      if (kLstm) cs[o] = c[r * kRegHs + j];
+      if (kStoreStates) {
+        const size_t o = ((size_t)t * B + row0 + r) * H + j;
+        hs[o] = *hr;
+        if (kLstm) cs[o] = c[r * kRegHs + j];
+      }
       if (mt[r] > 0.0f) {
         float xv[NG], hv[NG];
 #pragma unroll

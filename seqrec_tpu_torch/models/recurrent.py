@@ -8,7 +8,9 @@ draw order in :meth:`RecurrentLayers.init_params`, so one seed gives
 bit-identical parameters in both packages.
 
 The input is the sparse one-hot trick: the gather-sum of ``W_in`` rows over
-the active feature ids, for all steps at once, before the time scan. The
+the active feature ids, for all steps at once, before the time scan
+(``ops/gather_sum.py``: on CUDA a kernel pair, its backward a segment sum
+in a fixed order). The
 last layer's final state goes through a kernel: for the GRU the eval scan
 (``ops/rnn_scan.py:gru_scan``, K3) for serving and the training scan with
 its backward (``ops/rnn_scan_train.py``, K1) when ``train=True``; for the
@@ -31,7 +33,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from seqrec_tpu_torch.ops.core import gather_sum, maybe_grad_clip
+from seqrec_tpu_torch.ops.core import maybe_grad_clip
+from seqrec_tpu_torch.ops.gather_sum import gather_sum
 from seqrec_tpu_torch.ops.lstm_scan_train import lstm_scan_train
 from seqrec_tpu_torch.ops.rnn_scan import gru_scan, gru_step, lstm_scan, lstm_step, vanilla_step
 from seqrec_tpu_torch.ops.rnn_scan_train import gru_scan_train

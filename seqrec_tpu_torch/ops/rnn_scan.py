@@ -12,6 +12,10 @@ final hidden state. On a CUDA tensor :func:`gru_scan` and
 check also holds the kernels against. :func:`gru_scan_plan` picks the GRU
 kernel from the shape: one block per row tile where W_hid fits in its
 shared memory, else W_hid split over a thread-block cluster.
+:func:`lstm_scan_plan` picks the LSTM kernel: the training scan's forward
+(K5) without its state stores, W_hid in registers (H <= 50) or split over
+a thread-block cluster, or the single-block kernel reading W_hid through
+L2 where no cluster slice fits.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import ctypes
 import torch
 
 from seqrec_tpu_torch.ops import _build
-from seqrec_tpu_torch.ops.core import check_tensors, maybe_grad_clip
+from seqrec_tpu_torch.ops.core import check_tensors, maybe_grad_clip, on_device
 
 
 def gru_step(h, x_t, m, w_hid, grad_clip: float = 0.0):
@@ -72,6 +76,7 @@ def gru_scan_plain(x_pre, mask, w_hid, h0):
     return h
 
 
+PATHS = {"reg": 0, "cluster": 1, "l2": 2}  # the paths of K1, K5 and K6 (csrc/scan_train.cuh kPath*)
 SCAN_ROWS_MAX = 8  # rows of one single-block tile (csrc/scan_common.cuh kMaxRows)
 CLUSTER_CTAS = 8  # CTAs of one cluster, the portable maximum (gru_cluster.cuh kClusterMax)
 CLUSTER_ROWS = (64, 48, 40, 32, 16, 8)  # row tiles of one cluster (8 warps x 8 ... 1 rows)
@@ -237,15 +242,32 @@ def _lstm_library():
     lib = _build.load("lstm_scan")
     fn = lib.seqrec_lstm_scan_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        lib.seqrec_lstm_scan_capacity.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.seqrec_lstm_scan_capacity.restype = ctypes.c_int
+        lib.seqrec_lstm_scan_smem.argtypes = [ctypes.c_int] * 5
+        lib.seqrec_lstm_scan_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def lstm_scan_plan(B: int, H: int, device) -> tuple[str, int, int]:
+    """K6's (path, C, R) on ``device``: the training scan's forward plan
+    (``ops/rnn_scan_train.py:train_scan_plan``), whose kernels K6 runs
+    without their state stores: "reg" (H <= 50), "cluster" (W_hid split
+    over C CTAs, R rows a cluster) or "l2" (no cluster slice fits)."""
+    from seqrec_tpu_torch.ops.rnn_scan_train import device_train_plan  # it imports this module
+
+    return device_train_plan("lstm", B, H, device, False, _lstm_library, kernels="scan")
 
 
 def lstm_scan(x_pre, mask, w_hid, peepholes, h0, c0):
     """Final LSTM hidden state [B, H] (f32) of x_pre [B, L, 4H], mask
     [B, L], w_hid [H, 4H], peepholes [3, H] (w_ci, w_cf, w_co), h0 and c0
-    [B, H], all f32 and contiguous."""
+    [B, H], all f32 and contiguous. On a CUDA tensor the kernel of
+    :func:`lstm_scan_plan`'s path; ``lstm_scan.launches`` counts every
+    launch, ``lstm_scan.reg_launches`` and ``lstm_scan.cluster_launches``
+    those of the reg and cluster paths."""
     if x_pre.device.type == "cpu":
         return lstm_scan_plain(x_pre, mask, w_hid, peepholes, h0, c0)
     B, L, _ = x_pre.shape
@@ -259,16 +281,20 @@ def lstm_scan(x_pre, mask, w_hid, peepholes, h0, c0):
     out = torch.empty((B, H), dtype=torch.float32, device=x_pre.device)
     if B == 0:
         return out
-    fn = _lstm_library()
-    with torch.cuda.device(x_pre.device):
-        err = fn(
+    path, C, R = lstm_scan_plan(B, H, x_pre.device)
+    with on_device(x_pre.device):
+        err = _lstm_library().seqrec_lstm_scan_f32(
             x_pre.data_ptr(), mask.data_ptr(), w_hid.data_ptr(), peepholes.data_ptr(), h0.data_ptr(),
-            c0.data_ptr(), out.data_ptr(), B, L, H, torch.cuda.current_stream().cuda_stream,
+            c0.data_ptr(), out.data_ptr(), B, L, H, PATHS[path], C, R, torch.cuda.current_stream().cuda_stream,
         )
     if err:
-        raise RuntimeError(f"lstm_scan kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"lstm_scan kernel launch ({path} path) failed with CUDA error {err}")
     lstm_scan.launches += 1
+    lstm_scan.reg_launches += path == "reg"
+    lstm_scan.cluster_launches += path == "cluster"
     return out
 
 
 lstm_scan.launches = 0
+lstm_scan.reg_launches = 0
+lstm_scan.cluster_launches = 0

@@ -26,11 +26,10 @@ import torch
 
 from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops.core import check_tensors, on_device
-from seqrec_tpu_torch.ops.rnn_scan import device_limits, gru_step
+from seqrec_tpu_torch.ops.rnn_scan import PATHS, device_limits, gru_step
 
 TILE = 64  # the dW splits' rows come in whole multiples of this (two 32-row slices)
 DW_TILE = 128  # rows and columns of one dW output tile (csrc/block_mma.cuh kBT)
-PATHS = {"reg": 0, "cluster": 1, "l2": 2}  # csrc/scan_train.cuh kPath*
 REG_MAX_H = 50  # csrc/scan_train_reg.cuh kRegMaxH
 REG_MAX_ROWS = 16
 REG_HS, REG_GS = 52, 208  # row strides of its h and hid buffers
@@ -132,14 +131,18 @@ def train_scan_plan(cell: str, B: int, H: int, n_sm: int, smem_optin: int, backw
 _plans: dict = {}
 
 
-def device_train_plan(cell: str, B: int, H: int, device, backward: bool, library):
+def device_train_plan(cell: str, B: int, H: int, device, backward: bool, library, kernels: str = "train"):
     """train_scan_plan on ``device``'s SM count, opt-in shared memory and
-    the cluster capacity that ``library()``'s ``seqrec_<cell>_train_capacity``
-    measures, cached per device and shape (a lookup on later calls). The
-    first plan of a shape holds train_scan_smem against the kernels' own
-    sizes (``seqrec_<cell>_train_smem``) and raises if they differ."""
+    the cluster capacity that ``library()``'s
+    ``seqrec_<cell>_<kernels>_capacity`` measures, cached per device and
+    shape (a lookup on later calls). The first plan of a shape holds
+    train_scan_smem against the kernels' own sizes
+    (``seqrec_<cell>_<kernels>_smem``) and raises if they differ.
+    ``kernels`` is "train" for the training scans (K1, K5) and "scan" for
+    the LSTM eval scan (K6), which runs the training forward's kernels
+    without their state stores (forward plans only)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (index, cell, B, H, backward)
+    key = (index, cell, kernels, B, H, backward)
     plan = _plans.get(key)
     if plan is not None:
         return plan
@@ -147,7 +150,7 @@ def device_train_plan(cell: str, B: int, H: int, device, backward: bool, library
     n_sm, smem = device_limits(index)
     held = None
     if train_scan_plan(cell, B, H, n_sm, smem, backward)[0] == "cluster":
-        fn, held = getattr(lib, f"seqrec_{cell}_train_capacity"), {}
+        fn, held = getattr(lib, f"seqrec_{cell}_{kernels}_capacity"), {}
         with torch.cuda.device(index):
             for C in CLUSTER_CTAS:
                 for R in CLUSTER_ROWS:
@@ -156,14 +159,14 @@ def device_train_plan(cell: str, B: int, H: int, device, backward: bool, library
                     n = ctypes.c_int(0)
                     err = fn(int(backward), H, C, R, ctypes.byref(n))
                     if err:
-                        raise RuntimeError(f"{cell}_scan_train: reading the cluster capacity failed with CUDA error {err}")
+                        raise RuntimeError(f"{cell} {kernels} scan: reading the cluster capacity failed with CUDA error {err}")
                     held[C, R] = n.value
     plan = train_scan_plan(cell, B, H, n_sm, smem, backward, held)
     path, C, R = plan
     want = train_scan_smem(cell, path, H, C, R, backward)
-    got = getattr(lib, f"seqrec_{cell}_train_smem")(int(backward), PATHS[path], H, C, R)
+    got = getattr(lib, f"seqrec_{cell}_{kernels}_smem")(int(backward), PATHS[path], H, C, R)
     if got != want:
-        raise RuntimeError(f"{cell}_scan_train: the plan {plan} at H={H} counts {want} bytes of shared memory, "
+        raise RuntimeError(f"{cell} {kernels} scan: the plan {plan} at H={H} counts {want} bytes of shared memory, "
                            f"its kernel {got}")
     _plans[key] = plan
     return plan

@@ -41,7 +41,20 @@ kernel runs on a path of ``chip_smoke.py``:
   L2 at H=128, 64 x 64 f32 dW tiles) without the hid recompute, phase 3,
   the step loads, the dW launches or the W_hid reads, its wrapper (device
   properties, dW plan, transpose, allocations, launch) and its transpose
-  alone.
+  alone;
+- ``k6``: K6 (the LSTM eval scan) at B=1024/L=30/H=128 (cluster path) and
+  B=64/L=30/H=50 (reg path): on its plan and on every other cluster shape
+  (C, R) or reg row tile that fits, K5's forward (the same kernels with
+  their state stores) on its own plan, through the wrapper per call, and
+  cuDNN's LSTM; with ``--before`` also K6 of that checkout (one block per
+  row tile, W_hid through L2 at H=128);
+- ``gs``: the gather-sum pair on a real GRU-128 / LSTM-128 batch (D = 384
+  and 512, 49,999 rows): the forward, the backward whole (sort, plan,
+  kernels) and cut into the sort, the plan, both kernels, without the
+  chunk sums (pass 1), without the dense pass (pass 2), at chunk sizes S of
+  8 to 512; the plain version (PR 6's path: ``table[ids]`` and its
+  ``indexing_backward_kernel``) and ``index_add_``; and how the ids of 20
+  batches run (slots at id 0, padded or not, the longest run).
 
 A variant computes wrong values: it is only timed, with CUDA events (the
 mean of 50 back-to-back calls after one: launch gaps included) and with
@@ -645,7 +658,145 @@ def scan_train_breakdown(card: str, cell: str) -> None:
                               "plan": list(plans[d]), **timed(fn), "card": card}), flush=True)
 
 
-PARTS = ("k3", "k2", "k2_stats", "k4", "k4_before", "k1", "k5")
+K6_SHAPES = [(1024, 30, 128), (64, 30, 50)]  # (B, L, H): LSTM-128's eval chunk; the serving chunk at H=50
+
+
+def k6_breakdown(card: str, before: str | None) -> None:
+    """K6 as committed at K6_SHAPES: on each cluster shape (C, R) or reg
+    row tile that fits (its plan's marked), K5's forward (the storing form
+    of the same kernels) on its plan, through the wrapper, cuDNN's LSTM;
+    with ``before`` also that checkout's K6 (its C entry point took no
+    plan)."""
+    import torch
+
+    import chip_smoke
+    from seqrec_tpu_torch.ops import lstm_scan_train as lst
+    from seqrec_tpu_torch.ops import rnn_scan_train as rst
+    from seqrec_tpu_torch.ops.rnn_scan import PATHS, _lstm_library, device_limits, lstm_scan, lstm_scan_plan
+
+    lib = _lstm_library()
+    smem_optin = device_limits(torch.cuda.current_device())[1]
+    old = build_variants("lstm_scan", {"committed": []}, csrc=before, tag="-before")["committed"] if before else None
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for B, L, H in K6_SHAPES:
+        a = scan_inputs("lstm", B, L, H)
+        out = torch.empty(B, H, device="cuda")
+        ptrs = [t.data_ptr() for t in (a["x"], a["m"], a["w"], a["p"], a["h0"], a["c0"], out)]
+        plan = lstm_scan_plan(B, H, a["x"].device)
+        if plan[0] == "cluster":
+            shapes = [("cluster", C, R) for C in rst.CLUSTER_CTAS for R in rst.CLUSTER_ROWS
+                      if H >= C and -(-H // C) <= rst.CLUSTER_UNITS
+                      and rst.train_scan_smem("lstm", "cluster", H, C, R, False) <= smem_optin]
+        else:
+            shapes = [(plan[0], 1, R) for R in (1, 2, 4, 8, 16) if R <= B and (plan[0] == "reg" or R == plan[2])]
+        for path, C, R in shapes:
+            res = timed(lambda: checked(lib.seqrec_lstm_scan_f32(*ptrs, B, L, H, PATHS[path], C, R,
+                                                                 torch.cuda.current_stream().cuda_stream)))
+            print(json.dumps({"kernel": "lstm_scan", "variant": "committed" + (", its plan" if (path, C, R) == plan else ""),
+                              "shape": [B, L, H], "plan": [path, C, R], **res, "card": card}), flush=True)
+        train_plan = lst.lstm_train_plan(B, H, a["x"].device, backward=False)
+        print(json.dumps({"kernel": "lstm_scan", "variant": "K5 forward (state stores), its plan", "shape": [B, L, H],
+                          "plan": list(train_plan),
+                          **timed(lambda: lst.lstm_scan_train_fwd(a["x"], a["m"], a["w"], a["p"], a["h0"], a["c0"])),
+                          "card": card}), flush=True)
+        args = (a["x"], a["m"], a["w"], a["p"], a["h0"], a["c0"])
+        print(json.dumps({"kernel": "lstm_scan", "variant": "committed, through the wrapper", "shape": [B, L, H],
+                          "plan": list(plan), **timed(lambda: lstm_scan(*args)), "card": card}), flush=True)
+        cudnn = chip_smoke.cudnn_lstm({"x_pre": a["x"], "mask": a["m"], "w_hid": a["w"], "h0": a["h0"], "c0": a["c0"]})[0]
+
+        def library():
+            with torch.no_grad():
+                return cudnn()
+
+        print(json.dumps({"kernel": "lstm_scan", "variant": "library: cuDNN LSTM (no peepholes, an extra input product)",
+                          "shape": [B, L, H], **timed(library), "card": card}), flush=True)
+        if old is not None:
+            fn = old.seqrec_lstm_scan_f32
+            fn.argtypes = [vp] * 7 + [ci] * 3 + [vp]
+            fn.restype = ci
+            print(json.dumps({"kernel": "lstm_scan before", "variant": "committed", "shape": [B, L, H],
+                              **timed(lambda: checked(fn(*ptrs, B, L, H, torch.cuda.current_stream().cuda_stream))),
+                              "card": card}), flush=True)
+
+
+# the gather-sum backward with one pass cut out
+GS_VARIANTS = {
+    "committed": [],
+    "no_chunk_sums": [("gather_sum.cu", "  if (n_chunks > 0) {", "  if (n_chunks < 0) {")],
+    "no_dense_pass": [("gather_sum.cu", "  const dim3 grid((unsigned)((N + kWarps - 1) / kWarps), groups);",
+                       "  if (D > 0) return (int)cudaGetLastError();\n"
+                       "  const dim3 grid((unsigned)((N + kWarps - 1) / kWarps), groups);")],
+}
+GS_SEGMENTS = (8, 16, 32, 64, 128, 256, 512)
+
+
+def gs_breakdown(card: str) -> None:
+    """The gather-sum pair on the first batch of chip_smoke.py's large
+    catalog (GRU-128's batcher; LSTM-128's draws the same ids) at D = 384
+    and 512, cut part by part; the id runs of 20 batches."""
+    import torch
+
+    import chip_smoke
+    from seqrec_tpu_torch.ops.core import gather_sum as plain
+    from seqrec_tpu_torch.ops.gather_sum import (
+        SEGMENT,
+        chunk_bound,
+        gather_sum_bwd,
+        gather_sum_fwd,
+        gather_sum_table_grad,
+        segment_order,
+        segment_plan,
+    )
+
+    N, batches = chip_smoke.real_batch_ids(chip_smoke.LARGE, chip_smoke.catalog50k_dataset(), n_batches=20)
+    runs = [chip_smoke.id_runs(ids, lengths) for ids, lengths in batches]
+    print(json.dumps({"kernel": "gather_sum", "variant": "id runs of 20 GRU-128 batches", "first": runs[0],
+                      **{f"mean_{k}": float(np.mean([r[k] for r in runs])) for k in runs[0]},
+                      "max_longest_run": max(r["longest_run"] for r in runs), "card": card}), flush=True)
+    libs = build_variants("gather_sum", GS_VARIANTS)
+    ids = torch.from_numpy(batches[0][0]).cuda()
+    rng = np.random.default_rng(6)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for D in (384, 512):
+        table = torch.tensor(rng.normal(0, 0.1, (N, D)), dtype=torch.float32, device="cuda")
+        g = torch.tensor(rng.normal(size=(*ids.shape[:-1], D)), dtype=torch.float32, device="cuda")
+        shape = [*ids.shape, D, N]
+        sorted_ids, perm = segment_order(ids, N)
+        plan = segment_plan(sorted_ids, N)
+        n_chunks = chunk_bound(ids.numel())
+        part, dtable = torch.empty(n_chunks, D, device="cuda"), torch.empty(N, D, device="cuda")
+        leaf = table.clone().requires_grad_()
+        out_p = plain(leaf, ids)
+        rows = {
+            "forward kernel": lambda: gather_sum_fwd(table, ids),
+            "backward: sort + plan + kernels": lambda: gather_sum_table_grad(g, ids, None, N),
+            "backward: sort (segment_order)": lambda: segment_order(ids, N),
+            "backward: plan (segment_plan)": lambda: segment_plan(sorted_ids, N),
+            "backward: kernels (gather_sum_bwd)": lambda: gather_sum_bwd(g, perm, None, plan, N, 1),
+            "before (PR 6's path, the plain version): forward": lambda: plain(table, ids),
+            "before (PR 6's path, the plain version): backward (indexing_backward_kernel)":
+                lambda: torch.autograd.grad(out_p, leaf, g, retain_graph=True),
+            "library: index_add_": lambda: torch.zeros(N, D, device="cuda").index_add_(
+                0, ids.reshape(-1).long(), g.reshape(-1, D)),
+        }
+        for S in GS_SEGMENTS:
+            if S != SEGMENT:
+                rows[f"backward: sort + plan + kernels, S={S}"] = (
+                    lambda S=S: gather_sum_bwd(g, perm, None, segment_plan(sorted_ids, N, S), N, 1, S))
+        for name, fn in rows.items():
+            print(json.dumps({"kernel": "gather_sum", "variant": name, "shape": shape, **timed(fn), "card": card}),
+                  flush=True)
+        for name, lib in libs.items():
+            fn = lib.seqrec_gather_sum_bwd_f32
+            fn.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+            fn.restype = ci
+            ptrs = [t.data_ptr() for t in (g, perm)] + [None] + [t.data_ptr() for t in (*plan, part, dtable)]
+            res = timed(lambda: checked(fn(*ptrs, n_chunks, N, SEGMENT, 1, D, torch.cuda.current_stream().cuda_stream)))
+            print(json.dumps({"kernel": "gather_sum_bwd kernels", "variant": name, "shape": shape, "S": SEGMENT,
+                              **res, "card": card}), flush=True)
+
+
+PARTS = ("k3", "k2", "k2_stats", "k4", "k4_before", "k1", "k5", "k6", "gs")
 
 
 def main(argv=None) -> int:
@@ -654,7 +805,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parts", nargs="+", choices=PARTS, default=[p for p in PARTS if p != "k4_before"])
     parser.add_argument("--before", help="csrc directory of an older checkout: K4 before its redesign (for k4_before), "
-                        "K1 and K5 before theirs (timed beside the committed ones by k1 and k5)")
+                        "K1, K5 and K6 before theirs (timed beside the committed ones by k1, k5 and k6)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_breakdown: no CUDA device is available", file=sys.stderr)
@@ -680,6 +831,10 @@ def main(argv=None) -> int:
             if args.before:
                 scan_train_before_breakdown(card, cell, args.before)
             scan_train_breakdown(card, cell)
+    if "k6" in args.parts:
+        k6_breakdown(card, args.before)
+    if "gs" in args.parts:
+        gs_breakdown(card)
     return 0
 
 

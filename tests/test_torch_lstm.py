@@ -3,7 +3,8 @@ package's Pallas kernels in interpret mode: the eval scan (K6) and the
 training scan with its five gradients (K5); the tower's gradients against
 ``jax.vjp`` of ``RecurrentLayers.apply`` for the GRU, LSTM and Vanilla
 cells, stacked, bidirectional and with an embedding; the dW split plan;
-the lag-2 generator.
+K6's plan (the training forward's, asked of K6's own library); the lag-2
+generator.
 
 Tolerances: f32 on both sides, sums taken in other orders. Values agree to
 rtol 1e-5 (atol 1e-6); gradients that sum over B*L (dW, dpeep, the tower's
@@ -31,8 +32,9 @@ from seqrec_tpu_torch.ops.lstm_scan_train import (
     lstm_scan_train_fwd,
     lstm_scan_train_plain,
 )
-from seqrec_tpu_torch.ops.rnn_scan import lstm_scan, lstm_scan_plain
-from seqrec_tpu_torch.ops.rnn_scan_train import TILE, dw_split_plan
+from seqrec_tpu_torch.ops import rnn_scan_train
+from seqrec_tpu_torch.ops.rnn_scan import PATHS, lstm_scan, lstm_scan_plain
+from seqrec_tpu_torch.ops.rnn_scan_train import TILE, dw_split_plan, train_scan_plan, train_scan_smem
 
 B, L, H = 9, 7, 12  # ragged: L is not a multiple of the TPU's time chunk (8), H not of a lane
 
@@ -88,6 +90,7 @@ def test_lstm_scan_train_plain_matches_pallas_interpret(clip):
 
 def test_lstm_wrappers_run_plain_on_cpu_and_refuse_cpu_kernels():
     lstm_scan.launches = lstm_scan_train_fwd.launches = lstm_scan_train_bwd.launches = 0
+    lstm_scan.reg_launches = lstm_scan.cluster_launches = 0
     x, m, w, p, h0, c0, dh = map(torch.from_numpy, _lstm_inputs(5))
     torch.testing.assert_close(lstm_scan(x, m, w, p, h0, c0), lstm_scan_plain(x, m, w, p, h0, c0), rtol=0, atol=0)
     torch.testing.assert_close(
@@ -98,6 +101,75 @@ def test_lstm_wrappers_run_plain_on_cpu_and_refuse_cpu_kernels():
     with pytest.raises(ValueError, match="no kernel for device cpu"):
         lstm_scan_train_bwd(x, m, w, p, torch.zeros(L, B, H), torch.zeros(L, B, H), dh, 1.0)
     assert lstm_scan.launches == lstm_scan_train_fwd.launches == lstm_scan_train_bwd.launches == 0
+    assert lstm_scan.reg_launches == lstm_scan.cluster_launches == 0
+
+
+H100_SMS, H100_SMEM_OPTIN = 132, 232_448
+# (B, H) -> K6's (path, C, R) on an H100 (the training forward's plan, with
+# one cluster a C SMs) and its block's shared memory counted by hand from
+# the buffer layouts of csrc/scan_train_reg.cuh, scan_train_cluster.cuh
+# and lstm_forward.cuh
+K6_PLANS = {
+    # the serving chunk at H=50: h, c [1, 52] + hid [1, 208] + x [2, 1, 200] + mask [2, 1]
+    (64, 50): ("reg", 1, 1, 4 * (104 + 208 + 400 + 2)),
+    # a ragged small shape: h, c [1, 52] + hid [1, 208] + x [2, 1, 48] + mask [2, 1]
+    (9, 12): ("reg", 1, 1, 4 * (104 + 208 + 96 + 2)),
+    # LSTM-128's eval chunk: W[:, cols(q)] 128 x (4 x 32) + h [2, 32, 128]
+    (1024, 128): ("cluster", 4, 32, 4 * (16_384 + 8_192)),
+    # H=300 (38 units a CTA of 8, past a lane each): h, c [8, 300] + hid [8, 1200]
+    (1024, 300): ("l2", 1, 8, 4 * 8 * 6 * 300),
+}
+
+
+@pytest.mark.parametrize("B,H_", list(K6_PLANS))
+def test_k6_plan_is_the_training_forwards_plan(B, H_):
+    """K6 runs K5's forward kernels without their state stores, so its plan
+    is train_scan_plan's forward plan: reg at H=50 and H=12, a 4-CTA
+    cluster at H=128, the l2 kernel at H=300; its shared memory is the
+    forward's."""
+    path, C, R, smem = K6_PLANS[B, H_]
+    assert train_scan_plan("lstm", B, H_, H100_SMS, H100_SMEM_OPTIN, backward=False) == (path, C, R)
+    assert train_scan_smem("lstm", path, H_, C, R, backward=False) == smem <= H100_SMEM_OPTIN
+
+
+class _FakeScanLibrary:
+    """The two queries device_train_plan makes of csrc/lstm_scan.cu's
+    library (seqrec_lstm_scan_capacity, seqrec_lstm_scan_smem), answered
+    from the plan's own numbers; the smem answer is off by ``smem_off``."""
+
+    def __init__(self, held, smem_off=0):
+        self.held, self.smem_off, self.calls = held, smem_off, []
+
+    def seqrec_lstm_scan_capacity(self, backward, H, C, R, n):
+        self.calls.append(("capacity", backward, H, C, R))
+        n._obj.value = self.held[C, R]
+        return 0
+
+    def seqrec_lstm_scan_smem(self, backward, path, H, C, R):
+        self.calls.append(("smem", backward, path, H, C, R))
+        name = {code: p for p, code in PATHS.items()}[path]
+        return train_scan_smem("lstm", name, H, C, R, bool(backward)) + self.smem_off
+
+
+def test_k6_device_plan_reads_the_eval_kernels_capacity_and_checks_their_smem(monkeypatch):
+    """On the card, lstm_scan's plan asks K6's own library (the eval form of
+    the cluster kernel) for the clusters the card holds, forward only, and
+    raises where the plan's shared-memory count differs from the kernel's."""
+    import contextlib
+
+    monkeypatch.setattr(rnn_scan_train, "_plans", {})
+    monkeypatch.setattr(rnn_scan_train, "device_limits", lambda index: (H100_SMS, H100_SMEM_OPTIN))
+    monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.nullcontext())
+    device = torch.device("cuda", 0)
+    # two CTAs an SM: 64-row-tile waves favour R = 16
+    lib = _FakeScanLibrary({(C, R): (66 if C == 4 else 33) for C in (4, 8) for R in (8, 16, 24, 32)})
+    plan = rnn_scan_train.device_train_plan("lstm", 1024, 128, device, False, lambda: lib, kernels="scan")
+    assert plan == ("cluster", 4, 16)
+    assert {c[1] for c in lib.calls} == {0}  # forward only
+    assert lib.calls[-1] == ("smem", 0, PATHS["cluster"], 128, 4, 16)
+    bad = _FakeScanLibrary(lib.held, smem_off=4)
+    with pytest.raises(RuntimeError, match="bytes of shared memory"):
+        rnn_scan_train.device_train_plan("lstm", 64, 50, device, False, lambda: bad, kernels="scan")
 
 
 @pytest.mark.parametrize(

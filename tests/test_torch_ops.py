@@ -1,7 +1,8 @@
 """The port's kernel modules (plain versions, on the CPU) against the JAX
 package: the GRU eval scan (K3), the fused score + seen-mask + top-k (K4,
 the Pallas kernels run in interpret mode), the tower's forward for the
-GRU, LSTM and Vanilla cells, masked_top_k and gather_sum.
+GRU, LSTM and Vanilla cells, masked_top_k and gather_sum (the plain version,
+and the dispatching wrapper the towers call).
 
 The CUDA kernels themselves need a card; chip_smoke.py holds them against
 these plain versions there.
@@ -168,6 +169,27 @@ def test_gather_sum_with_pad_slots_matches_jax():
         want = np.asarray(jax_gather_sum(jnp.asarray(table), jnp.asarray(ids), None if m is None else jnp.asarray(m)))
         got = gather_sum(torch.from_numpy(table), torch.from_numpy(ids), None if m is None else torch.from_numpy(m))
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_towers_and_the_ops_package_use_the_dispatching_gather_sum():
+    """The towers' input layer and ``seqrec_tpu_torch.ops.gather_sum`` are
+    ops/gather_sum.py's wrapper (the CUDA kernel pair on the card); on CPU
+    tensors it is the plain version, values and table gradient alike."""
+    import seqrec_tpu_torch.models.recurrent as recurrent
+    import seqrec_tpu_torch.ops as ops
+    from seqrec_tpu_torch.ops import gather_sum as ops_gather_sum
+    from seqrec_tpu_torch.ops.gather_sum import gather_sum as wrapper
+
+    assert recurrent.gather_sum is wrapper and ops.gather_sum is wrapper and ops_gather_sum is wrapper
+    rng = np.random.default_rng(3)
+    table = torch.tensor(rng.normal(size=(20, 5)).astype(np.float32), requires_grad=True)
+    ids = torch.from_numpy(rng.integers(-1, 20, size=(4, 6, 2)).astype(np.int32))
+    ct = torch.from_numpy(rng.normal(size=(4, 6, 5)).astype(np.float32))
+    got = wrapper(table, ids)
+    want = gather_sum(table, ids)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(torch.autograd.grad(got, table, ct)[0], torch.autograd.grad(want, table, ct)[0],
+                               rtol=0, atol=0)
 
 
 def test_wrappers_on_cpu_tensors_run_the_plain_version_and_count_no_launch():
