@@ -24,7 +24,9 @@ Phases, each printing one JSON line with its seconds:
    a row of length 0, cluster at B1024/H128 and a ragged B with holes, l2
    at H=300, the same bits on two calls; the gather-sum pair on real
    batches of the flagship and the large catalog and at F=2 with id_mask
-   and pad slots, forward bit for bit at F=1, the same bits on two calls)
+   and pad slots, forward bit for bit at F=1, the same bits on two calls;
+   K1 and the gather-sum on a real -b 64 batch of the sampled head, at
+   B64/L30/H50)
    and a
    bidirectional LSTM tower against the same tower on the CPU, and time
    the kernel, the plain version and a PyTorch library yardstick beside
@@ -64,6 +66,25 @@ Phases, each printing one JSON line with its seconds:
    on its cluster path and K4 ran, and that the top-10 lists of the first
    512 users equal the same model's on the CPU; print users/s and the
    profiler's top kernels.
+8. main_path_train_heads: the sampled and margin heads at
+   scripts/quality_run_regime2.sh's GRU-50, B=64, Adam 2e-3 on the
+   ML-1M-scale dataset. With every counter at 0 before each run, train
+   through the train CLI on the card: BPR with 256 samples (300 steps, one
+   validation), Blackout with 256 pop^0.5 samples (50 steps, one
+   validation) and the dense hinge margin (300 steps, one validation);
+   check that K1 (forward and backward), the gather-sum kernels, K3 and K4
+   ran and K2 did not, and that the first 20 step costs agree with the CLI
+   on the CPU within 1e-4; run the test CLI on the BPR and hinge
+   checkpoints on the card (K3 and K4) and the CPU (the same top-10 lists);
+   time and profile steady BPR and hinge steps.
+9. main_path_train_heads_large: at the large catalog's GRU-128, B=1024,
+   the streaming hinge margin (30 steps, one validation) and BPR with 256
+   samples and --lazy_updates (30 steps), with the same launch checks (K3
+   and K4 only where a validation runs) and the first 5 step costs against
+   the CPU's; steady steps (no ``indexing_backward_kernel``); the
+   streaming margin's chunk loop and correction timed beside the dense
+   margin (and held against it), and the lazy head update beside dense
+   Adam on W_out and b_out.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. The last lines are
@@ -128,6 +149,15 @@ LSTM_LARGE = [
     "-m", "RNN", "--loss", "CCE", "--r_t", "LSTM", "--r_l", "128", "--max_length", "30",
     "-b", "1024", "--u_m", "adam", "--u_l", "0.002",
 ]
+# scripts/quality_run_regime2.sh's sampled (BPR) and margin (hinge) runs: GRU-50, B=64, Adam 2e-3
+HEADS = ["-m", "RNN", "--r_t", "GRU", "--r_l", "50", "--max_length", "30", "-b", "64", "--u_m", "adam", "--u_l", "0.002"]
+HEADS_BPR = HEADS + ["--loss", "BPR", "--sampling", "256"]
+HEADS_BLACKOUT = HEADS + ["--loss", "Blackout", "--sampling", "256", "--sampling_bias", "0.5"]
+HEADS_HINGE = HEADS + ["--loss", "hinge"]
+# the GRU large catalog's shape with the other heads: the streaming margin, the lazy sampled head
+LARGE_HEADS = [a for a in LARGE if a not in ("--loss", "CCE")]
+LARGE_HINGE = LARGE_HEADS + ["--loss", "hinge"]
+LARGE_BPR_LAZY = LARGE_HEADS + ["--loss", "BPR", "--sampling", "256", "--lazy_updates"]
 
 
 def wrapper(name):
@@ -259,11 +289,14 @@ def train_scan_bwd_bounds(fwd_flops: float, n_bytes: float, path: str) -> dict:
 # ----------------------------------------------------------------------
 # K3: GRU scan
 # ----------------------------------------------------------------------
-def gru_inputs(B, L, H, seed, device, empty_row=False, holes=False):
+def gru_inputs(B, L, H, seed, device, empty_row=False, holes=False, lengths=None):
+    """Random scan inputs; ``lengths`` (a real batch's prefix lengths)
+    replaces the drawn ones."""
     import torch
 
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(1, L + 1, size=B)
+    drawn = rng.integers(1, L + 1, size=B)
+    lengths = drawn if lengths is None else np.asarray(lengths)
     if empty_row:
         lengths[0] = 0  # keeps h0
     mask = np.arange(L)[None, :] < lengths[:, None]
@@ -410,7 +443,7 @@ def check_empty_row(name, dx, dh0, dh) -> None:
         raise AssertionError(f"{name} gave a row of length 0 a gradient")
 
 
-def check_gru_train(B, L, H, clip, seed, timed=True, empty_row=False, holes=False):
+def check_gru_train(B, L, H, clip, seed, timed=True, empty_row=False, holes=False, lengths=None):
     """K1 forward (final state) and backward (dx, dh0, dW) against autograd
     through the plain scan, for a random upstream cotangent dh; both on the
     path their plan picks, each called twice for the same bits."""
@@ -423,7 +456,7 @@ def check_gru_train(B, L, H, clip, seed, timed=True, empty_row=False, holes=Fals
         gru_train_plan,
     )
 
-    a = gru_inputs(B, L, H, seed, "cuda", empty_row, holes)
+    a = gru_inputs(B, L, H, seed, "cuda", empty_row, holes, lengths)
     x, m, w, h0 = a["x_pre"], a["mask"], a["w_hid"], a["h0"]
     dh = torch.tensor(np.random.default_rng(seed + 100).normal(0, 1, size=(B, H)),
                       dtype=torch.float32, device="cuda")
@@ -1370,6 +1403,214 @@ def main_path_train_lstm(card) -> tuple[dict, dict]:
     return train_launches, serve_launches
 
 
+# ----------------------------------------------------------------------
+# main path, training: the sampled and margin heads, --lazy_updates
+# ----------------------------------------------------------------------
+GRU_TRAIN_PATH = ("gru_scan_train_fwd", "gru_scan_train_bwd", "gather_sum_fwd", "gather_sum_bwd")
+GRU_EVAL_PATH = ("gru_scan", "fused_score_topk")
+
+
+def head_run(ds_dir, flags, iters, n_costs, validates=True, save_dir=None) -> dict:
+    """Train ``flags`` through the train CLI on the card with every counter
+    at 0 (one validation after ``iters`` steps when ``validates``), check
+    that K1, the gather-sum and (with the validation) K3 and K4 ran and K2
+    did not, then that the first ``n_costs`` step costs equal the CPU CLI's
+    within 1e-4 relative (one step per progress line)."""
+    import torch
+
+    from seqrec_tpu_torch.cli import train as train_cli
+
+    argv = ["-d", ds_dir, *flags, "--max_iter", str(iters), "--progress", str(iters if validates else iters + 1),
+            "--save", "Best" if save_dir else "None", *(["--dir", save_dir] if save_dir else [])]
+    zero_counters()
+    t0 = time.perf_counter()
+    text = run_cli(train_cli.main, argv)[1]
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counters()
+    ran = GRU_TRAIN_PATH + (GRU_EVAL_PATH if validates else ())
+    if any(launches[k] == 0 for k in ran) or launches["cce_stats"] or launches["cce_grads"]:
+        raise AssertionError(f"{' '.join(flags)} launched {launches}")
+    short = ["-d", ds_dir, *flags, "--max_iter", str(n_costs), "--progress", "1", "--save", "None"]
+    gpu = progress_values(run_cli(train_cli.main, short)[1], "Last train cost")
+    cpu = progress_values(run_cli(train_cli.main, short + ["--device", "cpu"])[1], "Last train cost")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gpu, cpu))
+    if len(gpu) != n_costs or len(cpu) != n_costs or rel > 1e-4:
+        raise AssertionError(f"{' '.join(flags)}: step costs differ between cuda and cpu: {gpu} vs {cpu}")
+    return {
+        "flags": " ".join(flags), "launches": launches, "cli_cuda_s": cli_s, "iterations": iters,
+        "throughput_sequences_per_s": progress_values(text, "Throughput"),
+        "train_cost": progress_values(text, "Last train cost"), "validation_sps@10": progress_values(text, "sps"),
+        f"first_{n_costs}_step_costs_cuda_vs_cpu_max_rel_diff": rel,
+    }
+
+
+def test_cli_same_top10(ds_dir, flags, save_dir) -> dict:
+    """The test CLI on a trained checkpoint, on the card with every counter
+    at 0 (K3 and K4 must run) and on the CPU: the same top-10 lists."""
+    from seqrec_tpu_torch.cli import test as test_cli
+
+    argv = ["-d", ds_dir, *flags, "--dir", save_dir]
+    zero_counters()
+    ev_gpu = run_cli(test_cli.main, argv)[0]
+    launches = read_counters()
+    if any(launches[k] == 0 for k in GRU_EVAL_PATH):
+        raise AssertionError(f"the test CLI of {' '.join(flags)} launched {launches}")
+    ev_cpu = run_cli(test_cli.main, argv + ["--device", "cpu"])[0]
+    recs_gpu = [pred for _, pred in ev_gpu.instances]
+    recs_cpu = [pred for _, pred in ev_cpu.instances]
+    if not recs_gpu or recs_gpu != recs_cpu:
+        n_diff = sum(a != b for a, b in zip(recs_gpu, recs_cpu))
+        raise AssertionError(f"{' '.join(flags)}: top-10 lists differ between cuda and cpu on {n_diff} users")
+    return {"launches": {k: launches[k] for k in GRU_EVAL_PATH}, "test_users": len(recs_gpu), "same_top10_as_cpu": True,
+            "metrics@10": {m: ev_gpu.metrics[m]() for m in ("sps", "recall", "item_coverage", "user_coverage")}}
+
+
+def main_path_train_heads(card) -> dict:
+    """The sampled and margin heads at scripts/quality_run_regime2.sh's
+    GRU-50/B64 on the ML-1M-scale dataset: BPR (300 steps, one validation),
+    Blackout with pop^0.5 samples (50 steps, one validation) and the dense
+    hinge margin (300 steps, one validation) through the train CLI on the
+    card, each against the CPU's first 20 step costs; the test CLI on the
+    BPR and hinge checkpoints against the CPU's top-10 lists; steady steps
+    of BPR and hinge. Returns each run's launches."""
+    t_phase = time.perf_counter()
+    ds_dir = ml1m_dataset()
+    runs = {
+        "bpr": head_run(ds_dir, HEADS_BPR, 300, 20, save_dir="chip_bpr/"),
+        "blackout": head_run(ds_dir, HEADS_BLACKOUT, 50, 20),
+        "hinge": head_run(ds_dir, HEADS_HINGE, 300, 20, save_dir="chip_hinge/"),
+    }
+    runs["bpr"]["test_cli"] = test_cli_same_top10(ds_dir, HEADS_BPR, "chip_bpr/")
+    runs["hinge"]["test_cli"] = test_cli_same_top10(ds_dir, HEADS_HINGE, "chip_hinge/")
+    for name, flags in (("bpr", HEADS_BPR), ("hinge", HEADS_HINGE)):
+        runs[name]["steady"] = steady_state(flags, ds_dir, steps=200, warmup=20, profile_steps=20, card=card)
+    emit({
+        "phase": "main_path_train_heads", "config": "GRU-50, L=30, B=64, Adam 2e-3, ML-1M-scale synthetic (3,706 items)",
+        "runs": runs, "tolerance": "step costs rel 1e-4 (f32 kernels and atomic column-gather backwards vs the CPU)",
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return {name: run["launches"] for name, run in runs.items()}
+
+
+def streaming_margin_parts(B, H, N, L, seed) -> dict:
+    """The streaming margin at B/H/N: its chunk loop (the uniform part,
+    forward and backward) and its special-column correction, per call
+    (CUDA events) and device time, beside the dense margin on the same
+    inputs; the streaming value and gradients held against the dense
+    ones (rtol 1e-4 + atol 1e-5*max|dense|)."""
+    import torch
+
+    from seqrec_tpu_torch.models.rnn_margin import dense_margin
+    from seqrec_tpu_torch.ops.streaming_margin import margin_special_correction, pick_chunk, streaming_margin_uniform
+
+    rng = np.random.default_rng(seed)
+    f32 = torch.float32
+    h = torch.tensor(rng.normal(0, 0.5, (B, H)), dtype=f32, device="cuda", requires_grad=True)
+    W = torch.tensor(rng.normal(0, 0.05, (H, N)), dtype=f32, device="cuda", requires_grad=True)
+    b = torch.tensor(rng.normal(0, 0.05, N), dtype=f32, device="cuda", requires_grad=True)
+    lengths = rng.integers(2, L + 1, size=B)
+    seen = np.where(np.arange(L)[None, :] < lengths[:, None], rng.integers(0, N, (B, L)), N)
+    tgt = torch.tensor(rng.integers(0, N, (B, 1)), device="cuda")
+    seen = torch.tensor(seen, device="cuda")
+    w_neg = torch.tensor(1.0 / (N - 1.0 - lengths), dtype=f32, device="cuda")
+    dt = torch.zeros(N, dtype=f32, device="cuda")
+    chunk = pick_chunk(N)
+    leaves = (h, W, b)
+
+    def loop():
+        return torch.autograd.grad(streaming_margin_uniform(h, W, b, w_neg, dt, "hinge", chunk).sum(), leaves)
+
+    def corr():
+        out = margin_special_correction(h, W, b, tgt, seen, w_neg, dt, "hinge", True, N)
+        return torch.autograd.grad(out.sum(), leaves)
+
+    def dense():
+        return torch.autograd.grad(dense_margin(h @ W + b, tgt, seen, w_neg, dt, "hinge", True).sum(), leaves)
+
+    with torch.no_grad():
+        got = (streaming_margin_uniform(h, W, b, w_neg, dt, "hinge", chunk)
+               + margin_special_correction(h, W, b, tgt, seen, w_neg, dt, "hinge", True, N))
+        want = dense_margin(h @ W + b, tgt, seen, w_neg, dt, "hinge", True)
+    errs = {"loss": close(got, want, rtol=1e-4, atol_rel=1e-5)}
+    for name, a, c, d in zip("hWb", loop(), corr(), dense()):
+        errs["d" + name] = close(a + c, d, rtol=1e-4, atol_rel=1e-5)
+    if not all(ok for _, ok in errs.values()):
+        raise AssertionError(f"the streaming margin disagrees with the dense margin at {(B, H, N)}: {errs}")
+    return {
+        "shape": {"B": B, "H": H, "N": N, "chunk": chunk, "n_chunks": -(-N // chunk)},
+        "max_abs_err": {k: v for k, (v, _) in errs.items()},
+        "chunk_loop_ms": time_ms(loop, reps=10), "chunk_loop_device_ms": device_ms(loop, reps=5),
+        "correction_ms": time_ms(corr, reps=10), "correction_device_ms": device_ms(corr, reps=5),
+        "dense_margin_ms": time_ms(dense, reps=10), "dense_margin_device_ms": device_ms(dense, reps=5),
+        "timed": "forward and backward of the hinge loss with respect to h, W and b",
+    }
+
+
+def lazy_update_parts(H, N, n_cols, seed) -> dict:
+    """One lazy Adam step of the sampled head (``n_cols`` = B+S columns of
+    W_out [H, N] and entries of b_out, drawn with repeats) against the
+    dense Adam step on both, per call and device time."""
+    import torch
+
+    from seqrec_tpu_torch.models.base import RNNBase
+    from seqrec_tpu_torch.models.updates import Adam
+
+    rng = np.random.default_rng(seed)
+    model = RNNBase(updater=Adam(0.001), device="cuda")
+    f32 = torch.float32
+    W = torch.tensor(rng.normal(0, 0.05, (H, N)), dtype=f32, device="cuda")
+    b = torch.zeros(N, dtype=f32, device="cuda")
+    gW = torch.tensor(rng.normal(0, 1e-3, (H, N)), dtype=f32, device="cuda")
+    gb = torch.tensor(rng.normal(0, 1e-3, N), dtype=f32, device="cuda")
+    cols = torch.tensor(rng.integers(0, N, n_cols), device="cuda")
+    states = [{"m": torch.zeros_like(t), "v": torch.zeros_like(t), "count": 0} for t in (W, b)]
+    dense_state = model.updater.init([W, b])
+
+    def lazy():
+        model._lazy_adam_update(W, states[0], gW, cols, 1)
+        model._lazy_adam_update(b, states[1], gb, cols, 0)
+
+    def dense():
+        model.updater.step([W, b], [gW, gb], dense_state)
+
+    return {"shape": {"H": H, "N": N, "columns": n_cols},
+            "lazy_ms": time_ms(lazy), "lazy_device_ms": device_ms(lazy),
+            "dense_adam_ms": time_ms(dense), "dense_adam_device_ms": device_ms(dense)}
+
+
+def main_path_train_heads_large(card) -> dict:
+    """The other heads at the GRU large catalog's shape (GRU-128, B=1024,
+    49,999 items): the streaming hinge margin (30 steps, one validation)
+    and BPR with 256 samples on the lazy head (30 steps), each against the
+    CPU's first 5 step costs; steady steps of both (no step may run
+    ``indexing_backward_kernel``); the streaming margin's chunk loop and the
+    lazy update timed alone. Returns each run's launches."""
+    from seqrec_tpu_torch.data import DataHandler
+    from seqrec_tpu_torch.ops.streaming_margin import STREAMING_MARGIN_MIN_ITEMS
+
+    t_phase = time.perf_counter()
+    ds_dir = catalog50k_dataset()
+    n_items = DataHandler(ds_dir).n_items
+    if n_items < STREAMING_MARGIN_MIN_ITEMS:
+        raise AssertionError(f"the large catalog has {n_items} items, under the streaming margin's switch")
+    runs = {
+        "hinge_streaming": head_run(ds_dir, LARGE_HINGE, 30, 5),
+        "bpr_lazy": head_run(ds_dir, LARGE_BPR_LAZY, 30, 5, validates=False),
+    }
+    for name, flags in (("hinge_streaming", LARGE_HINGE), ("bpr_lazy", LARGE_BPR_LAZY)):
+        runs[name]["steady"] = steady_state(flags, ds_dir, steps=20, warmup=3, profile_steps=5, card=card)
+    emit({
+        "phase": "main_path_train_heads_large", "config": "GRU-128, 50k-item synthetic catalog, L=30, B=1024, Adam 1e-3",
+        "n_items": n_items, "runs": runs,
+        "streaming_margin": streaming_margin_parts(1024, 128, n_items, 30, seed=80),
+        "lazy_update": lazy_update_parts(128, n_items, 1024 + 256, seed=81),
+        "tolerance": "step costs rel 1e-4 (f32 kernels and atomic column-gather backwards vs the CPU)",
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return {name: run["launches"] for name, run in runs.items()}
+
+
 def serving_pass_gru256(card) -> dict:
     """GRU-256 serving on the 50k-item catalog: 4096 users at eval chunks
     of 512 with every counter at 0 (K3 on its cluster path, K4), the
@@ -1478,6 +1719,10 @@ def main() -> int:
     gs_lstm = check_gather_sum(ids_l, 512, large_rows, seed=71)
     gs_flagship = check_gather_sum(ids_f, 150, flagship_rows, seed=72)
     ids_2, mask_2 = two_slot_ids(ids_f, len_f, flagship_rows)
+    # the sampled and margin heads' shape: K1 and the gather-sum on a real -b 64 batch
+    heads_rows, [(ids_h, len_h)] = real_batch_ids(HEADS_BPR, ml1m_dataset())
+    k1_b64 = check_gru_train(64, 30, 50, 100.0, seed=29, lengths=len_h)
+    gs_b64 = check_gather_sum(ids_h, 150, heads_rows, seed=74)
     k5 = check_lstm_train(1024, 30, 128, 100.0, seed=23)
     k1_large = check_gru_train(1024, 30, 128, 100.0, seed=13)  # GRU-128's shape
     k5_small = check_lstm_train(16, 30, 50, 100.0, seed=28)  # the flagship's shape in an LSTM
@@ -1499,6 +1744,8 @@ def main() -> int:
         emit({"phase": "kernels", "at": "main-path shape", **res})
     emit({"phase": "kernels", "at": "LSTM-128 batch", **gs_lstm})
     emit({"phase": "kernels", "at": "flagship batch", **gs_flagship})
+    emit({"phase": "kernels", "at": "heads' B64 batch", **k1_b64})
+    emit({"phase": "kernels", "at": "heads' B64 batch", **gs_b64})
     emit({"phase": "kernels", "at": "GRU-128 validation shape", **k3_gru128})
     emit({"phase": "kernels", "at": "large shape", **k3_large})
     k4_gru256 = check_topk(512, 256, 49_999, 30, 10, seed=8)  # the GRU-256 serving pass's chunk
@@ -1587,6 +1834,9 @@ def main() -> int:
     large = main_path_train_large(card)
     lstm_train, lstm_serve = main_path_train_lstm(card)
     gru256 = serving_pass_gru256(card)
+    heads = main_path_train_heads(card)
+    heads_large = main_path_train_heads_large(card)
+    heads_runs = {**heads, **{name + "_large": counts for name, counts in heads_large.items()}}
     path_of = {"gru_scan": serving, "fused_score_topk": serving, "gru_scan_train_fwd": flagship,
                "gru_scan_train_bwd": flagship, "cce_stats": large, "cce_grads": large,
                "lstm_scan": lstm_serve, "lstm_scan_train_fwd": lstm_train, "lstm_scan_train_bwd": lstm_train,
@@ -1600,6 +1850,7 @@ def main() -> int:
             "launches": path_of[name][name], "max_abs_err": res["max_abs_err"],
             "ms": res["kernel_ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+            "launches_heads": {run: counts[name] for run, counts in heads_runs.items()},
         })
     # where this round's redesigns act: K3 at GRU-256 serving's chunk, K2's gradients
     k3 = summary[0]
@@ -1649,7 +1900,12 @@ def main() -> int:
             entry.update({key: res[d][key] for key in keys[1:]}, plan=res["plan"][d], same_bits_twice=True)
             entry[at] = {**{key: other[d][key] for key in keys}, "plan": other["plan"][d]}
     for name in ("gru_scan_train_fwd", "gru_scan_train_bwd"):
-        next(e for e in summary if e["name"] == name)["launches_gru128_path"] = large[name]
+        entry = next(e for e in summary if e["name"] == name)
+        entry["launches_gru128_path"] = large[name]
+        d = name.split("_")[-1]
+        entry["at_B64_L30_H50"] = {**{key: k1_b64[d][key] for key in scan_keys + ("plain_ms", "library_ms")},
+                                   "plan": k1_b64["plan"][d], "real_batch_lengths": True,
+                                   "max_abs_err": k1_b64["max_abs_err"]}
     # this PR's redesigns: K6 on the training forward's kernels, the gather-sum pair
     lstm = next(e for e in summary if e["name"] == "lstm_scan")
     k6_keys = ("kernel_ms", "kernel_device_ms", "plain_device_ms", "library_device_ms", "bound_ms", "plan")
@@ -1666,7 +1922,9 @@ def main() -> int:
                      id_runs_gru128=gs_large["id_runs"], same_bits_twice=True,
                      launches_flagship=flagship[name], launches_lstm_path=lstm_train[name],
                      at_LSTM128_D512={key: gs_lstm[d][key] for key in keys},
-                     at_flagship_D150={key: gs_flagship[d][key] for key in keys})
+                     at_flagship_D150={key: gs_flagship[d][key] for key in keys},
+                     at_heads_B64_D150={**{key: gs_b64[d][key] for key in keys + ("plain_ms",)},
+                                        "max_abs_err": gs_b64["max_abs_err"][d]})
     print(card_line(), flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {

@@ -8,11 +8,16 @@ path becomes a CUDA C++ kernel for ``sm_90a`` under ``csrc/``, built with
 ``nvcc`` at first use (``ops/_build.py``) and checked against a plain
 PyTorch version of the same function kept beside its wrapper.
 
-Ported so far: ``RNNOneHot`` on GRU, LSTM and Vanilla towers, trained
-through ``cli/train.py`` (GRU training scan K1 or LSTM training scan K5,
-streaming CCE K2 at large catalogs) and served through ``cli/test.py``
-(GRU scan K3 or LSTM scan K6, fused masked top-k K4). The Vanilla tower
-is a plain scan, as in the JAX package.
+Ported so far: the RNN family's single-model heads on GRU, LSTM and
+Vanilla towers: ``RNNOneHot`` (CCE), ``RNNSampling`` (BPR, TOP1,
+Blackout over shared negative samples) and ``RNNMargin`` (hinge, logit,
+logsig; dense, or the streaming margin at large catalogs), each with or
+without ``--lazy_updates``. They train through ``cli/train.py`` (GRU
+training scan K1 or LSTM training scan K5, the gather-sum kernel pair,
+streaming CCE K2 for the CCE head at large catalogs) and serve through
+``cli/test.py`` (GRU scan K3 or LSTM scan K6, fused masked top-k K4), on
+the card by default and on the CPU with ``--device cpu``. The Vanilla
+tower is a plain scan, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -17,9 +17,13 @@ per-sequence batcher with the model's own generator otherwise, so one seed
 gives the same batches and the loss trajectories compare step by step.
 Each ``train_function`` call is one synchronous optimizer step (autograd,
 then the updater's in-place step); validation runs the eval kernels.
-Saves are synchronous. Not ported yet (each raises ``NotImplementedError``
-where a flag asks for it): the index wire and K-step dispatch (``--spd``),
-the async save queue, ``--lazy_updates``, ``--mesh``.
+``--lazy_updates`` (Adam only) moves the catalog-indexed tables onto a
+slice-sparse Adam, TF LazyAdam's semantics: the input table's rows for
+``RNNOneHot`` and ``RNNMargin``, the output columns and bias entries of
+the sampled head for ``RNNSampling``. Saves are synchronous. Not ported
+yet (each raises ``NotImplementedError`` where a flag asks for it): the
+index wire and K-step dispatch (``--spd``), the async save queue,
+``--mesh``.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from seqrec_tpu_torch import resolve_device
 from seqrec_tpu_torch.data.noise import SequenceNoise
 from seqrec_tpu_torch.data.targets import SelectTargets
 from seqrec_tpu_torch.models.recurrent import RecurrentLayers
-from seqrec_tpu_torch.models.updates import Adagrad
+from seqrec_tpu_torch.models.updates import Adagrad, Adam
 from seqrec_tpu_torch.ops.core import masked_top_k
 from seqrec_tpu_torch.ops.score_topk import fused_score_topk
 from seqrec_tpu_torch.utils import evaluation
@@ -431,7 +435,7 @@ class RNNBase:
         packed["target_pop"] = np.ones(len(packed["targets"]), dtype=np.float32)
         return packed
 
-    _WIRE_ID_KEYS = ("ids", "targets")
+    _WIRE_ID_KEYS = ("ids", "targets", "seen_ids", "target_ids")
 
     def _compact_wire(self, packed: dict, prefix_lengths) -> dict:
         packed.pop("mask", None)
@@ -490,8 +494,14 @@ class RNNBase:
             out["mask"] = mask
             if self.n_feature_slots > 1:
                 out["id_mask"] = mask[..., None].expand(ids.shape).contiguous()
-        out["targets"] = out["targets"].long()
+        for key in self._DEVICE_ID_KEYS:
+            if key in out:
+                out[key] = out[key].long()
         return out
+
+    # id fields a model's batches may carry (CCE: targets; the sampled head:
+    # targets and samples; the margin head: target_ids and seen_ids)
+    _DEVICE_ID_KEYS = ("targets", "samples", "target_ids", "seen_ids")
 
     # ------------------------------------------------------------------
     # optimizer steps
@@ -503,16 +513,110 @@ class RNNBase:
     def _train_params(self) -> list:
         return list(self.net.parameters())
 
+    # ------------------------------------------------------------------
+    # lazy (slice-sparse) Adam for catalog-indexed tables
+    # ------------------------------------------------------------------
+    def _resolve_lazy_path(self):
+        """Path of the catalog-indexed input table (the embedding, else the
+        first layer's ``W_in``), or None without ``--lazy_updates``. Its
+        gradient is nonzero only on the rows the batch names."""
+        if not self.lazy_updates:
+            return None
+        if not isinstance(self.updater, Adam):
+            raise ValueError("--lazy_updates is implemented for adam only")
+        rl = self.recurrent_layer
+        if rl.embedding_size > 0:
+            return ("tower", "embedding")
+        if rl.bidirectional:
+            raise ValueError("--lazy_updates: bidirectional towers have two input tables (fwd/bwd); not supported")
+        return ("tower", "layer0_fwd", "W_in")
+
+    def _resolve_lazy_specs(self):
+        """Lazy-update specs ``{"path", "axis", "ids"}``: the parameter, the
+        axis its touched slices lie on, and a function of the device batch
+        giving the touched indices. Here the input table's rows; heads
+        whose output gradient is sparse too override this (RNNSampling)."""
+        path = self._resolve_lazy_path()
+        if path is None:
+            return None
+        return [{"path": path, "axis": 0, "ids": lambda b: b["ids"]}]
+
+    @torch.no_grad()
+    def _lazy_adam_update(self, table, state, dense_grad, ids, axis):
+        """One Adam step on the slices of ``table`` (rows for ``axis=0``,
+        columns for ``axis=1``) that ``ids`` names, in place; ``state``
+        holds the spec's moments ``m``, ``v`` and its step ``count``.
+
+        TF LazyAdam: untouched slices neither decay nor move, and the bias
+        correction uses the spec's own count. Duplicate ids gather the same
+        gradient slice and so write the same bits: a scatter-set
+        (``index_copy_``) needs no dedup. Negative ids (padded feature
+        slots) drop out: they are pointed at the first valid id, whose value
+        they then write again."""
+        u = self.updater
+        f32 = torch.float32
+        lr = torch.tensor(u.learning_rate, dtype=f32)
+        b1 = torch.tensor(u.beta1, dtype=f32)
+        b2 = torch.tensor(u.beta2, dtype=f32)
+        flat = ids.reshape(-1).long()
+        valid = flat >= 0
+        # index_select keeps the first valid id on the device (a 0-dim index would sync)
+        idx = torch.where(valid, flat, flat.index_select(0, torch.argmax(valid.int()).reshape(1)))
+
+        def take(a):
+            return a.index_select(axis, idx)
+
+        g = take(dense_grad)
+        m_new = b1 * take(state["m"]) + (1.0 - b1) * g
+        v_new = b2 * take(state["v"]) + (1.0 - b2) * g * g
+        state["count"] += 1
+        t = torch.tensor(state["count"], dtype=f32)
+        m_hat = m_new / (1.0 - b1**t)
+        v_hat = v_new / (1.0 - b2**t)
+        upd = -lr * m_hat / (torch.sqrt(v_hat) + 1e-8)
+        table.index_copy_(axis, idx, take(table) + upd)
+        state["m"].index_copy_(axis, idx, m_new)
+        state["v"].index_copy_(axis, idx, v_new)
+
+    def _init_opt_state(self) -> dict:
+        """The updater's state over every parameter, or, with lazy specs, a
+        composite: the updater's state over the other parameters
+        (``inner``) and per spec its parameter's index, its moments and
+        its count (``lazy``)."""
+        params = self._train_params()
+        specs = self._resolve_lazy_specs()
+        if not specs:
+            return self.updater.init(params)
+        index = {name: i for i, (name, _) in enumerate(self.net.named_parameters())}
+        lazy = []
+        for sp in specs:
+            i = index[".".join(sp["path"])]
+            zeros = torch.zeros_like(params[i])
+            lazy.append({"spec": sp, "param": i, "m": zeros, "v": zeros.clone(), "count": 0})
+        taken = {entry["param"] for entry in lazy}
+        inner = self.updater.init([p for i, p in enumerate(params) if i not in taken])
+        return {"inner": inner, "lazy": lazy}
+
     def train_function(self, batch):
         """One optimizer step on a host batch; returns the batch cost as a
         device scalar (the loop syncs only at progress checkpoints)."""
         if self.opt_state is None:
-            self.opt_state = self.updater.init(self._train_params())
+            self.opt_state = self._init_opt_state()
         params = self._train_params()
-        cost = self._loss(self._device_batch(batch))
+        dev_batch = self._device_batch(batch)
+        cost = self._loss(dev_batch)
         grads = torch.autograd.grad(cost, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        self.updater.step(params, grads, self.opt_state)
+        lazy = self.opt_state.get("lazy")
+        if not lazy:
+            self.updater.step(params, grads, self.opt_state)
+            return cost.detach()
+        taken = {entry["param"] for entry in lazy}
+        rest = [i for i in range(len(params)) if i not in taken]
+        self.updater.step([params[i] for i in rest], [grads[i] for i in rest], self.opt_state["inner"])
+        for entry in lazy:
+            sp, i = entry["spec"], entry["param"]
+            self._lazy_adam_update(params[i], entry, grads[i], sp["ids"](dev_batch), sp["axis"])
         return cost.detach()
 
     # ------------------------------------------------------------------
@@ -576,8 +680,6 @@ class RNNBase:
         early_stopping=None,
         validation_metrics=("sps",),
     ):
-        if self.lazy_updates:
-            raise NotImplementedError("--lazy_updates comes with a later slice of the port")
         if self.steps_per_dispatch > 1:
             raise NotImplementedError("--spd > 1 (K-step dispatch) comes with a later slice of the port")
         validation_metrics = list(validation_metrics)
@@ -595,7 +697,7 @@ class RNNBase:
         if load_last_model:
             epochs_offset = self.load_last(save_dir)
         if self.opt_state is None:
-            self.opt_state = self.updater.init(self._train_params())
+            self.opt_state = self._init_opt_state()
 
         if self._fast_batching_ok():
             # a generator of its own, as the JAX package's prefetch thread has

@@ -1,0 +1,133 @@
+"""RNN with sampled losses (BPR, TOP1, Blackout).
+
+Counterpart of ``seqrec_tpu/models/rnn_sampling.py:RNNSampling``. At train
+time only the output columns of the batch's targets and of ``S`` shared
+negative samples are scored: a gather of ``B+S`` columns of ``W_out``
+(``index_select``) and one ``[B, H] x [H, B+S]`` product, in plain
+PyTorch as the JAX package leaves them to XLA. The diagonal of the left
+``[B, B]`` block scores each example's own target.
+
+The samples are drawn on the host per batch from the model's own generator
+(``self.rng``), at the same points and in the same order as the JAX
+package: uniform over the catalog, or ``pop^sampling_bias`` through a
+cumsum and ``searchsorted``. Serving ranks the raw logits (ranking the
+softmax), so evaluation goes through the fused score + mask + top-k kernel
+K4. ``--lazy_updates`` moves the head (``W_out`` columns, ``b_out``
+entries) onto the lazy Adam; the input table keeps dense Adam.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from seqrec_tpu_torch.models.base import RNNBase
+from seqrec_tpu_torch.models.rnn_one_hot import OneHotNetwork
+from seqrec_tpu_torch.ops import losses
+
+
+class RNNSampling(RNNBase):
+    fused_eval_head = True
+
+    def __init__(
+        self,
+        loss_function: str = "Blackout",
+        sampling=32,
+        last_layer_tanh: bool = False,
+        last_layer_init: float = 1.0,
+        diversity_bias: float = 0.0,
+        sampling_bias: float = 0.0,
+        **kwargs,
+    ):
+        super().__init__(**kwargs)
+        self.last_layer_init = last_layer_init
+        self.last_layer_tanh = last_layer_tanh
+        self.diversity_bias = float(diversity_bias)
+        self.sampling = sampling
+        self.sampling_bias = sampling_bias
+        loss_function = loss_function or "Blackout"
+        if loss_function not in losses.SAMPLED_LOSSES:
+            raise ValueError("Unknown loss function")
+        self.loss_function_name = loss_function
+        self.name = "RNN with sampling loss"
+
+    def _get_model_filename(self, epochs) -> str:
+        filename = "rnn_sampling_" + self.loss_function_name + "_"
+        if self.sampling_bias > 0.0:
+            filename += "p" + str(self.sampling_bias)
+        filename += "s" + str(self.sampling) + "_ini" + str(self.last_layer_init) + "_db" + str(self.diversity_bias)
+        return filename + "_" + self._common_filename(epochs)
+
+    # ------------------------------------------------------------------
+    def _prepare_networks(self, n_items: int) -> None:
+        self.n_items = n_items
+        # a fractional --sampling is a share of the catalog
+        self.effective_sampling = int(self.sampling * n_items) if self.sampling < 1 else int(self.sampling)
+        self.net = OneHotNetwork(self.recurrent_layer, self._input_size(), n_items, self.device)
+
+    def _init_params(self) -> dict:
+        rng = self.rng
+        tower = self.recurrent_layer.init_params(rng, self._input_size())
+        h_out = self.recurrent_layer.output_size
+        limit = self.last_layer_init * np.sqrt(6.0 / (h_out + self.n_items))
+        return {
+            "tower": tower,
+            "W_out": rng.uniform(-limit, limit, size=(h_out, self.n_items)).astype(np.float32),
+            "b_out": np.zeros(self.n_items, dtype=np.float32),
+        }
+
+    # ------------------------------------------------------------------
+    def _loss(self, batch):
+        net = self.net
+        h = net.tower(batch["ids"], batch["mask"], batch.get("id_mask"), train=True)
+        cols = torch.cat([batch["targets"], batch["samples"]])
+        scores = h @ net.W_out.index_select(1, cols) + net.b_out.index_select(0, cols)
+        if self.last_layer_tanh and self.loss_function_name != "Blackout":
+            scores = torch.tanh(scores)
+        per_example = losses.SAMPLED_LOSSES[self.loss_function_name](scores, batch["targets"].shape[0])
+        return (per_example / batch["target_pop"]).mean()
+
+    def _scores(self, ids, id_mask, mask):
+        return torch.softmax(self.net(ids, mask, id_mask), dim=-1)
+
+    def _rank_scores(self, ids, id_mask, mask):
+        # ranking raw logits == ranking the softmax
+        return self.net(ids, mask, id_mask)
+
+    # ------------------------------------------------------------------
+    def _draw_samples(self) -> np.ndarray:
+        if self.sampling_bias > 0:
+            if not hasattr(self, "_cumsum"):
+                self._cumsum = np.cumsum(np.power(self.dataset.item_popularity, self.sampling_bias))
+            u = self.rng.uniform(0, self._cumsum[-1], size=self.effective_sampling)
+            return np.searchsorted(self._cumsum, u, side="right").astype(np.int32)
+        return self.rng.choice(self.n_items, self.effective_sampling).astype(np.int32)
+
+    def _finalize_packed_batch(self, packed, target_ratings):
+        packed["target_pop"] = (
+            self.dataset.item_popularity[packed["targets"]] ** self.diversity_bias
+        ).astype(np.float32)
+        packed["samples"] = self._draw_samples()
+        return packed
+
+    def _resolve_lazy_specs(self):
+        """Only the target and sample columns score, so the head's gradient
+        is column-sparse (about B+S of n_items columns a step): the lazy
+        Adam takes ``W_out``'s columns and ``b_out``'s entries, and the
+        input table keeps dense Adam."""
+        if self._resolve_lazy_path() is None:
+            return None
+
+        def cols(batch):
+            return torch.cat([batch["targets"], batch["samples"]])
+
+        return [{"path": ("W_out",), "axis": 1, "ids": cols}, {"path": ("b_out",), "axis": 0, "ids": cols}]
+
+    def _prepare_input(self, sequences):
+        ids, id_mask, mask = self._encode_sequences([s[1] for s in sequences])
+        targets = np.array([s[2][0][0] for s in sequences], dtype=np.int32)
+        pop = (self.dataset.item_popularity[targets] ** self.diversity_bias).astype(np.float32)
+        batch = {"ids": ids, "mask": mask, "targets": targets, "target_pop": pop, "samples": self._draw_samples()}
+        if id_mask is not None:
+            batch["id_mask"] = id_mask
+        return batch

@@ -1,10 +1,23 @@
-"""Loss functions of the CCE head (counterpart of
-``seqrec_tpu/ops/losses.py:log_softmax_cce`` and ``diversity_biased_cce``),
-in plain PyTorch: the JAX package leaves them to XLA, not to Pallas."""
+"""Loss functions of the RNN heads (counterpart of
+``seqrec_tpu/ops/losses.py``), in plain PyTorch: the JAX package leaves
+them to XLA, not to Pallas.
+
+- CCE with diversity bias: ``mean(CCE / target_popularity^db)``.
+- Sampled losses over a score matrix ``[B, B+S]`` whose first ``B``
+  columns score each example's own target (the diagonal of the left
+  block) and whose last ``S`` columns score shared negative samples.
+- Margin losses over dense target and weight matrices, summed over the
+  catalog.
+
+Each keeps the JAX package's expression (``log1p(-exp(logp))`` for
+Blackout, ``-log_sigmoid`` for BPR and logsig), so values and gradients
+agree to the last bits of f32.
+"""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def log_softmax_cce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -17,3 +30,51 @@ def log_softmax_cce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
 def diversity_biased_cce(logits, targets, target_pop) -> torch.Tensor:
     """mean(CCE / pop^db); ``target_pop`` is already ``pop**db``."""
     return (log_softmax_cce(logits, targets) / target_pop).mean()
+
+
+# ----------------------------------------------------------------------
+# sampled losses (scores: [B, B+S], diagonal of the left block = own target)
+# ----------------------------------------------------------------------
+def blackout_loss(scores: torch.Tensor, batch_size: int) -> torch.Tensor:
+    """BlackOut: softmax over [B, B+S]; CCE of the own target minus the sum
+    over the samples of log(1 - p)."""
+    logp = torch.log_softmax(scores, dim=-1)
+    diag = torch.diagonal(logp[:, :batch_size])
+    log1m = torch.log1p(-torch.exp(logp[:, batch_size:]))
+    return -diag - log1m.sum(dim=-1)
+
+
+def bpr_loss(scores: torch.Tensor, batch_size: int) -> torch.Tensor:
+    """BPR: -mean_s log sigma(target - sample)."""
+    diag = torch.diagonal(scores[:, :batch_size])
+    diff = scores[:, batch_size:] - diag[:, None]
+    return -F.logsigmoid(-diff).mean(dim=-1)
+
+
+def top1_loss(scores: torch.Tensor, batch_size: int) -> torch.Tensor:
+    """TOP1: mean_s sigma(sample - target) + sigma(sample^2)."""
+    diag = torch.diagonal(scores[:, :batch_size])
+    diff = scores[:, batch_size:] - diag[:, None]
+    reg = torch.square(scores[:, batch_size:])
+    return (torch.sigmoid(diff) + torch.sigmoid(reg)).mean(dim=-1)
+
+
+SAMPLED_LOSSES = {"Blackout": blackout_loss, "BPR": bpr_loss, "TOP1": top1_loss}
+
+
+# ----------------------------------------------------------------------
+# margin losses (multi-target; summed over the last axis)
+# ----------------------------------------------------------------------
+def hinge_loss(predictions, targets, weights):
+    return torch.relu((predictions - targets) * weights).sum(dim=-1)
+
+
+def logit_loss(predictions, targets, weights):
+    return (torch.sigmoid(predictions - targets) * weights).sum(dim=-1)
+
+
+def logsig_loss(predictions, targets, weights):
+    return -F.logsigmoid((targets - predictions) * weights).sum(dim=-1)
+
+
+MARGIN_LOSSES = {"hinge": hinge_loss, "logit": logit_loss, "logsig": logsig_loss}

@@ -1,0 +1,190 @@
+"""Streaming (chunked-scan) multi-target margin losses.
+
+Counterpart of the unsharded half of ``seqrec_tpu/ops/streaming_margin.py``.
+The margin head evaluates an elementwise loss ``f(pred, Y, Wt)`` against
+per-example target (``Y``) and weight (``Wt``) rows over the whole catalog
+and sums over items. ``Y`` and ``Wt`` take their DEFAULT values
+(``default_target[j]``, ``w_neg``) on every column but the ~T+L special
+ones of each example (targets: Y=1, Wt=-1; seen items when interactions
+are unique: both 0), so the loss splits exactly into
+
+  loss = sum_j f(pred_j, default_j, w_neg)                # uniform part
+       + sum_{j special} [f(pred_j, Y_j, Wt_j) - f(pred_j, default_j, w_neg)]
+
+- the uniform part (:func:`streaming_margin_uniform`): a scan over column
+  chunks of ``W``, each one [B, chunk] product and the elementwise loss
+  summed into a [B] carry; its backward (a ``torch.autograd.Function``)
+  recomputes each chunk and contracts the chunk's d(pred), from autograd
+  of the elementwise loss, into dh, the chunk's dW columns and db. No
+  [B, n_items] tensor is kept;
+- the correction (:func:`margin_special_correction`): one gather of the
+  K = T+L special columns per example and a batched product, under plain
+  autograd. Duplicate ids and the dense path's precedence (seen overrides
+  target) are reproduced with first-occurrence masks.
+
+The JAX package runs both in XLA, not Pallas, so the products stay
+``torch.matmul``. The correction's column gather is ``index_select``: its
+backward is an atomic ``index_add_`` on CUDA, so card-against-CPU results
+agree to a tolerance, not bit for bit. Like the JAX op, the uniform part
+passes no cotangent to ``w_neg`` or ``default_target`` (they depend on the
+batch, not on parameters).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from seqrec_tpu_torch.ops import losses
+
+# the dense path below this catalog size (the JAX package's switch, the
+# same as the CCE head's; not re-derived for the H100)
+STREAMING_MARGIN_MIN_ITEMS = 16384
+CHUNK_COLS = 1024
+
+
+def pick_chunk(N: int, lo: int = 512, hi: int = 2048) -> int:
+    """Largest chunk in [lo, hi] that divides N (no column padding), else
+    ``CHUNK_COLS``."""
+    for c in range(min(hi, N), lo - 1, -1):
+        if N % c == 0:
+            return c
+    return CHUNK_COLS
+
+
+def _pad_cols(W, b, chunk: int):
+    """W and b padded to a whole number of chunks (pad bias -1e30; the
+    scans mask pad columns on the loss value), and the chunk count."""
+    N = W.shape[1]
+    n_chunks = -(-N // chunk)
+    pad = n_chunks * chunk - N
+    if pad:
+        W = torch.nn.functional.pad(W, (0, pad))
+        b = torch.nn.functional.pad(b, (0, pad), value=-1e30)
+    return W, b, n_chunks
+
+
+def _pad_default(default_target, Np: int):
+    return torch.nn.functional.pad(default_target, (0, Np - default_target.shape[0]))
+
+
+def _f_cols(loss_name: str, pred, Y, Wt):
+    """Per-column loss values (the shape of ``pred``): the losses sum over
+    their last axis, which a trailing singleton makes a no-op."""
+    return losses.MARGIN_LOSSES[loss_name](pred[..., None], Y[..., None], Wt[..., None])
+
+
+def _chunk(h, Wp, bp, defp, n_valid, i, chunk):
+    """Chunk i's ([B, chunk] predictions, W columns, default targets,
+    0/1 validity of its columns)."""
+    sl = slice(i * chunk, (i + 1) * chunk)
+    W_c = Wp[:, sl]
+    cols = torch.arange(i * chunk, (i + 1) * chunk, device=h.device)
+    return h @ W_c + bp[sl], W_c, defp[sl], (cols < n_valid).float()
+
+
+def _chunk_loss(loss_name, pred, def_c, w_neg, valid):
+    # pad columns masked on the VALUE (Wt = 0 would not do: logsig maps a
+    # weight of 0 to log 2)
+    val = _f_cols(loss_name, pred, def_c[None, :].expand_as(pred), w_neg[:, None].expand_as(pred))
+    return (val * valid[None, :]).sum(dim=1)
+
+
+class _UniformMargin(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, W, b, w_neg, default_target, loss_name, chunk):
+        N = W.shape[1]
+        Wp, bp, n_chunks = _pad_cols(W, b, chunk)
+        defp = _pad_default(default_target, n_chunks * chunk)
+        acc = torch.zeros(h.shape[0], dtype=torch.float32, device=h.device)
+        for i in range(n_chunks):
+            pred, _, def_c, valid = _chunk(h, Wp, bp, defp, N, i, chunk)
+            acc = acc + _chunk_loss(loss_name, pred, def_c, w_neg, valid)
+        ctx.save_for_backward(h, W, b, w_neg, default_target)
+        ctx.loss_name, ctx.chunk = loss_name, chunk
+        return acc
+
+    @staticmethod
+    def backward(ctx, g):
+        h, W, b, w_neg, default_target = ctx.saved_tensors
+        chunk = ctx.chunk
+        N = W.shape[1]
+        Wp, bp, n_chunks = _pad_cols(W, b, chunk)
+        defp = _pad_default(default_target, n_chunks * chunk)
+        dh = torch.zeros_like(h)
+        dW = torch.empty((W.shape[0], n_chunks * chunk), dtype=torch.float32, device=h.device)
+        db = torch.empty(n_chunks * chunk, dtype=torch.float32, device=h.device)
+        for i in range(n_chunks):
+            with torch.enable_grad():
+                pred, W_c, def_c, valid = _chunk(h.detach(), Wp.detach(), bp.detach(), defp, N, i, chunk)
+                pred.requires_grad_()
+                (dpred,) = torch.autograd.grad(_chunk_loss(ctx.loss_name, pred, def_c, w_neg, valid), pred, g)
+            sl = slice(i * chunk, (i + 1) * chunk)
+            dW[:, sl] = h.t() @ dpred
+            db[sl] = dpred.sum(dim=0)
+            dh = dh + dpred @ W_c.t()
+        return dh, dW[:, :N], db[:N], None, None, None, None
+
+
+def streaming_margin_uniform(h, W, b, w_neg, default_target, loss_name: str, chunk: int = CHUNK_COLS):
+    """[B] per-example margin loss with every catalog column at its default
+    target and weight, with no [B, n_items] tensor kept for the backward."""
+    return _UniformMargin.apply(h, W, b, w_neg, default_target, loss_name, chunk)
+
+
+# ----------------------------------------------------------------------
+# special-column correction (plain autograd)
+# ----------------------------------------------------------------------
+def _first_occurrence(ids, valid):
+    """[B, K] mask: slot k is the first valid slot in its row with its id
+    (the dense scatters write a constant per id, so duplicate slots count
+    once)."""
+    K = ids.shape[1]
+    same = ids[:, :, None] == ids[:, None, :]
+    earlier = torch.tril(torch.ones((K, K), dtype=torch.bool, device=ids.device), diagonal=-1)
+    dup = (same & earlier & valid[:, None, :]).any(dim=2)
+    return valid & ~dup
+
+
+def margin_special_correction(h, W, b, tgt_ids, seen_ids, w_neg, default_target,
+                              loss_name: str, unique: bool, n_items: int):
+    """[B] correction that moves the special columns from their default
+    (Y = default, Wt = w_neg) to their true values: targets (1, -1), seen
+    items (0, 0) when interactions are unique, seen overriding target, each
+    id once."""
+    B, T = tgt_ids.shape
+    L = seen_ids.shape[1]
+    t_valid = (tgt_ids >= 0) & (tgt_ids < n_items)
+    s_valid = (seen_ids >= 0) & (seen_ids < n_items)
+    t_keep = _first_occurrence(tgt_ids, t_valid)
+    if unique:
+        s_keep = _first_occurrence(seen_ids, s_valid)
+        overridden = ((tgt_ids[:, :, None] == seen_ids[:, None, :]) & s_valid[:, None, :]).any(dim=2)
+        t_keep = t_keep & ~overridden
+    else:
+        s_keep = torch.zeros_like(s_valid)
+
+    ids = torch.cat([tgt_ids, seen_ids], dim=1)  # [B, K]
+    keep = torch.cat([t_keep, s_keep], dim=1)
+    safe = ids.clamp(0, n_items - 1).reshape(-1)
+    K = ids.shape[1]
+    Wg = W.t().index_select(0, safe).reshape(B, K, -1)  # [B, K, H]
+    pred = torch.bmm(Wg, h[:, :, None])[:, :, 0] + b.index_select(0, safe).reshape(B, K)
+
+    f_def = _f_cols(loss_name, pred, default_target.index_select(0, safe).reshape(B, K), w_neg[:, None].expand(B, K))
+    dev, f32 = h.device, torch.float32
+    Yv = torch.cat([torch.ones((B, T), dtype=f32, device=dev), torch.zeros((B, L), dtype=f32, device=dev)], dim=1)
+    Wv = torch.cat([torch.full((B, T), -1.0, dtype=f32, device=dev), torch.zeros((B, L), dtype=f32, device=dev)], dim=1)
+    f_true = _f_cols(loss_name, pred, Yv, Wv)
+    return ((f_true - f_def) * keep).sum(dim=1)
+
+
+def streaming_margin(h, W, b, tgt_ids, seen_ids, w_neg, default_target,
+                     loss_name: str, unique: bool, chunk: int = CHUNK_COLS):
+    """Per-example margin loss [B]: the dense ``MARGIN_LOSSES[loss_name]
+    (h @ W + b, Y, Wt)`` with Y and Wt assembled from the id arrays (ids
+    outside [0, n_items) are padding), without a [B, n_items] tensor."""
+    uniform = streaming_margin_uniform(h, W, b, w_neg, default_target, loss_name, chunk)
+    corr = margin_special_correction(
+        h, W, b, tgt_ids, seen_ids, w_neg, default_target, loss_name, unique, W.shape[1]
+    )
+    return uniform + corr

@@ -3,8 +3,10 @@
 Same flag surface as ``seqrec_tpu/utils/command_parser.py`` (one flag
 namespace shared by the train and test CLIs; each plugin module
 contributes its own sub-parser). ``get_predictor`` builds what the port
-has so far, ``RNNOneHot`` for ``-m RNN --loss CCE``; every other method or
-loss raises ``NotImplementedError``.
+has so far, the RNN family's single-model heads: ``RNNOneHot`` (``--loss
+CCE``), ``RNNSampling`` (``BPR``, ``TOP1``, ``Blackout``) and
+``RNNMargin`` (``hinge``, ``logit``, ``logsig``). Every other method,
+``--clusters`` and ``--bf16`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -215,19 +217,13 @@ def get_predictor(args):
     """Build the predictor described by the parsed flags, on
     ``args.device`` (default cuda)."""
     args.layers = [int(x) for x in str(args.layers).split("-")]
-    if args.method != "RNN" or args.clusters > 0 or args.loss != "CCE":
-        what = f"-m {args.method}" + (f" --loss {args.loss}" if args.method == "RNN" else "")
-        if args.clusters > 0:
-            what += " --clusters"
+    if args.method != "RNN" or args.clusters > 0:
+        what = f"-m {args.method}" + (" --clusters" if args.clusters > 0 else "")
         raise NotImplementedError(f"{what} comes with a later slice of the port")
     if args.bf16:
         raise NotImplementedError("--bf16 comes with a later slice of the port")
 
-    from seqrec_tpu_torch.models.rnn_one_hot import RNNOneHot
-
-    return RNNOneHot(
-        diversity_bias=args.diversity_bias,
-        regularization=args.regularization,
+    common_rnn = dict(
         interactions_are_unique=(not args.repeated_interactions),
         max_length=args.max_length,
         updater=get_update_manager(args),
@@ -241,3 +237,28 @@ def get_predictor(args):
         lazy_updates=args.lazy_updates,
         device=getattr(args, "device", "cuda"),
     )
+    if args.loss == "CCE":
+        from seqrec_tpu_torch.models.rnn_one_hot import RNNOneHot
+
+        return RNNOneHot(diversity_bias=args.diversity_bias, regularization=args.regularization, **common_rnn)
+    if args.loss in ("hinge", "logit", "logsig"):
+        from seqrec_tpu_torch.models.rnn_margin import RNNMargin
+
+        return RNNMargin(
+            loss_function=args.loss,
+            balance=args.balance,
+            popularity_based=args.pb,
+            min_access=args.min_access,
+            **common_rnn,
+        )
+    if args.loss in ("BPR", "TOP1", "Blackout"):
+        from seqrec_tpu_torch.models.rnn_sampling import RNNSampling
+
+        return RNNSampling(
+            loss_function=args.loss,
+            diversity_bias=args.diversity_bias,
+            sampling=args.sampling,
+            sampling_bias=args.sampling_bias,
+            **common_rnn,
+        )
+    raise ValueError("Unknown loss for the RNN model")

@@ -49,7 +49,7 @@ def test_cli_without_device_cpu_raises_when_no_gpu(synthetic_dataset):
 
 @pytest.mark.parametrize(
     "flags",
-    [["-m", "BPRMF"], ["--loss", "BPR"], ["--clusters", "4"], ["--bf16"], ["--mesh", "1,1"],
+    [["-m", "BPRMF"], ["-m", "FPMC"], ["--clusters", "4"], ["--bf16"], ["--mesh", "1,1"],
      ["--save_rank"], ["-m", "SDA"]],
 )
 def test_cli_raises_not_implemented_outside_the_slice(synthetic_dataset, flags):

@@ -188,7 +188,11 @@ def test_port_synthetic_dataset_reads_the_same_in_both_packages(tmp_path):
      ["--r_bi", "--r_emb", "8", "--r_l", "32-16"], ["--n_dropout", "0.1", "--target_bias", "0.5"],
      ["--u_moments", "bfloat16", "--lazy_updates", "--db", "0.3", "-r", "0.01"],
      ["--r_t", "LSTM"], ["--r_t", "LSTM", "--r_bi", "--r_emb", "8", "--r_l", "32-16"],
-     ["--r_t", "Vanilla", "--r_bi"]],
+     ["--r_t", "Vanilla", "--r_bi"],
+     ["--loss", "BPR", "--sampling", "256"], ["--loss", "TOP1", "--sampling", "0.5", "--db", "0.2"],
+     ["--loss", "Blackout", "--sampling_bias", "0.5", "--lazy_updates"],
+     ["--loss", "hinge"], ["--loss", "logit", "--balance", "2"],
+     ["--loss", "logsig", "--pb", "--min_access", "0.1", "--lazy_updates"]],
 )
 def test_model_filename_matches_jax(flags):
     """The checkpoint lookup of the test CLI depends on the filename scheme."""
