@@ -85,6 +85,26 @@ Phases, each printing one JSON line with its seconds:
    streaming margin's chunk loop and correction timed beside the dense
    margin (and held against it), and the lazy head update beside dense
    Adam on W_out and b_out.
+10. main_path_train_cluster: RNNCluster at scripts/baseline_run2.sh's
+   flags (GRU-50, B=64, 10 clusters, Blackout with 256 samples and 256
+   cluster samples, Adam 1e-3, --csn 0) on the ML-1M-scale dataset: 300
+   steps and one validation through the train CLI on the card (K1, the
+   gather-sum kernels and K3 must run, K2 and K4 not), the first 20 step
+   costs against the CPU's within 1e-4, the test CLI with --clusters 10 on
+   the card and the CPU (the same top-10 lists and ASSR), steady steps.
+11. main_path_train_cluster_large: the same model at GRU-128, B=1024 on
+   the 50k-item catalog: 30 steps and one validation (K1 on its cluster
+   path, the gather-sum kernels, K3); steady steps and one validation pass
+   timed alone.
+12. main_path_fism_cluster: FISMCluster (H=50, alpha 0.2, 10 clusters,
+   Blackout with 256 samples, B=64, Adam 1e-3): 100 steps and one
+   validation, 20 step costs against the CPU's, the test CLI against the
+   CPU's lists, steady steps. Its bag is a plain gather and einsum, as in
+   the JAX package: every counter must stay at 0.
+13. main_path_train_sdae: the autoencoder at scripts/baseline_run2.sh's
+   flags (-L 64-32-64, --in_do 0.2, B=64, Adam 1e-3): 20 step costs at
+   --do 0 against the CPU's, 300 steps at --do 0.3 and one validation,
+   the test CLI against the CPU's lists, steady steps; every counter at 0.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. The last lines are
@@ -158,6 +178,13 @@ HEADS_HINGE = HEADS + ["--loss", "hinge"]
 LARGE_HEADS = [a for a in LARGE if a not in ("--loss", "CCE")]
 LARGE_HINGE = LARGE_HEADS + ["--loss", "hinge"]
 LARGE_BPR_LAZY = LARGE_HEADS + ["--loss", "BPR", "--sampling", "256", "--lazy_updates"]
+# scripts/baseline_run2.sh's RNNCluster (:53-56) and SDA (:76-78) runs, and FISMCluster at the same sampling
+CLUSTER = ["-m", "RNN", "--clusters", "10", "--loss", "Blackout", "--sampling", "256", "--c_sampling", "256",
+           "--r_t", "GRU", "--r_l", "50", "--max_length", "30", "-b", "64", "--u_m", "adam", "--u_l", "0.001"]
+CLUSTER_LARGE = [{"50": "128", "64": "1024"}.get(a, a) for a in CLUSTER]
+FISM_CLUSTER = ["-m", "FISM", "--clusters", "10", "-H", "50", "--fism_alpha", "0.2", "--loss", "Blackout",
+                "--sampling", "256", "-b", "64", "--u_m", "adam", "--u_l", "0.001"]
+SDA = ["-m", "SDA", "-L", "64-32-64", "--in_do", "0.2", "-b", "64", "--u_m", "adam", "--u_l", "0.001"]
 
 
 def wrapper(name):
@@ -170,6 +197,7 @@ def zero_counters() -> None:
     for name in KERNELS:
         wrapper(name).launches = 0
     wrapper("gru_scan").cluster_launches = 0
+    wrapper("gru_scan_train_fwd").cluster_launches = wrapper("gru_scan_train_bwd").cluster_launches = 0
     wrapper("lstm_scan").reg_launches = wrapper("lstm_scan").cluster_launches = 0
 
 
@@ -1198,12 +1226,80 @@ def progress_values(text, key) -> list:
     return [float(ln.split(":", 1)[1].split()[0]) for ln in text.splitlines() if ln.startswith(key + " :")]
 
 
-def steady_state(argv, ds_dir, steps, warmup, profile_steps, card):
+def cpu_step_costs(ds_dir, flags, n_costs) -> float:
+    """The largest relative difference between the first ``n_costs`` step
+    costs of the train CLI on the card and on the CPU (one step per progress
+    line); raises beyond 1e-4."""
+    from seqrec_tpu_torch.cli import train as train_cli
+
+    short = ["-d", ds_dir, *flags, "--max_iter", str(n_costs), "--progress", "1", "--save", "None"]
+    gpu = progress_values(run_cli(train_cli.main, short)[1], "Last train cost")
+    cpu = progress_values(run_cli(train_cli.main, short + ["--device", "cpu"])[1], "Last train cost")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gpu, cpu))
+    if len(gpu) != n_costs or len(cpu) != n_costs or rel > 1e-4:
+        raise AssertionError(f"{' '.join(flags)}: step costs differ between cuda and cpu: {gpu} vs {cpu}")
+    return rel
+
+
+def train_run(ds_dir, flags, iters, save_dir=None, validates=True):
+    """The train CLI on the card with every counter at 0 (one validation
+    after ``iters`` steps when ``validates``); returns (its output, its
+    seconds, the counts, K1's cluster-path launches among them)."""
+    import torch
+
+    from seqrec_tpu_torch.cli import train as train_cli
+
+    argv = ["-d", ds_dir, *flags, "--max_iter", str(iters), "--progress", str(iters if validates else iters + 1),
+            "--save", "Best" if save_dir else "None", *(["--dir", save_dir] if save_dir else [])]
+    zero_counters()
+    t0 = time.perf_counter()
+    text = run_cli(train_cli.main, argv)[1]
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counters()
+    launches["gru_scan_train_cluster"] = [wrapper(f"gru_scan_train_{d}").cluster_launches for d in ("fwd", "bwd")]
+    return text, cli_s, launches
+
+
+def test_cli_lists(ds_dir, flags, save_dir, ran=()) -> dict:
+    """The test CLI on a trained checkpoint on the card with every counter at
+    0 (each kernel of ``ran`` must launch, and no other), then on the CPU:
+    the same top-10 lists and the same metrics, ASSR included."""
+    from seqrec_tpu_torch.cli import test as test_cli
+
+    argv = ["-d", ds_dir, *flags, "--dir", save_dir, "--metrics", "sps,recall,item_coverage,user_coverage,assr"]
+    zero_counters()
+    t0 = time.perf_counter()
+    ev_gpu = run_cli(test_cli.main, argv)[0]
+    cuda_s = time.perf_counter() - t0
+    launches = read_counters()
+    if any(launches[k] == 0 for k in ran) or any(n for k, n in launches.items() if k not in ran):
+        raise AssertionError(f"the test CLI of {' '.join(flags)} launched {launches}")
+    ev_cpu = run_cli(test_cli.main, argv + ["--device", "cpu"])[0]
+    recs_gpu = [pred for _, pred in ev_gpu.instances]
+    recs_cpu = [pred for _, pred in ev_cpu.instances]
+    if not recs_gpu or recs_gpu != recs_cpu:
+        n_diff = sum(a != b for a, b in zip(recs_gpu, recs_cpu))
+        raise AssertionError(f"{' '.join(flags)}: top-10 lists differ between cuda and cpu on {n_diff} users")
+    metrics = {m: ev_gpu.metrics[m]() for m in ("sps", "recall", "item_coverage", "user_coverage", "assr")}
+    if metrics != {m: ev_cpu.metrics[m]() for m in metrics}:
+        raise AssertionError(f"{' '.join(flags)}: test metrics differ between cuda and cpu")
+    return {"launches": {k: launches[k] for k in ran}, "cuda_s": cuda_s, "test_users": len(recs_gpu),
+            "same_top10_as_cpu": True, "same_assr_as_cpu": True, "metrics@10": metrics}
+
+
+def steady_state(argv, ds_dir, steps, warmup, profile_steps, card, validate=False):
     """Train steps of the CLI's predictor outside the CLI: sequences/s over
     ``steps`` steps after ``warmup`` (host clock to a synchronize), then the
     device time of ``profile_steps`` steps from torch.profiler, its share of
     the same steps' wall time, the largest kernels and every kernel of the
-    port's CUDA sources (ms per step)."""
+    port's CUDA sources (ms per step). Models without the packed batcher
+    draw from their per-sequence one, inside the timed steps as well. With
+    ``validate``, one validation pass after the steps: its wall time (host
+    clock to a synchronize, after a warm-up pass) and its device time. No
+    step may run PyTorch's ``indexing_backward_kernel``: the towers' input
+    gather-sum is a kernel pair, and FISM's bag gathers with
+    ``index_select``."""
     import torch
 
     import seqrec_tpu_torch.utils.command_parser as parse
@@ -1216,7 +1312,10 @@ def steady_state(argv, ds_dir, steps, warmup, profile_steps, card):
     model.prepare_model(dataset)
     model.set_dataset(dataset)
     model.params_from_numpy(model._init_params())
-    gen = model._gen_packed_mini_batch(dataset.training_set, np.random.default_rng(1))
+    if model._fast_batching_ok():
+        gen = model._gen_packed_mini_batch(dataset.training_set, np.random.default_rng(1))
+    else:
+        gen = model._gen_mini_batch(model.sequence_noise(dataset.training_set()))
     for _ in range(warmup):
         model.train_function(next(gen))
     torch.cuda.synchronize()
@@ -1229,7 +1328,7 @@ def steady_state(argv, ds_dir, steps, warmup, profile_steps, card):
     events = device_events(lambda: [model.train_function(b) for b in batches])
     per_step = {k: v / profile_steps for k, v in events.items()}
     if any("indexing_backward" in k for k in per_step):
-        raise AssertionError("a training step ran PyTorch's indexing_backward_kernel: the gather-sum kernels were bypassed")
+        raise AssertionError("a training step ran PyTorch's indexing_backward_kernel")
     device_ms = sum(per_step.values())
     ours, port_ms = port_kernel_names(), {}
     for key, ms in per_step.items():  # template instances summed under one name
@@ -1237,13 +1336,29 @@ def steady_state(argv, ds_dir, steps, warmup, profile_steps, card):
             port_ms[kernel_name(key)] = port_ms.get(kernel_name(key), 0.0) + ms
     torch.cuda.reset_peak_memory_stats()
     model.train_function(next(gen))
-    return {
+    out = {
         "sequences_per_s": model.batch_size / step_s, "step_ms": step_s * 1e3, "steps_timed": steps,
         "device_ms_per_step": device_ms, "device_busy_share": device_ms / (step_s * 1e3),
         "top_kernels_ms_per_step": dict(sorted(per_step.items(), key=lambda kv: -kv[1])[:8]),
         "port_kernels_ms_per_step": dict(sorted(port_ms.items(), key=lambda kv: -kv[1])),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card,
     }
+    if validate:
+        def validation():
+            model._compute_validation_metrics({m: [] for m in model.metrics})
+
+        validation()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        validation()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        events = device_events(validation)
+        out["validation_pass"] = {
+            "wall_s": wall_s, "device_ms": sum(events.values()), "eval_chunk": model.eval_batch_size,
+            "top_kernels_ms": dict(sorted(events.items(), key=lambda kv: -kv[1])[:6]),
+        }
+    return out
 
 
 def main_path_train_flagship(card) -> dict:
@@ -1270,14 +1385,7 @@ def main_path_train_flagship(card) -> dict:
     if len(costs) != 2 or not costs[1] < costs[0]:
         raise AssertionError(f"train cost did not fall: {costs}")
 
-    # the first 20 step costs on the card and on the CPU (one step per progress line)
-    short = ["-d", ds_dir, *FLAGSHIP, "--max_iter", "20", "--progress", "1", "--save", "None"]
-    gpu = progress_values(run_cli(train_cli.main, short)[1], "Last train cost")
-    cpu = progress_values(run_cli(train_cli.main, short + ["--device", "cpu"])[1], "Last train cost")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(gpu, cpu))
-    if len(gpu) != 20 or len(cpu) != 20 or rel > 1e-4:
-        raise AssertionError(f"step costs differ between cuda and cpu: {gpu} vs {cpu}")
-
+    rel = cpu_step_costs(ds_dir, FLAGSHIP, 20)
     ev = run_cli(test_cli.main, ["-d", ds_dir, *FLAGSHIP, "--dir", "chip_train/"])[0]
     emit({
         "phase": "main_path_train", "config": "flagship GRU-50 CCE, L=30, B=16, Adam 1e-3, dense head",
@@ -1363,14 +1471,7 @@ def main_path_train_lstm(card) -> tuple[dict, dict]:
     if any(train_launches[k] == 0 for k in ran) or any(train_launches[k] for k in KERNELS if k.startswith("gru_")):
         raise AssertionError(f"the LSTM training path launched {train_launches}")
 
-    # the first 5 step costs on the card and on the CPU (one step per progress line)
-    short = ["-d", ds_dir, *LSTM_LARGE, "--max_iter", "5", "--progress", "1", "--save", "None"]
-    gpu = progress_values(run_cli(train_cli.main, short)[1], "Last train cost")
-    cpu = progress_values(run_cli(train_cli.main, short + ["--device", "cpu"])[1], "Last train cost")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(gpu, cpu))
-    if len(gpu) != 5 or len(cpu) != 5 or rel > 1e-4:
-        raise AssertionError(f"LSTM step costs differ between cuda and cpu: {gpu} vs {cpu}")
-
+    rel = cpu_step_costs(ds_dir, LSTM_LARGE, 5)
     test_argv = ["-d", ds_dir, *LSTM_LARGE, "--dir", "chip_lstm/"]
     zero_counters()
     t0 = time.perf_counter()
@@ -1416,54 +1517,17 @@ def head_run(ds_dir, flags, iters, n_costs, validates=True, save_dir=None) -> di
     that K1, the gather-sum and (with the validation) K3 and K4 ran and K2
     did not, then that the first ``n_costs`` step costs equal the CPU CLI's
     within 1e-4 relative (one step per progress line)."""
-    import torch
-
-    from seqrec_tpu_torch.cli import train as train_cli
-
-    argv = ["-d", ds_dir, *flags, "--max_iter", str(iters), "--progress", str(iters if validates else iters + 1),
-            "--save", "Best" if save_dir else "None", *(["--dir", save_dir] if save_dir else [])]
-    zero_counters()
-    t0 = time.perf_counter()
-    text = run_cli(train_cli.main, argv)[1]
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    launches = read_counters()
+    text, cli_s, launches = train_run(ds_dir, flags, iters, save_dir=save_dir, validates=validates)
     ran = GRU_TRAIN_PATH + (GRU_EVAL_PATH if validates else ())
     if any(launches[k] == 0 for k in ran) or launches["cce_stats"] or launches["cce_grads"]:
         raise AssertionError(f"{' '.join(flags)} launched {launches}")
-    short = ["-d", ds_dir, *flags, "--max_iter", str(n_costs), "--progress", "1", "--save", "None"]
-    gpu = progress_values(run_cli(train_cli.main, short)[1], "Last train cost")
-    cpu = progress_values(run_cli(train_cli.main, short + ["--device", "cpu"])[1], "Last train cost")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(gpu, cpu))
-    if len(gpu) != n_costs or len(cpu) != n_costs or rel > 1e-4:
-        raise AssertionError(f"{' '.join(flags)}: step costs differ between cuda and cpu: {gpu} vs {cpu}")
+    rel = cpu_step_costs(ds_dir, flags, n_costs)
     return {
         "flags": " ".join(flags), "launches": launches, "cli_cuda_s": cli_s, "iterations": iters,
         "throughput_sequences_per_s": progress_values(text, "Throughput"),
         "train_cost": progress_values(text, "Last train cost"), "validation_sps@10": progress_values(text, "sps"),
         f"first_{n_costs}_step_costs_cuda_vs_cpu_max_rel_diff": rel,
     }
-
-
-def test_cli_same_top10(ds_dir, flags, save_dir) -> dict:
-    """The test CLI on a trained checkpoint, on the card with every counter
-    at 0 (K3 and K4 must run) and on the CPU: the same top-10 lists."""
-    from seqrec_tpu_torch.cli import test as test_cli
-
-    argv = ["-d", ds_dir, *flags, "--dir", save_dir]
-    zero_counters()
-    ev_gpu = run_cli(test_cli.main, argv)[0]
-    launches = read_counters()
-    if any(launches[k] == 0 for k in GRU_EVAL_PATH):
-        raise AssertionError(f"the test CLI of {' '.join(flags)} launched {launches}")
-    ev_cpu = run_cli(test_cli.main, argv + ["--device", "cpu"])[0]
-    recs_gpu = [pred for _, pred in ev_gpu.instances]
-    recs_cpu = [pred for _, pred in ev_cpu.instances]
-    if not recs_gpu or recs_gpu != recs_cpu:
-        n_diff = sum(a != b for a, b in zip(recs_gpu, recs_cpu))
-        raise AssertionError(f"{' '.join(flags)}: top-10 lists differ between cuda and cpu on {n_diff} users")
-    return {"launches": {k: launches[k] for k in GRU_EVAL_PATH}, "test_users": len(recs_gpu), "same_top10_as_cpu": True,
-            "metrics@10": {m: ev_gpu.metrics[m]() for m in ("sps", "recall", "item_coverage", "user_coverage")}}
 
 
 def main_path_train_heads(card) -> dict:
@@ -1481,8 +1545,8 @@ def main_path_train_heads(card) -> dict:
         "blackout": head_run(ds_dir, HEADS_BLACKOUT, 50, 20),
         "hinge": head_run(ds_dir, HEADS_HINGE, 300, 20, save_dir="chip_hinge/"),
     }
-    runs["bpr"]["test_cli"] = test_cli_same_top10(ds_dir, HEADS_BPR, "chip_bpr/")
-    runs["hinge"]["test_cli"] = test_cli_same_top10(ds_dir, HEADS_HINGE, "chip_hinge/")
+    runs["bpr"]["test_cli"] = test_cli_lists(ds_dir, HEADS_BPR, "chip_bpr/", ran=GRU_EVAL_PATH + ("gather_sum_fwd",))
+    runs["hinge"]["test_cli"] = test_cli_lists(ds_dir, HEADS_HINGE, "chip_hinge/", ran=GRU_EVAL_PATH + ("gather_sum_fwd",))
     for name, flags in (("bpr", HEADS_BPR), ("hinge", HEADS_HINGE)):
         runs[name]["steady"] = steady_state(flags, ds_dir, steps=200, warmup=20, profile_steps=20, card=card)
     emit({
@@ -1609,6 +1673,126 @@ def main_path_train_heads_large(card) -> dict:
         "seconds": time.perf_counter() - t_phase,
     })
     return {name: run["launches"] for name, run in runs.items()}
+
+
+# ----------------------------------------------------------------------
+# main path, training: the cluster models and the autoencoder
+# ----------------------------------------------------------------------
+CLUSTER_VALIDATION = ("recall", "cluster_recall", "sps", "cluster_sps", "assr", "cluster_use_std")
+
+
+def main_path_train_cluster(card) -> dict:
+    """RNNCluster at scripts/baseline_run2.sh's flags (GRU-50, B=64, 10
+    clusters, Blackout with 256 samples and 256 cluster samples, Adam 1e-3)
+    on the ML-1M-scale dataset: 300 steps and one validation through the
+    train CLI on the card (K1, G1 and K3 must launch, K2 and K4 not), the
+    first 20 step costs against the CPU's, the test CLI with --clusters 10
+    on the card and the CPU (the same lists and ASSR), steady steps.
+    Returns the launches of the training run and of the test CLI."""
+    t_phase = time.perf_counter()
+    ds_dir = ml1m_dataset()
+    text, cli_s, launches = train_run(ds_dir, CLUSTER, 300, save_dir="chip_cluster/")
+    ran = GRU_TRAIN_PATH + ("gru_scan",)
+    if any(launches[k] == 0 for k in ran) or any(launches[k] for k in ("cce_stats", "cce_grads", "fused_score_topk")):
+        raise AssertionError(f"RNNCluster's training path launched {launches}")
+    rel = cpu_step_costs(ds_dir, CLUSTER, 20)
+    test = test_cli_lists(ds_dir, CLUSTER, "chip_cluster/", ran=("gru_scan", "gather_sum_fwd"))
+    emit({
+        "phase": "main_path_train_cluster", "config": "RNNCluster GRU-50, 10 clusters (mix), Blackout s256 cs256, "
+        "L=30, B=64, Adam 1e-3, ML-1M-scale synthetic (3,706 items)",
+        "launches": launches, "cli_cuda_s": cli_s, "iterations": 300,
+        "train_cost": progress_values(text, "Last train cost"),
+        "validation": {m: progress_values(text, m) for m in CLUSTER_VALIDATION},
+        "first_20_step_costs_cuda_vs_cpu_max_rel_diff": rel, "csn": 0.0,
+        "tolerance": "step costs rel 1e-4 (f32 kernels and atomic column-gather backwards vs the CPU)",
+        "test_cli": test,
+        "steady": steady_state(CLUSTER, ds_dir, steps=200, warmup=20, profile_steps=20, card=card),
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return {"cluster": launches, "cluster_test_cli": test["launches"]}
+
+
+def main_path_train_cluster_large(card) -> dict:
+    """The same RNNCluster at GRU-128, B=1024 on the 49,999-item catalog: 30
+    steps and one validation through the train CLI (K1 on its cluster path,
+    G1, K3); steady steps and one validation pass (two stable sorts of
+    [1024, 49,999] rows) timed alone. Returns the launches."""
+    from seqrec_tpu_torch.data import DataHandler
+
+    t_phase = time.perf_counter()
+    ds_dir = catalog50k_dataset()
+    text, cli_s, launches = train_run(ds_dir, CLUSTER_LARGE, 30)
+    if (any(launches[k] == 0 for k in GRU_TRAIN_PATH + ("gru_scan",)) or 0 in launches["gru_scan_train_cluster"]
+            or any(launches[k] for k in ("cce_stats", "cce_grads", "fused_score_topk"))):
+        raise AssertionError(f"RNNCluster's large-catalog path launched {launches}")
+    emit({
+        "phase": "main_path_train_cluster_large", "config": "RNNCluster GRU-128, 10 clusters (mix), Blackout s256 "
+        "cs256, L=30, B=1024, Adam 1e-3, 50k-item synthetic catalog",
+        "n_items": DataHandler(ds_dir).n_items, "launches": launches, "cli_cuda_s": cli_s, "iterations": 30,
+        "train_cost": progress_values(text, "Last train cost"),
+        "validation": {m: progress_values(text, m) for m in CLUSTER_VALIDATION},
+        "steady": steady_state(CLUSTER_LARGE, ds_dir, steps=20, warmup=3, profile_steps=5, card=card, validate=True),
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return launches
+
+
+def main_path_fism_cluster(card) -> dict:
+    """FISMCluster (H=50, alpha 0.2, 10 clusters, Blackout with 256 samples,
+    B=64, Adam 1e-3) on the ML-1M-scale dataset: 100 steps and one
+    validation through the train CLI on the card, the first 20 step costs
+    against the CPU's, the test CLI on the card and the CPU. FISM's bag is a
+    gather and an einsum, as the JAX package leaves it to XLA: no kernel of
+    the port launches, which the counters show. Returns the launches."""
+    t_phase = time.perf_counter()
+    ds_dir = ml1m_dataset()
+    text, cli_s, launches = train_run(ds_dir, FISM_CLUSTER, 100, save_dir="chip_fism/")
+    if any(n for k, n in launches.items() if k != "gru_scan_train_cluster") or any(launches["gru_scan_train_cluster"]):
+        raise AssertionError(f"FISMCluster launched a port kernel: {launches}")
+    rel = cpu_step_costs(ds_dir, FISM_CLUSTER, 20)
+    emit({
+        "phase": "main_path_fism_cluster", "config": "FISMCluster H=50, alpha 0.2, 10 clusters (mix), Blackout s256, "
+        "B=64, Adam 1e-3, ML-1M-scale synthetic (3,706 items)",
+        "launches": launches, "no_port_kernel": "by the JAX package's design: an XLA gather and einsum",
+        "cli_cuda_s": cli_s, "iterations": 100, "train_cost": progress_values(text, "Last train cost"),
+        "validation": {m: progress_values(text, m) for m in CLUSTER_VALIDATION},
+        "first_20_step_costs_cuda_vs_cpu_max_rel_diff": rel,
+        "tolerance": "step costs rel 1e-4 (f32 products and index backwards vs the CPU)",
+        "test_cli": test_cli_lists(ds_dir, FISM_CLUSTER, "chip_fism/"),
+        "steady": steady_state(FISM_CLUSTER, ds_dir, steps=100, warmup=10, profile_steps=10, card=card),
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return launches
+
+
+def main_path_train_sdae(card) -> dict:
+    """The autoencoder at scripts/baseline_run2.sh's flags (-L 64-32-64,
+    --in_do 0.2, B=64, Adam 1e-3) on the ML-1M-scale dataset: the first 20
+    step costs at --do 0 against the CPU's (the layer dropout draws other
+    bits on each device), then 300 steps at --do 0.3 and one validation
+    through the train CLI, steady steps, and the test CLI on the card and
+    the CPU. Its dense stack is plain matmuls (no port kernel, as in the JAX
+    package), which the counters show. Returns the launches."""
+    t_phase = time.perf_counter()
+    ds_dir = ml1m_dataset()
+    rel = cpu_step_costs(ds_dir, SDA + ["--do", "0"], 20)
+    flags = SDA + ["--do", "0.3"]
+    text, cli_s, launches = train_run(ds_dir, flags, 300, save_dir="chip_sda/")
+    if any(n for k, n in launches.items() if k != "gru_scan_train_cluster") or any(launches["gru_scan_train_cluster"]):
+        raise AssertionError(f"the autoencoder launched a port kernel: {launches}")
+    emit({
+        "phase": "main_path_train_sdae", "config": "SDA 64-32-64, --do 0.3, --in_do 0.2, B=64, Adam 1e-3, "
+        "ML-1M-scale synthetic (3,706 items)",
+        "launches": launches, "no_port_kernel": "by the JAX package's design: XLA matmuls",
+        "first_20_step_costs_at_do0_cuda_vs_cpu_max_rel_diff": rel,
+        "tolerance": "step costs rel 1e-4 (f32 products vs the CPU)",
+        "cli_cuda_s": cli_s, "iterations": 300, "train_cost": progress_values(text, "Last train cost"),
+        "validation_sps@10": progress_values(text, "sps"), "throughput_sequences_per_s": progress_values(text, "Throughput"),
+        "test_cli": test_cli_lists(ds_dir, flags, "chip_sda/"),
+        "steady": steady_state(flags, ds_dir, steps=200, warmup=20, profile_steps=20, card=card),
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return launches
 
 
 def serving_pass_gru256(card) -> dict:
@@ -1837,6 +2021,8 @@ def main() -> int:
     heads = main_path_train_heads(card)
     heads_large = main_path_train_heads_large(card)
     heads_runs = {**heads, **{name + "_large": counts for name, counts in heads_large.items()}}
+    cluster_runs = {**main_path_train_cluster(card), "cluster_large": main_path_train_cluster_large(card),
+                    "fism_cluster": main_path_fism_cluster(card), "sdae": main_path_train_sdae(card)}
     path_of = {"gru_scan": serving, "fused_score_topk": serving, "gru_scan_train_fwd": flagship,
                "gru_scan_train_bwd": flagship, "cce_stats": large, "cce_grads": large,
                "lstm_scan": lstm_serve, "lstm_scan_train_fwd": lstm_train, "lstm_scan_train_bwd": lstm_train,
@@ -1851,6 +2037,7 @@ def main() -> int:
             "ms": res["kernel_ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
             "launches_heads": {run: counts[name] for run, counts in heads_runs.items()},
+            "launches_cluster_phases": {run: counts.get(name, 0) for run, counts in cluster_runs.items()},
         })
     # where this round's redesigns act: K3 at GRU-256 serving's chunk, K2's gradients
     k3 = summary[0]

@@ -12,12 +12,16 @@ Ported so far: the RNN family's single-model heads on GRU, LSTM and
 Vanilla towers: ``RNNOneHot`` (CCE), ``RNNSampling`` (BPR, TOP1,
 Blackout over shared negative samples) and ``RNNMargin`` (hinge, logit,
 logsig; dense, or the streaming margin at large catalogs), each with or
-without ``--lazy_updates``. They train through ``cli/train.py`` (GRU
-training scan K1 or LSTM training scan K5, the gather-sum kernel pair,
-streaming CCE K2 for the CCE head at large catalogs) and serve through
-``cli/test.py`` (GRU scan K3 or LSTM scan K6, fused masked top-k K4), on
-the card by default and on the CPU with ``--device cpu``. The Vanilla
-tower is a plain scan, as in the JAX package.
+without ``--lazy_updates``; the clustered-softmax models ``RNNCluster``
+(``-m RNN --clusters K``) and ``FISMCluster`` (``-m FISM --clusters K``);
+and the stacked denoising autoencoder (``-m SDA``). They train through
+``cli/train.py`` (GRU training scan K1 or LSTM training scan K5, the
+gather-sum kernel pair, streaming CCE K2 for the CCE head at large
+catalogs) and serve through ``cli/test.py`` (GRU scan K3 or LSTM scan K6,
+fused masked top-k K4), on the card by default and on the CPU with
+``--device cpu``. The Vanilla tower, FISM's bag of items and the
+autoencoder's dense stack are plain PyTorch, as the JAX package leaves
+them to XLA.
 """
 
 from __future__ import annotations

@@ -1,3 +1,12 @@
+"""The port's predictors and their building blocks.
+
+``rnn_one_hot.RNNOneHot``, ``rnn_sampling.RNNSampling`` and
+``rnn_margin.RNNMargin`` (the RNN heads), ``cluster.RNNCluster`` and
+``cluster.FISMCluster`` (the clustered-softmax models) and
+``sdae.StackedDenoisingAutoencoder``; ``get_predictor`` in
+``utils/command_parser.py`` builds them from the CLI flags.
+"""
+
 from seqrec_tpu_torch.models.recurrent import (
     RecurrentLayers,
     get_recurrent_layers,

@@ -20,7 +20,8 @@ then the updater's in-place step); validation runs the eval kernels.
 ``--lazy_updates`` (Adam only) moves the catalog-indexed tables onto a
 slice-sparse Adam, TF LazyAdam's semantics: the input table's rows for
 ``RNNOneHot`` and ``RNNMargin``, the output columns and bias entries of
-the sampled head for ``RNNSampling``. Saves are synchronous. Not ported
+the sampled head for ``RNNSampling``; models without a recurrent tower
+(``FISMCluster``, the autoencoder) refuse it. Saves are synchronous. Not ported
 yet (each raises ``NotImplementedError`` where a flag asks for it): the
 index wire and K-step dispatch (``--spd``), the async save queue,
 ``--mesh``.
@@ -486,7 +487,7 @@ class RNNBase:
     def _device_batch(self, batch: dict) -> dict:
         """Upload a host batch; the compact wire's prefix lengths become the
         [B, L] mask (and its [B, L, F] broadcast) on the device."""
-        out = {key: self._tensor(val) for key, val in batch.items()}
+        out = {key: int(val) if key in self._HOST_KEYS else self._tensor(val) for key, val in batch.items()}
         if "lengths" in out:
             lengths = out.pop("lengths")
             ids = out["ids"]
@@ -502,6 +503,9 @@ class RNNBase:
     # id fields a model's batches may carry (CCE: targets; the sampled head:
     # targets and samples; the margin head: target_ids and seen_ids)
     _DEVICE_ID_KEYS = ("targets", "samples", "target_ids", "seen_ids")
+    # per-step seeds of device-side draws, kept as Python ints (a seed is
+    # read on the host, so it is never uploaded)
+    _HOST_KEYS: tuple = ()
 
     # ------------------------------------------------------------------
     # optimizer steps
@@ -516,12 +520,17 @@ class RNNBase:
     # ------------------------------------------------------------------
     # lazy (slice-sparse) Adam for catalog-indexed tables
     # ------------------------------------------------------------------
+    # models that replace the recurrent tower (FISMCluster, SDAE) opt out
+    lazy_table_ok = True
+
     def _resolve_lazy_path(self):
         """Path of the catalog-indexed input table (the embedding, else the
         first layer's ``W_in``), or None without ``--lazy_updates``. Its
         gradient is nonzero only on the rows the batch names."""
         if not self.lazy_updates:
             return None
+        if not self.lazy_table_ok:
+            raise ValueError(f"--lazy_updates: {type(self).__name__} has no recurrent-tower input table")
         if not isinstance(self.updater, Adam):
             raise ValueError("--lazy_updates is implemented for adam only")
         rl = self.recurrent_layer

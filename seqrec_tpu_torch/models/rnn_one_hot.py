@@ -105,9 +105,7 @@ class RNNOneHot(RNNBase):
         if self.regularization > 0.0:
             cost = cost + self.regularization * torch.sum(torch.square(net.b_out))
         elif self.regularization < 0.0:
-            # |b| with JAX's derivative at 0 (+1; torch.abs gives 0 there)
-            b = net.b_out
-            cost = cost - self.regularization * torch.sum(torch.where(b >= 0, b, -b))
+            cost = cost - self.regularization * losses.l1_penalty(net.b_out)
         return cost
 
     def _finalize_packed_batch(self, packed, target_ratings):

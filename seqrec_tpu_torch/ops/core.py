@@ -13,6 +13,15 @@ import contextlib
 import torch
 
 
+def pad_bucket(n: int, floor: int = 8) -> int:
+    """Next power-of-two padding bucket (>= floor) for a dynamic size: the
+    bag models pad their host buffers to it, as the JAX package does."""
+    b = floor
+    while b < n:
+        b *= 2
+    return b
+
+
 class _GradClip(torch.autograd.Function):
     """Identity forward; the backward clamps the cotangent to +-limit
     (Lasagne's ``grad_clipping``, ``seqrec_tpu/ops/core.py:grad_clip``)."""

@@ -5,7 +5,9 @@ them to XLA, not to Pallas.
 - CCE with diversity bias: ``mean(CCE / target_popularity^db)``.
 - Sampled losses over a score matrix ``[B, B+S]`` whose first ``B``
   columns score each example's own target (the diagonal of the left
-  block) and whose last ``S`` columns score shared negative samples.
+  block) and whose last ``S`` columns score shared negative samples; the
+  cluster models' set (``CLUSTER_LOSSES``) adds a sampled CCE, a linear
+  loss and a leaky-relu BPR.
 - Margin losses over dense target and weight matrices, summed over the
   catalog.
 
@@ -30,6 +32,12 @@ def log_softmax_cce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
 def diversity_biased_cce(logits, targets, target_pop) -> torch.Tensor:
     """mean(CCE / pop^db); ``target_pop`` is already ``pop**db``."""
     return (log_softmax_cce(logits, targets) / target_pop).mean()
+
+
+def l1_penalty(x: torch.Tensor) -> torch.Tensor:
+    """sum |x| with JAX's derivative of |x| at 0, which is +1 (``torch.abs``
+    gives 0 there, and parameters such as ``b_out`` start at exactly 0)."""
+    return torch.sum(torch.where(x >= 0, x, -x))
 
 
 # ----------------------------------------------------------------------
@@ -59,7 +67,38 @@ def top1_loss(scores: torch.Tensor, batch_size: int) -> torch.Tensor:
     return (torch.sigmoid(diff) + torch.sigmoid(reg)).mean(dim=-1)
 
 
+def cce_sampled_loss(scores: torch.Tensor, batch_size: int) -> torch.Tensor:
+    """CCE over the sampled score matrix: -log softmax of the own target."""
+    logp = torch.log_softmax(scores, dim=-1)
+    return -torch.diagonal(logp[:, :batch_size])
+
+
+def lin_loss(scores: torch.Tensor, batch_size: int) -> torch.Tensor:
+    """Linear loss: the sum over the samples minus the own target."""
+    diag = torch.diagonal(scores[:, :batch_size])
+    return scores[:, batch_size:].sum(dim=-1) - diag
+
+
+def bprelu_loss(scores: torch.Tensor, batch_size: int) -> torch.Tensor:
+    """Leaky-relu approximation of BPR: mean_s leaky_relu(sample - target +
+    0.5), slope 0.01. Written as JAX's ``where(x >= 0, x, 0.01 x)``, whose
+    derivative at 0 is 1 (``F.leaky_relu``'s is the slope)."""
+    diag = torch.diagonal(scores[:, :batch_size])
+    x = scores[:, batch_size:] - diag[:, None] + 0.5
+    return torch.where(x >= 0, x, 0.01 * x).mean(dim=-1)
+
+
 SAMPLED_LOSSES = {"Blackout": blackout_loss, "BPR": bpr_loss, "TOP1": top1_loss}
+
+# the cluster models' item and cluster objectives (one loss serves both)
+CLUSTER_LOSSES = {
+    "Blackout": blackout_loss,
+    "CCE": cce_sampled_loss,
+    "lin": lin_loss,
+    "BPR": bpr_loss,
+    "BPRelu": bprelu_loss,
+    "TOP1": top1_loss,
+}
 
 
 # ----------------------------------------------------------------------

@@ -223,6 +223,7 @@ def gru_scan_train_fwd(x_pre, mask, w_hid, h0):
     if err:
         raise RuntimeError(f"gru_scan_train_fwd kernel launch ({path} path) failed with CUDA error {err}")
     gru_scan_train_fwd.launches += 1
+    gru_scan_train_fwd.cluster_launches += path == "cluster"
     return out, hs
 
 
@@ -266,11 +267,13 @@ def gru_scan_train_bwd(x_pre, mask, w_hid, hs, dh, grad_clip: float):
     if err:
         raise RuntimeError(f"gru_scan_train_bwd kernel launch ({path} path) failed with CUDA error {err}")
     gru_scan_train_bwd.launches += 1
+    gru_scan_train_bwd.cluster_launches += path == "cluster"
     return dx, dh0, dw
 
 
-gru_scan_train_fwd.launches = 0
-gru_scan_train_bwd.launches = 0
+# every launch, and those of the cluster path
+gru_scan_train_fwd.launches = gru_scan_train_fwd.cluster_launches = 0
+gru_scan_train_bwd.launches = gru_scan_train_bwd.cluster_launches = 0
 
 
 class _GRUScanTrain(torch.autograd.Function):

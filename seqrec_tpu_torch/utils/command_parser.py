@@ -3,10 +3,13 @@
 Same flag surface as ``seqrec_tpu/utils/command_parser.py`` (one flag
 namespace shared by the train and test CLIs; each plugin module
 contributes its own sub-parser). ``get_predictor`` builds what the port
-has so far, the RNN family's single-model heads: ``RNNOneHot`` (``--loss
+has so far: the RNN family's single-model heads, ``RNNOneHot`` (``--loss
 CCE``), ``RNNSampling`` (``BPR``, ``TOP1``, ``Blackout``) and
-``RNNMargin`` (``hinge``, ``logit``, ``logsig``). Every other method,
-``--clusters`` and ``--bf16`` raise ``NotImplementedError``.
+``RNNMargin`` (``hinge``, ``logit``, ``logsig``); the cluster models
+``RNNCluster`` (``-m RNN --clusters K``) and ``FISMCluster`` (``-m FISM
+--clusters K``); and ``StackedDenoisingAutoencoder`` (``-m SDA``). Every
+other method, ``-m FISM`` without ``--clusters``, and ``--bf16`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -217,11 +220,26 @@ def get_predictor(args):
     """Build the predictor described by the parsed flags, on
     ``args.device`` (default cuda)."""
     args.layers = [int(x) for x in str(args.layers).split("-")]
-    if args.method != "RNN" or args.clusters > 0:
-        what = f"-m {args.method}" + (" --clusters" if args.clusters > 0 else "")
-        raise NotImplementedError(f"{what} comes with a later slice of the port")
+    ported = args.method in ("RNN", "SDA") or (args.method == "FISM" and args.clusters > 0)
+    if not ported:
+        raise NotImplementedError(f"-m {args.method} comes with a later slice of the port")
     if args.bf16:
         raise NotImplementedError("--bf16 comes with a later slice of the port")
+    device = getattr(args, "device", "cuda")
+
+    if args.method == "SDA":
+        from seqrec_tpu_torch.models.sdae import StackedDenoisingAutoencoder
+
+        return StackedDenoisingAutoencoder(
+            interactions_are_unique=(not args.repeated_interactions),
+            layers=args.layers,
+            input_dropout=args.input_dropout,
+            dropout=args.dropout,
+            updater=get_update_manager(args),
+            batch_size=args.batch_size,
+            use_ratings_features=args.rf,
+            device=device,
+        )
 
     common_rnn = dict(
         interactions_are_unique=(not args.repeated_interactions),
@@ -235,8 +253,27 @@ def get_predictor(args):
         use_users_features=args.uf,
         batch_size=args.batch_size,
         lazy_updates=args.lazy_updates,
-        device=getattr(args, "device", "cuda"),
+        device=device,
     )
+    if args.clusters > 0:
+        from seqrec_tpu_torch.models.cluster import FISMCluster, RNNCluster
+
+        common_cluster = dict(
+            loss=args.loss,
+            predict_with_clusters=(not args.ignore_clusters),
+            sampling_bias=args.sampling_bias,
+            sampling=args.sampling,
+            cluster_sampling=args.c_sampling,
+            init_scale=args.init_scale,
+            scale_growing_rate=args.scale_growing_rate,
+            max_scale=args.max_scale,
+            n_clusters=args.clusters,
+            cluster_type=args.cluster_type,
+            **common_rnn,
+        )
+        if args.method == "FISM":
+            return FISMCluster(h=args.hidden, reg=args.regularization, alpha=args.fism_alpha, **common_cluster)
+        return RNNCluster(cluster_selection_noise=args.csn, **common_cluster)
     if args.loss == "CCE":
         from seqrec_tpu_torch.models.rnn_one_hot import RNNOneHot
 

@@ -270,7 +270,7 @@ def test_train_cli_without_device_cpu_raises_when_no_gpu(synthetic_dataset):
 @pytest.mark.parametrize(
     "flags",
     [["--mesh", "1,1"], ["--spd", "2"], ["--u_moments", "bfloat16"], ["-m", "LTM"],
-     ["--profile", "trace/"], ["--clusters", "4"], ["-m", "BPRMF"]],
+     ["--profile", "trace/"], ["-m", "FISM"], ["-m", "BPRMF"]],
 )
 def test_train_cli_raises_not_implemented_outside_the_slice(synthetic_dataset, flags):
     argv = ["-d", synthetic_dataset, *BASE, "--max_iter", "2", "--save", "None", "--device", "cpu", *flags]
