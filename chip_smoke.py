@@ -105,6 +105,22 @@ Phases, each printing one JSON line with its seconds:
    flags (-L 64-32-64, --in_do 0.2, B=64, Adam 1e-3): 20 step costs at
    --do 0 against the CPU's, 300 steps at --do 0.3 and one validation,
    the test CLI against the CPU's lists, steady steps; every counter at 0.
+14. main_path_train_ltm: a second ML-1M-scale dataset, ml1m_pp: the same
+   generator rows written as ratings.dat and split by the port's numpy
+   preprocess as scripts/baseline_run.sh splits them (its seconds
+   printed). LTM at scripts/baseline_run2.sh:84's flags (-H 32,
+   --ltm_window 5, lr 0.01, 2,048 positions a step): the gather-sum pair
+   on its first step's contexts and, at F=1, its targets, and K4 at its
+   validation shape; with every counter at 0, 2 epochs with a validation
+   after each through the train CLI (G1's forward once and its backward
+   twice a step, K4 once a validation, nothing else), the first 20 step
+   losses against the CPU CLI's within 1e-4, the test CLI on the last
+   checkpoint on the card (K4 only) and the CPU (the same top-10 lists),
+   a steady epoch timed and 50 steps profiled.
+15. floors: POP, the Markov model and user-KNN through the test CLI on
+   ml1m_pp: no kernel launches, the CPU's lists and metrics, and test
+   sps@10 / recall@10 equal to the JAX package's on preprocess.py's split
+   of the same rows (BASELINE.md:49-51).
 
 Any failed check raises, and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. The last lines are
@@ -185,6 +201,16 @@ CLUSTER_LARGE = [{"50": "128", "64": "1024"}.get(a, a) for a in CLUSTER]
 FISM_CLUSTER = ["-m", "FISM", "--clusters", "10", "-H", "50", "--fism_alpha", "0.2", "--loss", "Blackout",
                 "--sampling", "256", "-b", "64", "--u_m", "adam", "--u_l", "0.001"]
 SDA = ["-m", "SDA", "-L", "64-32-64", "--in_do", "0.2", "-b", "64", "--u_m", "adam", "--u_l", "0.001"]
+# scripts/baseline_run2.sh:84's LTM (lr 0.01: -l's default; 2,048 positions a step)
+LTM = ["-m", "LTM", "-H", "32", "--ltm_window", "5", "-l", "0.01"]
+# test sps@10 and recall@10 of the JAX package's floors on preprocess.py's split of
+# ml1m_pp_dataset()'s rows: seqrec_tpu's preprocess.py with PP_FLAGS, then
+# `test.py -m POP|MM|UKNN`, run on a CPU (PERF.md §6); BASELINE.md:49-51
+# prints them rounded
+JAX_FLOORS = {"POP": (0.14, 0.07598658413110682), "MM": (0.5, 0.05913237889413948),
+              "UKNN": (0.13, 0.07468881555223694)}
+BASELINE_FLOORS = {"POP": (0.14, 0.0760), "MM": (0.50, 0.0591), "UKNN": (0.13, 0.0747)}
+PP_FLAGS = ["--columns", "uirt", "--sep", "::", "--min_item_pop", "5", "--val_size", "100", "--test_size", "100"]
 
 
 def wrapper(name):
@@ -834,8 +860,12 @@ def check_gather_sum(ids, D, N, seed, id_mask=None, timed=True):
     (f32 sums of up to ~10^4 rows in another order), the same bits on two
     calls, and the autograd wrapper giving the kernels' own gradient.
     Timed: the forward, the backward with and without its sort and plan,
-    the plain version (also the library call) and index_add_."""
+    the plain version, the library calls (the forward: one
+    ``F.embedding_bag(mode="sum", per_sample_weights=...)`` with the pad
+    slots at id 0 and weight 0; the backward: the plain version's) and
+    index_add_."""
     import torch
+    import torch.nn.functional as nnf
 
     from seqrec_tpu_torch.ops.core import gather_sum as plain
     from seqrec_tpu_torch.ops.gather_sum import (
@@ -895,13 +925,19 @@ def check_gather_sum(ids, D, N, seed, id_mask=None, timed=True):
     fwd = lambda: gather_sum_fwd(table, ids_t, m)  # noqa: E731
     bwd = lambda: gather_sum_table_grad(g, ids_t, m, N)  # noqa: E731
     bwd_sorted = lambda: gather_sum_bwd(g, perm, m, plan, N, F)  # noqa: E731
+    # the library's one call for the forward: fixed-size bags of F ids, each
+    # slot weighted by its mask (a pad slot: id 0, weight 0)
+    bag_ids = ids_t.reshape(-1, F).clamp_min(0).long()
+    bag_w = (ids_t >= 0).float().reshape(-1, F) * (1.0 if m is None else m.reshape(-1, F))
+    bag = lambda: nnf.embedding_bag(bag_ids, table, mode="sum", per_sample_weights=bag_w)  # noqa: E731
+    bag_err = (bag().reshape(out_k.shape) - out_k).abs().max().item()
     bwd_events = device_events(bwd, reps=20)
     plain_times = {d: (time_ms(fn), device_ms(fn)) for d, fn in (("fwd", plain_fwd), ("bwd", plain_bwd))}
-    # the plain version is also the one PyTorch call that computes the function
     out["fwd"] = dict(
         zip(("bound_ms", "bound_by"), bound_ms(flops, fwd_bytes)),
         kernel_ms=time_ms(fwd), kernel_device_ms=device_ms(fwd),
-        library="the plain version: table[ids], the masks, a sum over F",
+        library_ms=time_ms(bag), library_device_ms=device_ms(bag), library_max_abs_err=bag_err,
+        library="F.embedding_bag(mode='sum', per_sample_weights=mask) over [P0, F] bags",
     )
     out["bwd"] = dict(
         zip(("bound_ms", "bound_by"), bound_ms(flops, bwd_bytes)),
@@ -911,7 +947,8 @@ def check_gather_sum(ids, D, N, seed, id_mask=None, timed=True):
         library="the plain version's backward (autograd of table[ids]: indexing_backward_kernel)",
     )
     for d, (ms, dev_ms) in plain_times.items():
-        out[d].update(plain_ms=ms, plain_device_ms=dev_ms, library_ms=ms, library_device_ms=dev_ms)
+        out[d].update(plain_ms=ms, plain_device_ms=dev_ms)
+    out["bwd"].update(library_ms=plain_times["bwd"][0], library_device_ms=plain_times["bwd"][1])
     if F == 1 and id_mask is None and valid.all():
         flat_ids, rows = ids_t.reshape(-1).long(), g.reshape(-1, D)
         index_add = lambda: torch.zeros(N, D, device="cuda").index_add_(0, flat_ids, rows)  # noqa: E731
@@ -1204,6 +1241,27 @@ def ml1m_dataset() -> str:
         path, n_users=6040, n_items=3706, min_len=20, max_len=310,
         markov_strength=0.45, n_val_users=100, n_test_users=100, seed=7,
     )
+
+
+def ml1m_pp_dataset() -> tuple[str, dict]:
+    """scripts/baseline_run.sh's rows (ml1m_dataset()'s generator), written as
+    ratings.dat and split by the port's preprocess with PP_FLAGS, as
+    preprocess.py splits them there; returns (the directory, the seconds of
+    each step, None when the dataset was already there)."""
+    from seqrec_tpu_torch.data import preprocess
+    from seqrec_tpu_torch.data.synthetic import generate_interactions
+
+    path = os.path.join(WORK, "ml1m_pp")
+    if os.path.exists(os.path.join(path, "data", "stats")):
+        return path + "/", {"generate_s": None, "preprocess_s": None}
+    os.makedirs(path, exist_ok=True)
+    t0 = time.perf_counter()
+    rows = generate_interactions(n_users=6040, n_items=3706, min_len=20, max_len=310, markov_strength=0.45, seed=7)
+    np.savetxt(os.path.join(path, "ratings.dat"), rows, fmt="%d", delimiter="::")
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        preprocess.main(["-f", os.path.join(path, "ratings.dat"), *PP_FLAGS, "--yes"])
+    return path + "/", {"generate_s": t1 - t0, "preprocess_s": time.perf_counter() - t1}
 
 
 # ----------------------------------------------------------------------
@@ -1795,6 +1853,214 @@ def main_path_train_sdae(card) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def recorded_ltm_losses():
+    """The loss tensor of every LTM CBOW step taken while the context is
+    open, in order (the class's step is wrapped; nothing is synchronized)."""
+    from seqrec_tpu_torch.models.ltm import LTM as LTMModel
+
+    losses, step = [], LTMModel._cbow_step
+
+    def recording(self, *args):
+        losses.append(step(self, *args))
+        return losses[-1]
+
+    LTMModel._cbow_step = recording
+    try:
+        yield losses
+    finally:
+        LTMModel._cbow_step = step
+
+
+def ltm_model(ds_dir, device):
+    """The train CLI's LTM on ``ds_dir``, with its tables and noise
+    distribution initialized."""
+    import seqrec_tpu_torch.utils.command_parser as parse
+    from seqrec_tpu_torch.data import DataHandler
+
+    args = parse.command_parser(parse.predictor_command_parser, argv=LTM)
+    args.device = device
+    model = parse.get_predictor(args)
+    dataset = DataHandler(ds_dir)
+    model.prepare_model(dataset)
+    model._init_w2v()
+    model._init_training_aux()
+    return model
+
+
+def ltm_steps(model, n: int, lr: float = 0.01) -> None:
+    """The first ``n`` CBOW steps of a new epoch, drawn as
+    ``LTM._train_one_epoch`` draws them."""
+    chunks = model._epoch_positions()
+    for _ in range(n):
+        ctx, mask, center, row_mask = next(chunks)
+        negs = np.searchsorted(model._noise_cdf, model.rng.random((len(center), model.negative)), side="right")
+        model._cbow_step(*map(model._tensor, (ctx, mask, center, negs.astype(np.int32), row_mask)), lr)
+
+
+def ltm_kernel_checks(ds_dir) -> dict:
+    """G1 and K4 at the shapes LTM gives them, on its first step's real ids:
+    the forward over the contexts [2048, 10] (pad slots -1, the mask as
+    id_mask), the backward there (syn0's update) and at F=1 over the
+    2,048 x 6 targets (syn1neg's: long runs on popular negatives), K4 at the
+    validation's B=100 users, H=32, the catalog and the longest seen list."""
+    model = ltm_model(ds_dir, "cpu")
+    ctx, mask, center, _ = next(model._epoch_positions())
+    negs = np.searchsorted(model._noise_cdf, model.rng.random((len(center), model.negative)), side="right")
+    targets = np.concatenate([center[:, None], negs.astype(np.int32)], axis=1).reshape(-1, 1)
+    S = max(len(seq) // 2 for seq, _ in model.dataset.validation_set(epochs=1))
+    out = {
+        "ctx": check_gather_sum(ctx, model.k, model.n_items, seed=75, id_mask=mask),
+        "targets": check_gather_sum(targets, model.k, model.n_items, seed=76),
+        "topk": check_topk(100, model.k, model.n_items, S, 10, seed=77),
+    }
+    counts = np.bincount(targets[:, 0], minlength=model.n_items)
+    out["targets"]["id_runs"] = {"slots": int(targets.size), "distinct_ids": int((counts > 0).sum()),
+                                 "longest_run": int(counts.max()), "longest_run_id": int(counts.argmax())}
+    return out
+
+
+def main_path_train_ltm(card) -> tuple[dict, dict, dict]:
+    """LTM at scripts/baseline_run2.sh:84's flags on ml1m_pp_dataset(): G1
+    and K4 at its shapes; with every counter at 0, 2 epochs and a validation
+    after each through the train CLI on the card (G1's forward once and its
+    backward twice a step, K4 once a validation, nothing else), the first 20
+    step losses against the same CLI's first epoch on the CPU (within 1e-4
+    relative); with the counters at 0 again, the test CLI on the last
+    checkpoint on the card (K4 only) and the CPU (the same top-10 lists and
+    metrics); a steady epoch timed, 50 steps profiled. Returns the train and
+    test CLIs' launches and the kernel checks."""
+    import torch
+
+    from seqrec_tpu_torch.cli import test as test_cli
+    from seqrec_tpu_torch.cli import train as train_cli
+    from seqrec_tpu_torch.data import DataHandler
+
+    t_phase = time.perf_counter()
+    ds_dir, made = ml1m_pp_dataset()
+    checks = ltm_kernel_checks(ds_dir)
+    argv = ["-d", ds_dir, *LTM, "--max_iter", "2", "--progress", "1", "--save", "All", "--dir", "chip_ltm/"]
+    zero_counters()
+    with recorded_ltm_losses() as losses:
+        t0 = time.perf_counter()
+        text = run_cli(train_cli.main, argv)[1]
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    launches = read_counters()
+    steps = len(losses)
+    expected = {"gather_sum_fwd": steps, "gather_sum_bwd": 2 * steps, "fused_score_topk": 2}
+    if steps == 0 or any(launches[k] != expected.get(k, 0) for k in KERNELS):
+        raise AssertionError(f"LTM's {steps} steps and 2 validations launched {launches}")
+    gpu = torch.stack(losses).cpu().numpy().astype(np.float64)
+    with recorded_ltm_losses() as cpu_losses:
+        cpu_text = run_cli(train_cli.main, argv[:-2] + ["--max_iter", "1", "--save", "None", "--device", "cpu"])[1]
+    cpu = torch.stack(cpu_losses).numpy().astype(np.float64)
+    rel = np.abs(gpu[: len(cpu)] - cpu) / np.abs(cpu)
+    if len(cpu) != steps // 2 or rel[:20].max() > 1e-4:
+        raise AssertionError(f"LTM step losses differ between cuda and cpu: {gpu[:20]} vs {cpu[:20]}")
+
+    test_argv = ["-d", ds_dir, *LTM, "--dir", "chip_ltm/", "-i", "2"]
+    zero_counters()
+    t0 = time.perf_counter()
+    ev_gpu = run_cli(test_cli.main, test_argv)[0]
+    test_s = time.perf_counter() - t0
+    test_launches = read_counters()
+    if test_launches["fused_score_topk"] != 1 or sum(test_launches.values()) != 1:
+        raise AssertionError(f"LTM's test CLI launched {test_launches}")
+    ev_cpu = run_cli(test_cli.main, test_argv + ["--device", "cpu"])[0]
+    recs_gpu, recs_cpu = ([pred for _, pred in ev.instances] for ev in (ev_gpu, ev_cpu))
+    if not recs_gpu or recs_gpu != recs_cpu:
+        n_diff = sum(a != b for a, b in zip(recs_gpu, recs_cpu))
+        raise AssertionError(f"LTM's top-10 lists differ between cuda and cpu on {n_diff} users")
+    metrics = {m: ev_gpu.metrics[m]() for m in ("sps", "recall", "item_coverage", "user_coverage")}
+    if metrics != {m: ev_cpu.metrics[m]() for m in metrics}:
+        raise AssertionError("LTM's test metrics differ between cuda and cpu")
+    # test users whose trajectory is all zero (fewer than 2 items seen): every item
+    # scores 0, and both devices list the lowest unseen ids (K4's ties by id)
+    zero_query_users = sum(len(seq) // 2 < 2 for seq, _ in DataHandler(ds_dir).test_set(epochs=1))
+
+    # steady: one epoch timed on the host clock (the CLI runs above warmed the
+    # kernels up), then 50 steps of the next profiled
+    model = ltm_model(ds_dir, "cuda")
+    store = model.dataset.training_set.store
+    positions = int(store.lengths.sum() - (store.lengths == 1).sum())
+    with recorded_ltm_losses() as timed:
+        t0 = time.perf_counter()
+        model._train_one_epoch(0.01)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+    n, n_profiled = len(timed), 50
+    per_step = {k: v / n_profiled for k, v in device_events(lambda: ltm_steps(model, n_profiled)).items()}
+    step_device_ms = sum(per_step.values())
+    ours, port_ms = port_kernel_names(), {}
+    for key, ms in per_step.items():
+        if kernel_name(key) in ours:
+            port_ms[kernel_name(key)] = port_ms.get(kernel_name(key), 0.0) + ms
+    emit({
+        "phase": "main_path_train_ltm", "config": "LTM -H 32 --ltm_window 5, lr 0.01, 2,048 positions a step, "
+        "5 negatives, trajectory (damping 0.8); ml1m_pp (the port's preprocess of baseline_run.sh's rows)",
+        "dataset": {"n_items": model.n_items, "training_sequences": len(store), "positions_per_epoch": positions,
+                    **made},
+        "kernel_checks": {"gather_sum_ctx": checks["ctx"], "gather_sum_targets_F1": checks["targets"],
+                          "fused_score_topk": checks["topk"]},
+        "launches": launches, "steps": steps, "validations": 2, "cli_cuda_s": cli_s,
+        "train_cost": progress_values(text, "Last train cost"),
+        "train_cost_cpu_epoch1": progress_values(cpu_text, "Last train cost"),
+        "validation_sps@10": progress_values(text, "sps"), "validation_recall@10": progress_values(text, "recall"),
+        "first_20_step_losses_cuda_vs_cpu_max_rel_diff": float(rel[:20].max()),
+        "epoch1_step_losses_cuda_vs_cpu_max_rel_diff": float(rel.max()),
+        "tolerance": "step losses rel 1e-4 (f32 sums in another order: G1's fixed order vs index_add_)",
+        "test_cli": {"launches": {"fused_score_topk": 1}, "cuda_s": test_s, "test_users": len(recs_gpu),
+                     "same_top10_as_cpu": True, "metrics@10": metrics, "all_zero_query_users": zero_query_users},
+        "steady": {
+            "epoch_s": epoch_s, "steps": n, "step_ms": epoch_s * 1e3 / n, "positions_per_s": positions / epoch_s,
+            "sequences_per_s": len(store) / epoch_s, "device_ms_per_step": step_device_ms,
+            "device_busy_share": step_device_ms * n / (epoch_s * 1e3), "steps_profiled": n_profiled,
+            "top_kernels_ms_per_step": dict(sorted(per_step.items(), key=lambda kv: -kv[1])[:8]),
+            "port_kernels_ms_per_step": dict(sorted(port_ms.items(), key=lambda kv: -kv[1])), "card": card,
+        },
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return launches, test_launches, checks
+
+
+def floors(card) -> dict:
+    """POP, the Markov model and user-KNN through the test CLI on
+    ml1m_pp_dataset(), on the card with every counter at 0 (they do no
+    device work: every counter stays at 0) and on the CPU (the same lists
+    and metrics); the test sps@10 and recall@10 must equal the JAX
+    package's on preprocess.py's split of the same rows (JAX_FLOORS).
+    Returns each model's launches."""
+    from seqrec_tpu_torch.cli import test as test_cli
+
+    t_phase = time.perf_counter()
+    ds_dir, _ = ml1m_pp_dataset()
+    runs = {}
+    for method in ("POP", "MM", "UKNN"):
+        argv = ["-d", ds_dir, "-m", method]
+        zero_counters()
+        t0 = time.perf_counter()
+        ev_gpu = run_cli(test_cli.main, argv)[0]
+        cli_s = time.perf_counter() - t0
+        launches = read_counters()
+        if any(launches.values()):
+            raise AssertionError(f"-m {method} launched {launches}")
+        ev_cpu = run_cli(test_cli.main, argv + ["--device", "cpu"])[0]
+        names = ("sps", "recall", "item_coverage", "user_coverage", "blockbuster_share")
+        metrics = {m: ev_gpu.metrics[m]() for m in names}
+        if metrics != {m: ev_cpu.metrics[m]() for m in names} or ev_gpu.instances != ev_cpu.instances:
+            raise AssertionError(f"-m {method}: the lists or metrics differ between --device cuda and cpu")
+        if (metrics["sps"], metrics["recall"]) != JAX_FLOORS[method]:
+            raise AssertionError(f"-m {method}: test sps@10, recall@10 {metrics['sps']}, {metrics['recall']} "
+                                 f"differ from the JAX package's {JAX_FLOORS[method]}")
+        runs[method] = {"launches": launches, "cli_s": cli_s, "metrics@10": metrics,
+                        "jax_sps_recall@10": JAX_FLOORS[method], "baseline_md_sps_recall@10": BASELINE_FLOORS[method],
+                        "same_as_cpu": True, "same_as_jax": True}
+    emit({"phase": "floors", "dataset": "ml1m_pp", "runs": runs, "card": card,
+          "baseline": "BASELINE.md:49-51", "seconds": time.perf_counter() - t_phase})
+    return {method: run["launches"] for method, run in runs.items()}
+
+
 def serving_pass_gru256(card) -> dict:
     """GRU-256 serving on the 50k-item catalog: 4096 users at eval chunks
     of 512 with every counter at 0 (K3 on its cluster path, K4), the
@@ -2023,6 +2289,8 @@ def main() -> int:
     heads_runs = {**heads, **{name + "_large": counts for name, counts in heads_large.items()}}
     cluster_runs = {**main_path_train_cluster(card), "cluster_large": main_path_train_cluster_large(card),
                     "fism_cluster": main_path_fism_cluster(card), "sdae": main_path_train_sdae(card)}
+    ltm_train, ltm_test, ltm_checks = main_path_train_ltm(card)
+    floor_runs = floors(card)
     path_of = {"gru_scan": serving, "fused_score_topk": serving, "gru_scan_train_fwd": flagship,
                "gru_scan_train_bwd": flagship, "cce_stats": large, "cce_grads": large,
                "lstm_scan": lstm_serve, "lstm_scan_train_fwd": lstm_train, "lstm_scan_train_bwd": lstm_train,
@@ -2038,6 +2306,8 @@ def main() -> int:
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
             "launches_heads": {run: counts[name] for run, counts in heads_runs.items()},
             "launches_cluster_phases": {run: counts.get(name, 0) for run, counts in cluster_runs.items()},
+            "launches_ltm": {"train_cli": ltm_train[name], "test_cli": ltm_test[name]},
+            "launches_floors": {run: counts[name] for run, counts in floor_runs.items()},
         })
     # where this round's redesigns act: K3 at GRU-256 serving's chunk, K2's gradients
     k3 = summary[0]
@@ -2066,6 +2336,8 @@ def main() -> int:
     for at, res in (("at_B512_H256_N49999", k4_gru256), ("at_B512_H256_N200000", k4_large)):
         topk[at] = {key: res[key] for key in ("kernel_ms", *device_keys, "pad_device_ms", "max_abs_err")}
     topk["launches_serving_pass_gru256"] = gru256["fused_score_topk"]
+    topk["at_B100_H32_N3706_ltm"] = {key: ltm_checks["topk"][key]
+                                     for key in ("kernel_ms", *device_keys, "shape", "max_abs_err")}
     stats = next(e for e in summary if e["name"] == "cce_stats")
     stats.update({key: k2["stats"][key] for key in device_keys},
                  at_B16_H50_N3706={key: k2_flagship["stats"][key] for key in ("kernel_ms", *device_keys)},
@@ -2102,7 +2374,7 @@ def main() -> int:
     for name in ("gather_sum_fwd", "gather_sum_bwd"):
         d = name.split("_")[-1]
         entry = next(e for e in summary if e["name"] == name)
-        keys = ("kernel_ms", "kernel_device_ms", "plain_device_ms", "library_device_ms", "bound_ms")
+        keys = ("kernel_ms", "kernel_device_ms", "plain_device_ms", "library_ms", "library_device_ms", "bound_ms")
         keys += ("kernel_without_sort_ms", "kernel_without_sort_device_ms") if d == "bwd" else ()
         entry.update({key: gs_large[d][key] for key in keys[1:]}, not_a_pallas_kernel=True,
                      jax_counterpart="XLA gather and scatter-add (seqrec_tpu/ops/core.py:54)",
@@ -2111,7 +2383,11 @@ def main() -> int:
                      at_LSTM128_D512={key: gs_lstm[d][key] for key in keys},
                      at_flagship_D150={key: gs_flagship[d][key] for key in keys},
                      at_heads_B64_D150={**{key: gs_b64[d][key] for key in keys + ("plain_ms",)},
-                                        "max_abs_err": gs_b64["max_abs_err"][d]})
+                                        "max_abs_err": gs_b64["max_abs_err"][d]},
+                     **{f"at_ltm_{part}_D32": {**{key: ltm_checks[part][d][key] for key in keys + ("plain_ms",)},
+                                               "ids": ltm_checks[part]["shape"]["ids"],
+                                               "max_abs_err": ltm_checks[part]["max_abs_err"][d]}
+                        for part in ("ctx", "targets")})
     print(card_line(), flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {

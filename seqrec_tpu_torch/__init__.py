@@ -14,14 +14,18 @@ Blackout over shared negative samples) and ``RNNMargin`` (hinge, logit,
 logsig; dense, or the streaming margin at large catalogs), each with or
 without ``--lazy_updates``; the clustered-softmax models ``RNNCluster``
 (``-m RNN --clusters K``) and ``FISMCluster`` (``-m FISM --clusters K``);
-and the stacked denoising autoencoder (``-m SDA``). They train through
+the stacked denoising autoencoder (``-m SDA``); ``LTM`` (``-m LTM``,
+word2vec CBOW with a latent trajectory); and the lazy baselines ``Pop``,
+``MarkovModel`` and ``UserKNN`` (``-m POP|MM|UKNN``). They train through
 ``cli/train.py`` (GRU training scan K1 or LSTM training scan K5, the
-gather-sum kernel pair, streaming CCE K2 for the CCE head at large
-catalogs) and serve through ``cli/test.py`` (GRU scan K3 or LSTM scan K6,
-fused masked top-k K4), on the card by default and on the CPU with
-``--device cpu``. The Vanilla tower, FISM's bag of items and the
-autoencoder's dense stack are plain PyTorch, as the JAX package leaves
-them to XLA.
+gather-sum kernel pair, which LTM's CBOW steps also run, streaming CCE K2
+for the CCE head at large catalogs) and serve through ``cli/test.py`` (GRU
+scan K3 or LSTM scan K6, fused masked top-k K4, which LTM scores
+through), on the card by default and on the CPU with ``--device cpu``.
+The Vanilla tower, FISM's bag of items and the autoencoder's dense stack
+are plain PyTorch, as the JAX package leaves them to XLA; the lazy
+baselines are numpy and scipy on the host, as there. ``data/preprocess.py``
+writes the JAX package's preprocessed files with numpy only.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ JAX package), with the Python tokenizer only: the JAX package's optional
 C++ parser (``seqrec_tpu/data/native.py``) is not ported yet.
 
 Reads the on-disk dataset contract produced by the JAX package's
-preprocess or by ``seqrec_tpu_torch.data.synthetic`` (same layout as the
+preprocess, by the port's (``seqrec_tpu_torch.data.preprocess``, the same
+files) or by ``seqrec_tpu_torch.data.synthetic`` (same layout as the
 reference's preprocess.py:147-214):
 
 - ``data/train_set_triplets``          TSV ``user item rating``, chronological

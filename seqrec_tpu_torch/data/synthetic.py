@@ -8,8 +8,9 @@ over users, with a flatter popularity, for catalogs of tens of thousands
 of items. ``generate_interactions_lag2`` draws the JAX package's lag-2
 successor regime. ``make_dataset`` (through ``write_dataset``) writes them
 straight into the preprocessed directory layout that
-:class:`seqrec_tpu_torch.data.DataHandler` reads, without the JAX
-package's pandas preprocess:
+:class:`seqrec_tpu_torch.data.DataHandler` reads, with a split of its own
+(``data/preprocess.py`` writes the JAX package's split of a ratings
+file):
 
 - ``data/{train,val,test}_set_sequences``: one ``user i1 r1 i2 r2 ...`` line
   per user, in time order;

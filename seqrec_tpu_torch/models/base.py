@@ -793,7 +793,8 @@ class RNNBase:
         now = time()
         last_iters, last_time = getattr(self, "_tp_mark", (0, start_time))
         if iterations > last_iters and now > last_time:
-            rate = (iterations - last_iters) * self.batch_size / (now - last_time)
+            # an LTM iteration is one epoch (no batch_size): 1 a step
+            rate = (iterations - last_iters) * getattr(self, "batch_size", 1) / (now - last_time)
             print("Throughput : ", round(rate, 1), " sequences/s")
         self._tp_mark = (iterations, now)
         print("Last train cost : ", train_costs[-1])

@@ -104,6 +104,21 @@ def gather_sum(table: torch.Tensor, ids: torch.Tensor, id_mask: torch.Tensor | N
     return rows.sum(dim=-2)
 
 
+def gather_sum_table_grad(g: torch.Tensor, ids: torch.Tensor, id_mask: torch.Tensor | None, n_rows: int):
+    """The gradient of :func:`gather_sum` with respect to its table, given
+    the cotangent g [..., D] of its output: [n_rows, D], each slot's row of
+    g (times its mask) added into the row of its id by ``index_add_``;
+    negative ids add nothing."""
+    D = g.shape[-1]
+    rows = g.unsqueeze(-2).expand(*ids.shape, D)
+    if id_mask is not None:
+        rows = rows * id_mask.unsqueeze(-1)
+    flat = ids.reshape(-1).long()
+    keep = flat >= 0
+    out = torch.zeros((n_rows, D), dtype=g.dtype, device=g.device)
+    return out.index_add_(0, flat[keep], rows.reshape(-1, D)[keep])
+
+
 def top_k_sorted(scores: torch.Tensor, k: int):
     """(values [B, k], ids int32 [B, k]) in (value descending, id
     ascending) order. Rows with fewer than k columns are filled with the

@@ -8,7 +8,8 @@ rows; the gradient with respect to ``table`` is the dense [N, D] sum of
 each slot's cotangent row, times its mask, into the row of its id.
 
 On a CPU tensor :func:`gather_sum` runs ``ops/core.py:gather_sum``, the
-plain version, differentiated by autograd. On a CUDA tensor it runs an
+plain version, differentiated by autograd, and :func:`gather_sum_table_grad`
+its plain version with ``index_add_``. On a CUDA tensor it runs an
 autograd Function whose forward launches ``csrc/gather_sum.cu``'s forward
 kernel (:func:`gather_sum_fwd`) and whose backward sorts the slots by id
 (:func:`segment_order`), cuts each id's run into chunks
@@ -28,6 +29,7 @@ import torch
 from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops.core import check_tensors, on_device
 from seqrec_tpu_torch.ops.core import gather_sum as gather_sum_plain
+from seqrec_tpu_torch.ops.core import gather_sum_table_grad as gather_sum_table_grad_plain
 
 SEGMENT = 32  # S: the most slots of one id one chunk sums (the fastest of 8-512 on an H100, PERF.md)
 _ID_BYTES = {torch.int16: 2, torch.int32: 4, torch.int64: 8}
@@ -166,7 +168,12 @@ gather_sum_bwd.launches = 0
 
 
 def gather_sum_table_grad(g, ids, id_mask, n_rows: int, segment: int = SEGMENT):
-    """The table's gradient on the card: sort, plan, then the kernels."""
+    """The table's gradient [n_rows, D] from the cotangent g [..., D] of the
+    forward's output, ids [..., F] and id_mask [..., F] or None. CPU
+    tensors: the plain version (``index_add_``); CUDA tensors: sort, plan,
+    then the kernels."""
+    if g.device.type == "cpu":
+        return gather_sum_table_grad_plain(g, ids, id_mask, n_rows)
     sorted_ids, perm = segment_order(ids, n_rows)
     plan = segment_plan(sorted_ids, n_rows, segment)
     return gather_sum_bwd(g, perm, id_mask, plan, n_rows, ids.shape[-1], segment)

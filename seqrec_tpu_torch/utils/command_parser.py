@@ -7,9 +7,11 @@ has so far: the RNN family's single-model heads, ``RNNOneHot`` (``--loss
 CCE``), ``RNNSampling`` (``BPR``, ``TOP1``, ``Blackout``) and
 ``RNNMargin`` (``hinge``, ``logit``, ``logsig``); the cluster models
 ``RNNCluster`` (``-m RNN --clusters K``) and ``FISMCluster`` (``-m FISM
---clusters K``); and ``StackedDenoisingAutoencoder`` (``-m SDA``). Every
-other method, ``-m FISM`` without ``--clusters``, and ``--bf16`` raise
-``NotImplementedError``.
+--clusters K``); ``StackedDenoisingAutoencoder`` (``-m SDA``); ``LTM``
+(``-m LTM``); and the lazy baselines ``Pop``, ``MarkovModel`` and
+``UserKNN`` (``-m POP``, ``MM``, ``UKNN``). The factorization models
+(``-m BPRMF``, ``FPMC``, ``Fossil``, and ``FISM`` without ``--clusters``)
+and ``--bf16`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -220,12 +222,38 @@ def get_predictor(args):
     """Build the predictor described by the parsed flags, on
     ``args.device`` (default cuda)."""
     args.layers = [int(x) for x in str(args.layers).split("-")]
-    ported = args.method in ("RNN", "SDA") or (args.method == "FISM" and args.clusters > 0)
+    ported = args.method in ("RNN", "SDA", "LTM", "UKNN", "POP", "MM") or (
+        args.method == "FISM" and args.clusters > 0
+    )
     if not ported:
         raise NotImplementedError(f"-m {args.method} comes with a later slice of the port")
     if args.bf16:
         raise NotImplementedError("--bf16 comes with a later slice of the port")
     device = getattr(args, "device", "cuda")
+
+    if args.method == "LTM":
+        from seqrec_tpu_torch.models.ltm import LTM
+
+        return LTM(
+            k=args.hidden,
+            alpha=args.ltm_damping,
+            window=args.ltm_window,
+            learning_rate=args.learning_rate,
+            use_trajectory=(not args.ltm_no_trajectory),
+            device=device,
+        )
+    if args.method == "UKNN":
+        from seqrec_tpu_torch.models.lazy import UserKNN
+
+        return UserKNN(neighborhood_size=args.ns)
+    if args.method == "POP":
+        from seqrec_tpu_torch.models.lazy import Pop
+
+        return Pop()
+    if args.method == "MM":
+        from seqrec_tpu_torch.models.lazy import MarkovModel
+
+        return MarkovModel()
 
     if args.method == "SDA":
         from seqrec_tpu_torch.models.sdae import StackedDenoisingAutoencoder

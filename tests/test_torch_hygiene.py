@@ -38,19 +38,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_cli_without_device_cpu_raises_when_no_gpu(synthetic_dataset):
+    """Also for the lazy baselines, which do no device work."""
     import seqrec_tpu_torch.cli.test as test_cli
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the CLI runs on it")
-    argv = ["-d", synthetic_dataset, "-m", "RNN", "--loss", "CCE", "--r_l", "8", "-i", "1"]
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        test_cli.main(argv)
+    for flags in (["-m", "RNN", "--loss", "CCE", "--r_l", "8", "-i", "1"], ["-m", "POP"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            test_cli.main(["-d", synthetic_dataset, *flags])
 
 
 @pytest.mark.parametrize(
     "flags",
     [["-m", "BPRMF"], ["-m", "FPMC"], ["-m", "FISM"], ["--bf16"], ["--mesh", "1,1"],
-     ["--save_rank"], ["-m", "LTM"]],
+     ["--save_rank"], ["-m", "Fossil"]],
 )
 def test_cli_raises_not_implemented_outside_the_slice(synthetic_dataset, flags):
     import seqrec_tpu_torch.cli.test as test_cli

@@ -269,7 +269,7 @@ def test_train_cli_without_device_cpu_raises_when_no_gpu(synthetic_dataset):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--mesh", "1,1"], ["--spd", "2"], ["--u_moments", "bfloat16"], ["-m", "LTM"],
+    [["--mesh", "1,1"], ["--spd", "2"], ["--u_moments", "bfloat16"], ["-m", "Fossil"],
      ["--profile", "trace/"], ["-m", "FISM"], ["-m", "BPRMF"]],
 )
 def test_train_cli_raises_not_implemented_outside_the_slice(synthetic_dataset, flags):
