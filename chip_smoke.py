@@ -121,6 +121,18 @@ Phases, each printing one JSON line with its seconds:
    ml1m_pp: no kernel launches, the CPU's lists and metrics, and test
    sps@10 / recall@10 equal to the JAX package's on preprocess.py's split
    of the same rows (BASELINE.md:49-51).
+16. main_path_train_mf: the factorization family on ml1m_pp at
+   scripts/baseline_run.sh's and baseline_run3.sh's flags (BPRMF uniform
+   and adaptive, FPMC, FISM-BPR, Fossil; 512 samples a chunk, 16 chunks a
+   dispatch): with every counter at 0 before each, two dispatches and one
+   validation through the train CLI on the card (G1's backward carries
+   the table scatters; nothing else launches: 3,706 items score on the
+   host), the first 20 host-sampled chunk costs against the CPU's within
+   1e-4, the test CLI against the CPU's lists, steady dispatches (samples/s,
+   device ms and busy share per chunk); G1's backward at the scatters'
+   shapes; then BPRMF and FPMC validations at the 50k-item catalog through
+   the train CLI (K4 must launch) and their lists against the host route's
+   on the same tables, ties checked apart; K4 at that shape.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. The last lines are
@@ -211,6 +223,18 @@ JAX_FLOORS = {"POP": (0.14, 0.07598658413110682), "MM": (0.5, 0.0591323788941394
               "UKNN": (0.13, 0.07468881555223694)}
 BASELINE_FLOORS = {"POP": (0.14, 0.0760), "MM": (0.50, 0.0591), "UKNN": (0.13, 0.0747)}
 PP_FLAGS = ["--columns", "uirt", "--sep", "::", "--min_item_pop", "5", "--val_size", "100", "--test_size", "100"]
+# the factorization family at scripts/baseline_run.sh:37-47's and scripts/baseline_run3.sh's flags
+# (Fossil at BASELINE.md:59's lr 0.01: baseline_run3.sh's 0.05 diverges in the JAX package too);
+# trained with --extended_set, as there
+MF_RUNS = {
+    "bprmf": ["-m", "BPRMF", "-H", "32", "-l", "0.1", "-r", "0.0025", "--no_adaptive_sampling"],
+    "bprmf_adaptive": ["-m", "BPRMF", "-H", "32", "-l", "0.1", "-r", "0.0025"],
+    "fpmc": ["-m", "FPMC", "--k_cf", "32", "--k_mc", "32", "-l", "0.1", "--no_adaptive_sampling"],
+    "fism_bpr": ["-m", "FISM", "-H", "32", "-l", "0.01", "-r", "0.0025", "--init_sigma", "0.1", "--loss", "BPR",
+                 "--fism_alpha", "0.2"],
+    "fossil": ["-m", "Fossil", "-H", "32", "-l", "0.01", "-r", "0.0025", "--init_sigma", "0.1",
+               "--fossil_order", "1"],
+}
 
 
 def wrapper(name):
@@ -949,10 +973,14 @@ def check_gather_sum(ids, D, N, seed, id_mask=None, timed=True):
     for d, (ms, dev_ms) in plain_times.items():
         out[d].update(plain_ms=ms, plain_device_ms=dev_ms)
     out["bwd"].update(library_ms=plain_times["bwd"][0], library_device_ms=plain_times["bwd"][1])
-    if F == 1 and id_mask is None and valid.all():
-        flat_ids, rows = ids_t.reshape(-1).long(), g.reshape(-1, D)
-        index_add = lambda: torch.zeros(N, D, device="cuda").index_add_(0, flat_ids, rows)  # noqa: E731
-        out["bwd"].update(index_add_ms=time_ms(index_add), index_add_device_ms=device_ms(index_add))
+    # index_add_ over the real slots' rows (times their mask), gathered outside the timing
+    keep = ids_t.reshape(-1) >= 0
+    flat_ids = ids_t.reshape(-1)[keep].long()
+    rows = g.unsqueeze(-2).expand(*ids.shape, D) * (1.0 if m is None else m.unsqueeze(-1))
+    rows = rows.reshape(-1, D)[keep].contiguous()
+    index_add = lambda: torch.zeros(N, D, device="cuda").index_add_(0, flat_ids, rows)  # noqa: E731
+    out["bwd"].update(index_add_ms=time_ms(index_add), index_add_device_ms=device_ms(index_add),
+                      index_add="one index_add_ of the real slots' rows times their mask, gathered beforehand")
     return out
 
 
@@ -2061,6 +2089,240 @@ def floors(card) -> dict:
     return {method: run["launches"] for method, run in runs.items()}
 
 
+def mf_model(ds_dir, flags, device, extended=True):
+    """The CLI's factorization model on ``ds_dir``, its tables initialized."""
+    import seqrec_tpu_torch.utils.command_parser as parse
+    from seqrec_tpu_torch.data import DataHandler
+
+    args = parse.command_parser(parse.predictor_command_parser, argv=flags)
+    args.device = device
+    model = parse.get_predictor(args)
+    dataset = DataHandler(ds_dir, extended_training_set=extended)
+    model.prepare_model(dataset)
+    model.change_data_format(dataset)
+    model.init_model()
+    return model
+
+
+def mf_host_costs(ds_dir, flags, n_chunks) -> float:
+    """The largest relative difference between the first ``n_chunks`` chunk
+    costs on the host-sampling path (the same draws from one seed) on the
+    card and on the CPU; raises beyond 1e-4."""
+    import torch
+
+    costs = {}
+    for device in ("cuda", "cpu"):
+        model = mf_model(ds_dir, flags, device)
+        model.device_sampling = model.device_adaptive = False
+        out, it = [], 0
+        for _ in range(n_chunks):
+            cost, n = model.training_step(it)
+            out.append(cost)
+            it += n
+        costs[device] = torch.stack(out).cpu().numpy().astype(np.float64)
+    rel = np.abs(costs["cuda"] - costs["cpu"]) / np.abs(costs["cpu"])
+    if rel.max() > 1e-4:
+        raise AssertionError(f"{' '.join(flags)}: host-sampled chunk costs differ: {costs['cuda']} vs {costs['cpu']}")
+    return float(rel.max())
+
+
+def mf_steady(ds_dir, flags, dispatches, card) -> dict:
+    """Dispatches of device-sampled training outside the CLI: samples/s over
+    ``dispatches`` after one warm-up (host clock to a synchronize), then a
+    dispatch of 2 chunks profiled (a whole one would trace ~10^4 kernels):
+    device ms and busy share per chunk, the largest kernels."""
+    import torch
+
+    model = mf_model(ds_dir, flags, "cuda")
+    model.training_step(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = 0
+    for _ in range(dispatches):
+        samples += model.training_step(samples)[1]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    chunks, model.chunks_per_dispatch = model.chunks_per_dispatch, 2
+    events = {k: v / 2 for k, v in device_events(lambda: model.training_step(samples)).items()}
+    dev_ms = sum(events.values())
+    ours, port_ms = port_kernel_names(), {}
+    for key, ms in events.items():
+        if kernel_name(key) in ours:
+            port_ms[kernel_name(key)] = port_ms.get(kernel_name(key), 0.0) + ms
+    chunk_ms = wall_s * 1e3 / (dispatches * chunks)
+    return {"samples_per_s": samples / wall_s, "chunk_ms": chunk_ms, "dispatches_timed": dispatches,
+            "chunks_per_dispatch": chunks, "samples_per_chunk": samples // (dispatches * chunks),
+            "device_ms_per_chunk": dev_ms, "device_busy_share": dev_ms / chunk_ms,
+            "top_kernels_ms_per_chunk": dict(sorted(events.items(), key=lambda kv: -kv[1])[:8]),
+            "port_kernels_ms_per_chunk": dict(sorted(port_ms.items(), key=lambda kv: -kv[1])), "card": card}
+
+
+def same_lists_ties_apart(got, want, scores) -> dict:
+    """K4's lists against the host route's on the same tables: the host's
+    scores of the two lists equal (rtol 1e-5, atol 1e-4 max|score|) on every
+    row, and the lists themselves equal, in order, on each row whose top k+1
+    scores are all more than 1e-4 max|score| apart."""
+    got, want = np.asarray(got, np.int64), np.asarray(want, np.int64)
+    k, exact = got.shape[1], 0
+    if got.shape != want.shape:
+        raise AssertionError(f"list shapes differ: {got.shape} vs {want.shape}")
+    for r, row in enumerate(scores):
+        finite = row[np.isfinite(row)]
+        tol = 1e-4 * np.abs(finite).max()
+        if not np.allclose(row[got[r]], row[want[r]], rtol=1e-5, atol=tol):
+            raise AssertionError(f"row {r}: K4's list scores {row[got[r]]} against the host's {row[want[r]]}")
+        top = -np.sort(-finite)[: k + 1]
+        if np.all(-np.diff(top) > tol):
+            if not np.array_equal(got[r], want[r]):
+                raise AssertionError(f"row {r}: K4's list {got[r]} differs from the host's {want[r]}")
+            exact += 1
+    return {"rows": len(got), "rows_compared_in_order": exact, "rows_with_ties_compared_by_score": len(got) - exact}
+
+
+def mf_eval_routes(model) -> dict:
+    """One validation pass of a factorization model on the card both ways,
+    each timed on the host clock: K4 (``DEVICE_TOPK_MIN_ITEMS`` lowered to 1
+    on the instance, its launches counted) and the host route (numpy scores
+    and argpartition); K4's lists against the host's, ties checked apart."""
+    import torch
+
+    instances = [(s[: len(s) // 2], u) for s, u in model.dataset.validation_set(epochs=1)]
+    threshold = model.DEVICE_TOPK_MIN_ITEMS
+    model.DEVICE_TOPK_MIN_ITEMS = 1
+    model.top_k_batch(instances)  # warm-up
+    zero_counters()
+    t0 = time.perf_counter()
+    dev = model.top_k_batch(instances)
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    k4 = wrapper("fused_score_topk").launches
+    model.DEVICE_TOPK_MIN_ITEMS = np.inf
+    t0 = time.perf_counter()
+    host = model.top_k_batch(instances)
+    host_s = time.perf_counter() - t0
+    model.DEVICE_TOPK_MIN_ITEMS = threshold
+    user_ids = np.array([int(u) for _, u in instances], dtype=np.int64)
+    scores = model._batch_scores(user_ids, [s for s, _ in instances])
+    for row, (seq, _) in zip(scores, instances):
+        row[[int(x[0]) for x in seq]] = -np.inf
+    return {"n_items": model.n_items, "validation_users": len(instances), "k4_launches": k4,
+            "k4_route_s": device_s, "host_route_s": host_s, "same_as_host_route": same_lists_ties_apart(dev, host, scores)}
+
+
+def mf_test_cli_k4(ds_dir, flags, save_dir) -> dict:
+    """The test CLI on a checkpoint at 49,999 items, on the card with every
+    counter at 0 (K4 must launch, and nothing else), then on the CPU (K4's
+    plain version): the same lists, ties checked apart on the host scores
+    of the loaded tables (same_lists_ties_apart)."""
+    import glob
+
+    from seqrec_tpu_torch.cli import test as test_cli
+
+    argv = ["-d", ds_dir, *flags, "--dir", save_dir]
+    zero_counters()
+    t0 = time.perf_counter()
+    ev_gpu = run_cli(test_cli.main, argv)[0]
+    cuda_s = time.perf_counter() - t0
+    launches = read_counters()
+    if launches["fused_score_topk"] == 0 or any(n for k, n in launches.items() if k != "fused_score_topk"):
+        raise AssertionError(f"the test CLI of {' '.join(flags)} at 49,999 items launched {launches}")
+    ev_cpu = run_cli(test_cli.main, argv + ["--device", "cpu"])[0]
+    model = mf_model(ds_dir, flags, "cpu", extended=False)
+    [ckpt] = glob.glob(os.path.join(ds_dir, "models", save_dir, "*.npz"))
+    model.load(ckpt)
+    viewed, users = zip(*[(s[: len(s) // 2], u) for s, u in model.dataset.test_set(epochs=1)])
+    scores = model._batch_scores(np.array([int(u) for u in users], dtype=np.int64), list(viewed))
+    for row, seq in zip(scores, viewed):
+        row[[int(x[0]) for x in seq]] = -np.inf
+    same = same_lists_ties_apart([p for _, p in ev_gpu.instances], [p for _, p in ev_cpu.instances], scores)
+    return {"k4_launches": launches["fused_score_topk"], "cuda_s": cuda_s, "test_users": len(viewed),
+            "same_as_cpu": same, "metrics@10": {m: ev_gpu.metrics[m]() for m in ("sps", "recall")}}
+
+
+def main_path_train_mf(card) -> tuple[dict, dict]:
+    """The factorization family on ml1m_pp_dataset() at MF_RUNS' flags:
+    for each model (BPRMF uniform and adaptive, FPMC, FISM-BPR, Fossil),
+    with every counter at 0, two dispatches (16,384 samples) and one
+    validation through the train CLI on the card (G1's backward carries the
+    table scatters; nothing else launches, K4 neither: 3,706 items score on
+    the host); the first 20 chunk costs of the host-sampling path on the
+    card against the CPU's (rel 1e-4); the test CLI on the checkpoint on
+    the card and the CPU (the same top-10 lists); steady dispatches; one
+    validation pass on the checkpoint through K4 and through the host, timed
+    and compared (mf_eval_routes). G1's
+    backward at the scatters' shapes (BPRMF's H rows, FISM's baskets with
+    pad slots) against its plain version. Then on catalog50k_dataset() a
+    BPRMF and an FPMC validation through the train CLI (K4 must launch), and
+    the two routes again on each checkpoint; the test CLI on each checkpoint
+    on the card (through K4) and the CPU (mf_test_cli_k4: at 3,706 items
+    both devices score on the host, so this is the check that holds the
+    test CLI's K4 route to the CPU); K4 at that shape against its plain
+    version. Returns the runs' launches and the kernel checks."""
+    import glob
+
+    import torch
+
+    t_phase = time.perf_counter()
+    ds_dir, _ = ml1m_pp_dataset()
+    runs = {}
+    for name, flags in MF_RUNS.items():
+        text, cli_s, launches = train_run(ds_dir, flags + ["--extended_set"], 16384, save_dir=f"chip_mf_{name}/")
+        if launches["gather_sum_bwd"] == 0 or any(n for k, n in launches.items()
+                                                  if k not in ("gather_sum_bwd", "gru_scan_train_cluster")):
+            raise AssertionError(f"{name}'s two dispatches and validation launched {launches}")
+        runs[name] = {
+            "flags": " ".join(flags), "launches": launches, "cli_cuda_s": cli_s, "samples": 16384,
+            "throughput_samples_per_s": progress_values(text, "Throughput"),
+            "train_cost": progress_values(text, "Last train cost"), "validation_sps@10": progress_values(text, "sps"),
+            "validation_recall@10": progress_values(text, "recall"),
+            "first_20_host_chunk_costs_cuda_vs_cpu_max_rel_diff": mf_host_costs(ds_dir, flags, 20),
+            "test_cli": test_cli_lists(ds_dir, flags, f"chip_mf_{name}/"),
+            "steady": mf_steady(ds_dir, flags, 4 if name in ("fism_bpr", "fossil") else 20, card),
+        }
+        model = mf_model(ds_dir, flags, "cuda")
+        [ckpt] = glob.glob(os.path.join(ds_dir, "models", f"chip_mf_{name}", "*.npz"))
+        model.load(ckpt)
+        runs[name]["eval_routes"] = mf_eval_routes(model)
+    # G1's backward at the scatters' shapes, on real first chunks
+    bprmf = mf_model(ds_dir, MF_RUNS["bprmf"], "cpu")
+    _, i, j = bprmf._sample_chunk(bprmf.samples_per_step)
+    fism = mf_model(ds_dir, MF_RUNS["fism_bpr"], "cpu")
+    basket = fism._sample_baskets(fism.samples_per_step // fism.sub_chunks)[0]
+    checks = {
+        "gather_sum_bprmf_H": check_gather_sum(np.concatenate([i, j])[:, None], 32, bprmf.n_items, seed=78),
+        "gather_sum_fism_basket": check_gather_sum(basket.reshape(-1, 1), 32, fism.n_items, seed=79),
+    }
+
+    ds50 = catalog50k_dataset()
+    large = {}
+    for name in ("bprmf", "fpmc"):
+        flags = MF_RUNS[name]
+        text, cli_s, launches = train_run(ds50, flags, 8192, save_dir=f"chip_mf50k_{name}/")
+        if launches["fused_score_topk"] == 0 or launches["gather_sum_bwd"] == 0 or any(
+            n for k, n in launches.items() if k not in ("gather_sum_bwd", "fused_score_topk", "gru_scan_train_cluster")
+        ):
+            raise AssertionError(f"{name}'s dispatch and validation at 49,999 items launched {launches}")
+        model = mf_model(ds50, flags, "cuda", extended=False)
+        [ckpt] = glob.glob(os.path.join(ds50, "models", f"chip_mf50k_{name}", "*.npz"))
+        model.load(ckpt)
+        large[name] = {"launches": launches, "cli_cuda_s": cli_s, "validation_sps@10": progress_values(text, "sps"),
+                       "eval_routes": mf_eval_routes(model),
+                       "test_cli": mf_test_cli_k4(ds50, flags, f"chip_mf50k_{name}/")}
+    B = large["fpmc"]["eval_routes"]["validation_users"]
+    S = -(-max(len(s) // 2 for s, _ in model.dataset.validation_set(epochs=1)) // 16) * 16
+    checks["fused_score_topk_bprmf"] = check_topk(B, 32, model.n_items, S, 10, seed=80)
+    checks["fused_score_topk_fpmc"] = check_topk(B, 64, model.n_items, S, 10, seed=81, timed=False)
+    emit({
+        "phase": "main_path_train_mf", "dataset": "ml1m_pp (--extended_set), catalog50k for K4",
+        "config": "scripts/baseline_run.sh:37-47 / baseline_run3.sh flags; 512 samples a chunk, 16 chunks a "
+        "dispatch (FISM/Fossil: 16 sub-chunks of 32 a chunk)",
+        "runs": runs, "large_catalog": large, "kernel_checks": checks,
+        "tolerance": "host-sampled chunk costs rel 1e-4 (G1's fixed order and atomic bias index_add_ vs the CPU)",
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return {**{n: r["launches"] for n, r in runs.items()}, **{n + "_50k": r["launches"] for n, r in large.items()}}, checks
+
+
 def serving_pass_gru256(card) -> dict:
     """GRU-256 serving on the 50k-item catalog: 4096 users at eval chunks
     of 512 with every counter at 0 (K3 on its cluster path, K4), the
@@ -2291,6 +2553,7 @@ def main() -> int:
                     "fism_cluster": main_path_fism_cluster(card), "sdae": main_path_train_sdae(card)}
     ltm_train, ltm_test, ltm_checks = main_path_train_ltm(card)
     floor_runs = floors(card)
+    mf_runs, mf_checks = main_path_train_mf(card)
     path_of = {"gru_scan": serving, "fused_score_topk": serving, "gru_scan_train_fwd": flagship,
                "gru_scan_train_bwd": flagship, "cce_stats": large, "cce_grads": large,
                "lstm_scan": lstm_serve, "lstm_scan_train_fwd": lstm_train, "lstm_scan_train_bwd": lstm_train,
@@ -2308,6 +2571,7 @@ def main() -> int:
             "launches_cluster_phases": {run: counts.get(name, 0) for run, counts in cluster_runs.items()},
             "launches_ltm": {"train_cli": ltm_train[name], "test_cli": ltm_test[name]},
             "launches_floors": {run: counts[name] for run, counts in floor_runs.items()},
+            "launches_mf": {run: counts[name] for run, counts in mf_runs.items()},
         })
     # where this round's redesigns act: K3 at GRU-256 serving's chunk, K2's gradients
     k3 = summary[0]
@@ -2338,6 +2602,8 @@ def main() -> int:
     topk["launches_serving_pass_gru256"] = gru256["fused_score_topk"]
     topk["at_B100_H32_N3706_ltm"] = {key: ltm_checks["topk"][key]
                                      for key in ("kernel_ms", *device_keys, "shape", "max_abs_err")}
+    topk["at_mf_validation_H32_N49999"] = {key: mf_checks["fused_score_topk_bprmf"][key]
+                                           for key in ("kernel_ms", *device_keys, "shape", "max_abs_err")}
     stats = next(e for e in summary if e["name"] == "cce_stats")
     stats.update({key: k2["stats"][key] for key in device_keys},
                  at_B16_H50_N3706={key: k2_flagship["stats"][key] for key in ("kernel_ms", *device_keys)},
@@ -2376,6 +2642,7 @@ def main() -> int:
         entry = next(e for e in summary if e["name"] == name)
         keys = ("kernel_ms", "kernel_device_ms", "plain_device_ms", "library_ms", "library_device_ms", "bound_ms")
         keys += ("kernel_without_sort_ms", "kernel_without_sort_device_ms") if d == "bwd" else ()
+        extra = ("plain_ms",) + (("index_add_ms", "index_add_device_ms") if d == "bwd" else ())
         entry.update({key: gs_large[d][key] for key in keys[1:]}, not_a_pallas_kernel=True,
                      jax_counterpart="XLA gather and scatter-add (seqrec_tpu/ops/core.py:54)",
                      id_runs_gru128=gs_large["id_runs"], same_bits_twice=True,
@@ -2384,10 +2651,12 @@ def main() -> int:
                      at_flagship_D150={key: gs_flagship[d][key] for key in keys},
                      at_heads_B64_D150={**{key: gs_b64[d][key] for key in keys + ("plain_ms",)},
                                         "max_abs_err": gs_b64["max_abs_err"][d]},
-                     **{f"at_ltm_{part}_D32": {**{key: ltm_checks[part][d][key] for key in keys + ("plain_ms",)},
-                                               "ids": ltm_checks[part]["shape"]["ids"],
-                                               "max_abs_err": ltm_checks[part]["max_abs_err"][d]}
-                        for part in ("ctx", "targets")})
+                     **{at: {**{key: checks[part][d][key] for key in keys + extra},
+                             "ids": checks[part]["shape"]["ids"], "max_abs_err": checks[part]["max_abs_err"][d]}
+                        for at, part, checks in (("at_ltm_ctx_D32", "ctx", ltm_checks),
+                                                 ("at_ltm_targets_D32", "targets", ltm_checks),
+                                                 ("at_mf_bprmf_H_D32", "gather_sum_bprmf_H", mf_checks),
+                                                 ("at_mf_fism_basket_D32", "gather_sum_fism_basket", mf_checks))})
     print(card_line(), flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {

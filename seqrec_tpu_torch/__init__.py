@@ -15,8 +15,11 @@ logsig; dense, or the streaming margin at large catalogs), each with or
 without ``--lazy_updates``; the clustered-softmax models ``RNNCluster``
 (``-m RNN --clusters K``) and ``FISMCluster`` (``-m FISM --clusters K``);
 the stacked denoising autoencoder (``-m SDA``); ``LTM`` (``-m LTM``,
-word2vec CBOW with a latent trajectory); and the lazy baselines ``Pop``,
-``MarkovModel`` and ``UserKNN`` (``-m POP|MM|UKNN``). They train through
+word2vec CBOW with a latent trajectory); the factorization family
+``BPRMF``, ``FPMC``, ``FISM`` and ``Fossil`` (vectorized SGD chunks whose
+table scatters run through the gather-sum backward kernel, scored through
+K4 at large catalogs); and the lazy baselines ``Pop``, ``MarkovModel`` and
+``UserKNN`` (``-m POP|MM|UKNN``). They train through
 ``cli/train.py`` (GRU training scan K1 or LSTM training scan K5, the
 gather-sum kernel pair, which LTM's CBOW steps also run, streaming CCE K2
 for the CCE head at large catalogs) and serve through ``cli/test.py`` (GRU

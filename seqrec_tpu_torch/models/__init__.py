@@ -3,7 +3,9 @@
 ``rnn_one_hot.RNNOneHot``, ``rnn_sampling.RNNSampling`` and
 ``rnn_margin.RNNMargin`` (the RNN heads), ``cluster.RNNCluster`` and
 ``cluster.FISMCluster`` (the clustered-softmax models),
-``sdae.StackedDenoisingAutoencoder``, ``ltm.LTM`` and the lazy baselines
+``sdae.StackedDenoisingAutoencoder``, ``ltm.LTM``, the factorization
+family ``factorization.BPRMF``, ``FPMC``, ``FISM`` and ``Fossil``, and the
+lazy baselines
 ``lazy.Pop``, ``lazy.MarkovModel`` and ``lazy.UserKNN``; ``get_predictor`` in
 ``utils/command_parser.py`` builds them from the CLI flags.
 """

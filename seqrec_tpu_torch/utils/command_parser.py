@@ -9,9 +9,9 @@ CCE``), ``RNNSampling`` (``BPR``, ``TOP1``, ``Blackout``) and
 ``RNNCluster`` (``-m RNN --clusters K``) and ``FISMCluster`` (``-m FISM
 --clusters K``); ``StackedDenoisingAutoencoder`` (``-m SDA``); ``LTM``
 (``-m LTM``); and the lazy baselines ``Pop``, ``MarkovModel`` and
-``UserKNN`` (``-m POP``, ``MM``, ``UKNN``). The factorization models
-(``-m BPRMF``, ``FPMC``, ``Fossil``, and ``FISM`` without ``--clusters``)
-and ``--bf16`` raise ``NotImplementedError``.
+``UserKNN`` (``-m POP``, ``MM``, ``UKNN``); and the factorization models
+``BPRMF``, ``FPMC``, ``FISM`` (without ``--clusters``; ``--loss BPR`` or
+``RMSE``) and ``Fossil``. ``--bf16`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -222,15 +222,38 @@ def get_predictor(args):
     """Build the predictor described by the parsed flags, on
     ``args.device`` (default cuda)."""
     args.layers = [int(x) for x in str(args.layers).split("-")]
-    ported = args.method in ("RNN", "SDA", "LTM", "UKNN", "POP", "MM") or (
-        args.method == "FISM" and args.clusters > 0
-    )
-    if not ported:
-        raise NotImplementedError(f"-m {args.method} comes with a later slice of the port")
     if args.bf16:
         raise NotImplementedError("--bf16 comes with a later slice of the port")
     device = getattr(args, "device", "cuda")
 
+    mf = dict(
+        reg=args.regularization,
+        learning_rate=args.learning_rate,
+        annealing=args.cooling,
+        init_sigma=args.init_sigma,
+        device=device,
+    )
+    if args.method == "BPRMF":
+        from seqrec_tpu_torch.models.factorization import BPRMF
+
+        return BPRMF(
+            k=args.hidden, adaptive_sampling=(not args.no_adaptive_sampling), sampling_bias=args.fpmc_bias, **mf
+        )
+    if args.method == "FPMC":
+        from seqrec_tpu_torch.models.factorization import FPMC
+
+        return FPMC(
+            k_cf=args.k_cf, k_mc=args.k_mc, adaptive_sampling=(not args.no_adaptive_sampling),
+            sampling_bias=args.fpmc_bias, **mf,
+        )
+    if args.method == "FISM" and args.clusters <= 0:
+        from seqrec_tpu_torch.models.factorization import FISM
+
+        return FISM(k=args.hidden, loss=args.loss, alpha=args.fism_alpha, **mf)
+    if args.method == "Fossil":
+        from seqrec_tpu_torch.models.factorization import Fossil
+
+        return Fossil(k=args.hidden, order=args.fossil_order, alpha=args.fism_alpha, **mf)
     if args.method == "LTM":
         from seqrec_tpu_torch.models.ltm import LTM
 

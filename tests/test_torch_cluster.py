@@ -345,10 +345,17 @@ def test_lazy_updates_refused_on_fism_as_in_jax(synthetic_dataset):
 
 
 def test_fism_without_clusters_is_not_ported():
+    """Without --clusters, -m FISM is the factorization model, not
+    FISMCluster: with the default --loss (CCE) it raises as the JAX
+    package's does, with --loss BPR it is built."""
     args = parse.command_parser(parse.predictor_command_parser, argv=["-m", "FISM"])
     args.device = "cpu"
-    with pytest.raises(NotImplementedError, match="FISM"):
+    with pytest.raises(ValueError, match="Unknown loss for FISM"):
         parse.get_predictor(args)
+    args = parse.command_parser(parse.predictor_command_parser, argv=["-m", "FISM", "--loss", "BPR"])
+    args.device = "cpu"
+    model = parse.get_predictor(args)
+    assert type(model).__name__ == "FISM" and type(model).__module__.endswith("factorization")
 
 
 @pytest.mark.parametrize(

@@ -269,8 +269,8 @@ def test_train_cli_without_device_cpu_raises_when_no_gpu(synthetic_dataset):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--mesh", "1,1"], ["--spd", "2"], ["--u_moments", "bfloat16"], ["-m", "Fossil"],
-     ["--profile", "trace/"], ["-m", "FISM"], ["-m", "BPRMF"]],
+    [["--mesh", "1,1"], ["--spd", "2"], ["--u_moments", "bfloat16"], ["-m", "Fossil", "--spd", "2"],
+     ["--profile", "trace/"], ["-m", "FISM", "--loss", "BPR", "--profile", "trace/"], ["-m", "BPRMF", "--mesh", "1,1"]],
 )
 def test_train_cli_raises_not_implemented_outside_the_slice(synthetic_dataset, flags):
     argv = ["-d", synthetic_dataset, *BASE, "--max_iter", "2", "--save", "None", "--device", "cpu", *flags]
