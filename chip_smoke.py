@@ -80,7 +80,7 @@ Phases, each printing one JSON line with its seconds:
 9. main_path_train_heads_large: at the large catalog's GRU-128, B=1024,
    the streaming hinge margin (30 steps, one validation) and BPR with 256
    samples and --lazy_updates (30 steps), with the same launch checks (K3
-   and K4 only where a validation runs) and the first 5 step costs against
+   and K4 only where a validation runs) and the first 3 step costs against
    the CPU's; steady steps (no ``indexing_backward_kernel``); the
    streaming margin's chunk loop and correction timed beside the dense
    margin (and held against it), and the lazy head update beside dense
@@ -133,6 +133,24 @@ Phases, each printing one JSON line with its seconds:
    shapes; then BPRMF and FPMC validations at the 50k-item catalog through
    the train CLI (K4 must launch) and their lists against the host route's
    on the same tables, ties checked apart; K4 at that shape.
+17. main_path_train_features: the flagship with --rf --mf --uf (F = 14
+   ids a step) on the ML-1M-scale dataset with side tables drawn from a
+   seed at ML-1M's widths (18 genres, 1-6 an item): the gather-sum pair
+   on a real featured B16 and B1024 batch (timed, with their id runs);
+   with every counter at 0, 1,000 steps and two validations through the
+   train CLI with the optimizer state saved through the async queue
+   (K1, G1, K3, K4 > 0, K2 = 0), then a resume with --load_last_model
+   under --profile whose checkpoint's Adam count goes on from 1,000;
+   the first 20 step costs against the CPU's within 1e-4; the test CLI
+   with --save --save_rank on the last checkpoint on the card (K3 and
+   G1; K4 stops at k = 64) and on the CPU: the same _full_rank lines,
+   ties apart; steady steps.
+18. main_path_train_bf16: GRU-128 at B=1024 on the 50k-item catalog with
+   --bf16 --u_moments bfloat16: 30 steps and one validation through the
+   train CLI (K1, G1, K3, K4 > 0; K2 = 0: the bf16 loss runs the chunk
+   loop, K2 is f32 only), the first 3 step costs against the CPU's
+   within BF16_COST_TOL, and steady steps without and with --bf16 in
+   paired runs (f32, bf16, bf16, f32; K2 > 0 only in the f32 ones).
 
 Any failed check raises, and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. The last lines are
@@ -197,6 +215,15 @@ LSTM_LARGE = [
     "-m", "RNN", "--loss", "CCE", "--r_t", "LSTM", "--r_l", "128", "--max_length", "30",
     "-b", "1024", "--u_m", "adam", "--u_l", "0.002",
 ]
+# the flagship with every side feature (--rf --mf --uf) on write_side_features' ML-1M-width tables:
+# F = 1 + 1 + (3 + 6) + 3 = 14 ids a step
+FEATURED = FLAGSHIP + ["--rf", "--mf", "--uf"]
+# the large catalog's GRU-128 in bf16 with bf16 Adam moments (K2 is f32 only: the bf16 chunk loop runs)
+LARGE_BF16 = LARGE + ["--bf16", "--u_moments", "bfloat16"]
+# the bf16 run's first step costs against the CPU's: bf16 operands of f32 values that differ in the
+# last bits round apart, and the moments' stochastic rounding draws other noise on each device; an
+# H100 at 700 W measured 1.8e-7 (PERF.md), this leaves 50x
+BF16_COST_TOL = 1e-5
 # scripts/quality_run_regime2.sh's sampled (BPR) and margin (hinge) runs: GRU-50, B=64, Adam 2e-3
 HEADS = ["-m", "RNN", "--r_t", "GRU", "--r_l", "50", "--max_length", "30", "-b", "64", "--u_m", "adam", "--u_l", "0.002"]
 HEADS_BPR = HEADS + ["--loss", "BPR", "--sampling", "256"]
@@ -1312,17 +1339,17 @@ def progress_values(text, key) -> list:
     return [float(ln.split(":", 1)[1].split()[0]) for ln in text.splitlines() if ln.startswith(key + " :")]
 
 
-def cpu_step_costs(ds_dir, flags, n_costs) -> float:
+def cpu_step_costs(ds_dir, flags, n_costs, tol=1e-4) -> float:
     """The largest relative difference between the first ``n_costs`` step
     costs of the train CLI on the card and on the CPU (one step per progress
-    line); raises beyond 1e-4."""
+    line); raises beyond ``tol``."""
     from seqrec_tpu_torch.cli import train as train_cli
 
     short = ["-d", ds_dir, *flags, "--max_iter", str(n_costs), "--progress", "1", "--save", "None"]
     gpu = progress_values(run_cli(train_cli.main, short)[1], "Last train cost")
     cpu = progress_values(run_cli(train_cli.main, short + ["--device", "cpu"])[1], "Last train cost")
     rel = max(abs(a - b) / abs(b) for a, b in zip(gpu, cpu))
-    if len(gpu) != n_costs or len(cpu) != n_costs or rel > 1e-4:
+    if len(gpu) != n_costs or len(cpu) != n_costs or rel > tol:
         raise AssertionError(f"{' '.join(flags)}: step costs differ between cuda and cpu: {gpu} vs {cpu}")
     return rel
 
@@ -1733,7 +1760,7 @@ def main_path_train_heads_large(card) -> dict:
     """The other heads at the GRU large catalog's shape (GRU-128, B=1024,
     49,999 items): the streaming hinge margin (30 steps, one validation)
     and BPR with 256 samples on the lazy head (30 steps), each against the
-    CPU's first 5 step costs; steady steps of both (no step may run
+    CPU's first 3 step costs; steady steps of both (no step may run
     ``indexing_backward_kernel``); the streaming margin's chunk loop and the
     lazy update timed alone. Returns each run's launches."""
     from seqrec_tpu_torch.data import DataHandler
@@ -1745,8 +1772,8 @@ def main_path_train_heads_large(card) -> dict:
     if n_items < STREAMING_MARGIN_MIN_ITEMS:
         raise AssertionError(f"the large catalog has {n_items} items, under the streaming margin's switch")
     runs = {
-        "hinge_streaming": head_run(ds_dir, LARGE_HINGE, 30, 5),
-        "bpr_lazy": head_run(ds_dir, LARGE_BPR_LAZY, 30, 5, validates=False),
+        "hinge_streaming": head_run(ds_dir, LARGE_HINGE, 30, 3),
+        "bpr_lazy": head_run(ds_dir, LARGE_BPR_LAZY, 30, 3, validates=False),
     }
     for name, flags in (("hinge_streaming", LARGE_HINGE), ("bpr_lazy", LARGE_BPR_LAZY)):
         runs[name]["steady"] = steady_state(flags, ds_dir, steps=20, warmup=3, profile_steps=5, card=card)
@@ -2323,6 +2350,248 @@ def main_path_train_mf(card) -> tuple[dict, dict]:
     return {**{n: r["launches"] for n, r in runs.items()}, **{n + "_50k": r["launches"] for n, r in large.items()}}, checks
 
 
+# ----------------------------------------------------------------------
+# main path, training: the side features, --bf16 and bf16 Adam moments
+# ----------------------------------------------------------------------
+def featured_dataset() -> str:
+    """ml1m_dataset()'s split with side tables at ML-1M's widths
+    (``write_side_features``, seed 7: 18 genres, 1-6 an item), in a
+    directory of its own."""
+    import shutil
+
+    from seqrec_tpu_torch.data import DataHandler
+    from seqrec_tpu_torch.data.synthetic import write_side_features
+
+    path = os.path.join(WORK, "ml1m_feat")
+    if not os.path.exists(os.path.join(path, "data", "user_features")):
+        shutil.rmtree(path, ignore_errors=True)
+        shutil.copytree(ml1m_dataset(), path, ignore=shutil.ignore_patterns("models", "results"))
+        for sub in ("models", "results"):
+            os.makedirs(os.path.join(path, sub), exist_ok=True)
+        handler = DataHandler(path + "/")
+        write_side_features(path, handler.n_items, handler.n_users, seed=7)
+    return path + "/"
+
+
+def checkpoint_files(save_dir) -> list:
+    import glob
+
+    from seqrec_tpu_torch.cli import test as test_cli
+
+    return sorted(glob.glob(os.path.join(save_dir, "*_ne*")), key=test_cli.extract_number_of_epochs)
+
+
+def opt_count(path) -> int:
+    """The Adam step count a checkpoint's optimizer leaves hold (leaf 0)."""
+    from seqrec_tpu_torch.models.base import pytree_load
+
+    tree = pytree_load(path)
+    if "opt" not in tree:
+        raise AssertionError(f"{path} holds no optimizer state")
+    return int(np.asarray(tree["opt"]["0"]))
+
+
+def full_rank_ties_apart(got_lines, want_lines, ds_dir, flags, save_dir) -> dict:
+    """Two ``_full_rank`` files of one checkpoint (the card's, the CPU's)
+    line by line: equal, or both goal positions inside the band of items
+    whose CPU scores lie within 1e-4 max|score| of the goal's (a -inf goal,
+    seen before, anywhere in the -inf block)."""
+    import torch
+
+    import seqrec_tpu_torch.utils.command_parser as parse
+    from seqrec_tpu_torch.data import DataHandler
+
+    args = parse.command_parser(parse.predictor_command_parser, argv=flags)
+    args.device = "cpu"
+    model = parse.get_predictor(args)
+    dataset = DataHandler(ds_dir)
+    model.prepare_model(dataset)
+    model.set_dataset(dataset)
+    [ckpt] = checkpoint_files(os.path.join(ds_dir, "models", save_dir))
+    model.load(ckpt)
+    instances = list(model._iter_test_instances(dataset.test_set(epochs=1)))
+    ids, id_mask, mask = model._encode_sequences([s for s, _, _ in instances], user_ids=[u for _, _, u in instances])
+    with torch.inference_mode():
+        scores = model._rank_scores(*(torch.from_numpy(a) for a in (ids, id_mask, mask))).numpy().copy()
+    goals = []
+    for row, (seq, goal, _) in zip(scores, instances):
+        row[[int(x[0]) for x in seq]] = -np.inf
+        goals += [(row, int(g)) for g in goal]
+    if not (len(got_lines) == len(want_lines) == len(goals)):
+        raise AssertionError(f"full-rank files of {len(got_lines)} and {len(want_lines)} lines for {len(goals)} goals")
+    exact = 0
+    for g_line, w_line, (row, goal) in zip(got_lines, want_lines, goals):
+        if g_line == w_line:
+            exact += 1
+            continue
+        finite = row[np.isfinite(row)]
+        tol = 1e-4 * np.abs(finite).max()
+        s = row[goal]
+        lo, hi = (len(finite), len(row)) if s == -np.inf else (int((row > s + tol).sum()), int((row >= s - tol).sum()))
+        positions = [int(line.split("\t")[1]) for line in (g_line, w_line)]
+        if g_line.split("\t")[0] != w_line.split("\t")[0] or not all(lo <= p < hi for p in positions):
+            raise AssertionError(f"full rank: {g_line!r} against the CPU's {w_line!r}, tie band [{lo}, {hi})")
+    return {"lines": len(goals), "lines_equal": exact, "lines_in_one_tie_band": len(goals) - exact}
+
+
+def main_path_train_features(card) -> tuple[dict, dict]:
+    """The featured flagship (FEATURED: GRU-50 CCE, --rf --mf --uf, F=14)
+    on the ML-1M-scale dataset with seeded side tables: G1 on one real
+    featured B16 batch and one B1024 batch (timed, id runs); with every
+    counter at 0, 1,000 steps and two validations through the train CLI,
+    saving with the optimizer state through the async queue (K1, G1, K3,
+    K4 > 0, K2 = 0); a resume with --load_last_model under --profile (the
+    checkpoint's Adam count continues: the optimizer state was read); the
+    first 20 step costs against the CPU's within 1e-4; the test CLI with
+    --save --save_rank on the last checkpoint on the card and on the CPU
+    (the same _full_rank lines, ties apart); steady steps. Returns the
+    launches of its CLI runs and the G1 checks."""
+    import glob
+    import json
+    import shutil
+
+    import torch
+
+    from seqrec_tpu_torch.cli import test as test_cli
+    from seqrec_tpu_torch.cli import train as train_cli
+    from seqrec_tpu_torch.models.base import RNNBase
+
+    t_phase = time.perf_counter()
+    ds_dir = featured_dataset()
+    rows, [(ids16, len16)] = real_batch_ids(FEATURED, ds_dir)
+    _, [(ids1024, len1024)] = real_batch_ids([{"16": "1024"}.get(a, a) for a in FEATURED], ds_dir)
+    if ids16.shape[-1] != 14:
+        raise AssertionError(f"the featured batch has {ids16.shape[-1]} ids a step, not 14")
+    checks = {}
+    for name, ids, lengths, seed in (("B16", ids16, len16, 90), ("B1024", ids1024, len1024, 91)):
+        checks[name] = check_gather_sum(ids, 150, rows, seed=seed)
+        checks[name]["id_runs"] = id_runs(ids, lengths)
+    save_dir = os.path.join(ds_dir, "models", "chip_feat")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    prof_dir = os.path.join(WORK, "profile_features")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    ran = ("gru_scan_train_fwd", "gru_scan_train_bwd", "gru_scan", "fused_score_topk", "gather_sum_fwd",
+           "gather_sum_bwd")
+    runs, texts = {}, {}
+    RNNBase.save_optimizer_state = True
+    try:
+        for run, extra in (("train_cli", ["--max_iter", "1000", "--progress", "500"]),
+                           ("resume_cli", ["--max_iter", "200", "--progress", "200", "--load_last_model",
+                                           "--profile", prof_dir])):
+            argv = ["-d", ds_dir, *FEATURED, *extra, "--save", "All", "--dir", "chip_feat/"]
+            zero_counters()
+            t0 = time.perf_counter()
+            text = texts[run] = run_cli(train_cli.main, argv)[1]
+            torch.cuda.synchronize()
+            launches = read_counters()
+            if any(launches[k] == 0 for k in ran) or launches["cce_stats"] or launches["cce_grads"]:
+                raise AssertionError(f"the featured {run} launched {launches}")
+            runs[run] = {"launches": launches, "cli_cuda_s": time.perf_counter() - t0,
+                         "throughput_sequences_per_s": progress_values(text, "Throughput"),
+                         "train_cost": progress_values(text, "Last train cost"),
+                         "validation_sps@10": progress_values(text, "sps"),
+                         "checkpoints": [os.path.basename(f) for f in checkpoint_files(save_dir)],
+                         "opt_counts": [opt_count(f) for f in checkpoint_files(save_dir)]}
+    finally:
+        RNNBase.save_optimizer_state = False
+    counts = runs["resume_cli"]["opt_counts"]
+    if runs["train_cli"]["opt_counts"] != [500, 1000] or counts != [500, 1000, 1200]:
+        raise AssertionError(f"async saves with optimizer state: {runs['train_cli']['opt_counts']}, then {counts}")
+    if "Starting from model" not in texts["resume_cli"]:
+        raise AssertionError("--load_last_model did not start from the last checkpoint")
+    with open(os.path.join(prof_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    runs["resume_cli"]["profile"] = {
+        "trace_mb": os.path.getsize(os.path.join(prof_dir, "trace.json")) / 1e6, "events": len(events),
+        "cuda_kernel_events": sum(e.get("cat") == "kernel" for e in events)}
+    if runs["resume_cli"]["profile"]["cuda_kernel_events"] == 0:
+        raise AssertionError("--profile recorded no CUDA kernel")
+    rel = cpu_step_costs(ds_dir, FEATURED, 20)
+
+    # --save_rank on the last checkpoint: the card, then the CPU
+    rank_dir = os.path.join(ds_dir, "models", "chip_feat_rank")
+    shutil.rmtree(rank_dir, ignore_errors=True)
+    os.makedirs(rank_dir)
+    shutil.copy(checkpoint_files(save_dir)[-1], rank_dir)
+    argv = ["-d", ds_dir, *FEATURED, "--dir", "chip_feat_rank/", "--save", "--save_rank"]
+    results = os.path.join(ds_dir, "results")
+    ranks = {}
+    for device in ("cuda", "cpu"):
+        shutil.rmtree(results, ignore_errors=True)
+        zero_counters()
+        t0 = time.perf_counter()
+        ev = run_cli(test_cli.main, argv + ["--device", device])[0]
+        if device == "cuda":
+            torch.cuda.synchronize()
+            test_s, test_launches = time.perf_counter() - t0, read_counters()
+            metrics = {m: ev.metrics[m]() for m in ("sps", "recall", "item_coverage", "user_coverage")}
+        [rank_file] = glob.glob(os.path.join(results, "**", "*_full_rank"), recursive=True)
+        with open(rank_file) as f:
+            ranks[device] = f.read().splitlines()
+    if not test_launches["gru_scan"] or not test_launches["gather_sum_fwd"] or test_launches["fused_score_topk"]:
+        raise AssertionError(f"the --save_rank test CLI launched {test_launches}")
+    same = full_rank_ties_apart(ranks["cuda"], ranks["cpu"], ds_dir, FEATURED, "chip_feat_rank/")
+    emit({
+        "phase": "main_path_train_features",
+        "config": "flagship GRU-50 CCE --rf --mf --uf (F=14), L=30, B=16, Adam 1e-3, ML-1M-scale synthetic with "
+                  "seeded ML-1M-width side tables",
+        "input_rows": rows, "runs": runs, "first_20_step_costs_cuda_vs_cpu_max_rel_diff": rel,
+        "tolerance": "step costs rel 1e-4 (f32 kernels vs the CPU's plain versions, 20 Adam steps); full rank: "
+                     "equal lines, or both positions in the goal's band of CPU scores within 1e-4 max|score|",
+        "async_saves_with_optimizer_state": {"opt_counts": counts, "resumed_from_count": 1000},
+        "save_rank": {"launches": test_launches, "cuda_s": test_s, "full_rank_file_lines": len(ranks["cuda"]),
+                      "same_as_cpu": same, "metrics@10": metrics},
+        "gather_sum": {name: {"ids": c["shape"]["ids"], "id_runs": c["id_runs"], "fwd": c["fwd"], "bwd": c["bwd"],
+                              "max_abs_err": c["max_abs_err"]} for name, c in checks.items()},
+        "steady": steady_state(FEATURED, ds_dir, steps=300, warmup=20, profile_steps=50, card=card),
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return {run: r["launches"] for run, r in runs.items()} | {"test_cli": test_launches}, checks
+
+
+def main_path_train_bf16(card) -> dict:
+    """The large catalog's GRU-128 at B=1024 with --bf16 --u_moments
+    bfloat16 (LARGE_BF16): with every counter at 0, 30 steps and one
+    validation through the train CLI (K1, G1, K3, K4 > 0; K2 = 0: the
+    bf16 loss runs the chunk loop); the first 3 step costs against the
+    CPU's within BF16_COST_TOL; then steady steps without and with --bf16
+    in paired runs (f32, bf16, bf16, f32), each with the counters from 0
+    (K2 > 0 in the f32 runs, 0 in the bf16 ones). Returns the launches."""
+    t_phase = time.perf_counter()
+    ds_dir = catalog50k_dataset()
+    text, cli_s, launches = train_run(ds_dir, LARGE_BF16, 30)
+    ran = ("gru_scan_train_fwd", "gru_scan_train_bwd", "gather_sum_fwd", "gather_sum_bwd", "gru_scan",
+           "fused_score_topk")
+    if any(launches[k] == 0 for k in ran) or launches["cce_stats"] or launches["cce_grads"]:
+        raise AssertionError(f"the bf16 large catalog's training path launched {launches}")
+    rel = cpu_step_costs(ds_dir, LARGE_BF16, 3, tol=BF16_COST_TOL)
+    paired = []
+    for flags in (LARGE, LARGE_BF16, LARGE_BF16, LARGE):
+        bf16 = "--bf16" in flags
+        zero_counters()
+        st = steady_state(flags, ds_dir, steps=20, warmup=3, profile_steps=5, card=card)
+        k2 = wrapper("cce_stats").launches + wrapper("cce_grads").launches
+        if (k2 > 0) == bf16:
+            raise AssertionError(f"K2 launched {k2} times in a {'bf16' if bf16 else 'f32'} run")
+        paired.append({"bf16": bf16, "k2_launches": k2, **{k: st[k] for k in (
+            "sequences_per_s", "step_ms", "device_ms_per_step", "device_busy_share", "top_kernels_ms_per_step",
+            "port_kernels_ms_per_step", "peak_memory_gb")}})
+    emit({
+        "phase": "main_path_train_bf16",
+        "config": "GRU-128, 50k-item synthetic catalog, L=30, B=1024, Adam 1e-3, --bf16 --u_moments bfloat16",
+        "launches": launches, "cli_cuda_s": cli_s, "iterations": 30,
+        "throughput_sequences_per_s": progress_values(text, "Throughput"),
+        "train_cost": progress_values(text, "Last train cost"), "validation_sps@10": progress_values(text, "sps"),
+        "first_3_step_costs_cuda_vs_cpu_max_rel_diff": rel,
+        "tolerance": f"rel {BF16_COST_TOL} (bf16 operands and stochastically rounded moments, other noise a device)",
+        "paired_steady_f32_bf16_bf16_f32": paired,
+        "sequences_per_s_bf16_over_f32": (paired[1]["sequences_per_s"] + paired[2]["sequences_per_s"])
+        / (paired[0]["sequences_per_s"] + paired[3]["sequences_per_s"]),
+        "card": card, "seconds": time.perf_counter() - t_phase,
+    })
+    return launches
+
+
 def serving_pass_gru256(card) -> dict:
     """GRU-256 serving on the 50k-item catalog: 4096 users at eval chunks
     of 512 with every counter at 0 (K3 on its cluster path, K4), the
@@ -2554,6 +2823,8 @@ def main() -> int:
     ltm_train, ltm_test, ltm_checks = main_path_train_ltm(card)
     floor_runs = floors(card)
     mf_runs, mf_checks = main_path_train_mf(card)
+    feature_runs, feature_checks = main_path_train_features(card)
+    bf16_train = main_path_train_bf16(card)
     path_of = {"gru_scan": serving, "fused_score_topk": serving, "gru_scan_train_fwd": flagship,
                "gru_scan_train_bwd": flagship, "cce_stats": large, "cce_grads": large,
                "lstm_scan": lstm_serve, "lstm_scan_train_fwd": lstm_train, "lstm_scan_train_bwd": lstm_train,
@@ -2572,6 +2843,8 @@ def main() -> int:
             "launches_ltm": {"train_cli": ltm_train[name], "test_cli": ltm_test[name]},
             "launches_floors": {run: counts[name] for run, counts in floor_runs.items()},
             "launches_mf": {run: counts[name] for run, counts in mf_runs.items()},
+            "launches_features": {run: counts[name] for run, counts in feature_runs.items()},
+            "launches_bf16": bf16_train[name],
         })
     # where this round's redesigns act: K3 at GRU-256 serving's chunk, K2's gradients
     k3 = summary[0]
@@ -2651,6 +2924,10 @@ def main() -> int:
                      at_flagship_D150={key: gs_flagship[d][key] for key in keys},
                      at_heads_B64_D150={**{key: gs_b64[d][key] for key in keys + ("plain_ms",)},
                                         "max_abs_err": gs_b64["max_abs_err"][d]},
+                     **{at: {**{key: feature_checks[part][d][key] for key in keys + extra},
+                             "ids": feature_checks[part]["shape"]["ids"], "id_runs": feature_checks[part]["id_runs"],
+                             "max_abs_err": feature_checks[part]["max_abs_err"][d]}
+                        for at, part in (("at_featured_B16_F14_D150", "B16"), ("at_featured_B1024_F14_D150", "B1024"))},
                      **{at: {**{key: checks[part][d][key] for key in keys + extra},
                              "ids": checks[part]["shape"]["ids"], "max_abs_err": checks[part]["max_abs_err"][d]}
                         for at, part, checks in (("at_ltm_ctx_D32", "ctx", ltm_checks),

@@ -28,7 +28,10 @@ through), on the card by default and on the CPU with ``--device cpu``.
 The Vanilla tower, FISM's bag of items and the autoencoder's dense stack
 are plain PyTorch, as the JAX package leaves them to XLA; the lazy
 baselines are numpy and scipy on the host, as there. ``data/preprocess.py``
-writes the JAX package's preprocessed files with numpy only.
+writes the JAX package's preprocessed files with numpy only. The RNN
+family takes the side features (``--mf``/``--uf``, ``data/features.py``),
+``--bf16`` and bf16 Adam moments; checkpoints carry the optimizer state
+where asked, and the CLIs take ``--save_rank`` and ``--profile``.
 """
 
 from __future__ import annotations

@@ -3,9 +3,11 @@
 Same protocol and flags as ``seqrec_tpu/cli/test.py`` (per test user, feed
 the first half of the sequence, goal = item ids of the second half; epoch
 selection with ``-i`` or glob-all-models, resume-skip of already-tested
-epochs via the results-file tail, metric printing and TSV appending), plus
-``--device {cuda,cpu}``. It runs on CUDA unless ``--device cpu`` is given.
-``--mesh`` and ``--save_rank`` come with later slices of the port.
+epochs via the results-file tail, metric printing and TSV appending, and
+the ``--save_rank`` full rank dump, written with ``--save`` beside the
+results file as ``..._full_rank``), plus ``--device {cuda,cpu}``. It runs
+on CUDA unless ``--device cpu`` is given. ``--mesh`` comes with a later
+slice of the port.
 """
 
 from __future__ import annotations
@@ -261,8 +263,6 @@ def main(argv=None):
         args.number_of_batches = "*"
     if args.mesh:
         raise NotImplementedError("--mesh comes with a later slice of the port")
-    if args.save_rank:
-        raise NotImplementedError("--save_rank comes with a later slice of the port")
     resolve_device(args.device)
 
     dataset = DataHandler(dirname=args.dataset)

@@ -4,11 +4,16 @@ Same flags as ``seqrec_tpu/cli/train.py`` (``-d DATASET_DIR -m RNN --loss
 CCE --save Best ...``), plus ``--device {cuda,cpu}``: it trains on CUDA
 unless ``--device cpu`` is given, and a missing GPU is an error. It writes
 the JAX package's checkpoints (same filenames and ``.npz`` keys) under
-``DATASET_DIR/models/``. ``--profile``, ``--mesh`` and ``--spd`` > 1 come
-with later slices of the port and raise ``NotImplementedError``.
+``DATASET_DIR/models/``. ``--profile DIR`` records the run with
+``torch.profiler`` (host and, on the card, CUDA activity) and writes a
+Chrome trace, ``DIR/trace.json``. ``--mesh`` and ``--spd`` > 1 come with
+later slices of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
 
 import numpy as np
 
@@ -72,7 +77,7 @@ def training_command_parser(parser):
     )
     parser.add_argument(
         "--profile",
-        help="Capture a profiler trace of the training run into this directory.",
+        help="Write a torch.profiler Chrome trace of the training run into this directory.",
         default="",
         type=str,
     )
@@ -113,8 +118,7 @@ def main(argv=None):
         parse.early_stopping_command_parser,
         argv=argv,
     )
-    for flag, asked in (("--mesh", args.mesh), ("--profile", args.profile),
-                        ("--spd > 1", args.steps_per_dispatch > 1)):
+    for flag, asked in (("--mesh", args.mesh), ("--spd > 1", args.steps_per_dispatch > 1)):
         if asked:
             raise NotImplementedError(f"{flag} comes with a later slice of the port")
     resolve_device(args.device)
@@ -125,20 +129,34 @@ def main(argv=None):
         shuffle_training=args.tshuffle,
     )
     predictor.prepare_model(dataset)
-    return predictor.train(
-        dataset,
-        save_dir=dataset.dirname + "models/" + args.dir,
-        time_based_progress=args.time_based_progress,
-        progress=num(args.progress),
-        autosave=args.save,
-        max_progress_interval=args.mpi,
-        max_iter=args.max_iter,
-        min_iterations=args.min_iter,
-        max_time=args.max_time,
-        early_stopping=parse.get_early_stopper(args),
-        load_last_model=args.load_last_model,
-        validation_metrics=args.metrics.split(","),
-    )
+    profiler = contextlib.nullcontext()
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if resolve_device(args.device).type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+    with profiler:
+        result = predictor.train(
+            dataset,
+            save_dir=dataset.dirname + "models/" + args.dir,
+            time_based_progress=args.time_based_progress,
+            progress=num(args.progress),
+            autosave=args.save,
+            max_progress_interval=args.mpi,
+            max_iter=args.max_iter,
+            min_iterations=args.min_iter,
+            max_time=args.max_time,
+            early_stopping=parse.get_early_stopper(args),
+            load_last_model=args.load_last_model,
+            validation_metrics=args.metrics.split(","),
+        )
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        print("Profiler trace written to", args.profile)
+    return result
 
 
 if __name__ == "__main__":

@@ -19,6 +19,10 @@ file):
 - ``data/stats``: header, then Full/Train/Val/Test rows of
   ``n_users n_items n_interactions longest_sequence``;
 - empty ``models/`` and ``results/``.
+
+``write_side_features`` adds the --mf/--uf side tables of
+``data/features.py``'s contract, drawn from a seed at MovieLens-1M's
+widths.
 """
 
 from __future__ import annotations
@@ -256,3 +260,26 @@ def write_dataset(
         for name, part in (("Full", rows), ("Train", splits["train"]), ("Val", splits["val"]), ("Test", splits["test"])):
             f.write(_stats_row(name, part) + "\n")
     return dirname
+
+
+def write_side_features(dirname: str, n_items: int, n_users: int, seed: int = 0, n_genres: int = 18,
+                        max_genres: int = 6) -> None:
+    """Write ``data/movie_features`` and ``data/user_features`` (TSV,
+    ``data/features.py``'s contract) for every item and user, drawn from
+    ``seed`` at MovieLens-1M's widths: ``n_genres`` binary genre columns
+    with 1 to ``max_genres`` genres an item (item 0 has ``max_genres``),
+    release years 1919-2000, sex 0-1, age bucket 0-6, occupation 0-20."""
+    rng = np.random.default_rng(seed)
+    n_genre = rng.integers(1, max_genres + 1, size=n_items)
+    n_genre[0] = max_genres
+    genres = np.zeros((n_items, n_genres), dtype=np.int64)
+    for i, n in enumerate(n_genre):
+        genres[i, rng.choice(n_genres, size=n, replace=False)] = 1
+    years = rng.integers(1919, 2001, size=n_items)
+    movies = np.column_stack([np.arange(n_items), years, genres])
+    users = np.column_stack([
+        np.arange(n_users), rng.integers(0, 2, n_users), rng.integers(0, 7, n_users), rng.integers(0, 21, n_users),
+    ])
+    os.makedirs(os.path.join(dirname, "data"), exist_ok=True)
+    np.savetxt(os.path.join(dirname, "data", "movie_features"), movies, fmt="%d", delimiter="\t")
+    np.savetxt(os.path.join(dirname, "data", "user_features"), users, fmt="%d", delimiter="\t")

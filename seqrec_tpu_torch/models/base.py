@@ -21,18 +21,26 @@ then the updater's in-place step); validation runs the eval kernels.
 slice-sparse Adam, TF LazyAdam's semantics: the input table's rows for
 ``RNNOneHot`` and ``RNNMargin``, the output columns and bias entries of
 the sampled head for ``RNNSampling``; models without a recurrent tower
-(``FISMCluster``, the autoencoder) refuse it. Saves are synchronous. Not ported
-yet (each raises ``NotImplementedError`` where a flag asks for it): the
-index wire and K-step dispatch (``--spd``), the async save queue,
-``--mesh``.
+(``FISMCluster``, the autoencoder) refuse it. ``save`` writes the
+optimizer state too when ``save_optimizer_state`` is set, as the JAX
+package's ``opt/{i}`` leaves in optax's leaf order, and ``load`` reads
+them back; the training loop's autosaves go through an async queue (a
+device snapshot written by a worker thread), drained before ``train``
+returns. With ``--mf``/``--uf`` the item and user side-feature ids of
+``data/features.py`` follow each step's item id. Not ported yet (each
+raises ``NotImplementedError`` where a flag asks for it): the index wire
+and K-step dispatch (``--spd``), ``--mesh``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import os
+import queue
 import re
 import sys
+import threading
 from time import time
 
 import numpy as np
@@ -43,22 +51,39 @@ from seqrec_tpu_torch.data.noise import SequenceNoise
 from seqrec_tpu_torch.data.targets import SelectTargets
 from seqrec_tpu_torch.models.recurrent import RecurrentLayers
 from seqrec_tpu_torch.models.updates import Adagrad, Adam
-from seqrec_tpu_torch.ops.core import masked_top_k
-from seqrec_tpu_torch.ops.score_topk import fused_score_topk
+from seqrec_tpu_torch.ops.core import masked_top_k, matmul_bf16
+from seqrec_tpu_torch.ops.score_topk import MAX_K, fused_score_topk
 from seqrec_tpu_torch.utils import evaluation
 
 # Defaults (reference rnn_base.py:24,32)
 MAX_LENGTH = 200
 BATCH_SIZE = 10
 
-# npz cannot hold extension dtypes (ml_dtypes, e.g. bfloat16): the JAX
-# package stores such a leaf as a same-width unsigned-int view with the
-# dtype name after this marker in its key.
+# npz cannot hold extension dtypes (bfloat16, the float8s): the JAX package
+# stores such a leaf as a same-width unsigned-int view with the dtype name
+# after this marker in its key (and an older archive "#bf16" at the end).
 _DTYPE_MARK = "#dtype="
+_UINT_BY_SIZE = {1: np.uint8, 2: np.uint16, 4: np.uint32}
+
+
+def _npz_leaf(key: str, node):
+    """(npz key, array) of one leaf: a torch bf16 tensor (a bf16 Adam
+    moment) as its uint16 view under the marker; any other tensor as its
+    host array; an extension-dtype numpy array as its unsigned view."""
+    if isinstance(node, torch.Tensor):
+        node = node.detach().cpu()
+        if node.dtype == torch.bfloat16:
+            return key + _DTYPE_MARK + "bfloat16", node.view(torch.int16).numpy().view(np.uint16)
+        return key, node.numpy()
+    arr = np.asarray(node)
+    if arr.dtype.kind == "V" and arr.dtype.names is None:  # ml_dtypes registers its dtypes as kind V
+        return key + _DTYPE_MARK + arr.dtype.name, arr.view(_UINT_BY_SIZE[arr.dtype.itemsize])
+    return key, arr
 
 
 def pytree_save(filename: str, params) -> None:
-    """Save a nested dict of arrays to an npz with path-encoded keys."""
+    """Save a nested dict of arrays (numpy arrays or tensors) to an npz
+    with path-encoded keys, in the JAX package's format."""
     flat = {}
 
     def walk(prefix, node):
@@ -66,7 +91,8 @@ def pytree_save(filename: str, params) -> None:
             for k, v in node.items():
                 walk(prefix + (k,), v)
         else:
-            flat["/".join(prefix)] = np.asarray(node)
+            key, arr = _npz_leaf("/".join(prefix), node)
+            flat[key] = arr
 
     walk((), params)
     if os.path.dirname(filename):
@@ -76,20 +102,25 @@ def pytree_save(filename: str, params) -> None:
 
 
 def pytree_load(filename: str) -> dict:
-    """Inverse of the JAX package's ``pytree_save``. ``ml_dtypes`` is
-    imported only when an archive holds an extension-dtype leaf."""
+    """Inverse of the JAX package's ``pytree_save``. A bfloat16 leaf (the
+    marker ``#dtype=bfloat16``, or an older archive's ``#bf16``) becomes a
+    torch bf16 tensor, decoded without ``ml_dtypes``; any other extension
+    dtype needs ``ml_dtypes``, imported only then."""
     out: dict = {}
     with np.load(filename) as data:
         for key in data.files:
             arr = data[key]
-            if _DTYPE_MARK in key or key.endswith("#bf16"):
+            name = None
+            if _DTYPE_MARK in key:
+                key, _, name = key.partition(_DTYPE_MARK)
+            elif key.endswith("#bf16"):
+                key, name = key[: -len("#bf16")], "bfloat16"
+            if name in ("bfloat16", "bf16"):
+                arr = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+            elif name is not None:
                 import ml_dtypes
 
-                if _DTYPE_MARK in key:
-                    key, _, name = key.partition(_DTYPE_MARK)
-                else:  # legacy marker
-                    key, name = key[: -len("#bf16")], "bfloat16"
-                arr = arr.view(np.dtype(getattr(ml_dtypes, "bfloat16" if name == "bf16" else name)))
+                arr = arr.view(np.dtype(getattr(ml_dtypes, name)))
             node = out
             parts = key.split("/")
             for p in parts[:-1]:
@@ -134,20 +165,29 @@ class RNNBase:
         max_length: int = MAX_LENGTH,
         batch_size: int = BATCH_SIZE,
         seed: int = 42,
+        compute_dtype: str = "float32",
         lazy_updates: bool = False,
         device="cuda",
     ):
-        if use_movies_features or use_users_features:
-            raise NotImplementedError("--mf/--uf come with a later slice of the port")
         self.sequence_noise = sequence_noise or SequenceNoise()
         self.recurrent_layer = recurrent_layer or RecurrentLayers()
         self.updater = updater or Adagrad()
         self.target_selection = target_selection or SelectTargets()
         self.interactions_are_unique = interactions_are_unique
         self.use_ratings_features = use_ratings_features
+        # --mf/--uf: item and user side-feature ids from the dataset's
+        # data/{movie,user}_features (contract in data/features.py)
+        self.use_movies_features = use_movies_features
+        self.use_users_features = use_users_features
+        self._feature_tables = None
         self.max_length = max_length
         self.batch_size = batch_size
         self.seed = seed
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
+        # --bf16: the catalog-sized output products take bf16 inputs and
+        # accumulate in f32 (_out_matmul); parameters stay f32
+        self.compute_dtype = compute_dtype
         self.lazy_updates = lazy_updates
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(seed)
@@ -179,12 +219,33 @@ class RNNBase:
     # ------------------------------------------------------------------
     @property
     def n_feature_slots(self) -> int:
-        """Static number of feature ids per timestep (F)."""
-        return 1 + (1 if self.use_ratings_features else 0)
+        """Static number of feature ids per timestep (F). Pad slots (the
+        variable-size genre multi-hot) carry id -1, which the gather-sum
+        drops."""
+        F = 1 + (1 if self.use_ratings_features else 0)
+        ft = self._feature_tables
+        if ft is not None:
+            F += ft.item_slots + ft.user_slots
+        return F
+
+    def _n_optional_features(self) -> int:
+        # the rating one-hot occupies 10 id slots (rnn_base.py:578-593); the
+        # movie and user blocks' widths come from the loaded tables
+        n = 10 if self.use_ratings_features else 0
+        ft = self._feature_tables
+        if ft is not None:
+            n += ft.n_movie_feats + ft.n_user_feats
+        return n
+
+    def _feature_offsets(self):
+        """(movie block offset, user block offset) in the id space: the
+        enabled blocks in the order ratings | movies | users."""
+        off = self.n_items + (10 if self.use_ratings_features else 0)
+        ft = self._feature_tables
+        return off, off + (ft.n_movie_feats if ft is not None else 0)
 
     def _input_size(self) -> int:
-        # the rating one-hot occupies 10 id slots (rnn_base.py:578-593)
-        return self.n_items + (10 if self.use_ratings_features else 0)
+        return self.n_items + self._n_optional_features()
 
     def _feature_ids(self, item_id: int, rating: float):
         ids = [item_id]
@@ -193,16 +254,40 @@ class RNNBase:
             ids.append(self.n_items + max(0, min(9, bucket)))
         return ids
 
+    def _side_feature_ids(self, ids, col: int, valid, users) -> None:
+        """Fill the --mf/--uf slots of ``ids`` [B, L, F] from column
+        ``col`` on: the item block from each step's item (slot 0), the
+        user block from ``users`` [B]; every slot past the item's is -1 at
+        the invalid steps (``valid`` [B, L] bool)."""
+        ft = self._feature_tables
+        if ft is None or not (ft.item_slots or ft.user_slots):
+            return
+        mf_off, uf_off = self._feature_offsets()
+        if ft.item_slots:
+            tab = ft.item_ids[ids[:, :, 0]]  # [B, L, slots], -1 pads
+            ids[:, :, col : col + ft.item_slots] = np.where(tab >= 0, mf_off + tab, -1)
+            col += ft.item_slots
+        if ft.user_slots:
+            if users is None:
+                raise ValueError("--uf encoding needs per-sequence user ids")
+            u = np.asarray(users, dtype=np.int64)
+            ids[:, :, col:] = (uf_off + ft.user_ids[u])[:, None, :]
+        ids[:, :, 1:][~valid] = -1
+
     def _encode_sequences(self, seqs, user_ids=None):
         """Pack a list of [(item, rating), ...] into arrays: (ids [B,L,F]
-        int32, id_mask [B,L,F] f32 or None, mask [B,L] f32)."""
+        int32, id_mask [B,L,F] f32 or None, mask [B,L] f32). With --mf/--uf
+        the item and user feature slots follow (``user_ids`` needed for
+        --uf)."""
         B, L, F = len(seqs), self.max_length, self.n_feature_slots
         ids = np.zeros((B, L, F), dtype=np.int32)
         mask = np.zeros((B, L), dtype=np.float32)
+        col = 1 + (1 if self.use_ratings_features else 0)
         for i, seq in enumerate(seqs):
             for t, (item, rating) in enumerate(seq[:L]):
-                ids[i, t, :] = self._feature_ids(int(item), float(rating))
+                ids[i, t, :col] = self._feature_ids(int(item), float(rating))
             mask[i, : min(len(seq), L)] = 1.0
+        self._side_feature_ids(ids, col, mask > 0, user_ids)
         id_mask = None
         if F > 1:
             id_mask = np.broadcast_to(mask[:, :, None], ids.shape).astype(np.float32)
@@ -212,7 +297,12 @@ class RNNBase:
     # model lifecycle
     # ------------------------------------------------------------------
     def prepare_model(self, dataset) -> None:
-        """Must be called before load, params_from_numpy or prediction."""
+        """Must be called before load, params_from_numpy or prediction;
+        loads the --mf/--uf tables from the dataset."""
+        if (self.use_movies_features or self.use_users_features) and self._feature_tables is None:
+            from seqrec_tpu_torch.data.features import load_feature_tables
+
+            self._feature_tables = load_feature_tables(dataset, self.use_movies_features, self.use_users_features)
         self._prepare_networks(dataset.n_items)
 
     def _prepare_networks(self, n_items: int) -> None:  # pragma: no cover
@@ -247,14 +337,16 @@ class RNNBase:
         return _unflatten(self.net.state_dict())
 
     def load(self, filename: str) -> None:
-        """Load the params of a checkpoint of either package. The optimizer
-        restarts from zero: an archive's ``opt`` leaves (the JAX package
-        writes them only when ``save_optimizer_state`` is set) are not read."""
+        """Load a checkpoint of either package: the params, and the
+        optimizer state where the archive has ``opt`` leaves (written with
+        ``save_optimizer_state``); else the optimizer restarts from zero."""
         tree = pytree_load(filename)
         if "params" not in tree:  # archives from before the opt-state split
             tree = {"params": tree}
         self.params_from_numpy(tree["params"])
         self.opt_state = None
+        if "opt" in tree:
+            self.opt_state = self._opt_state_from_leaves([tree["opt"][str(i)] for i in range(len(tree["opt"]))])
 
     # ------------------------------------------------------------------
     # prediction
@@ -274,13 +366,25 @@ class RNNBase:
         if exclude is None:
             exclude = []
         seq = self._input_window(sequence)
-        ids, id_mask, mask = self._encode_sequences([seq])
+        ids, id_mask, mask = self._encode_sequences([seq], user_ids=None if user_id is None else [user_id])
         scores = self._scores(self._tensor(ids), self._tensor(id_mask), self._tensor(mask))
         scores = scores[0].cpu().numpy()
         if self.interactions_are_unique:
             scores[[int(i[0]) for i in sequence]] = -np.inf
         scores[list(exclude)] = -np.inf
         return list(np.argpartition(-scores, range(k))[:k])
+
+    def _out_matmul(self, h, w_out, b_out):
+        """Catalog-sized output product h W_out + b: f32, or with --bf16
+        bf16 operands and an f32 result (``base.py:_out_matmul``)."""
+        if self.compute_dtype == "bfloat16":
+            return matmul_bf16(h, w_out) + b_out
+        return h @ w_out + b_out
+
+    def _logits(self, ids, id_mask, mask):
+        """Output logits [B, n_items] of the tower's final state."""
+        net = self.net
+        return self._out_matmul(net.tower(ids, mask, id_mask), net.W_out, net.b_out)
 
     # softmax/identity heads over h·W_out+b set this: ranking raw logits
     # then matches ranking the scores, and the fused top-k kernel applies
@@ -295,7 +399,10 @@ class RNNBase:
         return self._scores(ids, id_mask, mask)
 
     def _topk(self, ids, id_mask, mask, seen_ids, seen_mask, k):
-        if not self.fused_eval_head:
+        # K4 keeps at most MAX_K per row: a longer list (--save_rank ranks
+        # the whole catalog) sorts the masked scores, as the JAX package
+        # leaves its fused kernel above k = 64
+        if not self.fused_eval_head or k > MAX_K:
             return masked_top_k(self._rank_scores(ids, id_mask, mask), k, seen_ids, seen_mask)
         h = self.net.tower(ids, mask, id_mask)
         return fused_score_topk(h, self.net.W_out, self.net.b_out, seen_ids, seen_mask, k=k)[1]
@@ -337,8 +444,12 @@ class RNNBase:
         staged = []
         for c0 in range(0, len(inputs), chunk):
             batch = inputs[c0 : c0 + chunk]
-            batch_p = batch + [batch[-1]] * (chunk - len(batch))
-            ids, _, mask = self._encode_sequences(batch_p)
+            pad = chunk - len(batch)
+            users_p = None
+            if user_ids is not None:
+                users = list(user_ids[c0 : c0 + chunk])
+                users_p = users + [users[-1]] * pad
+            ids, _, mask = self._encode_sequences(batch + [batch[-1]] * pad, user_ids=users_p)
             lengths = mask.sum(axis=1).astype(np.int32)
             if self._input_size() + 1 < np.iinfo(np.int16).max:
                 ids = ids.astype(np.int16)
@@ -420,9 +531,12 @@ class RNNBase:
             flat = np.where(valid, offs[:, None] + starts[:, None] + t_idx, 0)
             ids = np.zeros((B, L, F), dtype=np.int32)
             ids[:, :, 0] = np.where(valid, store.items[flat], 0)
+            col = 1
             if self.use_ratings_features:
                 buckets = np.clip(np.round(store.ratings[flat] * 2) - 1, 0, 9).astype(np.int32)
                 ids[:, :, 1] = np.where(valid, self.n_items + buckets, 0)
+                col += 1
+            self._side_feature_ids(ids, col, valid, store.user_ids[sel_rows])
             mask = valid.astype(np.float32)
             targets = store.items[offs + sel_cuts].astype(np.int32)
             target_ratings = store.ratings[offs + sel_cuts]
@@ -606,6 +720,60 @@ class RNNBase:
         inner = self.updater.init([p for i, p in enumerate(params) if i not in taken])
         return {"inner": inner, "lazy": lazy}
 
+    def _updater_layout(self, state, names) -> list:
+        """(holder, key) of each leaf of the updater's ``state`` over the
+        parameters ``names`` (state-dict keys), in optax's leaf order:
+        Adam's step count first, then each slot (``updater.slots``, the
+        order of optax's state fields) over the parameters in the sorted
+        path order of ``jax.tree_util.tree_leaves``."""
+        order = sorted(range(len(names)), key=lambda i: names[i].split("."))
+        refs = [(state, "count")] if self.updater.count_leaf else []
+        for slot in self.updater.slots:
+            refs.extend((state[slot], i) for i in order)
+        return refs
+
+    def _opt_layout(self, state) -> list:
+        """(holder, key) of each leaf of the optimizer state in the order of
+        the JAX package's ``tree_leaves(opt_state)``: the updater's leaves,
+        and with lazy specs ``(inner state, ((m, v, count) per spec))``."""
+        names = [name for name, _ in self.net.named_parameters()]
+        if "lazy" not in state:
+            return self._updater_layout(state, names)
+        taken = {entry["param"] for entry in state["lazy"]}
+        refs = self._updater_layout(state["inner"], [n for i, n in enumerate(names) if i not in taken])
+        for entry in state["lazy"]:
+            refs += [(entry, "m"), (entry, "v"), (entry, "count")]
+        return refs
+
+    def _opt_leaves(self) -> list:
+        """The optimizer state as the JAX package's ``opt`` leaves: tensors,
+        and int32 scalars for the step counts."""
+        return [
+            np.asarray(holder[key], dtype=np.int32) if isinstance(holder[key], int) else holder[key]
+            for holder, key in self._opt_layout(self.opt_state)
+        ]
+
+    def _opt_state_from_leaves(self, leaves) -> dict:
+        """The optimizer state of ``opt`` leaves in the JAX package's order,
+        each checked against a fresh state's shape and dtype."""
+        state = self._init_opt_state()
+        refs = self._opt_layout(state)
+        if len(leaves) != len(refs):
+            raise ValueError(f"the checkpoint has {len(leaves)} optimizer leaves, this optimizer {len(refs)}")
+        for i, ((holder, key), leaf) in enumerate(zip(refs, leaves)):
+            if isinstance(holder[key], int):
+                holder[key] = int(np.asarray(leaf))
+                continue
+            t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
+            want = holder[key]
+            if t.shape != want.shape or t.dtype != want.dtype:
+                raise ValueError(
+                    f"optimizer leaf {i}: {t.dtype} {tuple(t.shape)} in the checkpoint, "
+                    f"{want.dtype} {tuple(want.shape)} here"
+                )
+            holder[key] = t.to(want.device)
+        return state
+
     def train_function(self, batch):
         """One optimizer step on a host batch; returns the batch cost as a
         device scalar (the loop syncs only at progress checkpoints)."""
@@ -749,18 +917,24 @@ class RNNBase:
                         run_nb = len(metrics[list(self.metrics.keys())[0]]) - 1
                         if autosave == "All":
                             filename[run_nb] = save_dir + self._get_model_filename(round(epochs[-1], 3))
-                            self.save(filename[run_nb])
+                            self.save(filename[run_nb], async_write=True)
                         elif autosave == "Best":
                             pareto_runs = self.get_pareto_front(metrics, validation_metrics)
                             if run_nb in pareto_runs:
                                 filename[run_nb] = save_dir + self._get_model_filename(round(epochs[-1], 3))
-                                for run in [r for r in filename if r not in pareto_runs and r != run_nb]:
+                                to_delete = [r for r in filename if r not in pareto_runs and r != run_nb]
+                                if to_delete:
+                                    # a dethroned checkpoint may still be queued: let
+                                    # every write land before deleting, and before
+                                    # queueing the new one (which need not wait)
+                                    self._drain_saves()
+                                for run in to_delete:
                                     try:
                                         os.remove(filename[run])
                                     except OSError:
                                         print("Warning : Previous model could not be deleted")
                                     del filename[run]
-                                self.save(filename[run_nb])
+                                self.save(filename[run_nb], async_write=True)
                         if early_stopping is not None and all(
                             early_stopping(epochs, metrics[m]) for m in validation_metrics
                         ):
@@ -774,6 +948,17 @@ class RNNBase:
                             next_save += min(max_progress_interval, next_save * (progress - 1))
         except KeyboardInterrupt:
             print("Training interrupted")
+        finally:
+            # every queued write lands before train returns (callers read the
+            # files at once); a writer's error is raised, unless another
+            # exception (the NaN abort) is already on its way out
+            aborting = sys.exc_info()[0] is not None
+            try:
+                self._drain_saves()
+            except Exception as save_exc:
+                if not aborting:
+                    raise
+                print(f"Warning: async checkpoint write failed during abort: {save_exc}", file=sys.stderr)
 
         if not metrics[validation_metrics[0]]:
             # no checkpoint was reached before the iteration/time budget ran out
@@ -816,12 +1001,92 @@ class RNNBase:
     # ------------------------------------------------------------------
     # checkpoints (parity with rnn_base.py:470-515)
     # ------------------------------------------------------------------
-    def save(self, filename: str) -> None:
-        """Write the params as the JAX package's ``.npz`` checkpoint
-        (``{"params": ...}``, path-encoded keys); on disk when this returns.
-        No optimizer state, as the JAX package's default."""
+    # True writes exact-resume checkpoints (the optimizer state too); the
+    # reference never saves optimizer state, so the default is False
+    save_optimizer_state = False
+
+    def save(self, filename: str, async_write: bool = False) -> None:
+        """Write the JAX package's ``.npz`` checkpoint (``{"params": ...}``,
+        and ``"opt"`` with ``save_optimizer_state``; path-encoded keys).
+        Synchronous by default: on disk when this returns.
+
+        The training loop's autosaves pass ``async_write=True``: the
+        optimizers update the parameters in place, so the parameters (and
+        optimizer leaves) are copied on the device, on the current stream,
+        before the next step can change them; a CUDA event recorded after
+        the copies lets a worker thread wait for them before its host copy
+        and npz write. ``train`` drains the queue before it returns."""
         print("Save model in " + filename)
-        pytree_save(filename, {"params": self.params_to_numpy()})
+        opt = self.save_optimizer_state and self.opt_state is not None
+        if not async_write:
+            tree = {"params": self.params_to_numpy()}
+            if opt:
+                tree["opt"] = {str(i): leaf for i, leaf in enumerate(self._opt_leaves())}
+            pytree_save(filename, tree)
+            return
+        with torch.no_grad():
+            snap = {key: t.detach().clone() for key, t in self.net.state_dict().items()}
+            opt_leaves = [leaf.clone() if isinstance(leaf, torch.Tensor) else leaf
+                          for leaf in self._opt_leaves()] if opt else None
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        self._save_executor_submit(filename, snap, opt_leaves, ready)
+
+    def _save_executor_submit(self, filename, snap, opt_leaves, ready) -> None:
+        if not hasattr(self, "_save_queue"):
+            # at most two snapshots queued: each pins a device copy of the
+            # parameters; a third save waits (degrades to a synchronous save)
+            q: queue.Queue = queue.Queue(maxsize=2)
+            errbox: list = []
+
+            # the worker closes over (q, errbox) only: a reference to self
+            # would keep the model alive as long as the thread
+            def worker():
+                copies = None
+                while True:
+                    item = q.get()
+                    if item is None:
+                        q.task_done()
+                        return
+                    fname, params, opts, event = item
+                    try:
+                        ctx = contextlib.nullcontext()
+                        if event is not None:
+                            event.synchronize()
+                            # host copies on a stream of their own, so they do
+                            # not queue behind the training steps since
+                            if copies is None:
+                                copies = torch.cuda.Stream(device=next(iter(params.values())).device)
+                            ctx = torch.cuda.stream(copies)
+                        with ctx:
+                            tree = {"params": _unflatten(params)}
+                            if opts is not None:
+                                tree["opt"] = {str(i): leaf for i, leaf in enumerate(opts)}
+                            pytree_save(fname, tree)
+                    except Exception as exc:  # raised by _drain_saves
+                        errbox.append(exc)
+                    finally:
+                        q.task_done()
+
+            t = threading.Thread(target=worker, daemon=True)
+            t.start()
+            self._save_queue, self._save_errbox, self._save_thread = q, errbox, t
+        self._save_queue.put((filename, snap, opt_leaves, ready))
+
+    def _drain_saves(self) -> None:
+        """Block until every queued checkpoint is on disk, stop the worker
+        thread (a later save starts a new one) and raise the first write
+        error."""
+        if hasattr(self, "_save_queue"):
+            q, errbox, t = self._save_queue, self._save_errbox, self._save_thread
+            del self._save_queue, self._save_errbox, self._save_thread
+            q.join()
+            q.put(None)
+            t.join()
+            if errbox:
+                raise errbox[0]
 
     def load_last(self, save_dir: str) -> float:
         """Load the checkpoint of this configuration with the most epochs
@@ -867,8 +1132,14 @@ class RNNBase:
             filename += "_" + self.sequence_noise.name
         if not self.interactions_are_unique:
             filename += "_ri"
-        # "_nf" (no features) or "_rf"; --mf/--uf ("_mf", "_uf") are not ported yet
-        filename += "_rf" if self.use_ratings_features else "_nf"
+        if not (self.use_ratings_features or self.use_movies_features or self.use_users_features):
+            filename += "_nf"
+        if self.use_ratings_features:
+            filename += "_rf"
+        if self.use_movies_features:
+            filename += "_mf"
+        if self.use_users_features:
+            filename += "_uf"
         return filename
 
     def _get_model_filename(self, epochs):  # pragma: no cover

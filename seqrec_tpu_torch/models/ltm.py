@@ -27,7 +27,8 @@ old tables, as the JAX package's ``.at[].add`` does; the step losses stay
 on the device until the epoch ends. The query features are computed on
 the host as in the JAX package; the scores, the seen-item mask and the
 top k are one call of K4 (``ops/score_topk.py:fused_score_topk``) against
-the row-normalized ``syn0``. Checkpoints are the JAX package's ``.npz``
+the row-normalized ``syn0`` (``--save_rank``'s whole-catalog ranking, past
+K4's k <= 64: one product and a masked sort). Checkpoints are the JAX package's ``.npz``
 (``syn0``, ``syn1neg``) under the same file names.
 """
 
@@ -42,7 +43,8 @@ import torch
 from seqrec_tpu_torch import resolve_device
 from seqrec_tpu_torch.models.base import RNNBase
 from seqrec_tpu_torch.ops.gather_sum import gather_sum, gather_sum_table_grad
-from seqrec_tpu_torch.ops.score_topk import fused_score_topk
+from seqrec_tpu_torch.ops.core import masked_top_k
+from seqrec_tpu_torch.ops.score_topk import MAX_K, fused_score_topk
 from seqrec_tpu_torch.utils import evaluation
 
 
@@ -233,7 +235,9 @@ class LTM:
 
     def _top_k(self, sequences, k, excluded) -> np.ndarray:
         """[B, k] item ids: K4 over the query features and the row-normalized
-        table (zero norms become 1), each row's ``excluded`` ids masked."""
+        table (zero norms become 1), each row's ``excluded`` ids masked. A
+        list longer than K4's ``MAX_K`` (``--save_rank`` ranks the whole
+        catalog) sorts the masked scores of one product instead."""
         syn0 = self.syn0.cpu().numpy()
         feats = np.stack([self._query_features(s, syn0) for s in sequences])
         norms = np.linalg.norm(syn0, axis=1)
@@ -245,6 +249,11 @@ class LTM:
         for row, ids in enumerate(excluded):
             seen_ids[row, : len(ids)] = ids
             seen_mask[row, : len(ids)] = 1.0
+        if k > MAX_K:
+            with torch.inference_mode():
+                scores = self._tensor(feats) @ self._tensor(w)
+                top = masked_top_k(scores, k, self._tensor(seen_ids), self._tensor(seen_mask))
+            return top.cpu().numpy().astype(np.int64)
         bias = torch.zeros(self.n_items, dtype=torch.float32, device=self.device)
         _, top = fused_score_topk(
             self._tensor(feats), self._tensor(w), bias, self._tensor(seen_ids), self._tensor(seen_mask), k

@@ -126,15 +126,16 @@ class RNNMargin(RNNBase):
             per_ex = streaming_margin(
                 h, net.W_out, net.b_out, tgt_ids, seen_ids, w_neg, default_target,
                 self.loss_function_name, self.interactions_are_unique, pick_chunk(self.n_items),
+                compute_dtype=self.compute_dtype,
             )
             return per_ex.mean()
         return dense_margin(
-            h @ net.W_out + net.b_out, tgt_ids, seen_ids, w_neg, default_target,
+            self._out_matmul(h, net.W_out, net.b_out), tgt_ids, seen_ids, w_neg, default_target,
             self.loss_function_name, self.interactions_are_unique,
         ).mean()
 
     def _scores(self, ids, id_mask, mask):
-        return self.net(ids, mask, id_mask)
+        return self._logits(ids, id_mask, mask)
 
     def _finalize_packed_batch(self, packed, target_ratings):
         B = len(packed["targets"])
@@ -145,7 +146,7 @@ class RNNMargin(RNNBase):
         return packed
 
     def _prepare_input(self, sequences):
-        ids, id_mask, mask = self._encode_sequences([s[1] for s in sequences])
+        ids, id_mask, mask = self._encode_sequences([s[1] for s in sequences], user_ids=[s[0] for s in sequences])
         B = len(sequences)
         T = max(1, self.target_selection.n_targets)
         target_ids = np.full((B, T), self.n_items, dtype=np.int32)

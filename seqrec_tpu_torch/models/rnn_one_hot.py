@@ -4,9 +4,10 @@ Counterpart of ``seqrec_tpu/models/rnn_one_hot.py``: the recurrent tower
 feeds a dense output layer over the whole catalog, and the per-example CCE
 is divided by ``target_popularity^diversity_bias``. Catalogs of
 ``STREAMING_CCE_MIN_ITEMS`` items or more train through the streaming CCE
-(``ops/streaming_cce.py``, kernel K2), smaller ones through the dense
-logits ``h W_out + b`` (``torch.matmul``, as the JAX package leaves it to
-XLA). Regularization applies to the output bias only: L2 for a positive
+(``ops/streaming_cce.py``, kernel K2; with ``--bf16`` its bf16 chunk
+loop), smaller ones through the dense logits ``h W_out + b``
+(``torch.matmul``, or bf16 operands with ``--bf16``, as the JAX package
+leaves it to XLA). Regularization applies to the output bias only: L2 for a positive
 value, L1 for a negative one. Ranking the raw logits ranks the softmax, so
 batched evaluation goes through the fused score + seen-mask + top-k kernel
 (``ops/score_topk.py``).
@@ -26,7 +27,8 @@ from seqrec_tpu_torch.ops.streaming_cce import STREAMING_CCE_MIN_ITEMS, streamin
 
 class OneHotNetwork(nn.Module):
     """Recurrent tower + dense output layer; state-dict keys
-    ``tower.layer0_fwd.W_in``, ..., ``W_out``, ``b_out``."""
+    ``tower.layer0_fwd.W_in``, ..., ``W_out``, ``b_out``. The logits are the
+    model's ``_logits`` (``base.py:_out_matmul``, f32 or bf16 operands)."""
 
     def __init__(self, tower: RecurrentLayers, true_input_size: int, n_items: int, device):
         super().__init__()
@@ -35,10 +37,6 @@ class OneHotNetwork(nn.Module):
         h_out = tower.output_size
         self.W_out = nn.Parameter(torch.empty((h_out, n_items), device=device))
         self.b_out = nn.Parameter(torch.empty((n_items,), device=device))
-
-    def forward(self, ids, mask, id_mask=None):
-        """Logits [B, n_items]."""
-        return self.tower(ids, mask, id_mask) @ self.W_out + self.b_out
 
 
 class RNNOneHot(RNNBase):
@@ -74,9 +72,6 @@ class RNNOneHot(RNNBase):
             "b_out": np.zeros(self.n_items, dtype=np.float32),
         }
 
-    def _logits(self, ids, id_mask, mask):
-        return self.net(ids, mask, id_mask)
-
     def _scores(self, ids, id_mask, mask):
         # deterministic output = softmax over the catalog (rnn_one_hot.py:65)
         return torch.softmax(self._logits(ids, id_mask, mask), dim=-1)
@@ -97,10 +92,10 @@ class RNNOneHot(RNNBase):
         net = self.net
         h = net.tower(batch["ids"], batch["mask"], batch.get("id_mask"), train=True)
         if self._use_streaming_head():
-            per_ex = streaming_cce(h, net.W_out, net.b_out, batch["targets"])
+            per_ex = streaming_cce(h, net.W_out, net.b_out, batch["targets"], compute_dtype=self.compute_dtype)
             cost = (per_ex / batch["target_pop"]).mean()
         else:
-            logits = h @ net.W_out + net.b_out
+            logits = self._out_matmul(h, net.W_out, net.b_out)
             cost = losses.diversity_biased_cce(logits, batch["targets"], batch["target_pop"])
         if self.regularization > 0.0:
             cost = cost + self.regularization * torch.sum(torch.square(net.b_out))
@@ -116,7 +111,7 @@ class RNNOneHot(RNNBase):
 
     def _prepare_input(self, sequences):
         """sequences: list of [user_id, input_sequence, targets]."""
-        ids, id_mask, mask = self._encode_sequences([s[1] for s in sequences])
+        ids, id_mask, mask = self._encode_sequences([s[1] for s in sequences], user_ids=[s[0] for s in sequences])
         targets = np.array([s[2][0][0] for s in sequences], dtype=np.int32)  # first and only target
         pop = (self.dataset.item_popularity[targets] ** self.diversity_bias).astype(np.float32)
         batch = {"ids": ids, "mask": mask, "targets": targets, "target_pop": pop}

@@ -88,11 +88,11 @@ class RNNSampling(RNNBase):
         return (per_example / batch["target_pop"]).mean()
 
     def _scores(self, ids, id_mask, mask):
-        return torch.softmax(self.net(ids, mask, id_mask), dim=-1)
+        return torch.softmax(self._logits(ids, id_mask, mask), dim=-1)
 
     def _rank_scores(self, ids, id_mask, mask):
         # ranking raw logits == ranking the softmax
-        return self.net(ids, mask, id_mask)
+        return self._logits(ids, id_mask, mask)
 
     # ------------------------------------------------------------------
     def _draw_samples(self) -> np.ndarray:
@@ -124,7 +124,7 @@ class RNNSampling(RNNBase):
         return [{"path": ("W_out",), "axis": 1, "ids": cols}, {"path": ("b_out",), "axis": 0, "ids": cols}]
 
     def _prepare_input(self, sequences):
-        ids, id_mask, mask = self._encode_sequences([s[1] for s in sequences])
+        ids, id_mask, mask = self._encode_sequences([s[1] for s in sequences], user_ids=[s[0] for s in sequences])
         targets = np.array([s[2][0][0] for s in sequences], dtype=np.int32)
         pop = (self.dataset.item_popularity[targets] ** self.diversity_bias).astype(np.float32)
         batch = {"ids": ids, "mask": mask, "targets": targets, "target_pop": pop, "samples": self._draw_samples()}

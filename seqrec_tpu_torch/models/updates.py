@@ -8,8 +8,11 @@ follows the optax transformation the JAX package builds
 updates the parameters in place (``torch.no_grad``); the state holds one
 f32 tensor per parameter and slot. ``torch.optim`` is not used: Adagrad
 and RMSProp put eps inside the rsqrt in optax and outside the sqrt in
-torch. ``--u_moments bfloat16`` (stochastically rounded bf16 Adam
-moments, drawn from JAX random bits) raises ``NotImplementedError``.
+torch. ``--u_moments bfloat16`` stores both Adam moments in bf16, does the
+update math in f32 and stores the new moments with stochastic rounding,
+as ``updates.py:_scale_by_adam_bf16_moments`` does; its rounding noise
+comes from a ``torch.Generator`` seeded per step, so the law is the JAX
+package's and the bits are not.
 """
 
 from __future__ import annotations
@@ -70,6 +73,8 @@ class UpdateManager:
 
     name: str
     slots: tuple = ()
+    # optax's state holds a step count (a leading int32 leaf) for Adam only
+    count_leaf = False
 
     def init(self, params) -> dict:
         state = {slot: [torch.zeros_like(p) for p in params] for slot in self.slots}
@@ -154,9 +159,15 @@ class NesterovMomentum(UpdateManager):
 
 
 class Adam(UpdateManager):
-    """optax.adam(lr, b1, b2, eps=1e-8), f32 moments."""
+    """optax.adam(lr, b1, b2, eps=1e-8): f32 moments, or with
+    ``moment_dtype="bfloat16"`` bf16 moments stored by stochastic
+    rounding."""
 
     slots = ("mu", "nu")
+    count_leaf = True
+    # the rounding noise's stream: one generator seeded per step from this
+    # and the step count
+    SEED = 0x5EED
 
     def __init__(
         self,
@@ -165,6 +176,8 @@ class Adam(UpdateManager):
         beta2: float = 0.999,
         moment_dtype: str = "float32",
     ):
+        if moment_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"moment_dtype must be float32 or bfloat16, got {moment_dtype!r}")
         self.learning_rate = learning_rate
         self.beta1 = beta1
         self.beta2 = beta2
@@ -177,20 +190,56 @@ class Adam(UpdateManager):
             self.name += "_mbf16"
 
     def init(self, params) -> dict:
-        if self.moment_dtype != "float32":
-            raise NotImplementedError(
-                "--u_moments bfloat16 comes with a later slice of the port "
-                "(its stochastic rounding draws JAX random bits)"
-            )
-        return super().init(params)
+        state = super().init(params)
+        if self.moment_dtype == "bfloat16":
+            for slot in self.slots:
+                state[slot] = [m.to(torch.bfloat16) for m in state[slot]]
+        return state
+
+    def _corrections(self, count):
+        # optax computes the corrections in f32: 1 - decay**count
+        c = torch.tensor(count, dtype=torch.float32)
+        bc1 = (1 - torch.tensor(self.beta1, dtype=torch.float32) ** c).item()
+        bc2 = (1 - torch.tensor(self.beta2, dtype=torch.float32) ** c).item()
+        return bc1, bc2
+
+    @torch.no_grad()
+    def step(self, params, grads, state) -> None:
+        if self.moment_dtype == "float32":
+            return super().step(params, grads, state)
+        state["count"] += 1
+        b1, b2 = self.beta1, self.beta2
+        bc1, bc2 = self._corrections(state["count"])
+        gen = None
+        for i, (p, g) in enumerate(zip(params, grads)):
+            if gen is None or gen.device != p.device:
+                gen = torch.Generator(device=p.device)
+                gen.manual_seed(self.SEED * 1_000_003 + state["count"])
+            g32 = g.float()
+            m32 = b1 * state["mu"][i].float() + (1.0 - b1) * g32
+            v32 = b2 * state["nu"][i].float() + (1.0 - b2) * (g32 * g32)
+            p.add_((m32 / bc1) / (torch.sqrt(v32 / bc2) + 1e-8) * -self.learning_rate)
+            state["mu"][i] = stochastic_round_bf16(m32, gen)
+            state["nu"][i] = stochastic_round_bf16(v32, gen)
 
     def _update(self, g, slots, count):
         mu, nu = slots
         b1, b2 = self.beta1, self.beta2
         mu.copy_((1 - b1) * g + b1 * mu)
         nu.copy_((1 - b2) * (g * g) + b2 * nu)
-        # optax computes the corrections in f32: 1 - decay**count
-        c = torch.tensor(count, dtype=torch.float32)
-        bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** c).item()
-        bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** c).item()
+        bc1, bc2 = self._corrections(count)
         return (mu / bc1) / (torch.sqrt(nu / bc2) + 1e-8) * -self.learning_rate
+
+
+def stochastic_round_bf16(x32: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Unbiased f32 -> bf16 rounding (``updates.py:_stochastic_round_bf16``):
+    add a uniform 16-bit integer to the low half of the f32 bits, then
+    truncate. Round-to-nearest would absorb Adam's (1 - b2)-sized
+    second-moment increments, below bf16's ulp; stochastic rounding keeps
+    them in expectation. Non-finite values pass through the plain cast."""
+    bits = x32.contiguous().view(torch.int32)
+    noise = torch.randint(0, 1 << 16, x32.shape, generator=generator, device=x32.device, dtype=torch.int32)
+    # finite values stay below 0x7F7FFFFF + 0xFFFF, so the int32 sum cannot
+    # overflow; the mask keeps the upper 16 bits, sign included
+    rounded = ((bits + noise) & -65536).view(torch.float32)
+    return torch.where(torch.isfinite(x32), rounded, x32).to(torch.bfloat16)

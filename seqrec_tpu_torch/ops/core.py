@@ -45,6 +45,46 @@ def maybe_grad_clip(x: torch.Tensor, limit: float) -> torch.Tensor:
     return grad_clip(x, limit) if limit and x.requires_grad else x
 
 
+def mm_bf16(a16: torch.Tensor, b16: torch.Tensor) -> torch.Tensor:
+    """f32 product of two bf16 matrices: bf16 inputs, f32 accumulation.
+    On CUDA one ``torch.mm(..., out_dtype=torch.float32)`` (the tensor
+    cores' bf16 product); on the CPU, which has no kernel for that op, the
+    bf16 values upcast and an f32 product: the same math, summed in another
+    order."""
+    if a16.is_cuda:
+        return torch.mm(a16, b16, out_dtype=torch.float32)
+    return a16.float() @ b16.float()
+
+
+class _MatmulBF16(torch.autograd.Function):
+    """The JAX package's ``jnp.dot(a.astype(bf16), b.astype(bf16),
+    preferred_element_type=f32)`` under autodiff: the cotangent of each
+    operand is the f32 product of the incoming f32 cotangent with the other
+    bf16 operand, rounded to bf16 (the transpose of the cast)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        ctx.save_for_backward(a16, b16)
+        return mm_bf16(a16, b16)
+
+    @staticmethod
+    def backward(ctx, g):
+        a16, b16 = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = (g @ b16.float().t()).to(torch.bfloat16).float()
+        if ctx.needs_input_grad[1]:
+            db = (a16.float().t() @ g).to(torch.bfloat16).float()
+        return da, db
+
+
+def matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] @ b [K, N] in f32 from operands rounded to bf16 (``--bf16``'s
+    catalog-sized products), differentiable."""
+    return _MatmulBF16.apply(a, b)
+
+
 def check_tensors(fn: str, device, expected: dict, rows=()) -> None:
     """Raise unless every ``name: (tensor, dtype, shape)`` of ``expected``
     is a contiguous tensor of that dtype and shape on ``device``, and

@@ -16,6 +16,17 @@ choice. They copy h and W in 16-byte chunks, so rows whose length is not a
 multiple of 4 floats are padded (:func:`rows_16b`): once a step in the
 forward, which passes the padded tensors on to the backward. Targets
 outside ``[0, N)`` raise.
+
+With ``compute_dtype="bfloat16"`` (``--bf16``) the op is the JAX package's
+chunk scan instead (``_stats_scan``, ``_target_logit``, ``_grad_scan``),
+which is what that package runs for bf16 compute: K2 is an f32 kernel
+there and here. A plain loop over column chunks of ``W`` (:func:`pick_chunk`
+wide, the catalog padded to whole chunks): each chunk's [B, chunk] logits
+from bf16 operands with f32 accumulation (:func:`ops.core.mm_bf16`), the
+online (m, s) stats, and in the backward the chunk's d(logits) rounded to
+bf16 and contracted into dh, the chunk's dW columns and db. The caller
+(the model) picks the route from its compute dtype; the K2 wrappers never
+hand work to the loop.
 """
 
 from __future__ import annotations
@@ -25,14 +36,37 @@ import ctypes
 import torch
 
 from seqrec_tpu_torch.ops import _build
-from seqrec_tpu_torch.ops.core import check_tensors, rows_16b
+from seqrec_tpu_torch.ops.core import check_tensors, mm_bf16, rows_16b
 
 # catalogs at least this large route RNNOneHot's training loss through the
 # streaming op (the JAX package's switch; not re-derived for the H100 yet)
 STREAMING_CCE_MIN_ITEMS = 16384
+# the chunk loops' column chunk when no width in pick_chunk's range divides N
+CHUNK_COLS = 1024
 TILE = 128  # rows, columns and H chunk of one logits tile (csrc/block_mma.cuh kBT)
 STATS_SMEM = (3 * 2 * TILE * 36 + 8 * TILE) * 4  # the stats kernel's ring and row sums (kStatsSmem)
 MAX_H = 256  # the gradient kernels take H in at most two 128-wide chunks
+
+
+def pick_chunk(N: int, lo: int = 512, hi: int = 2048) -> int:
+    """Largest chunk in [lo, hi] that divides N (no column padding), else
+    ``CHUNK_COLS``."""
+    for c in range(min(hi, N), lo - 1, -1):
+        if N % c == 0:
+            return c
+    return CHUNK_COLS
+
+
+def _pad_cols(W, b, chunk: int):
+    """W and b padded to a whole number of chunks (pad bias -1e30: a pad
+    column adds exp(-inf) = 0 and is never the max), and the chunk count."""
+    N = W.shape[1]
+    n_chunks = -(-N // chunk)
+    pad = n_chunks * chunk - N
+    if pad:
+        W = torch.nn.functional.pad(W, (0, pad))
+        b = torch.nn.functional.pad(b, (0, pad), value=-1e30)
+    return W, b, n_chunks
 
 
 def cce_stats_plain(h, W, b):
@@ -187,10 +221,67 @@ class _StreamingCCE(torch.autograd.Function):
         return dh, dW, db, None
 
 
-def streaming_cce(h, W, b, targets):
+class _StreamingCCEChunks(torch.autograd.Function):
+    """The bf16 chunk loop (``streaming_cce.py:_fwd``/``_bwd`` off the
+    kernel): operands rounded to bf16, products accumulated in f32, the
+    stats, loss and dh in f32."""
+
+    @staticmethod
+    def forward(ctx, h, W, b, targets, chunk):
+        bf16 = torch.bfloat16
+        N = W.shape[1]
+        Wp, bp, n_chunks = _pad_cols(W, b, chunk)
+        h16, Wp16 = h.to(bf16), Wp.to(bf16)
+        m = torch.full((h.shape[0],), -1e30, dtype=torch.float32, device=h.device)
+        s = torch.zeros_like(m)
+        for i in range(n_chunks):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            logits = mm_bf16(h16, Wp16[:, sl]) + bp[sl]
+            m_new = torch.maximum(m, logits.max(dim=1).values)
+            # m starts at -1e30 with s = 0: the first chunk's rescale is 0 * 0
+            s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=1)
+            m = m_new
+        t = targets.long()
+        cols = W.index_select(1, t).to(bf16)  # [H, B]
+        tl = (h16.float() * cols.float().t()).sum(dim=1) + b.index_select(0, t)
+        ctx.save_for_backward(h, W, b, t, m, s)
+        ctx.chunk, ctx.N = chunk, N
+        return torch.log(s) + m - tl
+
+    @staticmethod
+    def backward(ctx, g):
+        h, W, b, t, m, s = ctx.saved_tensors
+        chunk, N = ctx.chunk, ctx.N
+        bf16 = torch.bfloat16
+        Wp, bp, n_chunks = _pad_cols(W, b, chunk)
+        h16, Wp16 = h.to(bf16), Wp.to(bf16)
+        logz = (m + torch.log(s))[:, None]
+        cols = torch.arange(chunk, device=h.device)
+        dh = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+        dW = torch.empty((W.shape[0], n_chunks * chunk), dtype=torch.float32, device=h.device)
+        db = torch.empty(n_chunks * chunk, dtype=torch.float32, device=h.device)
+        for i in range(n_chunks):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            W_c = Wp16[:, sl]
+            p = torch.exp(mm_bf16(h16, W_c) + bp[sl] - logz)
+            onehot = cols[None, :] == (t - i * chunk)[:, None]
+            dl = (g[:, None] * (p - onehot.float())).to(bf16)
+            dW[:, sl] = mm_bf16(h16.t(), dl)
+            db[sl] = dl.float().sum(dim=0)
+            dh = dh + mm_bf16(dl, W_c.t())
+        return dh, dW[:, :N], db[:N], None, None
+
+
+def streaming_cce(h, W, b, targets, compute_dtype: str = "float32", chunk: int | None = None):
     """Per-example CCE [B] of h [B, H], W [H, N], b [N] and int targets
-    [B], each in [0, N) (checked: one host sync)."""
+    [B], each in [0, N) (checked: one host sync). ``compute_dtype``
+    "float32" runs K2; "bfloat16" the chunk loop, ``chunk`` columns at a
+    time (default :func:`pick_chunk`)."""
     N = W.shape[1]
     if len(targets) and bool(((targets < 0) | (targets >= N)).any()):
         raise ValueError(f"streaming_cce: a target is outside the catalog [0, {N})")
+    if compute_dtype == "bfloat16":
+        return _StreamingCCEChunks.apply(h, W, b, targets, chunk or pick_chunk(N))
+    if compute_dtype != "float32":
+        raise ValueError(f"streaming_cce: compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
     return _StreamingCCE.apply(h, W, b, targets)

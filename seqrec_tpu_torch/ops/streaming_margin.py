@@ -23,7 +23,9 @@ are unique: both 0), so the loss splits exactly into
   target) are reproduced with first-occurrence masks.
 
 The JAX package runs both in XLA, not Pallas, so the products stay
-``torch.matmul``. The correction's column gather is ``index_select``: its
+``torch.matmul`` (with ``compute_dtype="bfloat16"``, for ``--bf16``, bf16
+operands summed in f32: ``ops.core.mm_bf16``, as the JAX op casts). The
+correction's column gather is ``index_select``: its
 backward is an atomic ``index_add_`` on CUDA, so card-against-CPU results
 agree to a tolerance, not bit for bit. Like the JAX op, the uniform part
 passes no cotangent to ``w_neg`` or ``default_target`` (they depend on the
@@ -35,32 +37,12 @@ from __future__ import annotations
 import torch
 
 from seqrec_tpu_torch.ops import losses
+from seqrec_tpu_torch.ops.core import mm_bf16
+from seqrec_tpu_torch.ops.streaming_cce import CHUNK_COLS, _pad_cols, pick_chunk  # noqa: F401 (re-export)
 
 # the dense path below this catalog size (the JAX package's switch, the
 # same as the CCE head's; not re-derived for the H100)
 STREAMING_MARGIN_MIN_ITEMS = 16384
-CHUNK_COLS = 1024
-
-
-def pick_chunk(N: int, lo: int = 512, hi: int = 2048) -> int:
-    """Largest chunk in [lo, hi] that divides N (no column padding), else
-    ``CHUNK_COLS``."""
-    for c in range(min(hi, N), lo - 1, -1):
-        if N % c == 0:
-            return c
-    return CHUNK_COLS
-
-
-def _pad_cols(W, b, chunk: int):
-    """W and b padded to a whole number of chunks (pad bias -1e30; the
-    scans mask pad columns on the loss value), and the chunk count."""
-    N = W.shape[1]
-    n_chunks = -(-N // chunk)
-    pad = n_chunks * chunk - N
-    if pad:
-        W = torch.nn.functional.pad(W, (0, pad))
-        b = torch.nn.functional.pad(b, (0, pad), value=-1e30)
-    return W, b, n_chunks
 
 
 def _pad_default(default_target, Np: int):
@@ -73,13 +55,19 @@ def _f_cols(loss_name: str, pred, Y, Wt):
     return losses.MARGIN_LOSSES[loss_name](pred[..., None], Y[..., None], Wt[..., None])
 
 
+def _product(a, b):
+    """f32 product, from bf16 operands where they are bf16."""
+    return mm_bf16(a, b) if a.dtype == torch.bfloat16 else a @ b
+
+
 def _chunk(h, Wp, bp, defp, n_valid, i, chunk):
     """Chunk i's ([B, chunk] predictions, W columns, default targets,
-    0/1 validity of its columns)."""
+    0/1 validity of its columns). A bf16 ``h`` takes bf16 ``Wp`` columns
+    and gives f32 predictions (bf16 products accumulated in f32)."""
     sl = slice(i * chunk, (i + 1) * chunk)
     W_c = Wp[:, sl]
     cols = torch.arange(i * chunk, (i + 1) * chunk, device=h.device)
-    return h @ W_c + bp[sl], W_c, defp[sl], (cols < n_valid).float()
+    return _product(h, W_c) + bp[sl], W_c, defp[sl], (cols < n_valid).float()
 
 
 def _chunk_loss(loss_name, pred, def_c, w_neg, valid):
@@ -89,18 +77,27 @@ def _chunk_loss(loss_name, pred, def_c, w_neg, valid):
     return (val * valid[None, :]).sum(dim=1)
 
 
+def _operands(h, W, b, chunk, compute_dtype):
+    """(h, padded W, padded b, chunk count) in the compute dtype (b stays
+    f32)."""
+    Wp, bp, n_chunks = _pad_cols(W, b, chunk)
+    if compute_dtype == "bfloat16":
+        return h.to(torch.bfloat16), Wp.to(torch.bfloat16), bp, n_chunks
+    return h, Wp, bp, n_chunks
+
+
 class _UniformMargin(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, W, b, w_neg, default_target, loss_name, chunk):
+    def forward(ctx, h, W, b, w_neg, default_target, loss_name, chunk, compute_dtype):
         N = W.shape[1]
-        Wp, bp, n_chunks = _pad_cols(W, b, chunk)
+        h_c, Wp, bp, n_chunks = _operands(h, W, b, chunk, compute_dtype)
         defp = _pad_default(default_target, n_chunks * chunk)
         acc = torch.zeros(h.shape[0], dtype=torch.float32, device=h.device)
         for i in range(n_chunks):
-            pred, _, def_c, valid = _chunk(h, Wp, bp, defp, N, i, chunk)
+            pred, _, def_c, valid = _chunk(h_c, Wp, bp, defp, N, i, chunk)
             acc = acc + _chunk_loss(loss_name, pred, def_c, w_neg, valid)
         ctx.save_for_backward(h, W, b, w_neg, default_target)
-        ctx.loss_name, ctx.chunk = loss_name, chunk
+        ctx.loss_name, ctx.chunk, ctx.compute_dtype = loss_name, chunk, compute_dtype
         return acc
 
     @staticmethod
@@ -108,27 +105,29 @@ class _UniformMargin(torch.autograd.Function):
         h, W, b, w_neg, default_target = ctx.saved_tensors
         chunk = ctx.chunk
         N = W.shape[1]
-        Wp, bp, n_chunks = _pad_cols(W, b, chunk)
+        h_c, Wp, bp, n_chunks = _operands(h, W, b, chunk, ctx.compute_dtype)
         defp = _pad_default(default_target, n_chunks * chunk)
         dh = torch.zeros_like(h)
         dW = torch.empty((W.shape[0], n_chunks * chunk), dtype=torch.float32, device=h.device)
         db = torch.empty(n_chunks * chunk, dtype=torch.float32, device=h.device)
         for i in range(n_chunks):
             with torch.enable_grad():
-                pred, W_c, def_c, valid = _chunk(h.detach(), Wp.detach(), bp.detach(), defp, N, i, chunk)
+                pred, W_c, def_c, valid = _chunk(h_c.detach(), Wp.detach(), bp.detach(), defp, N, i, chunk)
                 pred.requires_grad_()
                 (dpred,) = torch.autograd.grad(_chunk_loss(ctx.loss_name, pred, def_c, w_neg, valid), pred, g)
+            dpred = dpred.to(h_c.dtype)
             sl = slice(i * chunk, (i + 1) * chunk)
-            dW[:, sl] = h.t() @ dpred
-            db[sl] = dpred.sum(dim=0)
-            dh = dh + dpred @ W_c.t()
-        return dh, dW[:, :N], db[:N], None, None, None, None
+            dW[:, sl] = _product(h_c.t(), dpred)
+            db[sl] = dpred.float().sum(dim=0)
+            dh = dh + _product(dpred, W_c.t())
+        return dh, dW[:, :N], db[:N], None, None, None, None, None
 
 
-def streaming_margin_uniform(h, W, b, w_neg, default_target, loss_name: str, chunk: int = CHUNK_COLS):
+def streaming_margin_uniform(h, W, b, w_neg, default_target, loss_name: str, chunk: int = CHUNK_COLS,
+                             compute_dtype: str = "float32"):
     """[B] per-example margin loss with every catalog column at its default
     target and weight, with no [B, n_items] tensor kept for the backward."""
-    return _UniformMargin.apply(h, W, b, w_neg, default_target, loss_name, chunk)
+    return _UniformMargin.apply(h, W, b, w_neg, default_target, loss_name, chunk, compute_dtype)
 
 
 # ----------------------------------------------------------------------
@@ -146,11 +145,14 @@ def _first_occurrence(ids, valid):
 
 
 def margin_special_correction(h, W, b, tgt_ids, seen_ids, w_neg, default_target,
-                              loss_name: str, unique: bool, n_items: int):
+                              loss_name: str, unique: bool, n_items: int, compute_dtype: str = "float32"):
     """[B] correction that moves the special columns from their default
     (Y = default, Wt = w_neg) to their true values: targets (1, -1), seen
     items (0, 0) when interactions are unique, seen overriding target, each
-    id once."""
+    id once. Its predictions take the uniform part's precision (the
+    correction subtracts what the scan added): with bf16 compute, operands
+    rounded to bf16 (``x.bfloat16().float()``, whose autograd rounds the
+    cotangents to bf16 as the JAX package's casts do) and f32 sums."""
     B, T = tgt_ids.shape
     L = seen_ids.shape[1]
     t_valid = (tgt_ids >= 0) & (tgt_ids < n_items)
@@ -168,6 +170,8 @@ def margin_special_correction(h, W, b, tgt_ids, seen_ids, w_neg, default_target,
     safe = ids.clamp(0, n_items - 1).reshape(-1)
     K = ids.shape[1]
     Wg = W.t().index_select(0, safe).reshape(B, K, -1)  # [B, K, H]
+    if compute_dtype == "bfloat16":
+        Wg, h = Wg.bfloat16().float(), h.bfloat16().float()
     pred = torch.bmm(Wg, h[:, :, None])[:, :, 0] + b.index_select(0, safe).reshape(B, K)
 
     f_def = _f_cols(loss_name, pred, default_target.index_select(0, safe).reshape(B, K), w_neg[:, None].expand(B, K))
@@ -179,12 +183,13 @@ def margin_special_correction(h, W, b, tgt_ids, seen_ids, w_neg, default_target,
 
 
 def streaming_margin(h, W, b, tgt_ids, seen_ids, w_neg, default_target,
-                     loss_name: str, unique: bool, chunk: int = CHUNK_COLS):
+                     loss_name: str, unique: bool, chunk: int = CHUNK_COLS, compute_dtype: str = "float32"):
     """Per-example margin loss [B]: the dense ``MARGIN_LOSSES[loss_name]
     (h @ W + b, Y, Wt)`` with Y and Wt assembled from the id arrays (ids
-    outside [0, n_items) are padding), without a [B, n_items] tensor."""
-    uniform = streaming_margin_uniform(h, W, b, w_neg, default_target, loss_name, chunk)
+    outside [0, n_items) are padding), without a [B, n_items] tensor; the
+    products in ``compute_dtype`` ("float32" or "bfloat16", f32 sums)."""
+    uniform = streaming_margin_uniform(h, W, b, w_neg, default_target, loss_name, chunk, compute_dtype)
     corr = margin_special_correction(
-        h, W, b, tgt_ids, seen_ids, w_neg, default_target, loss_name, unique, W.shape[1]
+        h, W, b, tgt_ids, seen_ids, w_neg, default_target, loss_name, unique, W.shape[1], compute_dtype
     )
     return uniform + corr

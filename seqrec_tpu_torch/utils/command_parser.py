@@ -11,7 +11,9 @@ CCE``), ``RNNSampling`` (``BPR``, ``TOP1``, ``Blackout``) and
 (``-m LTM``); and the lazy baselines ``Pop``, ``MarkovModel`` and
 ``UserKNN`` (``-m POP``, ``MM``, ``UKNN``); and the factorization models
 ``BPRMF``, ``FPMC``, ``FISM`` (without ``--clusters``; ``--loss BPR`` or
-``RMSE``) and ``Fossil``. ``--bf16`` raises ``NotImplementedError``.
+``RMSE``) and ``Fossil``. ``--bf16`` sets the RNN family's compute dtype
+(``compute_dtype="bfloat16"``), which the other models ignore, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -222,8 +224,6 @@ def get_predictor(args):
     """Build the predictor described by the parsed flags, on
     ``args.device`` (default cuda)."""
     args.layers = [int(x) for x in str(args.layers).split("-")]
-    if args.bf16:
-        raise NotImplementedError("--bf16 comes with a later slice of the port")
     device = getattr(args, "device", "cuda")
 
     mf = dict(
@@ -303,6 +303,7 @@ def get_predictor(args):
         use_movies_features=args.mf,
         use_users_features=args.uf,
         batch_size=args.batch_size,
+        compute_dtype="bfloat16" if args.bf16 else "float32",
         lazy_updates=args.lazy_updates,
         device=device,
     )

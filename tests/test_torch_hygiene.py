@@ -50,8 +50,9 @@ def test_cli_without_device_cpu_raises_when_no_gpu(synthetic_dataset):
 
 @pytest.mark.parametrize(
     "flags",
-    [["-m", "BPRMF", "--mesh", "1,1"], ["-m", "FPMC", "--save_rank"], ["-m", "FISM", "--loss", "BPR", "--bf16"],
-     ["--bf16"], ["--mesh", "1,1"], ["--save_rank"], ["-m", "Fossil", "--mesh", "1,1"]],
+    [["-m", "BPRMF", "--mesh", "1,1"], ["-m", "FPMC", "--save_rank", "--mesh", "1,1"],
+     ["-m", "FISM", "--loss", "BPR", "--bf16", "--mesh", "1,1"], ["--bf16", "--mesh", "auto"], ["--mesh", "1,1"],
+     ["--save_rank", "--mesh", "1,1"], ["-m", "Fossil", "--mesh", "1,1"]],
 )
 def test_cli_raises_not_implemented_outside_the_slice(synthetic_dataset, flags):
     import seqrec_tpu_torch.cli.test as test_cli

@@ -76,11 +76,15 @@ def test_jax_checkpoint_loads_in_port(synthetic_dataset, tmp_path):
     jax_model, model = _models(synthetic_dataset)
     tree = jax_model._init_params()
     path = str(tmp_path / "ckpt.npz")
-    # an extension-dtype leaf (bf16 Adam moments) is stored as a uint view
+    # an extension-dtype leaf (bf16 Adam moments) is stored as a uint view and
+    # read back as a torch bf16 tensor (an opt leaf the model's optimizer
+    # does not hold is refused by load, as by the JAX package's)
     moments = np.linspace(-1, 1, 6, dtype=np.float32).astype(ml_dtypes.bfloat16)
-    jax_pytree_save(path, {"params": tree, "opt": {"0": moments}})
-    loaded = pytree_load(path)["opt"]["0"]
-    assert loaded.dtype == moments.dtype and np.array_equal(loaded, moments)
+    jax_pytree_save(str(tmp_path / "moments.npz"), {"params": tree, "opt": {"0": moments}})
+    loaded = pytree_load(str(tmp_path / "moments.npz"))["opt"]["0"]
+    assert loaded.dtype == torch.bfloat16
+    np.testing.assert_array_equal(loaded.float().numpy(), moments.astype(np.float32))
+    jax_pytree_save(path, {"params": tree})
     model.load(path)
     state = model.net.state_dict()
     leaves = dict(_leaves(tree))

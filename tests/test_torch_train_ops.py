@@ -284,8 +284,14 @@ def test_optimizer_steps_follow_optax(make):
 
 
 def test_bf16_adam_moments_raise_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        updates.Adam(moment_dtype="bfloat16").init([torch.zeros(3)])
+    """--u_moments bfloat16 is ported now (tests/test_torch_bf16.py holds it
+    to the JAX package): its state keeps both moments in bf16 and its step
+    count, where it once raised."""
+    state = updates.Adam(moment_dtype="bfloat16").init([torch.zeros(3), torch.zeros(2, 2)])
+    assert state["count"] == 0
+    assert {m.dtype for slot in ("mu", "nu") for m in state[slot]} == {torch.bfloat16}
+    with pytest.raises(ValueError, match="moment_dtype"):
+        updates.Adam(moment_dtype="float16")
 
 
 H100_SMS, H100_SMEM_OPTIN = 132, 232_448
