@@ -352,7 +352,7 @@ def port_kernel_names() -> set:
     names = set()
     for path in glob.glob(os.path.join(ROOT, "seqrec_tpu_torch", "csrc", "*.cu*")):
         with open(path) as f:
-            names.update(re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\) )?(\w+)\(", f.read()))
+            names.update(re.findall(r"__global__ void (?:__\w+__\([^)]*\) )*(\w+)\(", f.read()))
     return names
 
 
@@ -910,7 +910,9 @@ def check_gather_sum(ids, D, N, seed, id_mask=None, timed=True):
     rtol 1e-6), the table gradient within rtol 1e-5 + atol 1e-5*max|plain|
     (f32 sums of up to ~10^4 rows in another order), the same bits on two
     calls, and the autograd wrapper giving the kernels' own gradient.
-    Timed: the forward, the backward with and without its sort and plan,
+    Timed: the forward; the backward as one call (its order kernel, chunk
+    sums and dense rows), with its device time split by kernel and every
+    kernel of its trace one of the port's own (no sort, no PyTorch op);
     the plain version, the library calls (the forward: one
     ``F.embedding_bag(mode="sum", per_sample_weights=...)`` with the pad
     slots at id 0 and weight 0; the backward: the plain version's) and
@@ -921,11 +923,8 @@ def check_gather_sum(ids, D, N, seed, id_mask=None, timed=True):
     from seqrec_tpu_torch.ops.core import gather_sum as plain
     from seqrec_tpu_torch.ops.gather_sum import (
         gather_sum,
-        gather_sum_bwd,
         gather_sum_fwd,
         gather_sum_table_grad,
-        segment_order,
-        segment_plan,
     )
 
     rng = np.random.default_rng(seed)
@@ -957,8 +956,6 @@ def check_gather_sum(ids, D, N, seed, id_mask=None, timed=True):
                         "(f32 sums of up to ~10^4 rows in another order)"}
     if not timed:
         return out
-    sorted_ids, perm = segment_order(ids_t, N)
-    plan = segment_plan(sorted_ids, N)
     P0 = int(np.prod(ids.shape[:-1]))
     valid = ids >= 0
     id_bytes = ids.dtype.itemsize * ids.size + (4 * ids.size if id_mask is not None else 0)
@@ -975,14 +972,20 @@ def check_gather_sum(ids, D, N, seed, id_mask=None, timed=True):
 
     fwd = lambda: gather_sum_fwd(table, ids_t, m)  # noqa: E731
     bwd = lambda: gather_sum_table_grad(g, ids_t, m, N)  # noqa: E731
-    bwd_sorted = lambda: gather_sum_bwd(g, perm, m, plan, N, F)  # noqa: E731
     # the library's one call for the forward: fixed-size bags of F ids, each
     # slot weighted by its mask (a pad slot: id 0, weight 0)
     bag_ids = ids_t.reshape(-1, F).clamp_min(0).long()
     bag_w = (ids_t >= 0).float().reshape(-1, F) * (1.0 if m is None else m.reshape(-1, F))
     bag = lambda: nnf.embedding_bag(bag_ids, table, mode="sum", per_sample_weights=bag_w)  # noqa: E731
     bag_err = (bag().reshape(out_k.shape) - out_k).abs().max().item()
-    bwd_events = device_events(bwd, reps=20)
+
+    def bwd_parts(fn):
+        events = {kernel_name(k): v / 20 for k, v in device_events(fn, reps=20).items()}
+        foreign = set(events) - port_kernel_names()
+        if foreign:
+            raise AssertionError(f"gather_sum_bwd ran kernels that are not the port's at {ids.shape}: {sorted(foreign)}")
+        return dict(kernel_ms=time_ms(fn), kernel_device_ms=sum(events.values()),
+                    kernel_device_ms_by_kernel=dict(sorted(events.items(), key=lambda kv: -kv[1])))
     plain_times = {d: (time_ms(fn), device_ms(fn)) for d, fn in (("fwd", plain_fwd), ("bwd", plain_bwd))}
     out["fwd"] = dict(
         zip(("bound_ms", "bound_by"), bound_ms(flops, fwd_bytes)),
@@ -991,10 +994,7 @@ def check_gather_sum(ids, D, N, seed, id_mask=None, timed=True):
         library="F.embedding_bag(mode='sum', per_sample_weights=mask) over [P0, F] bags",
     )
     out["bwd"] = dict(
-        zip(("bound_ms", "bound_by"), bound_ms(flops, bwd_bytes)),
-        kernel_ms=time_ms(bwd), kernel_without_sort_ms=time_ms(bwd_sorted),
-        kernel_device_ms=sum(bwd_events.values()) / 20, kernel_without_sort_device_ms=device_ms(bwd_sorted),
-        kernel_device_ms_by_kernel={kernel_name(k): v / 20 for k, v in sorted(bwd_events.items(), key=lambda kv: -kv[1])},
+        zip(("bound_ms", "bound_by"), bound_ms(flops, bwd_bytes)), **bwd_parts(bwd),
         library="the plain version's backward (autograd of table[ids]: indexing_backward_kernel)",
     )
     for d, (ms, dev_ms) in plain_times.items():
@@ -2914,7 +2914,7 @@ def main() -> int:
         d = name.split("_")[-1]
         entry = next(e for e in summary if e["name"] == name)
         keys = ("kernel_ms", "kernel_device_ms", "plain_device_ms", "library_ms", "library_device_ms", "bound_ms")
-        keys += ("kernel_without_sort_ms", "kernel_without_sort_device_ms") if d == "bwd" else ()
+        keys += ("kernel_device_ms_by_kernel",) if d == "bwd" else ()
         extra = ("plain_ms",) + (("index_add_ms", "index_add_device_ms") if d == "bwd" else ())
         entry.update({key: gs_large[d][key] for key in keys[1:]}, not_a_pallas_kernel=True,
                      jax_counterpart="XLA gather and scatter-add (seqrec_tpu/ops/core.py:54)",

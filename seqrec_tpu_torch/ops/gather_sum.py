@@ -11,12 +11,12 @@ On a CPU tensor :func:`gather_sum` runs ``ops/core.py:gather_sum``, the
 plain version, differentiated by autograd, and :func:`gather_sum_table_grad`
 its plain version with ``index_add_``. On a CUDA tensor it runs an
 autograd Function whose forward launches ``csrc/gather_sum.cu``'s forward
-kernel (:func:`gather_sum_fwd`) and whose backward sorts the slots by id
-(:func:`segment_order`), cuts each id's run into chunks
-(:func:`segment_plan`) and launches the two-pass segment sum
-(:func:`gather_sum_bwd`). Without a gradient to take (eval), only the
-forward kernel runs. The order of every sum is fixed by the sort and the
-plan, so two calls give the same bits; there are no atomics.
+kernel (:func:`gather_sum_fwd`) and whose backward is one library call
+(:func:`gather_sum_bwd`): the slots sorted by row on the device, chunks of
+S slots of one row summed, then each row of the dense gradient written
+once. Without a gradient to take (eval), only the forward kernel runs.
+The ids alone fix the order of every sum, so two calls give the same
+bits; there are no float atomics.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from seqrec_tpu_torch.ops.core import check_tensors, on_device
 from seqrec_tpu_torch.ops.core import gather_sum as gather_sum_plain
 from seqrec_tpu_torch.ops.core import gather_sum_table_grad as gather_sum_table_grad_plain
 
-SEGMENT = 32  # S: the most slots of one id one chunk sums (the fastest of 8-512 on an H100, PERF.md)
+SEGMENT = 32  # S: the most slots of one row one chunk sums (csrc/gather_sum.cu's kS, a warp's width)
 _ID_BYTES = {torch.int16: 2, torch.int32: 4, torch.int64: 8}
 
 _lib = None
@@ -45,7 +45,8 @@ def _library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.seqrec_gather_sum_fwd_f32.argtypes = [vp, vp, ci, vp, vp, ctypes.c_longlong, ci, ci, ci, vp]
     lib.seqrec_gather_sum_fwd_f32.restype = ci
-    lib.seqrec_gather_sum_bwd_f32.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+    ll = ctypes.c_longlong
+    lib.seqrec_gather_sum_bwd_f32.argtypes = [vp, vp, ci, vp, vp, ll, vp, ll, ci, ci, ci, vp]
     lib.seqrec_gather_sum_bwd_f32.restype = ci
     _lib = lib
     return lib
@@ -56,12 +57,12 @@ def _ptr(t):
 
 
 def _check(fn, table, ids, id_mask):
-    check_tensors(fn, table.device, {"table": (table, torch.float32, tuple(table.shape))})
     if table.dim() != 2 or ids.dim() < 1 or ids.dtype not in _ID_BYTES:
         raise ValueError(f"{fn}: table must be [N, D] and ids an int16, int32 or int64 tensor [..., F]")
-    check_tensors(fn, table.device, {"ids": (ids, ids.dtype, tuple(ids.shape))})
+    expected = {"table": (table, torch.float32, tuple(table.shape)), "ids": (ids, ids.dtype, tuple(ids.shape))}
     if id_mask is not None:
-        check_tensors(fn, table.device, {"id_mask": (id_mask, torch.float32, tuple(ids.shape))})
+        expected["id_mask"] = (id_mask, torch.float32, tuple(ids.shape))
+    check_tensors(fn, table.device, expected)
 
 
 def gather_sum_fwd(table, ids, id_mask=None):
@@ -89,73 +90,41 @@ def gather_sum_fwd(table, ids, id_mask=None):
     return out
 
 
-def segment_order(ids, n_rows: int):
-    """(sorted ids int32 [P], perm int64 [P]) of the P = ids.numel() slots
-    of ids, flattened: sorted by id, stably (each id's slots stay in
-    ascending slot order), pad slots (negative ids) under the sentinel
-    ``n_rows``, so they sort last."""
-    flat = ids.reshape(-1).to(torch.int32)
-    keys = torch.where(flat >= 0, flat, n_rows)
-    return torch.sort(keys, stable=True)
+def bwd_scratch_bytes(n_slots: int, n_rows: int, D: int) -> int:
+    """Bytes of the backward's scratch for ``n_slots`` slots and a table of
+    ``n_rows`` rows of D columns: the chunk partials [2 ceil(P / S), D]
+    f32, then row_start [N + 1], the sorted slots and their rows [P] each,
+    int32 (``csrc/gather_sum.cu:bwd_scratch_bytes``, against which the
+    library checks the size it is given)."""
+    return 4 * (2 * -(-n_slots // SEGMENT) * D + n_rows + 1 + 2 * n_slots)
 
 
-def segment_plan(sorted_ids, n_rows: int, segment: int = SEGMENT):
-    """How the backward sums each id's run of the sorted slots: (row_start
-    [N + 1], row_chunk [N + 1]), int32, for N = ``n_rows`` and
-    ``sorted_ids`` from :func:`segment_order`.
-
-    - ``row_start[i]`` is the first sorted slot of id i (``row_start[N]``:
-      the first pad slot); id i's run is [row_start[i], row_start[i + 1]).
-    - A run of more than ``segment`` slots is cut into ceil(run / segment)
-      chunks; id i owns chunks [row_chunk[i], row_chunk[i + 1]) (none for
-      a run of at most ``segment`` slots), numbered in id order; its k-th
-      chunk covers the slots [row_start[i] + k segment, that + segment),
-      cut at the run's end. :func:`chunk_bound` bounds their count.
-
-    The kernel's pass 1 sums each chunk in slot order; its pass 2 sums a
-    row's chunk partials in chunk order, or a short run's slots in slot
-    order. Every step is a device op: no host sync."""
-    dev = sorted_ids.device
-    row_start = torch.searchsorted(
-        sorted_ids, torch.arange(n_rows + 1, dtype=torch.int32, device=dev), out_int32=True
-    )
-    run = row_start[1:] - row_start[:-1]
-    row_chunk = torch.zeros(n_rows + 1, dtype=torch.int32, device=dev)
-    torch.cumsum((run + segment - 1) // segment * (run > segment), 0, dtype=torch.int32, out=row_chunk[1:])
-    return row_start, row_chunk
-
-
-def chunk_bound(n_slots: int, segment: int = SEGMENT) -> int:
-    """At most this many chunks for ``n_slots`` slots: an id of r >
-    ``segment`` slots has ceil(r / segment) < 2 r / segment of them."""
-    return 2 * n_slots // segment + 1
-
-
-def gather_sum_bwd(g, perm, id_mask, plan, n_rows: int, F: int, segment: int = SEGMENT):
-    """The backward kernels: the dense gradient [N, D] of the table from
-    the cotangent g [..., D] of the forward's output, the slots' sorted
-    order ``perm`` [P] (:func:`segment_order`), ``plan``
-    (:func:`segment_plan` with this ``segment``) and id_mask [..., F] or
-    None."""
+def gather_sum_bwd(g, ids, id_mask, n_rows: int):
+    """The backward kernels: the dense gradient [n_rows, D] of the table
+    from the cotangent g [..., D] (f32) of the forward's output, ids [...,
+    F] (int16, int32 or int64) and id_mask [..., F] (f32 or None), all
+    contiguous on one CUDA device. One library call of three kernels and no
+    host sync: the slots sorted by row on the device, chunk sums, then each
+    row written once, in the order ``csrc/gather_sum.cu`` documents."""
+    if ids.dim() < 1 or ids.dtype not in _ID_BYTES:
+        raise ValueError("gather_sum_bwd: ids must be an int16, int32 or int64 tensor [..., F]")
     D = g.shape[-1]
-    row_start, row_chunk = plan
-    P = math.prod(g.shape[:-1]) * F
-    check_tensors("gather_sum_bwd", g.device, {
-        "g": (g, torch.float32, tuple(g.shape)), "perm": (perm, torch.int64, (P,)),
-        "row_start": (row_start, torch.int32, (n_rows + 1,)), "row_chunk": (row_chunk, torch.int32, (n_rows + 1,)),
-    })
+    expected = {"g": (g, torch.float32, (*ids.shape[:-1], D)), "ids": (ids, ids.dtype, tuple(ids.shape))}
     if id_mask is not None:
-        check_tensors("gather_sum_bwd", g.device, {"id_mask": (id_mask, torch.float32, (*g.shape[:-1], F))})
+        expected["id_mask"] = (id_mask, torch.float32, tuple(ids.shape))
+    check_tensors("gather_sum_bwd", g.device, expected)
     dtable = torch.empty((n_rows, D), dtype=torch.float32, device=g.device)
+    P0, F = math.prod(ids.shape[:-1]), ids.shape[-1]
     if n_rows == 0 or D == 0:
         return dtable
-    n_chunks = chunk_bound(P, segment)
-    part = torch.empty((n_chunks, D), dtype=torch.float32, device=g.device)
+    if P0 * F == 0:
+        return dtable.zero_()
+    n_bytes = bwd_scratch_bytes(P0 * F, n_rows, D)
+    scratch = torch.empty(n_bytes, dtype=torch.uint8, device=g.device)
     with on_device(g.device):
         err = _library().seqrec_gather_sum_bwd_f32(
-            g.data_ptr(), perm.data_ptr(), _ptr(id_mask), row_start.data_ptr(), row_chunk.data_ptr(),
-            part.data_ptr(), dtable.data_ptr(), n_chunks, n_rows, segment, F, D,
-            torch.cuda.current_stream().cuda_stream,
+            g.data_ptr(), ids.data_ptr(), _ID_BYTES[ids.dtype], _ptr(id_mask), scratch.data_ptr(), n_bytes,
+            dtable.data_ptr(), P0, F, n_rows, D, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"gather_sum_bwd kernel launch failed with CUDA error {err}")
@@ -167,16 +136,14 @@ gather_sum_fwd.launches = 0
 gather_sum_bwd.launches = 0
 
 
-def gather_sum_table_grad(g, ids, id_mask, n_rows: int, segment: int = SEGMENT):
+def gather_sum_table_grad(g, ids, id_mask, n_rows: int):
     """The table's gradient [n_rows, D] from the cotangent g [..., D] of the
     forward's output, ids [..., F] and id_mask [..., F] or None. CPU
-    tensors: the plain version (``index_add_``); CUDA tensors: sort, plan,
-    then the kernels."""
+    tensors: the plain version (``index_add_``); CUDA tensors: the kernels
+    (:func:`gather_sum_bwd`)."""
     if g.device.type == "cpu":
         return gather_sum_table_grad_plain(g, ids, id_mask, n_rows)
-    sorted_ids, perm = segment_order(ids, n_rows)
-    plan = segment_plan(sorted_ids, n_rows, segment)
-    return gather_sum_bwd(g, perm, id_mask, plan, n_rows, ids.shape[-1], segment)
+    return gather_sum_bwd(g, ids, id_mask, n_rows)
 
 
 class _GatherSum(torch.autograd.Function):

@@ -48,12 +48,17 @@ kernel runs on a path of ``chip_smoke.py``:
   their state stores) on its own plan, through the wrapper per call, and
   cuDNN's LSTM; with ``--before`` also K6 of that checkout (one block per
   row tile, W_hid through L2 at H=128);
-- ``gs``: the gather-sum pair on a real GRU-128 / LSTM-128 batch (D = 384
-  and 512, 49,999 rows): the forward, the backward whole (sort, plan,
-  kernels) and cut into the sort, the plan, both kernels, without the
-  chunk sums (pass 1), without the dense pass (pass 2), at chunk sizes S of
-  8 to 512; the plain version (PR 6's path: ``table[ids]`` and its
-  ``indexing_backward_kernel``) and ``index_add_``; and how the ids of 20
+- ``g1``: the gather-sum pair on real flagship and featured B1024 (F = 14)
+  batches (D = 150), GRU-128 and LSTM-128 batches (D = 384 and 512,
+  49,999 rows) and on synthetic ids at LTM's shapes (D = 32): the forward
+  and the backward through their wrappers; the backward's one library
+  call as committed, without its chunk sums, without its dense rows, its
+  order kernel alone and that kernel's counting sweep alone; the forward
+  and the backward's rows at a warp a row at every width; the plain
+  version (``table[ids]`` and its ``indexing_backward_kernel``),
+  ``F.embedding_bag`` and ``index_add_``; with ``--before`` also that
+  checkout's forward and its backward (its host-side sort and plan, then
+  its kernels; and the kernels alone); and how the ids of 20 GRU-128
   batches run (slots at id 0, padded or not, the longest run).
 
 A variant computes wrong values: it is only timed, with CUDA events (the
@@ -719,84 +724,154 @@ def k6_breakdown(card: str, before: str | None) -> None:
                               "card": card}), flush=True)
 
 
-# the gather-sum backward with one pass cut out
-GS_VARIANTS = {
+# G1, the gather-sum pair, with one part cut out: the backward's chunk sums
+# (launch 2), its dense rows (launch 3), both (the order kernel alone), and
+# also the order kernel's placement sweep (its counting sweep and scan
+# alone); and the forward and dense rows at a warp a row at every width
+G1_ORDER_ONLY = [
+    ("gather_sum.cu", "    if (n_windows > 0) {", "    if (n_windows < 0) {"),
+    ("gather_sum.cu", "  const int lg = lanes_log2(D, V);\n  with_loads<V>(D, lg, [&](auto I) {\n    dense_rows_kernel",
+     "  if (D > 0) return;\n  const int lg = lanes_log2(D, V);\n  with_loads<V>(D, lg, [&](auto I) {\n"
+     "    dense_rows_kernel"),
+]
+G1_VARIANTS = {
     "committed": [],
-    "no_chunk_sums": [("gather_sum.cu", "  if (n_chunks > 0) {", "  if (n_chunks < 0) {")],
-    "no_dense_pass": [("gather_sum.cu", "  const dim3 grid((unsigned)((N + kWarps - 1) / kWarps), groups);",
-                       "  if (D > 0) return (int)cudaGetLastError();\n"
-                       "  const dim3 grid((unsigned)((N + kWarps - 1) / kWarps), groups);")],
+    "no_chunk_sums": G1_ORDER_ONLY[:1],
+    "no_dense_rows": G1_ORDER_ONLY[1:],
+    "order_kernel_only": G1_ORDER_ONLY,
+    "order_kernel_count_sweep_only": G1_ORDER_ONLY + [
+        ("gather_sum.cu", "in slot order\n  for (long long s0 = lo; s0 < hi;",
+         "in slot order\n  for (long long s0 = lo; s0 < (N < 0 ? hi : lo);")],
+    "one_warp_a_row": [("gather_sum.cu", "  int lg = 0;\n  while (lg < 5", "  int lg = 5;\n  while (lg < 5")],
 }
-GS_SEGMENTS = (8, 16, 32, 64, 128, 256, 512)
 
 
-def gs_breakdown(card: str) -> None:
-    """The gather-sum pair on the first batch of chip_smoke.py's large
-    catalog (GRU-128's batcher; LSTM-128's draws the same ids) at D = 384
-    and 512, cut part by part; the id runs of 20 batches."""
+def _before_order(ids, n_rows):
+    """The earlier backward's host-side plan (its ``segment_order`` and
+    ``segment_plan`` at S = 32): the slots sorted stably by id, pads last;
+    row_start and row_chunk [N + 1]."""
     import torch
+
+    flat = ids.reshape(-1).to(torch.int32)
+    sorted_ids, perm = torch.sort(torch.where(flat >= 0, flat, n_rows), stable=True)
+    row_start = torch.searchsorted(sorted_ids, torch.arange(n_rows + 1, dtype=torch.int32, device=ids.device),
+                                   out_int32=True)
+    run = row_start[1:] - row_start[:-1]
+    row_chunk = torch.zeros(n_rows + 1, dtype=torch.int32, device=ids.device)
+    torch.cumsum((run + 31) // 32 * (run > 32), 0, dtype=torch.int32, out=row_chunk[1:])
+    return perm, row_start, row_chunk
+
+
+def g1_cases() -> list:
+    """(label, ids, D, N, id_mask or None) of the shapes G1's redesign
+    aims at: chip_smoke.py's real flagship, featured B1024 (F = 14) and
+    GRU-128 batches, and synthetic ids (seed 6) at LTM's context and
+    target shapes."""
+    import chip_smoke
+
+    rng = np.random.default_rng(6)
+    flagship_rows, [(ids_f, _)] = chip_smoke.real_batch_ids(chip_smoke.FLAGSHIP, chip_smoke.ml1m_dataset())
+    featured_rows, [(ids_b, _)] = chip_smoke.real_batch_ids([{"16": "1024"}.get(a, a) for a in chip_smoke.FEATURED],
+                                                            chip_smoke.featured_dataset())
+    large_rows, [(ids_l, _)] = chip_smoke.real_batch_ids(chip_smoke.LARGE, chip_smoke.catalog50k_dataset())
+    ctx = rng.integers(0, 3706, size=(2048, 10)).astype(np.int32)
+    ctx[rng.random(size=ctx.shape) < 0.2] = -1
+    targets = rng.integers(0, 3706, size=(12288, 1)).astype(np.int32)
+    return [("flagship batch", ids_f, 150, flagship_rows, None),
+            ("LTM-shaped contexts (synthetic ids)", ctx, 32, 3706, (ctx >= 0).astype(np.float32)),
+            ("LTM-shaped targets (synthetic ids)", targets, 32, 3706, None),
+            ("featured B1024 batch", ids_b, 150, featured_rows, None),
+            ("GRU-128 batch", ids_l, 384, large_rows, None),
+            ("LSTM-128 batch", ids_l, 512, large_rows, None)]
+
+
+def g1_breakdown(card: str, before: str | None) -> None:
+    """G1 at g1_cases' shapes: the forward and the backward through their
+    wrappers, the backward's library call with one part cut out at a time,
+    the plain version and the library calls (``F.embedding_bag``,
+    ``index_add_``); with ``before`` also that checkout's kernels (its
+    backward behind the host-side sort and plan it needed) in the same
+    run; and the id runs of 20 GRU-128 batches."""
+    import torch
+    import torch.nn.functional as nnf
 
     import chip_smoke
     from seqrec_tpu_torch.ops.core import gather_sum as plain
-    from seqrec_tpu_torch.ops.gather_sum import (
-        SEGMENT,
-        chunk_bound,
-        gather_sum_bwd,
-        gather_sum_fwd,
-        gather_sum_table_grad,
-        segment_order,
-        segment_plan,
-    )
+    from seqrec_tpu_torch.ops.gather_sum import _ID_BYTES, bwd_scratch_bytes, gather_sum_fwd, gather_sum_table_grad
 
-    N, batches = chip_smoke.real_batch_ids(chip_smoke.LARGE, chip_smoke.catalog50k_dataset(), n_batches=20)
+    _, batches = chip_smoke.real_batch_ids(chip_smoke.LARGE, chip_smoke.catalog50k_dataset(), n_batches=20)
     runs = [chip_smoke.id_runs(ids, lengths) for ids, lengths in batches]
     print(json.dumps({"kernel": "gather_sum", "variant": "id runs of 20 GRU-128 batches", "first": runs[0],
                       **{f"mean_{k}": float(np.mean([r[k] for r in runs])) for k in runs[0]},
                       "max_longest_run": max(r["longest_run"] for r in runs), "card": card}), flush=True)
-    libs = build_variants("gather_sum", GS_VARIANTS)
-    ids = torch.from_numpy(batches[0][0]).cuda()
-    rng = np.random.default_rng(6)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    for D in (384, 512):
+    libs = build_variants("gather_sum", G1_VARIANTS)
+    old = build_variants("gather_sum", {"committed": []}, csrc=before, tag="-before")["committed"] if before else None
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for lib in [*libs.values(), *([old] if old else [])]:
+        lib.seqrec_gather_sum_fwd_f32.argtypes = [vp, vp, ci, vp, vp, ll, ci, ci, ci, vp]
+        lib.seqrec_gather_sum_fwd_f32.restype = ci
+        lib.seqrec_gather_sum_bwd_f32.restype = ci
+    for lib in libs.values():
+        lib.seqrec_gather_sum_bwd_f32.argtypes = [vp, vp, ci, vp, vp, ll, vp, ll, ci, ci, ci, vp]
+    if old:
+        old.seqrec_gather_sum_bwd_f32.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+    rng = np.random.default_rng(7)
+    for label, ids_np, D, N, mask_np in g1_cases():
+        ids = torch.from_numpy(np.ascontiguousarray(ids_np)).cuda()
+        m = None if mask_np is None else torch.from_numpy(mask_np).cuda()
+        F, P0 = ids.shape[-1], ids.numel() // ids.shape[-1]
         table = torch.tensor(rng.normal(0, 0.1, (N, D)), dtype=torch.float32, device="cuda")
         g = torch.tensor(rng.normal(size=(*ids.shape[:-1], D)), dtype=torch.float32, device="cuda")
-        shape = [*ids.shape, D, N]
-        sorted_ids, perm = segment_order(ids, N)
-        plan = segment_plan(sorted_ids, N)
-        n_chunks = chunk_bound(ids.numel())
-        part, dtable = torch.empty(n_chunks, D, device="cuda"), torch.empty(N, D, device="cuda")
+        shape = {"at": label, "ids": list(ids.shape), "ids_dtype": str(ids_np.dtype), "D": D, "N": N}
+        n_bytes = bwd_scratch_bytes(ids.numel(), N, D)
+        scratch = torch.empty(n_bytes, dtype=torch.uint8, device="cuda")
+        out, dtable = torch.empty(P0, D, device="cuda"), torch.empty(N, D, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        mp = None if m is None else m.data_ptr()
         leaf = table.clone().requires_grad_()
-        out_p = plain(leaf, ids)
-        rows = {
-            "forward kernel": lambda: gather_sum_fwd(table, ids),
-            "backward: sort + plan + kernels": lambda: gather_sum_table_grad(g, ids, None, N),
-            "backward: sort (segment_order)": lambda: segment_order(ids, N),
-            "backward: plan (segment_plan)": lambda: segment_plan(sorted_ids, N),
-            "backward: kernels (gather_sum_bwd)": lambda: gather_sum_bwd(g, perm, None, plan, N, 1),
-            "before (PR 6's path, the plain version): forward": lambda: plain(table, ids),
-            "before (PR 6's path, the plain version): backward (indexing_backward_kernel)":
-                lambda: torch.autograd.grad(out_p, leaf, g, retain_graph=True),
+        out_p = plain(leaf, ids, m)
+        keep = ids.reshape(-1) >= 0
+        rows = (g.unsqueeze(-2).expand(*ids.shape, D) * (1.0 if m is None else m.unsqueeze(-1))).reshape(-1, D)[keep]
+        bag_w = (ids >= 0).float().reshape(-1, F) * (1.0 if m is None else m.reshape(-1, F))
+        timings = {
+            "forward (gather_sum_fwd)": lambda: gather_sum_fwd(table, ids, m),
+            "backward (gather_sum_table_grad: one library call)": lambda: gather_sum_table_grad(g, ids, m, N),
+            "plain forward": lambda: plain(table, ids, m),
+            "plain backward (indexing_backward_kernel)": lambda: torch.autograd.grad(out_p, leaf, g, retain_graph=True),
+            "library: F.embedding_bag": lambda: nnf.embedding_bag(ids.reshape(-1, F).clamp_min(0).long(), table,
+                                                                  mode="sum", per_sample_weights=bag_w),
             "library: index_add_": lambda: torch.zeros(N, D, device="cuda").index_add_(
-                0, ids.reshape(-1).long(), g.reshape(-1, D)),
+                0, ids.reshape(-1)[keep].long(), rows),
         }
-        for S in GS_SEGMENTS:
-            if S != SEGMENT:
-                rows[f"backward: sort + plan + kernels, S={S}"] = (
-                    lambda S=S: gather_sum_bwd(g, perm, None, segment_plan(sorted_ids, N, S), N, 1, S))
-        for name, fn in rows.items():
+        for name, lib in libs.items():
+            timings[f"library call, {name}: backward"] = lambda lib=lib: checked(lib.seqrec_gather_sum_bwd_f32(
+                g.data_ptr(), ids.data_ptr(), _ID_BYTES[ids.dtype], mp, scratch.data_ptr(), n_bytes,
+                dtable.data_ptr(), P0, F, N, D, stream))
+        timings["library call, one_warp_a_row: forward"] = lambda: checked(
+            libs["one_warp_a_row"].seqrec_gather_sum_fwd_f32(table.data_ptr(), ids.data_ptr(), _ID_BYTES[ids.dtype],
+                                                             mp, out.data_ptr(), P0, F, N, D, stream))
+        if old:
+            part = torch.empty(2 * ids.numel() // 32 + 1, D, device="cuda")
+
+            def old_bwd():
+                perm, row_start, row_chunk = _before_order(ids, N)
+                checked(old.seqrec_gather_sum_bwd_f32(
+                    g.data_ptr(), perm.data_ptr(), mp, row_start.data_ptr(), row_chunk.data_ptr(), part.data_ptr(),
+                    dtable.data_ptr(), part.shape[0], N, 32, F, D, stream))
+
+            plan = _before_order(ids, N)
+            timings["before: forward kernel"] = lambda: checked(old.seqrec_gather_sum_fwd_f32(
+                table.data_ptr(), ids.data_ptr(), _ID_BYTES[ids.dtype], mp, out.data_ptr(), P0, F, N, D, stream))
+            timings["before: backward (host-side sort and plan, then its two kernels)"] = old_bwd
+            timings["before: backward's two kernels alone"] = lambda: checked(old.seqrec_gather_sum_bwd_f32(
+                g.data_ptr(), plan[0].data_ptr(), mp, plan[1].data_ptr(), plan[2].data_ptr(), part.data_ptr(),
+                dtable.data_ptr(), part.shape[0], N, 32, F, D, stream))
+        for name, fn in timings.items():
             print(json.dumps({"kernel": "gather_sum", "variant": name, "shape": shape, **timed(fn), "card": card}),
                   flush=True)
-        for name, lib in libs.items():
-            fn = lib.seqrec_gather_sum_bwd_f32
-            fn.argtypes = [vp] * 7 + [ci] * 5 + [vp]
-            fn.restype = ci
-            ptrs = [t.data_ptr() for t in (g, perm)] + [None] + [t.data_ptr() for t in (*plan, part, dtable)]
-            res = timed(lambda: checked(fn(*ptrs, n_chunks, N, SEGMENT, 1, D, torch.cuda.current_stream().cuda_stream)))
-            print(json.dumps({"kernel": "gather_sum_bwd kernels", "variant": name, "shape": shape, "S": SEGMENT,
-                              **res, "card": card}), flush=True)
 
 
-PARTS = ("k3", "k2", "k2_stats", "k4", "k4_before", "k1", "k5", "k6", "gs")
+PARTS = ("k3", "k2", "k2_stats", "k4", "k4_before", "k1", "k5", "k6", "g1")
 
 
 def main(argv=None) -> int:
@@ -805,7 +880,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parts", nargs="+", choices=PARTS, default=[p for p in PARTS if p != "k4_before"])
     parser.add_argument("--before", help="csrc directory of an older checkout: K4 before its redesign (for k4_before), "
-                        "K1, K5 and K6 before theirs (timed beside the committed ones by k1, k5 and k6)")
+                        "K1, K5, K6 and G1 before theirs (timed beside the committed ones by k1, k5, k6 and g1)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_breakdown: no CUDA device is available", file=sys.stderr)
@@ -833,8 +908,8 @@ def main(argv=None) -> int:
             scan_train_breakdown(card, cell)
     if "k6" in args.parts:
         k6_breakdown(card, args.before)
-    if "gs" in args.parts:
-        gs_breakdown(card)
+    if "g1" in args.parts:
+        g1_breakdown(card, args.before)
     return 0
 
 
