@@ -12,10 +12,14 @@ Phases, each printing one JSON line with its seconds:
 2. kernels: hold each kernel against its plain PyTorch version on the card
    (the training kernels against autograd through the plain scan and the
    dense head), at the shapes of the main paths and at large shapes, plus
-   edge cases (K3's cluster path: ragged tiles, uneven unit splits, two
-   units a lane, empty rows, masks with holes; K4: one row, a ragged row
-   tile, k = 64, a catalog under one tile, rows with every item seen, a
-   ragged 200,001-item catalog; K2's stats and gradients: H=256, ragged
+   edge cases (K3 on each path of its plan, told by its path counters: reg
+   at B64/H50 and B9/L7/H12 with a row of length 0, cluster at B1024/H128,
+   a ragged B with holes, H=130 and 250 (uneven unit splits),
+   gru_cluster.cuh at H=256 (ragged tiles, empty rows, masks with holes)
+   and H=300 (two units a lane), l2 at H=512, the same bits on two calls;
+   K4: one row, a ragged row tile, k = 64, a catalog under one tile, rows
+   with every item seen, a ragged 200,001-item catalog; K2's stats and
+   gradients: H=256, ragged
    shapes, a row with g = 0, the same bits on two calls; K1 and K5 on
    each path of their plan (reg, cluster, and K1's l2 backward): one row,
    a ragged cluster tile, H not divisible by the cluster, a row of length
@@ -63,9 +67,9 @@ Phases, each printing one JSON line with its seconds:
 7. serving_pass_gru256: GRU-256 (``bench_matrix.json`` row
    GRU-256-50000-f32-B1024) from seed 0 on the same catalog; with every
    counter at 0 serve 4096 users at eval chunks of 512, check that K3 ran
-   on its cluster path and K4 ran, and that the top-10 lists of the first
-   512 users equal the same model's on the CPU; print users/s and the
-   profiler's top kernels.
+   on its path at H=256 (K3_PATH_H256) and K4 ran, and that the top-10
+   lists of the first 512 users equal the same model's on the CPU; print
+   users/s and the profiler's top kernels.
 8. main_path_train_heads: the sampled and margin heads at
    scripts/quality_run_regime2.sh's GRU-50, B=64, Adam 2e-3 on the
    ML-1M-scale dataset. With every counter at 0 before each run, train
@@ -179,6 +183,10 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12  # dense, tensor cores
 HBM_BYTES_PER_S = 3.35e12
+# K3's path at H=256 on an H100: gru_cluster.cuh's kernel, which measured faster there than the
+# training forward's cluster kernel (ops/rnn_scan.py GRU_CLUSTER_MIN_H)
+K3_PATH_H256 = "gru_cluster"
+K3_COUNTERS = {"reg": "reg_launches", "cluster": "cluster_launches", "gru_cluster": "gru_cluster_launches"}
 # wrapper name -> (module, CUDA source, TPU kernel it replaces)
 KERNELS = {
     "gru_scan": ("rnn_scan", "seqrec_tpu_torch/csrc/gru_scan.cu", "seqrec_tpu/ops/pallas_rnn.py:88"),
@@ -273,7 +281,8 @@ def wrapper(name):
 def zero_counters() -> None:
     for name in KERNELS:
         wrapper(name).launches = 0
-    wrapper("gru_scan").cluster_launches = 0
+    k3 = wrapper("gru_scan")
+    k3.reg_launches = k3.cluster_launches = k3.gru_cluster_launches = 0
     wrapper("gru_scan_train_fwd").cluster_launches = wrapper("gru_scan_train_bwd").cluster_launches = 0
     wrapper("lstm_scan").reg_launches = wrapper("lstm_scan").cluster_launches = 0
 
@@ -313,12 +322,13 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_events(fn, reps: int = 1, tries: int = 3) -> dict:
+def device_events(fn, reps: int = 1, tries: int = 3, counts: bool = False) -> dict:
     """Device time in ms of each kernel or copy name over ``reps`` calls of
-    ``fn``, from torch.profiler's CUDA trace. A trace with no device event
-    (the profiler drops one now and then) is taken again, up to ``tries``
-    times in all; after that ``fn`` is taken to launch nothing (as the
-    operand pad of already aligned rows does)."""
+    ``fn``, from torch.profiler's CUDA trace (with ``counts``, each name's
+    (ms, events in the trace)). A trace with no device event (the profiler
+    drops one now and then) is taken again, up to ``tries`` times in all;
+    after that ``fn`` is taken to launch nothing (as the operand pad of
+    already aligned rows does)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -329,7 +339,7 @@ def device_events(fn, reps: int = 1, tries: int = 3) -> dict:
                 fn()
             torch.cuda.synchronize()
         events = {
-            e.key: e.self_device_time_total / 1e3
+            e.key: (e.self_device_time_total / 1e3, e.count) if counts else e.self_device_time_total / 1e3
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
         }
@@ -357,9 +367,29 @@ def port_kernel_names() -> set:
 
 
 def device_ms(fn, reps: int = 20) -> float:
-    """Device time of one call of ``fn`` in ms (profiler; no launch gaps)."""
+    """Device time of one call of ``fn`` in ms (profiler; no launch gaps):
+    each name's mean time an event times its events a call, at least one,
+    so that an event the trace dropped (the profiler loses some of a
+    kernel's launches now and then) is not counted as no time."""
     fn()
-    return sum(device_events(fn, reps).values()) / reps
+    return sum(ms / n * max(1, round(n / reps)) for ms, n in device_events(fn, reps, counts=True).values())
+
+
+def back_to_back_ms(fn, reps: int = 50) -> float:
+    """Mean time in ms of ``reps`` calls of ``fn`` launched back to back
+    after one, between two CUDA events: the device time where the kernel
+    outlasts its launch, with no profiler."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound_ms(flops: float, n_bytes: float):
@@ -452,21 +482,24 @@ def cudnn_gru(x_pre, mask, w_hid, h0):
     return run
 
 
-def check_gru(B, L, H, seed, timed=True, empty_row=False, holes=False, path=None):
-    """K3 against gru_scan_plain on the card; ``path``, where given, is the
-    plan path the launch must take."""
+def check_gru(B, L, H, seed, path, timed=True, empty_row=False, holes=False):
+    """K3 against gru_scan_plain on the card, on ``path``, the path its
+    plan must pick and its launch must take (told by the path counters);
+    two calls give the same bits."""
     import torch
 
-    from seqrec_tpu_torch.ops.rnn_scan import _device_plan, gru_scan, gru_scan_plain
+    from seqrec_tpu_torch.ops.rnn_scan import gru_scan, gru_scan_device_plan, gru_scan_plain
 
     a = gru_inputs(B, L, H, seed, "cuda", empty_row, holes)
     args = (a["x_pre"], a["mask"], a["w_hid"], a["h0"])
-    plan = _device_plan(B, H, a["x_pre"].device)
-    before = gru_scan.cluster_launches
+    plan = gru_scan_device_plan(B, H, a["x_pre"].device)
+    before = {p: getattr(gru_scan, c) for p, c in K3_COUNTERS.items()}
     got, want = gru_scan(*args), gru_scan_plain(*args)
+    took = [p for p, c in K3_COUNTERS.items() if getattr(gru_scan, c) > before[p]]
+    same_bits_twice("gru_scan", (B, L, H), (got,), (gru_scan(*args),))
     torch.cuda.synchronize()
-    took = "cluster" if gru_scan.cluster_launches > before else plan[0]
-    if took != plan[0] or (path is not None and took != path):
+    took = took[0] if len(took) == 1 else "l2" if not took else "+".join(took)
+    if took != plan[0] or took != path:
         raise AssertionError(f"gru_scan at {(B, L, H)} took the {took} path, plan {plan}, wanted {path}")
     err = (got - want).abs().max().item()
     if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
@@ -474,7 +507,7 @@ def check_gru(B, L, H, seed, timed=True, empty_row=False, holes=False, path=None
     if empty_row and not torch.equal(got[0], a["h0"][0]):
         raise AssertionError("gru_scan changed the state of a row of length 0")
     out = {"kernel": "gru_scan", "shape": {"B": B, "L": L, "H": H}, "plan": list(plan), "max_abs_err": err,
-           "tolerance": "rtol 1e-5, atol 1e-5"}
+           "tolerance": "rtol 1e-5, atol 1e-5", "same_bits_twice": True}
     if not timed:
         return out
     library = cudnn_gru(*args)
@@ -487,6 +520,7 @@ def check_gru(B, L, H, seed, timed=True, empty_row=False, holes=False, path=None
         plain_ms=time_ms(lambda: gru_scan_plain(*args)),
         library_ms=time_ms(library),
         kernel_device_ms=device_ms(lambda: gru_scan(*args)),
+        kernel_back_to_back_ms=back_to_back_ms(lambda: gru_scan(*args)),
         plain_device_ms=device_ms(lambda: gru_scan_plain(*args)),
         library_device_ms=device_ms(library),
         library="torch.nn.GRU (cuDNN), packed; includes a [B*L,3H]x[3H,3H] input product",
@@ -2594,7 +2628,7 @@ def main_path_train_bf16(card) -> dict:
 
 def serving_pass_gru256(card) -> dict:
     """GRU-256 serving on the 50k-item catalog: 4096 users at eval chunks
-    of 512 with every counter at 0 (K3 on its cluster path, K4), the
+    of 512 with every counter at 0 (K3 on K3_PATH_H256, K4), the
     first 512 users' top-10 lists against the same model on the CPU.
     Returns the launch counts of the pass."""
     import torch
@@ -2603,7 +2637,7 @@ def serving_pass_gru256(card) -> dict:
     from seqrec_tpu_torch.models.recurrent import RecurrentLayers
     from seqrec_tpu_torch.models.rnn_one_hot import RNNOneHot
     from seqrec_tpu_torch.models.updates import Adam
-    from seqrec_tpu_torch.ops.rnn_scan import _device_plan
+    from seqrec_tpu_torch.ops.rnn_scan import gru_scan_device_plan
 
     t_phase = t0 = time.perf_counter()
     dataset = DataHandler(catalog50k_dataset())
@@ -2637,9 +2671,9 @@ def serving_pass_gru256(card) -> dict:
     recs = gpu._topk_from_staged(staged, k=10)
     t2 = time.perf_counter()
     launches = read_counters()
-    cluster = wrapper("gru_scan").cluster_launches
-    if launches["gru_scan"] == 0 or launches["fused_score_topk"] == 0 or cluster != launches["gru_scan"]:
-        raise AssertionError(f"the GRU-256 serving pass launched {launches}, {cluster} on K3's cluster path")
+    on_path = getattr(wrapper("gru_scan"), K3_COUNTERS[K3_PATH_H256])
+    if launches["gru_scan"] == 0 or launches["fused_score_topk"] == 0 or on_path != launches["gru_scan"]:
+        raise AssertionError(f"the GRU-256 serving pass launched {launches}, {on_path} on K3's {K3_PATH_H256} path")
     recs_cpu = models["cpu"]._batched_recommendations(inputs[:512])
     if not np.array_equal(recs[:512], recs_cpu):
         n_diff = int((recs[:512] != recs_cpu).any(axis=1).sum())
@@ -2650,8 +2684,8 @@ def serving_pass_gru256(card) -> dict:
     emit({
         "phase": "serving_pass_gru256", "config": "GRU-256 RNNOneHot from seed 0, 50k-item synthetic catalog, eval chunk 512",
         "n_items": dataset.n_items, "users": len(inputs), "card": card, "launches": launches,
-        "gru_scan_cluster_launches": cluster,
-        "gru_scan_plan": list(_device_plan(512, 256, torch.device("cuda", torch.cuda.current_device()))),
+        f"gru_scan_{K3_PATH_H256}_launches": on_path,
+        "gru_scan_plan": list(gru_scan_device_plan(512, 256, torch.device("cuda", torch.cuda.current_device()))),
         "same_top10_as_cpu_first_512": True, "users_per_s": len(inputs) / wall_s, "wall_s": wall_s,
         "encode_upload_s": t1 - t0, "topk_s": t2 - t1, "setup_s": setup_s,
         "timed": "host clock; topk_s = GRU scan + fused top-k + copy back of every chunk",
@@ -2659,7 +2693,7 @@ def serving_pass_gru256(card) -> dict:
                     "top_kernels_ms": dict(sorted(device.items(), key=lambda kv: -kv[1])[:5])},
         "seconds": time.perf_counter() - t_phase,
     })
-    return {**launches, "gru_scan_cluster": cluster}
+    return {**launches, "gru_scan_on_path": on_path}
 
 
 def main() -> int:
@@ -2685,13 +2719,13 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "ptxas": report, "card": card})
 
     t0 = time.perf_counter()
-    k3_large = check_gru(512, 30, 256, seed=3, path="cluster")  # GRU-256 serving's eval chunk
+    k3_large = check_gru(512, 30, 256, seed=3, path=K3_PATH_H256)  # GRU-256 serving's eval chunk
     k1 = check_gru_train(16, 30, 50, 100.0, seed=11)  # the flagship's shape, clip inactive
     k2 = check_cce(1024, 128, 50_000, seed=15)  # the large catalog's shape
     # the LSTM path's shapes: its eval chunk is -b 1024 too, so K6 has one shape there
     k6 = check_lstm(1024, 30, 128, seed=21, path="cluster")
     k6_small = check_lstm(64, 30, 50, seed=22, path="reg")  # the GRU serving chunk's shape in an LSTM
-    k3_gru128 = check_gru(1024, 30, 128, seed=5, path="shared")  # GRU-128's validation chunk
+    k3_gru128 = check_gru(1024, 30, 128, seed=5, path="cluster")  # GRU-128's validation chunk
     # the gather-sum pair on real batches: the flagship (int16 wire), GRU-128 and LSTM-128 (one batcher)
     flagship_rows, [(ids_f, len_f)] = real_batch_ids(FLAGSHIP, ml1m_dataset())
     large_rows, [(ids_l, len_l)] = real_batch_ids(LARGE, catalog50k_dataset())
@@ -2708,7 +2742,7 @@ def main() -> int:
     k1_large = check_gru_train(1024, 30, 128, 100.0, seed=13)  # GRU-128's shape
     k5_small = check_lstm_train(16, 30, 50, 100.0, seed=28)  # the flagship's shape in an LSTM
     main_shape = {
-        "gru_scan": check_gru(64, 30, 50, seed=1, path="shared"),
+        "gru_scan": check_gru(64, 30, 50, seed=1, path="reg"),
         "fused_score_topk": check_topk(64, 50, 3706, 30, 10, seed=2),
         "gru_scan_train_fwd": {**k1, **k1["fwd"], "max_abs_err": k1["max_abs_err"]["h"]},
         "gru_scan_train_bwd": {**k1, **k1["bwd"], "max_abs_err": max(k1["max_abs_err"][k] for k in ("dx", "dh0", "dW"))},
@@ -2785,15 +2819,22 @@ def main() -> int:
         check_gru_train(1024, 30, 128, 0.01, seed=62, timed=False),  # the clip binds
         check_lstm_train(1024, 30, 128, 0.01, seed=63, timed=False),  # the clip binds
         check_gru_train(64, 30, 256, 100.0, seed=64, timed=False),
-        # K3's cluster path: one row, a ragged tile, C not dividing H, a row
-        # of length 0, a mask with holes, a small batch
-        check_gru(1, 30, 256, seed=40, timed=False, path="cluster"),
-        check_gru(513, 30, 256, seed=41, timed=False, path="cluster"),
-        check_gru(300, 30, 250, seed=42, timed=False, path="cluster"),
-        check_gru(64, 30, 256, seed=43, timed=False, empty_row=True, path="cluster"),
-        check_gru(64, 30, 256, seed=44, timed=False, holes=True, path="cluster"),
-        check_gru(64, 30, 256, seed=45, timed=False, path="cluster"),
-        check_gru(64, 30, 300, seed=48, timed=False, path="cluster"),  # two units a lane
+        # K3 on its reg path (a row of length 0), its cluster path (a ragged
+        # tile with holes; H=130 and 250, C not dividing H), gru_cluster.cuh
+        # at H=256 (one row, a ragged tile, a row of length 0, a mask with
+        # holes, a small batch) and H=300 (two units a lane), its l2 path at
+        # H=512
+        check_gru(9, 7, 12, seed=75, path="reg", timed=False, empty_row=True),
+        check_gru(1023, 30, 128, seed=76, path="cluster", timed=False, holes=True),
+        check_gru(64, 30, 130, seed=77, path="cluster", timed=False),
+        check_gru(1, 30, 256, seed=40, path=K3_PATH_H256, timed=False),
+        check_gru(513, 30, 256, seed=41, path=K3_PATH_H256, timed=False),
+        check_gru(300, 30, 250, seed=42, path="cluster", timed=False),
+        check_gru(64, 30, 256, seed=43, path=K3_PATH_H256, timed=False, empty_row=True),
+        check_gru(64, 30, 256, seed=44, path=K3_PATH_H256, timed=False, holes=True),
+        check_gru(64, 30, 256, seed=45, path=K3_PATH_H256, timed=False),
+        check_gru(64, 30, 300, seed=48, path="gru_cluster", timed=False),
+        check_gru(64, 30, 512, seed=49, path="l2", timed=False, empty_row=True, holes=True),
         # K2: two H chunks at the large catalog; ragged B, H and N (a padded
         # W); every check_cce has a row with g = 0 and compares two calls of
         # the stats and of the gradients bit for bit
@@ -2846,22 +2887,23 @@ def main() -> int:
             "launches_features": {run: counts[name] for run, counts in feature_runs.items()},
             "launches_bf16": bf16_train[name],
         })
-    # where this round's redesigns act: K3 at GRU-256 serving's chunk, K2's gradients
+    # K3 on the training forward's kernels: the serving chunk (reg), GRU-128's validation chunk
+    # (cluster), GRU-256 serving's chunk (K3_PATH_H256)
     k3 = summary[0]
+    k3_keys = ("plan", "kernel_ms", "kernel_device_ms", "kernel_back_to_back_ms", "plain_device_ms",
+               "library_device_ms", "bound_ms", "max_abs_err")
     k3.update(
         kernel_device_ms=main_shape["gru_scan"]["kernel_device_ms"],
-        library_device_ms=main_shape["gru_scan"]["library_device_ms"], path="shared",
+        kernel_back_to_back_ms=main_shape["gru_scan"]["kernel_back_to_back_ms"],
+        library_device_ms=main_shape["gru_scan"]["library_device_ms"], path=main_shape["gru_scan"]["plan"][0],
+        plan=main_shape["gru_scan"]["plan"], same_bits_twice=True,
         at_B512_L30_H256={
-            "path": k3_large["plan"][0], "plan": k3_large["plan"], "kernel_ms": k3_large["kernel_ms"],
-            "kernel_device_ms": k3_large["kernel_device_ms"], "plain_device_ms": k3_large["plain_device_ms"],
-            "library_device_ms": k3_large["library_device_ms"], "bound_ms": k3_large["bound_ms"],
-            "max_abs_err": k3_large["max_abs_err"],
+            "path": k3_large["plan"][0], **{key: k3_large[key] for key in k3_keys},
             "launches_serving_pass_gru256": gru256["gru_scan"],
-            "cluster_launches_serving_pass_gru256": gru256["gru_scan_cluster"],
+            f"{K3_PATH_H256}_launches_serving_pass_gru256": gru256["gru_scan_on_path"],
         },
         at_B1024_L30_H128={  # GRU-128's validation chunk
-            **{key: k3_gru128[key] for key in ("plan", "kernel_ms", "kernel_device_ms", "plain_device_ms",
-                                               "library_device_ms", "bound_ms", "max_abs_err")},
+            "path": k3_gru128["plan"][0], **{key: k3_gru128[key] for key in k3_keys},
             "launches_gru128_path": large["gru_scan"],
         },
     )

@@ -1,10 +1,13 @@
-// K3's cluster path: the forward GRU over time (final state only) with
-// W_hid split over the CTAs of a thread-block cluster, for hidden sizes
-// whose W_hid [H, 3H] does not fit in one block's shared memory beside the
-// scan state (H=256: 786 KB against the 227 KB a block may use).
+// K3's gru_cluster path: the forward GRU over time (final state only)
+// with W_hid split over the 8 CTAs of a thread-block cluster, up to 64
+// units a CTA and 64 rows a cluster, for H from 256 (GRU-256 serving,
+// where it measured faster than the training forward's cluster kernel)
+// to about 368 on an H100, past that kernel's 32 units a CTA (H=256:
+// W_hid is 786 KB against the 227 KB a block may use).
 //
-// Replaces, with gru_forward.cuh's single-block kernel for the sizes where
-// W_hid fits in one block, seqrec_tpu/ops/pallas_rnn.py:_gru_scan_kernel
+// Replaces, with the training scan's forward kernels below H=256 and
+// gru_forward.cuh's single-block kernel past this kernel's reach (all
+// launched by gru_scan.cu), seqrec_tpu/ops/pallas_rnn.py:_gru_scan_kernel
 // (reached through gru_scan). Same math, gate order reset|update|candidate:
 //   hid = h . W_hid
 //   r = sigmoid(x_r + hid_r), u = sigmoid(x_u + hid_u), c = tanh(x_c + r * hid_c)

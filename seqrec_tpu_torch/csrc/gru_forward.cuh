@@ -1,27 +1,25 @@
-// Forward GRU over time, shared by the eval scan (gru_scan.cu, K3) and the
-// training scan (gru_scan_train.cu, K1). Gate order reset|update|candidate:
+// Forward GRU over time, the first port's single-block kernel, shared by
+// the training scan (gru_scan_train.cu, K1) and the eval scan (gru_scan.cu,
+// K3) on their "l2" paths: the shapes no cluster slice of theirs holds
+// (H above 256 for K1's forward, above about 368 for K3 on an H100). Gate order
+// reset|update|candidate:
 //   hid = h . W_hid
 //   r = sigmoid(x_r + hid_r), u = sigmoid(x_u + hid_u), c = tanh(x_c + r * hid_c)
 //   h' = (1 - u) * h + u * c, kept only where mask > 0.
 //
-// What bounds it on an H100: the L steps depend on each other, so at the
-// serving shapes (B=64, L=30, H=50: 29 MFLOP, 1.2 MB) it is latency-bound,
-// far above its byte and operation bounds. At large batch and hidden size
-// the per-step [rows, H] x [H, 3H] product dominates.
+// What bounds it on an H100: the L steps depend on each other, and at the
+// sizes that reach it the per-step [rows, H] x [H, 3H] product, whose
+// W_hid (over 786 KB) is read from L2 in every block and every step.
 //
 // Design: one block per tile of `rows` batch rows runs the whole L-step
 // loop, so h never leaves shared memory between steps. The tile is chosen
-// so the grid has about one block per SM (rows = ceil(B / SMs), at most 8);
-// at B=64 that is still only 64 blocks on 132 SMs. Each step has two
-// phases with a barrier between them: threads own gate columns of the
-// product (one W_hid element feeds all rows of the tile from a register),
-// then (row, unit) pairs for the gate math. W_hid is staged in shared
-// memory when it fits beside h and hid (H=50: 30 KB; up to H of about 128
-// with the opt-in limit) and is read through L2 otherwise. The L2 read is
-// what K1's forward does at larger H; the eval scan (K3) launches this
-// kernel only where W_hid fits, or past the reach of its cluster kernel
-// (gru_cluster.cuh, which splits W_hid over a thread-block cluster; H=256:
-// 786 KB over 8 CTAs), as ops/rnn_scan.py:gru_scan_plan decides.
+// so the grid has about one block per SM (rows = ceil(B / SMs), at most
+// 8). Each step has two phases with a barrier between them: threads own
+// gate columns of the product (one W_hid element feeds all rows of the
+// tile from a register), then (row, unit) pairs for the gate math. K1's
+// form stages W_hid in shared memory where it fits beside h and hid and
+// reads it through L2 otherwise; K3's form (kStoreHs = false) is launched
+// only where W_hid never fits a block, and reads it through L2 alone.
 // Any H is taken as is: no padding to a lane multiple. x_pre is read in
 // the caller's [B, L, 3H] layout. With kStoreHs the training scan also
 // writes h_{t-1} of every step to hs [L, B, H], the one residual its
@@ -87,10 +85,12 @@ int launch_gru_forward(const float* x, const float* mask, const float* w, const 
   if (B <= 0 || L < 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const int rows = scan_rows_per_block(B);
   const size_t base = (size_t)rows * 4 * H * sizeof(float);  // h [rows, H] + hid [rows, 3H]
-  const size_t w_bytes = (size_t)3 * H * H * sizeof(float);
-  return launch_scan(gru_forward_kernel<true, kStoreHs>, gru_forward_kernel<false, kStoreHs>, base,
-                     w_bytes, (B + rows - 1) / rows, (cudaStream_t)stream, x, mask, w, h0, out, hs,
-                     B, L, H, rows);
+  // K3's form has no shared-W_hid instance: asking for 0 bytes of W_hid,
+  // it always launches the L2 one
+  const size_t w_bytes = kStoreHs ? (size_t)3 * H * H * sizeof(float) : 0;
+  return launch_scan(gru_forward_kernel<kStoreHs, kStoreHs>, gru_forward_kernel<false, kStoreHs>,
+                     base, w_bytes, (B + rows - 1) / rows, (cudaStream_t)stream, x, mask, w, h0, out,
+                     hs, B, L, H, rows);
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
 // Launchers of the training scans' redesigned paths, shared by K1
 // (gru_scan_train.cu, kLstm = false) and K5 (lstm_scan_train.cu, kLstm =
-// true); the LSTM eval scan K6 (lstm_scan.cu) launches the same forward
-// kernels without their state stores (kStoreStates = false). The
+// true); the eval scans K3 (gru_scan.cu, below H=256) and K6
+// (lstm_scan.cu) launch the same forward kernels without their state
+// stores (kStoreStates = false). The
 // wrapper's plan (ops/rnn_scan_train.py:train_scan_plan) picks the path and
 // passes it as an int:
 //   kPathReg     W_hid in registers, one block per tile of R rows

@@ -9,13 +9,17 @@ final hidden state. On a CUDA tensor :func:`gru_scan` and
 :func:`lstm_scan` launch the CUDA kernels of ``csrc/gru_scan.cu`` and
 ``csrc/lstm_scan.cu``; on a CPU tensor they run :func:`gru_scan_plain` and
 :func:`lstm_scan_plain`, the same math in plain PyTorch, which the chip
-check also holds the kernels against. :func:`gru_scan_plan` picks the GRU
-kernel from the shape: one block per row tile where W_hid fits in its
-shared memory, else W_hid split over a thread-block cluster.
-:func:`lstm_scan_plan` picks the LSTM kernel: the training scan's forward
-(K5) without its state stores, W_hid in registers (H <= 50) or split over
-a thread-block cluster, or the single-block kernel reading W_hid through
-L2 where no cluster slice fits.
+check also holds the kernels against.
+
+Both run the training scans' forward kernels (K1's, K5's) without their
+state stores, on the training forward's plan
+(``ops/rnn_scan_train.py:train_scan_plan``): W_hid in registers (H <= 50),
+split over a thread-block cluster of at most 32 units a CTA (H up to 256),
+or the single-block kernel reading W_hid through L2 where no cluster slice
+fits. :func:`gru_scan_plan` gives the GRU one more kernel, from
+``GRU_CLUSTER_MIN_H`` (256, where it measured faster) up to its reach (H
+of about 368 on an H100): ``csrc/gru_cluster.cuh``'s, 8 CTAs of up to 64
+units and 64 rows.
 """
 
 from __future__ import annotations
@@ -76,8 +80,13 @@ def gru_scan_plain(x_pre, mask, w_hid, h0):
     return h
 
 
-PATHS = {"reg": 0, "cluster": 1, "l2": 2}  # the paths of K1, K5 and K6 (csrc/scan_train.cuh kPath*)
-SCAN_ROWS_MAX = 8  # rows of one single-block tile (csrc/scan_common.cuh kMaxRows)
+PATHS = {"reg": 0, "cluster": 1, "l2": 2}  # the paths of K1, K3, K5 and K6 (csrc/scan_train.cuh kPath*)
+GRU_PATHS = {**PATHS, "gru_cluster": 3}  # K3's, with gru_cluster.cuh's kernel (csrc/gru_scan.cu kPathGruCluster)
+# K3 runs gru_cluster.cuh's kernel (8 CTAs of up to 64 units, tiles up to 64 rows) from this H on:
+# at GRU-256 serving's B512 chunk its 8x40 tile took 0.356 ms where the training forward's cluster
+# kernel (at most 32 units and 32 rows) took 0.467 on its 8x24 plan; at H=192 the training kernel was
+# the faster (kernel_breakdown.py --parts k3 on an H100, PERF.md §6)
+GRU_CLUSTER_MIN_H = 256
 CLUSTER_CTAS = 8  # CTAs of one cluster, the portable maximum (gru_cluster.cuh kClusterMax)
 CLUSTER_ROWS = (64, 48, 40, 32, 16, 8)  # row tiles of one cluster (8 warps x 8 ... 1 rows)
 CLUSTER_MAX_UNITS = 64  # units of one CTA: at most two per lane
@@ -91,49 +100,62 @@ def gru_cluster_units(H: int, C: int) -> list[tuple[int, int]]:
 
 
 def gru_cluster_smem(H: int, C: int, R: int) -> int:
-    """Shared-memory bytes of one CTA of the cluster kernel: its W_hid
-    slice [H padded to 4, 3 ceil(H / C)] and the h double buffer
+    """Shared-memory bytes of one CTA of gru_cluster.cuh's kernel: its
+    W_hid slice [H padded to 4, 3 ceil(H / C)] and the h double buffer
     [2, R, H padded to 4] (gru_cluster.cuh gru_cluster_smem)."""
     Hp = -(-H // 4) * 4
     return 4 * (Hp * 3 * -(-H // C) + 2 * R * Hp)
 
 
-def gru_scan_plan(B: int, H: int, n_sm: int, smem_optin: int, capacity=None) -> tuple[str, int, int]:
-    """(path, C, R) of the GRU eval scan at batch B and hidden size H on a
-    card of ``n_sm`` SMs and ``smem_optin`` bytes of shared memory a block
-    may use; ``capacity`` maps R to the clusters of that tile the card
-    holds at once (default: one per C SMs).
-
-    - ``"shared"``: one block per tile of R rows (about one block per SM,
-      at most 8 rows), W_hid in its shared memory; C = 1.
-    - ``"cluster"``: clusters of C = 8 CTAs, each cluster R rows, W_hid
-      split over the CTAs. R is the tile whose waves of clusters times
-      (R + 24), a step's product plus its fixed cost, is least; ties go to
-      the larger R.
-    - ``"l2"``: the single-block kernel reading W_hid through L2, where
-      not even a cluster slice fits (H above about 370); C = 1.
-    """
-    rows = min(SCAN_ROWS_MAX, max(1, -(-B // n_sm)))
-    if rows * 4 * H * 4 + 3 * H * H * 4 <= smem_optin:  # scan_common.cuh launch_scan
-        return "shared", 1, rows
+def gru_cluster_tile(B: int, H: int, n_sm: int, smem_optin: int, held=None) -> int | None:
+    """Rows R a cluster of gru_cluster.cuh's kernel (C = 8) at batch B and
+    hidden size H: the tile whose waves of clusters times (R + 24), a
+    step's product plus its fixed cost, is least, ties to the larger R;
+    ``held`` maps R to the clusters of that tile the card holds at once
+    (default: one per 8 SMs). None where no tile fits: H < 8, over 64
+    units a CTA, or no tile within ``smem_optin`` bytes."""
     C = CLUSTER_CTAS
+    if H < C or -(-H // C) > CLUSTER_MAX_UNITS:
+        return None
     best = None
-    if H >= C and -(-H // C) <= CLUSTER_MAX_UNITS:
-        for R in CLUSTER_ROWS:
-            if gru_cluster_smem(H, C, R) > smem_optin:
-                continue
-            held = capacity[R] if capacity is not None else n_sm // C
-            waves = -(-(-(-B // R)) // max(1, held))
-            cost = waves * (R + CLUSTER_STEP_ROWS)
-            if best is None or cost < best[0]:
-                best = (cost, R)
-    if best is None:
-        return "l2", 1, rows
-    return "cluster", C, best[1]
+    for R in CLUSTER_ROWS:
+        if gru_cluster_smem(H, C, R) > smem_optin:
+            continue
+        n = held[R] if held is not None else n_sm // C
+        cost = -(-(-(-B // R)) // max(1, n)) * (R + CLUSTER_STEP_ROWS)
+        if best is None or cost < best[0]:
+            best = (cost, R)
+    return None if best is None else best[1]
+
+
+def gru_scan_plan(B: int, H: int, n_sm: int, smem_optin: int, capacity=None,
+                  gru_cluster_held=None) -> tuple[str, int, int]:
+    """(path, C, R) of the GRU eval scan (K3) at batch B and hidden size H
+    on a card of ``n_sm`` SMs and ``smem_optin`` bytes of shared memory a
+    block may use.
+
+    - ``"gru_cluster"``, from H = GRU_CLUSTER_MIN_H (256) on where a tile
+      fits (H up to about 368 on an H100): gru_cluster.cuh's kernel, C =
+      8, R from :func:`gru_cluster_tile` on ``gru_cluster_held``.
+    - otherwise the training forward's plan
+      (``ops/rnn_scan_train.py:train_scan_plan``, forward), whose kernels
+      K3 runs without their state stores: ``"reg"`` (H <= 50, W_hid in
+      registers), ``"cluster"`` (W_hid split over C CTAs of at most 32
+      units, R rows a cluster; ``capacity`` maps (C, R) to the clusters
+      held) or ``"l2"`` (no cluster slice fits: the single-block kernel
+      reading W_hid through L2).
+    """
+    if H >= GRU_CLUSTER_MIN_H:
+        R = gru_cluster_tile(B, H, n_sm, smem_optin, gru_cluster_held)
+        if R is not None:
+            return "gru_cluster", CLUSTER_CTAS, R
+    from seqrec_tpu_torch.ops.rnn_scan_train import train_scan_plan  # it imports this module
+
+    return train_scan_plan("gru", B, H, n_sm, smem_optin, False, capacity)
 
 
 _limits: dict[int, tuple[int, int]] = {}
-_capacity: dict[tuple[int, int], dict[int, int]] = {}
+_plans: dict[tuple[int, int, int], tuple[str, int, int]] = {}
 
 
 def device_limits(index: int) -> tuple[int, int]:
@@ -149,39 +171,61 @@ def device_limits(index: int) -> tuple[int, int]:
     return _limits[index]
 
 
-def _device_plan(B, H, device):
-    """gru_scan_plan on ``device``'s SM count, opt-in shared memory and
-    cluster capacity."""
+def gru_scan_device_plan(B: int, H: int, device) -> tuple[str, int, int]:
+    """K3's (path, C, R) on ``device``, cached per (device, B, H): from
+    GRU_CLUSTER_MIN_H on, gru_cluster.cuh's tile on the card's cluster
+    capacity; below it, or past that kernel's reach, the training
+    forward's plan as ``ops/rnn_scan_train.py:device_train_plan`` makes it
+    of K3's own library (the capacity of the eval form of the cluster
+    kernel). Either way the first plan of a shape holds its shared-memory
+    count against the kernel's (``seqrec_gru_scan_smem``) and raises if
+    they differ."""
     index = device.index if device.index is not None else torch.cuda.current_device()
+    plan = _plans.get((index, B, H))
+    if plan is not None:
+        return plan
     n_sm, smem = device_limits(index)
-    if gru_scan_plan(B, H, n_sm, smem)[0] != "cluster":
-        return gru_scan_plan(B, H, n_sm, smem)
-    if (index, H) not in _capacity:
-        _capacity[index, H] = {
-            R: gru_cluster_capacity(H, CLUSTER_CTAS, R, index)
-            for R in CLUSTER_ROWS if gru_cluster_smem(H, CLUSTER_CTAS, R) <= smem
-        }
-    return gru_scan_plan(B, H, n_sm, smem, _capacity[index, H])
+    if H >= GRU_CLUSTER_MIN_H and gru_cluster_tile(B, H, n_sm, smem) is not None:
+        held = {R: gru_cluster_capacity(H, CLUSTER_CTAS, R, index)
+                for R in CLUSTER_ROWS if gru_cluster_smem(H, CLUSTER_CTAS, R) <= smem}
+        plan = gru_scan_plan(B, H, n_sm, smem, gru_cluster_held=held)
+        got = _library().seqrec_gru_scan_smem(0, GRU_PATHS[plan[0]], H, plan[1], plan[2])
+        if got != gru_cluster_smem(H, plan[1], plan[2]):
+            raise RuntimeError(f"gru scan: the plan {plan} at H={H} counts {gru_cluster_smem(H, plan[1], plan[2])} "
+                               f"bytes of shared memory, its kernel {got}")
+    else:
+        from seqrec_tpu_torch.ops.rnn_scan_train import device_train_plan  # it imports this module
+
+        plan = device_train_plan("gru", B, H, device, False, _library, kernels="scan")
+    _plans[index, B, H] = plan
+    return plan
+
+
+_lib = None
 
 
 def _library():
+    global _lib
+    if _lib is not None:
+        return _lib
     lib = _build.load("gru_scan")
-    fn = lib.seqrec_gru_scan_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.seqrec_gru_scan_cluster_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.seqrec_gru_scan_cluster_f32.restype = ctypes.c_int
-        lib.seqrec_gru_cluster_capacity.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-        lib.seqrec_gru_cluster_capacity.restype = ctypes.c_int
-        lib.seqrec_gru_device_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-        lib.seqrec_gru_device_limits.restype = ctypes.c_int
+    lib.seqrec_gru_scan_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.seqrec_gru_scan_f32.restype = ctypes.c_int
+    lib.seqrec_gru_scan_capacity.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.seqrec_gru_scan_capacity.restype = ctypes.c_int
+    lib.seqrec_gru_scan_smem.argtypes = [ctypes.c_int] * 5
+    lib.seqrec_gru_scan_smem.restype = ctypes.c_longlong
+    lib.seqrec_gru_cluster_capacity.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.seqrec_gru_cluster_capacity.restype = ctypes.c_int
+    lib.seqrec_gru_device_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.seqrec_gru_device_limits.restype = ctypes.c_int
+    _lib = lib
     return lib
 
 
 def gru_cluster_capacity(H: int, C: int, R: int, device="cuda") -> int:
-    """Clusters of the cluster kernel at (H, C, R) that the card holds at
-    once (cudaOccupancyMaxActiveClusters)."""
+    """Clusters of gru_cluster.cuh's kernel at (H, C, R) that the card
+    holds at once (cudaOccupancyMaxActiveClusters)."""
     lib = _library()
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
@@ -194,9 +238,10 @@ def gru_cluster_capacity(H: int, C: int, R: int, device="cuda") -> int:
 def gru_scan(x_pre, mask, w_hid, h0):
     """Final GRU state [B, H] (f32) of x_pre [B, L, 3H], mask [B, L],
     w_hid [H, 3H] and h0 [B, H], all f32 and contiguous. On a CUDA tensor
-    the kernel of :func:`gru_scan_plan`'s path; ``gru_scan.launches``
-    counts every launch and ``gru_scan.cluster_launches`` those of the
-    cluster kernel."""
+    the kernel of :func:`gru_scan_device_plan`'s path; ``gru_scan.launches``
+    counts every launch, ``gru_scan.reg_launches``,
+    ``gru_scan.cluster_launches`` and ``gru_scan.gru_cluster_launches``
+    those of the reg, cluster and gru_cluster paths."""
     if x_pre.device.type == "cpu":
         return gru_scan_plain(x_pre, mask, w_hid, h0)
     B, L, _ = x_pre.shape
@@ -209,24 +254,23 @@ def gru_scan(x_pre, mask, w_hid, h0):
     out = torch.empty((B, H), dtype=torch.float32, device=x_pre.device)
     if B == 0:
         return out
-    path, C, R = _device_plan(B, H, x_pre.device)
-    lib = _library()
-    ptrs = (x_pre.data_ptr(), mask.data_ptr(), w_hid.data_ptr(), h0.data_ptr(), out.data_ptr())
-    with torch.cuda.device(x_pre.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if path == "cluster":
-            err = lib.seqrec_gru_scan_cluster_f32(*ptrs, B, L, H, C, R, stream)
-        else:
-            err = lib.seqrec_gru_scan_f32(*ptrs, B, L, H, stream)
+    path, C, R = gru_scan_device_plan(B, H, x_pre.device)
+    with on_device(x_pre.device):
+        err = _library().seqrec_gru_scan_f32(
+            x_pre.data_ptr(), mask.data_ptr(), w_hid.data_ptr(), h0.data_ptr(), out.data_ptr(), B, L, H,
+            GRU_PATHS[path], C, R, torch.cuda.current_stream().cuda_stream,
+        )
     if err:
         raise RuntimeError(f"gru_scan kernel launch ({path} path) failed with CUDA error {err}")
     gru_scan.launches += 1
+    gru_scan.reg_launches += path == "reg"
     gru_scan.cluster_launches += path == "cluster"
+    gru_scan.gru_cluster_launches += path == "gru_cluster"
     return out
 
 
 gru_scan.launches = 0
-gru_scan.cluster_launches = 0
+gru_scan.reg_launches = gru_scan.cluster_launches = gru_scan.gru_cluster_launches = 0
 
 
 def lstm_scan_plain(x_pre, mask, w_hid, peepholes, h0, c0):

@@ -8,10 +8,15 @@ cut out (text patches of the sources, compiled into
 ``build/kernel_breakdown/``), and times each at the shape where the
 kernel runs on a path of ``chip_smoke.py``:
 
-- ``k3``: K3's cluster kernel at B=512, L=30, H=256 with its plan's tile:
-  without the per-step product, with each new h stored only into the
-  CTA's own buffer (no distributed-shared-memory stores), without the
-  wait at the cluster barrier;
+- ``k3``: K3 at B=64 and 512/L=30/H=50 (reg path), B=1024/L=30/H=128
+  (cluster) and B=512/L=30/H=256 (gru_cluster) on its plan, without its per-step product (what
+  is left is the steps' latency floor), through the wrapper per call,
+  beside K1's forward (the same kernels with their state stores) and
+  cuDNN's GRU; at H=128, 192 and 256 (B=512 and 1024) the training
+  forward's cluster kernel on every (C, R) that fits against
+  gru_cluster.cuh's kernel on every tile, both without state stores;
+  with ``--before`` also K3 of that checkout at H <= 128 (one block per
+  row tile, W_hid in shared memory), whole and without its product;
 - ``k2``: K2's gradients at B=1024, H=128, N=50,000: without the
   tensor-core products, without the copies into shared memory, without
   both; and the committed kernels against their plain versions at H=256;
@@ -90,12 +95,25 @@ MMA_CALL = "    mma(s, ring + (s % kStages) * kSlot);"
 COPY_AHEAD = "    if (s + 2 < n_slices) stage(s + 2, ring + ((s + 2) % kStages) * kSlot);"
 COPY_FIRST = "  stage(0, ring);\n  cp_async_commit();\n  if (n_slices > 1) stage(1, ring + kSlot);"
 
+# K3 with its per-step product cut out, on every path: the reg forward's
+# hid, the cluster forward's gate sums (cluster_hid, shared with the
+# backward, which K3's library does not build) and gru_cluster.cuh's
 K3_VARIANTS = {
     "committed": [],
-    "no_product": [("gru_cluster.cuh", PRODUCT_LOOP, "    for (int k = 0; k < (L < 0 ? Hp : 0); k += 4) {")],
-    "own_buffer_stores_only": [("gru_cluster.cuh", REMOTE_STORE, "hn[e] = h_new;")],
-    "no_barrier_wait": [("gru_cluster.cuh", "    cluster_wait();\n  }", "  }\n  cluster_wait();")],
+    "no_product": [("scan_train_reg.cuh", "    reg_hid(h, hid, wa, rows, H, G);", "    if (L < 0) reg_hid(h, hid, wa, rows, H, G);"),
+                   ("scan_train_cluster.cuh", "  for (int k = 0; k < Hp; k += 4) {",
+                    "  for (int k = 0; k < (U < 0 ? Hp : 0); k += 4) {"),
+                   ("gru_cluster.cuh", PRODUCT_LOOP, "    for (int k = 0; k < (L < 0 ? Hp : 0); k += 4) {")],
 }
+# K3 before this round's redesign: gru_forward.cuh's single-block kernel, W_hid in shared memory
+K3_BEFORE_VARIANTS = {
+    "committed": [],
+    "no_product": [("gru_forward.cuh", "    rows_product(h, wr, hid, nullptr, rows, H, G);",
+                    "    if (L < 0) rows_product(h, wr, hid, nullptr, rows, H, G);")],
+}
+# the serving chunks (64 and 512), GRU-128's validation chunk, GRU-256's serving chunk
+K3_SHAPES = [(64, 30, 50), (512, 30, 50), (1024, 30, 128), (512, 30, 256)]
+K3_WIDE_SHAPES = [(B, 30, H) for H in (128, 192, 256) for B in (512, 1024)]  # both cluster kernels
 NO_MMA = ("block_mma.cuh", MMA_CALL, "    if (n_slices < 0) mma(s, ring + (s % kStages) * kSlot);")
 NO_COPY = [
     ("block_mma.cuh", COPY_AHEAD, "    if (n_slices < 0) stage(s + 2, ring + ((s + 2) % kStages) * kSlot);"),
@@ -184,23 +202,12 @@ def build_variants(source: str, variants: dict, csrc: str | None = None, tag: st
     return libs
 
 
-def mean_ms(fn, reps: int = 50) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, reps: int = 20) -> dict:
+def device_ms(fn, reps: int = 20) -> tuple[dict, dict]:
     """Device time of one call of ``fn`` in ms by kernel name
-    (torch.profiler, mean over ``reps`` calls)."""
+    (torch.profiler, mean over ``reps`` calls): each kernel's mean time an
+    event times its events a call, at least one (the profiler loses some
+    of a kernel's launches now and then); and the events the trace holds a
+    call, by kernel name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -211,13 +218,18 @@ def device_ms(fn, reps: int = 20) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key.replace("(anonymous namespace)::", "").split("(")[0]: e.self_device_time_total / 1e3 / reps
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    events = {e.key.replace("(anonymous namespace)::", "").split("(")[0]: (e.self_device_time_total / 1e3, e.count)
+              for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    return ({k: ms / n * max(1, round(n / reps)) for k, (ms, n) in events.items()},
+            {k: n / reps for k, (_, n) in events.items()})
 
 
 def timed(fn) -> dict:
-    by_kernel = device_ms(fn)
-    return {"ms": mean_ms(fn), "device_ms": sum(by_kernel.values()), "device_ms_by_kernel": by_kernel}
+    import chip_smoke
+
+    by_kernel, seen = device_ms(fn)
+    return {"ms": chip_smoke.back_to_back_ms(fn), "device_ms": sum(by_kernel.values()),
+            "device_ms_by_kernel": by_kernel, "events_a_call": seen}
 
 
 def checked(err: int) -> None:
@@ -225,32 +237,88 @@ def checked(err: int) -> None:
         raise RuntimeError(f"a kernel launch failed with CUDA error {err}")
 
 
-def k3_breakdown(card: str) -> None:
+def k3_breakdown(card: str, before: str | None) -> None:
+    """K3 as committed at K3_SHAPES on its plan, with and without its
+    per-step product (the rest is the steps' latency floor), through the
+    wrapper, beside K1's forward (the storing form of the same kernels)
+    and cuDNN's GRU; at K3_WIDE_SHAPES the training forward's cluster
+    kernel on each (C, R) that fits against gru_cluster.cuh's on each of
+    its tiles, both without state stores, each plan's shape marked (on
+    the card's cluster capacities); with
+    ``before`` also that checkout's K3 (W_hid in shared memory up to
+    H=128; its C entry point took no plan), whole and without its
+    product."""
     import torch
 
-    from seqrec_tpu_torch.ops.rnn_scan import _device_plan
+    import chip_smoke
+    from seqrec_tpu_torch.ops import rnn_scan as rs
+    from seqrec_tpu_torch.ops import rnn_scan_train as rst
 
-    B, L, H = 512, 30, 256
-    rng = np.random.default_rng(1)
-    lengths = rng.integers(1, L + 1, size=B)
-    arrays = [rng.normal(0, 0.5, (B, L, 3 * H)), np.arange(L)[None] < lengths[:, None],
-              rng.normal(0, 0.1, (H, 3 * H)), rng.normal(0, 0.1, (B, H))]
-    x, m, w, h0 = (torch.tensor(a, dtype=torch.float32, device="cuda") for a in arrays)
-    out = torch.empty(B, H, device="cuda")
-    path, C, R = _device_plan(B, H, x.device)
-    for name, lib in build_variants("gru_scan", K3_VARIANTS).items():
-        fn = lib.seqrec_gru_scan_cluster_f32
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        ms = mean_ms(lambda: checked(fn(x.data_ptr(), m.data_ptr(), w.data_ptr(), h0.data_ptr(), out.data_ptr(),
-                                        B, L, H, C, R, torch.cuda.current_stream().cuda_stream)))
-        print(json.dumps({"kernel": "gru_scan cluster", "variant": name, "shape": [B, L, H],
-                          "plan": [path, C, R], "ms": ms, "card": card}), flush=True)
+    libs = build_variants("gru_scan", K3_VARIANTS, tag="-now")
+    old = build_variants("gru_scan", K3_BEFORE_VARIANTS, csrc=before, tag="-before") if before else {}
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    n_sm, smem_optin = rs.device_limits(torch.cuda.current_device())
+
+    def launch(lib, ptrs, B, L, H, path, C, R):
+        fn = lib.seqrec_gru_scan_f32
+        fn.argtypes, fn.restype = [vp] * 5 + [ci] * 6 + [vp], ci
+        return lambda: checked(fn(*ptrs, B, L, H, rs.GRU_PATHS[path], C, R, torch.cuda.current_stream().cuda_stream))
+
+    for B, L, H in K3_SHAPES:
+        a = scan_inputs("gru", B, L, H)
+        out = torch.empty(B, H, device="cuda")
+        ptrs = [t.data_ptr() for t in (a["x"], a["m"], a["w"], a["h0"], out)]
+        plan = rs.gru_scan_device_plan(B, H, a["x"].device)
+        for name, lib in libs.items():
+            print(json.dumps({"kernel": "gru_scan", "variant": name, "shape": [B, L, H], "plan": list(plan),
+                              **timed(launch(lib, ptrs, B, L, H, *plan)), "card": card}), flush=True)
+        args = (a["x"], a["m"], a["w"], a["h0"])
+        print(json.dumps({"kernel": "gru_scan", "variant": "committed, through the wrapper", "shape": [B, L, H],
+                          "plan": list(plan), **timed(lambda: rs.gru_scan(*args)), "card": card}), flush=True)
+        print(json.dumps({"kernel": "gru_scan", "variant": "K1 forward (state stores), its plan", "shape": [B, L, H],
+                          "plan": list(rst.gru_train_plan(B, H, a["x"].device, backward=False)),
+                          **timed(lambda: rst.gru_scan_train_fwd(*args)), "card": card}), flush=True)
+        cudnn = chip_smoke.cudnn_gru(*args)
+        print(json.dumps({"kernel": "gru_scan", "variant": "library: cuDNN GRU (packed, an extra input product)",
+                          "shape": [B, L, H], **timed(cudnn), "card": card}), flush=True)
+        for name, lib in old.items() if H <= 128 else ():  # its path past H=128 was gru_cluster.cuh, as now
+            fn = lib.seqrec_gru_scan_f32
+            fn.argtypes, fn.restype = [vp] * 5 + [ci] * 3 + [vp], ci
+            print(json.dumps({"kernel": "gru_scan before", "variant": name, "shape": [B, L, H],
+                              **timed(lambda: checked(fn(*ptrs, B, L, H, torch.cuda.current_stream().cuda_stream))),
+                              "card": card}), flush=True)
+
+    lib = libs["committed"]
+    lib.seqrec_gru_scan_capacity.argtypes = [ci] * 4 + [ctypes.POINTER(ci)]
+    lib.seqrec_gru_cluster_capacity.argtypes = [ci] * 3 + [ctypes.POINTER(ci)]
+    for B, L, H in K3_WIDE_SHAPES:
+        a = scan_inputs("gru", B, L, H)
+        out = torch.empty(B, H, device="cuda")
+        ptrs = [t.data_ptr() for t in (a["x"], a["m"], a["w"], a["h0"], out)]
+        shapes = [("cluster", C, R) for C in rst.CLUSTER_CTAS for R in rst.CLUSTER_ROWS
+                  if H >= C and -(-H // C) <= rst.CLUSTER_UNITS
+                  and rst.train_scan_smem("gru", "cluster", H, C, R, False) <= smem_optin]
+        shapes += [("gru_cluster", 8, R) for R in rs.CLUSTER_ROWS if rs.gru_cluster_smem(H, 8, R) <= smem_optin]
+        held = {}
+        for path, C, R in shapes:
+            n = ctypes.c_int(0)
+            checked(lib.seqrec_gru_scan_capacity(0, H, C, R, ctypes.byref(n)) if path == "cluster"
+                    else lib.seqrec_gru_cluster_capacity(H, C, R, ctypes.byref(n)))
+            held[path, C, R] = n.value
+        plans = {rst.train_scan_plan("gru", B, H, n_sm, smem_optin, False,
+                                     {(C, R): n for (p, C, R), n in held.items() if p == "cluster"}),
+                 ("gru_cluster", 8, rs.gru_cluster_tile(B, H, n_sm, smem_optin,
+                                                       {R: n for (p, _, R), n in held.items() if p == "gru_cluster"}))}
+        for shape in shapes:
+            print(json.dumps({"kernel": "gru_scan", "variant": shape[0] + (", its plan" if shape in plans else ""),
+                              "shape": [B, L, H], "plan": list(shape), "clusters_held": held[shape],
+                              **timed(launch(lib, ptrs, B, L, H, *shape)), "card": card}), flush=True)
 
 
 def k2_breakdown(card: str) -> None:
     import torch
 
+    import chip_smoke
     from seqrec_tpu_torch.ops.streaming_cce import cce_grads, cce_grads_plain, cce_stats_plain, grads_plan
 
     def inputs(B, H, N):
@@ -273,14 +341,14 @@ def k2_breakdown(card: str) -> None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         ptrs = [t.data_ptr() for t in (b, targets, logz, g, dh, dW, db, part)]
-        ms = mean_ms(lambda: checked(fn(h.data_ptr(), H, W.data_ptr(), N, *ptrs, B, H, N, n_splits, cols,
-                                        torch.cuda.current_stream().cuda_stream)))
+        ms = chip_smoke.back_to_back_ms(lambda: checked(fn(h.data_ptr(), H, W.data_ptr(), N, *ptrs, B, H, N,
+                                                           n_splits, cols, torch.cuda.current_stream().cuda_stream)))
         print(json.dumps({"kernel": "cce_grads", "variant": name, "shape": [B, H, N], "ms": ms, "card": card}),
               flush=True)
     args = inputs(1024, 256, 50_000)
     print(json.dumps({"kernel": "cce_grads", "variant": "committed vs plain", "shape": [1024, 256, 50_000],
-                      "ms": mean_ms(lambda: cce_grads(*args)),
-                      "plain_ms": mean_ms(lambda: cce_grads_plain(*args)), "card": card}), flush=True)
+                      "ms": chip_smoke.back_to_back_ms(lambda: cce_grads(*args)),
+                      "plain_ms": chip_smoke.back_to_back_ms(lambda: cce_grads_plain(*args)), "card": card}), flush=True)
 
 
 def topk_inputs(B, H, N, S=30, seed=2):
@@ -880,7 +948,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parts", nargs="+", choices=PARTS, default=[p for p in PARTS if p != "k4_before"])
     parser.add_argument("--before", help="csrc directory of an older checkout: K4 before its redesign (for k4_before), "
-                        "K1, K5, K6 and G1 before theirs (timed beside the committed ones by k1, k5, k6 and g1)")
+                        "K1, K3, K5, K6 and G1 before theirs (timed beside the committed ones by k1, k3, k5, k6 and g1)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_breakdown: no CUDA device is available", file=sys.stderr)
@@ -888,11 +956,12 @@ def main(argv=None) -> int:
     if "k4_before" in args.parts and not args.before:
         parser.error("k4_before needs --before")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False  # the cuDNN GRU and LSTM yardsticks in f32
     sys.path.insert(0, ROOT)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     if "k3" in args.parts:
-        k3_breakdown(card)
+        k3_breakdown(card, args.before)
     if "k2" in args.parts:
         k2_breakdown(card)
     if "k2_stats" in args.parts:

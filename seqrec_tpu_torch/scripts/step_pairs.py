@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Steady step times of the cells that run G1's backward, for two
-checkouts in one run on one CUDA GPU, in turns.
+"""Steady step times of the cells that run G1's backward, or the times of
+the passes that run K3, for two checkouts in one run on one CUDA GPU, in
+turns.
 
-    python3 -m seqrec_tpu_torch.scripts.step_pairs --before DIR [--rounds N]
+    python3 -m seqrec_tpu_torch.scripts.step_pairs --before DIR [--rounds N] [--cells steps|serving]
 
 DIR is the root of another checkout of the repository (for example a
 ``git archive`` of the parent commit unpacked under ``build/``). Each round
@@ -16,7 +17,20 @@ its kernels into its own ``build/`` once):
 - ``ltm``: LTM's CBOW steps (200 steps of 2,048 positions, host clock to a
   synchronize);
 - ``bprmf`` and ``fism``: the factorization family's device-sampled
-  dispatches (``chip_smoke.mf_steady``).
+  dispatches (``chip_smoke.mf_steady``);
+
+or, with ``--cells serving``, the passes that run K3 (GRU models from
+seed 0 with random weights; ms a pass, the median of 7 after a warm-up):
+
+- ``serving64`` and ``serving512``: GRU-50 serving of 4096 users of the
+  ML-1M-scale dataset at eval chunks of 64 and 512 (the chunks' K3, K4
+  and copies back, their inputs encoded and uploaded once, outside the
+  time; ``users_per_s`` counts the whole pass with its encoding;
+  ``device_ms`` is the profiler's device time of those chunks);
+- ``serving_gru256``: GRU-256 serving of 4096 users of the 50k-item
+  catalog at chunks of 512, timed the same way;
+- ``validation_gru128``: GRU-128's validation pass on that catalog at
+  chunks of 1024 (``chip_smoke.steady_state``'s, after 3 steps).
 
 Prints one JSON line per cell and checkout in each turn, with the card's
 name and power limit, and last the medians of each cell's step time by
@@ -71,11 +85,77 @@ for cell, flags, dispatches in (("bprmf", cs.MF_RUNS["bprmf"], 20), ("fism", cs.
          {"device_ms_per_chunk": st["device_ms_per_chunk"], "device_busy_share": st["device_busy_share"]})
 """
 
+# the same preamble, then the passes that run K3
+SERVING_CELLS = CELLS[: CELLS.index("for cell, argv, ds in")] + r"""
+import statistics
+from seqrec_tpu_torch.data import DataHandler
+from seqrec_tpu_torch.models.recurrent import RecurrentLayers
+from seqrec_tpu_torch.models.rnn_one_hot import RNNOneHot
+from seqrec_tpu_torch.models.updates import Adam
+
+
+def device_ms(fn, reps=5):
+    # profiler device time a call: each name's mean time an event times its events a call, at least one
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total / 1e3 / e.count * max(1, round(e.count / reps))
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def median_s(fn, n=7):
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+for cell, ds_dir, width, chunk in (("serving64", cs.ml1m_dataset(), 50, 64), ("serving512", cs.ml1m_dataset(), 50, 512),
+                                   ("serving_gru256", cs.catalog50k_dataset(), 256, 512)):
+    dataset = DataHandler(ds_dir)
+    model = RNNOneHot(recurrent_layer=RecurrentLayers(layer_type="GRU", layers=[width]),
+                      updater=Adam(learning_rate=0.001), max_length=30, batch_size=16, seed=0, device="cuda")
+    model.prepare_model(dataset)
+    model.set_dataset(dataset)
+    model.params_from_numpy(model._init_params())
+    model.eval_batch_size = chunk
+    inputs = []
+    for seq, _, _ in model._iter_test_instances(dataset.training_set(epochs=1)):
+        inputs.append(seq)
+        if len(inputs) == 4096:
+            break
+    staged = model._stage_eval_inputs(inputs)
+    pass_s = median_s(lambda: model._topk_from_staged(staged, k=10))
+    whole_s = median_s(lambda: model._batched_recommendations(inputs))
+    emit(cell, pass_s * 1e3, "users_per_s", len(inputs) / whole_s,
+         {"whole_pass_ms": whole_s * 1e3, "device_ms": device_ms(lambda: model._topk_from_staged(staged, k=10))})
+st = cs.steady_state(cs.LARGE, cs.catalog50k_dataset(), steps=3, warmup=1, profile_steps=1, card=card, validate=True)
+emit("validation_gru128", st["validation_pass"]["wall_s"] * 1e3, "eval_chunk", st["validation_pass"]["eval_chunk"],
+     {"device_ms": st["validation_pass"]["device_ms"]})
+"""
+
+
+def _medians(by_cell: dict) -> dict:
+    return {cell: {name: statistics.median(v) for name, v in by.items()} for cell, by in by_cell.items()}
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--before", required=True, help="root of the other checkout")
     parser.add_argument("--rounds", type=int, default=1, help="rounds of before, this, this, before")
+    parser.add_argument("--cells", choices=("steps", "serving"), default="steps",
+                        help="G1's training cells, or the passes that run K3")
     args = parser.parse_args(argv)
     import torch
 
@@ -83,10 +163,11 @@ def main(argv=None) -> int:
         print("step_pairs: no CUDA device is available", file=sys.stderr)
         return 1
     trees = {"before": os.path.abspath(args.before), "this": HERE}
-    steps = {}
+    steps, device = {}, {}
     for r in range(args.rounds):
         for name in ("before", "this", "this", "before"):
-            out = subprocess.run([sys.executable, "-c", CELLS], cwd=trees[name], capture_output=True, text=True)
+            code = CELLS if args.cells == "steps" else SERVING_CELLS
+            out = subprocess.run([sys.executable, "-c", code], cwd=trees[name], capture_output=True, text=True)
             if out.returncode:
                 sys.stderr.write(out.stderr[-4000:])
                 return out.returncode
@@ -95,8 +176,9 @@ def main(argv=None) -> int:
                     res = json.loads(line)
                     print(json.dumps({"round": r, "checkout": name, **res}), flush=True)
                     steps.setdefault(res["cell"], {}).setdefault(name, []).append(res["step_ms"])
-    print(json.dumps({"median_step_ms": {cell: {name: statistics.median(v) for name, v in by.items()}
-                                         for cell, by in steps.items()}}), flush=True)
+                    if "device_ms" in res:
+                        device.setdefault(res["cell"], {}).setdefault(name, []).append(res["device_ms"])
+    print(json.dumps({"median_step_ms": _medians(steps), "median_device_ms": _medians(device)}), flush=True)
     return 0
 
 

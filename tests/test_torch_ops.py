@@ -20,13 +20,18 @@ from seqrec_tpu.ops.pallas_rnn import gru_scan as jax_gru_scan
 from seqrec_tpu.ops.pallas_topk import fused_score_topk as jax_fused_score_topk
 from seqrec_tpu_torch.models.recurrent import RecurrentLayers
 from seqrec_tpu_torch.ops.core import gather_sum, masked_top_k
+from seqrec_tpu_torch.ops import rnn_scan, rnn_scan_train
 from seqrec_tpu_torch.ops.rnn_scan import (
+    CLUSTER_ROWS,
+    GRU_PATHS,
     gru_cluster_smem,
+    gru_cluster_tile,
     gru_cluster_units,
     gru_scan,
     gru_scan_plain,
     gru_scan_plan,
 )
+from seqrec_tpu_torch.ops.rnn_scan_train import train_scan_smem
 from seqrec_tpu_torch.ops.score_topk import (
     MAX_CANDIDATES,
     MAX_K,
@@ -40,21 +45,32 @@ from seqrec_tpu_torch.ops.score_topk import (
 B, L, H = 9, 7, 12  # ragged: no size is a power of two
 
 
-def _gru_inputs(seed):
+def _gru_inputs(seed, b=B, l=L, h=H, holes=False):
+    """x_pre, mask, w_hid, h0; row 0 has length 0 (an empty sequence keeps
+    h0), and with ``holes`` steps 3 and 7 are masked in every row (h is
+    carried through)."""
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(1, L + 1, size=B)
-    lengths[0] = 0  # an empty sequence keeps h0
+    lengths = rng.integers(1, l + 1, size=b)
+    lengths[0] = 0
+    mask = np.arange(l)[None, :] < lengths[:, None]
+    if holes:
+        mask[:, [3, 7]] = False
     return (
-        rng.normal(size=(B, L, 3 * H)).astype(np.float32),
-        (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32),
-        rng.normal(0, 0.1, size=(H, 3 * H)).astype(np.float32),
-        rng.normal(size=(B, H)).astype(np.float32),
+        rng.normal(size=(b, l, 3 * h)).astype(np.float32),
+        mask.astype(np.float32),
+        rng.normal(0, 0.1, size=(h, 3 * h)).astype(np.float32),
+        rng.normal(size=(b, h)).astype(np.float32),
     )
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_gru_scan_plain_matches_pallas_interpret(seed):
-    x, m, w, h0 = _gru_inputs(seed)
+@pytest.mark.parametrize(
+    "seed,shape,holes",
+    # the first two keep their ids; then H=128 (K3's cluster path on the card) with holes
+    [pytest.param(0, (B, L, H), False, id="0"), pytest.param(1, (B, L, H), False, id="1"),
+     pytest.param(2, (6, 10, 128), True, id="H128-holes")],
+)
+def test_gru_scan_plain_matches_pallas_interpret(seed, shape, holes):
+    x, m, w, h0 = _gru_inputs(seed, *shape, holes=holes)
     want = np.asarray(jax_gru_scan(*map(jnp.asarray, (x, m, w, h0)), block_b=8, interpret=True))
     got = gru_scan(*map(torch.from_numpy, (x, m, w, h0))).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
@@ -200,6 +216,7 @@ def test_wrappers_on_cpu_tensors_run_the_plain_version_and_count_no_launch():
     for got, want in zip(fused_score_topk(*args, k=5), fused_score_topk_plain(*args, k=5)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert gru_scan.launches == 0 and gru_scan.cluster_launches == 0 and fused_score_topk.launches == 0
+    assert gru_scan.reg_launches == 0 and gru_scan.gru_cluster_launches == 0
 
 
 @pytest.mark.parametrize(
@@ -293,29 +310,119 @@ def test_3xtf32_products_stay_inside_the_kernel_tolerances(B, H, N):
 H100_SMS, H100_SMEM_OPTIN = 132, 232_448
 
 
-@pytest.mark.parametrize("B,H", [(64, 50), (512, 256), (1, 256), (513, 256), (1024, 250), (64, 256)])
+# K3's path by (B, H) at the H100's limits: the training forward's reg (H <= 50) and cluster (up to
+# 32 units a CTA of 8) kernels, gru_cluster.cuh from H=256 (where it measured faster) to its reach
+# (64 units a CTA), l2 past both
+K3_PATHS = {(64, 50): "reg", (512, 256): "gru_cluster", (1, 256): "gru_cluster", (513, 256): "gru_cluster",
+            (1024, 250): "cluster", (64, 256): "gru_cluster", (1024, 128): "cluster", (1, 128): "cluster",
+            (64, 130): "cluster", (64, 300): "gru_cluster", (64, 512): "l2"}
+
+
+@pytest.mark.parametrize("B,H", list(K3_PATHS))
 def test_gru_scan_plan_splits_w_hid_over_a_cluster_where_it_does_not_fit(B, H):
+    """K3's plan on an H100: W_hid in registers at H <= 50, else split over
+    a cluster whose CTAs own every unit once (any H: the split may be
+    uneven) and whose tiles cover every row once, within a block's
+    shared memory; past every cluster slice the single-block L2 kernel."""
     path, C, R = gru_scan_plan(B, H, H100_SMS, H100_SMEM_OPTIN)
-    w_fits = min(8, -(-B // H100_SMS)) * 16 * H + 12 * H * H <= H100_SMEM_OPTIN
-    assert path == ("shared" if w_fits else "cluster")
-    if path == "shared":
-        assert C == 1 and 1 <= R <= 8
+    assert path == K3_PATHS[B, H]
+    if path == "reg":
+        assert C == 1 and R == min(16, -(-B // H100_SMS))
+        assert train_scan_smem("gru", "reg", H, C, R, backward=False) <= H100_SMEM_OPTIN
         return
-    assert 2 <= C <= 8
+    if path == "l2":
+        assert C == 1 and R == min(8, -(-B // H100_SMS))
+        assert gru_cluster_tile(B, H, H100_SMS, H100_SMEM_OPTIN) is None
+        return
     units = gru_cluster_units(H, C)
     assert [u for q0, q1 in units for u in range(q0, q1)] == list(range(H))
     assert max(q1 - q0 for q0, q1 in units) - min(q1 - q0 for q0, q1 in units) <= 1
     tiles = [range(r0, min(B, r0 + R)) for r0 in range(0, B, R)]
     assert [b for tile in tiles for b in tile] == list(range(B))
-    assert gru_cluster_smem(H, C, R) <= H100_SMEM_OPTIN
+    if path == "cluster":
+        assert C in (2, 4, 8) and -(-H // C) <= 32 and R in (8, 16, 24, 32)
+        assert train_scan_smem("gru", "cluster", H, C, R, backward=False) <= H100_SMEM_OPTIN
+    else:
+        assert C == 8 and -(-H // C) <= 64 and R in CLUSTER_ROWS
+        assert gru_cluster_smem(H, C, R) <= H100_SMEM_OPTIN
 
 
 def test_gru_scan_plan_follows_the_cards_cluster_capacity():
-    """The card holds 15 clusters of 8 at the serving shape: 16 tiles of 32
-    rows would take two waves, so the plan takes 13 tiles of 40; past the
-    reach of a cluster slice it keeps the single-block L2 kernel."""
-    held = {64: 15, 48: 15, 40: 15, 32: 15, 16: 15, 8: 30}
-    assert gru_scan_plan(512, 256, H100_SMS, H100_SMEM_OPTIN) == ("cluster", 8, 32)
-    assert gru_scan_plan(512, 256, H100_SMS, H100_SMEM_OPTIN, held) == ("cluster", 8, 40)
-    assert gru_scan_plan(64, 256, H100_SMS, H100_SMEM_OPTIN, held) == ("cluster", 8, 8)
+    """The card holds 15 clusters of 8: at GRU-256's serving chunk 16 tiles
+    of 32 rows would take two waves, so the plan takes 13 tiles of 40 on
+    gru_cluster.cuh's kernel, and at H=192 the training forward's kernel
+    22 tiles of 24 (the tile with the fewest rows-steps over its waves);
+    at H=300 a 40-row tile no longer fits a block; at GRU-128 the training
+    forward's kernel takes C = 4 where the card holds two clusters an SM
+    pair; past every cluster slice the plan keeps the single-block L2
+    kernel."""
+    held = {(C, R): 15 if C == 8 else 66 for C in (2, 4, 8) for R in (8, 16, 24, 32)}
+    held_gru_cluster = {64: 15, 48: 15, 40: 15, 32: 15, 16: 15, 8: 30}
+    assert gru_scan_plan(512, 256, H100_SMS, H100_SMEM_OPTIN) == ("gru_cluster", 8, 32)
+    assert gru_scan_plan(512, 256, H100_SMS, H100_SMEM_OPTIN, held, held_gru_cluster) == ("gru_cluster", 8, 40)
+    assert gru_scan_plan(512, 192, H100_SMS, H100_SMEM_OPTIN, held) == ("cluster", 8, 24)
+    # at H=300 the 40-row tile no longer fits a block: 480 rows in one wave of 32-row tiles
+    assert gru_scan_plan(480, 300, H100_SMS, H100_SMEM_OPTIN, None, held_gru_cluster) == ("gru_cluster", 8, 32)
+    assert gru_scan_plan(64, 300, H100_SMS, H100_SMEM_OPTIN, None, held_gru_cluster) == ("gru_cluster", 8, 8)
+    assert gru_scan_plan(1024, 128, H100_SMS, H100_SMEM_OPTIN, held) == ("cluster", 4, 16)
     assert gru_scan_plan(512, 512, H100_SMS, H100_SMEM_OPTIN)[0] == "l2"
+
+
+class _FakeGruScanLibrary:
+    """The queries K3's plan makes of csrc/gru_scan.cu's library
+    (seqrec_gru_scan_capacity and seqrec_gru_cluster_capacity,
+    seqrec_gru_scan_smem), answered from the plan's own numbers; the smem
+    answer is off by ``smem_off``."""
+
+    def __init__(self, held, held_gru_cluster, smem_off=0):
+        self.held, self.held_gru_cluster, self.smem_off, self.calls = held, held_gru_cluster, smem_off, []
+
+    def seqrec_gru_scan_capacity(self, backward, H, C, R, n):
+        self.calls.append(("capacity", backward, H, C, R))
+        n._obj.value = self.held[C, R]
+        return 0
+
+    def seqrec_gru_cluster_capacity(self, H, C, R, n):
+        self.calls.append(("gru_cluster capacity", H, C, R))
+        n._obj.value = self.held_gru_cluster[R]
+        return 0
+
+    def seqrec_gru_scan_smem(self, backward, path, H, C, R):
+        self.calls.append(("smem", backward, path, H, C, R))
+        name = {code: p for p, code in GRU_PATHS.items()}[path]
+        if name == "gru_cluster":
+            return gru_cluster_smem(H, C, R) + self.smem_off
+        return train_scan_smem("gru", name, H, C, R, bool(backward)) + self.smem_off
+
+
+def test_k3_device_plan_reads_the_eval_kernels_capacity_and_checks_their_smem(monkeypatch):
+    """On the card, gru_scan's plan asks K3's own library for the clusters
+    the card holds (the eval form of the training forward's cluster
+    kernel, forward only; gru_cluster.cuh's past its reach), keeps the
+    plan of a shape (a second call asks nothing), and raises where the
+    plan's shared-memory count differs from the kernel's."""
+    import contextlib
+
+    for module in (rnn_scan, rnn_scan_train):
+        monkeypatch.setattr(module, "_plans", {})
+        monkeypatch.setattr(module, "device_limits", lambda index: (H100_SMS, H100_SMEM_OPTIN))
+    monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.nullcontext())
+    device = torch.device("cuda", 0)
+    # two CTAs an SM at C = 4: 64-row-tile waves favour R = 16
+    lib = _FakeGruScanLibrary({(C, R): (66 if C == 4 else 33) for C in (4, 8) for R in (8, 16, 24, 32)},
+                              {R: 15 for R in CLUSTER_ROWS})
+    monkeypatch.setattr(rnn_scan, "_library", lambda: lib)
+    assert rnn_scan.gru_scan_device_plan(1024, 128, device) == ("cluster", 4, 16)
+    assert {c[1] for c in lib.calls if c[0] == "capacity"} == {0}  # forward only
+    assert lib.calls[-1] == ("smem", 0, GRU_PATHS["cluster"], 128, 4, 16)
+    n_calls = len(lib.calls)
+    assert rnn_scan.gru_scan_device_plan(1024, 128, device) == ("cluster", 4, 16)
+    assert len(lib.calls) == n_calls
+    assert rnn_scan.gru_scan_device_plan(512, 300, device) == ("gru_cluster", 8, 32)
+    assert any(c[0] == "gru_cluster capacity" for c in lib.calls[n_calls:])
+    assert lib.calls[-1] == ("smem", 0, GRU_PATHS["gru_cluster"], 300, 8, 32)
+    bad = _FakeGruScanLibrary(lib.held, lib.held_gru_cluster, smem_off=4)
+    monkeypatch.setattr(rnn_scan, "_library", lambda: bad)
+    for B_, H_ in ((64, 50), (64, 300)):
+        with pytest.raises(RuntimeError, match="bytes of shared memory"):
+            rnn_scan.gru_scan_device_plan(B_, H_, device)
