@@ -155,6 +155,17 @@ Phases, each printing one JSON line with its seconds:
    loop, K2 is f32 only), the first 3 step costs against the CPU's
    within BF16_COST_TOL, and steady steps without and with --bf16 in
    paired runs (f32, bf16, bf16, f32; K2 > 0 only in the f32 ones).
+19. main_path_train_spd: the K-step dispatch. With every counter at 0
+   before each run, through the train CLI on the card and then the CPU:
+   the flagship at --spd 8 on the index wire (480 steps, two validations;
+   K1, G1, K3, K4 > 0, K2 = 0), BPR with 256 samples and RNNCluster (--csn
+   0) at scripts/baseline_run2.sh:30-33's and :53-56's flags at --spd 8
+   (240 steps, three validations): the same checkpoint names (epoch
+   stamps) and progress costs within 1e-4 of the CPU's, and the
+   flagship's first 10 dispatch costs too; GRU-128 at B=1024 on the
+   50k-item catalog at --spd 4 (32 steps: K2 > 0). The native sequence
+   parser: the train CLI's dataset loaded through it (its counter), its
+   arrays equal to the Python tokenizer's, both load times.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. The last lines are
@@ -248,6 +259,11 @@ CLUSTER_LARGE = [{"50": "128", "64": "1024"}.get(a, a) for a in CLUSTER]
 FISM_CLUSTER = ["-m", "FISM", "--clusters", "10", "-H", "50", "--fism_alpha", "0.2", "--loss", "Blackout",
                 "--sampling", "256", "-b", "64", "--u_m", "adam", "--u_l", "0.001"]
 SDA = ["-m", "SDA", "-L", "64-32-64", "--in_do", "0.2", "-b", "64", "--u_m", "adam", "--u_l", "0.001"]
+# the K-step dispatch: scripts/baseline_run2.sh trains BPR (:30-33) and RNNCluster (:53-56) at --spd 8
+SPD = 8
+SPD_BPR = ["-m", "RNN", "--loss", "BPR", "--sampling", "256", "--r_t", "GRU", "--r_l", "50", "--max_length", "30",
+           "-b", "64", "--u_m", "adam", "--u_l", "0.001", "--spd", str(SPD)]
+SPD_CLUSTER = CLUSTER + ["--csn", "0", "--spd", str(SPD)]
 # scripts/baseline_run2.sh:84's LTM (lr 0.01: -l's default; 2,048 positions a step)
 LTM = ["-m", "LTM", "-H", "32", "--ltm_window", "5", "-l", "0.01"]
 # test sps@10 and recall@10 of the JAX package's floors on preprocess.py's split of
@@ -1373,13 +1389,14 @@ def progress_values(text, key) -> list:
     return [float(ln.split(":", 1)[1].split()[0]) for ln in text.splitlines() if ln.startswith(key + " :")]
 
 
-def cpu_step_costs(ds_dir, flags, n_costs, tol=1e-4) -> float:
+def cpu_step_costs(ds_dir, flags, n_costs, tol=1e-4, steps_a_cost=1) -> float:
     """The largest relative difference between the first ``n_costs`` step
-    costs of the train CLI on the card and on the CPU (one step per progress
-    line); raises beyond ``tol``."""
+    costs of the train CLI on the card and on the CPU (one progress line a
+    dispatch: one step, or the mean of ``steps_a_cost`` under --spd); raises
+    beyond ``tol``."""
     from seqrec_tpu_torch.cli import train as train_cli
 
-    short = ["-d", ds_dir, *flags, "--max_iter", str(n_costs), "--progress", "1", "--save", "None"]
+    short = ["-d", ds_dir, *flags, "--max_iter", str(n_costs * steps_a_cost), "--progress", "1", "--save", "None"]
     gpu = progress_values(run_cli(train_cli.main, short)[1], "Last train cost")
     cpu = progress_values(run_cli(train_cli.main, short + ["--device", "cpu"])[1], "Last train cost")
     rel = max(abs(a - b) / abs(b) for a, b in zip(gpu, cpu))
@@ -2274,8 +2291,12 @@ def mf_test_cli_k4(ds_dir, flags, save_dir) -> dict:
     """The test CLI on a checkpoint at 49,999 items, on the card with every
     counter at 0 (K4 must launch, and nothing else), then on the CPU (K4's
     plain version): the same lists, ties checked apart on the host scores
-    of the loaded tables (same_lists_ties_apart)."""
+    of the loaded tables (same_lists_ties_apart). Then the same with
+    ``--save --save_rank`` (k = 49,999: the device scores sorted, no
+    launch) on the card and the CPU: the same ``_full_rank`` lines, ties
+    apart (rank_lines_ties_apart)."""
     import glob
+    import shutil
 
     from seqrec_tpu_torch.cli import test as test_cli
 
@@ -2296,8 +2317,28 @@ def mf_test_cli_k4(ds_dir, flags, save_dir) -> dict:
     for row, seq in zip(scores, viewed):
         row[[int(x[0]) for x in seq]] = -np.inf
     same = same_lists_ties_apart([p for _, p in ev_gpu.instances], [p for _, p in ev_cpu.instances], scores)
+    # --save_rank: k = n_items, past K4's k <= 64, so the device scores are sorted (no kernel launches)
+    results = os.path.join(ds_dir, "results")
+    ranks, rank_launches, rank_s = {}, None, None
+    for device in ("cuda", "cpu"):
+        shutil.rmtree(results, ignore_errors=True)
+        zero_counters()
+        t0 = time.perf_counter()
+        run_cli(test_cli.main, argv + ["--save", "--save_rank", "--device", device])
+        if device == "cuda":
+            rank_s, rank_launches = time.perf_counter() - t0, read_counters()
+        [rank_file] = glob.glob(os.path.join(results, "**", "*_full_rank"), recursive=True)
+        with open(rank_file) as f:
+            ranks[device] = f.read().splitlines()
+    shutil.rmtree(results, ignore_errors=True)
+    if any(rank_launches.values()):
+        raise AssertionError(f"the --save_rank test CLI of {' '.join(flags)} launched {rank_launches}")
+    goals = [(row, int(x[0])) for row, (s, _) in zip(scores, model.dataset.test_set(epochs=1))
+             for x in s[len(s) // 2:]]
     return {"k4_launches": launches["fused_score_topk"], "cuda_s": cuda_s, "test_users": len(viewed),
-            "same_as_cpu": same, "metrics@10": {m: ev_gpu.metrics[m]() for m in ("sps", "recall")}}
+            "same_as_cpu": same, "metrics@10": {m: ev_gpu.metrics[m]() for m in ("sps", "recall")},
+            "save_rank": {"launches": rank_launches, "cuda_s": rank_s, "k": model.n_items,
+                          "same_as_cpu": rank_lines_ties_apart(ranks["cuda"], ranks["cpu"], goals)}}
 
 
 def main_path_train_mf(card) -> tuple[dict, dict]:
@@ -2425,11 +2466,32 @@ def opt_count(path) -> int:
     return int(np.asarray(tree["opt"]["0"]))
 
 
-def full_rank_ties_apart(got_lines, want_lines, ds_dir, flags, save_dir) -> dict:
+def rank_lines_ties_apart(got_lines, want_lines, goals) -> dict:
     """Two ``_full_rank`` files of one checkpoint (the card's, the CPU's)
-    line by line: equal, or both goal positions inside the band of items
-    whose CPU scores lie within 1e-4 max|score| of the goal's (a -inf goal,
-    seen before, anywhere in the -inf block)."""
+    line by line, ``goals`` the (CPU scores with the seen items at -inf,
+    goal item) of each line: equal, or both goal positions inside the band
+    of items whose CPU scores lie within 1e-4 max|score| of the goal's (a
+    -inf goal, seen before, anywhere in the -inf block)."""
+    if not (len(got_lines) == len(want_lines) == len(goals)):
+        raise AssertionError(f"full-rank files of {len(got_lines)} and {len(want_lines)} lines for {len(goals)} goals")
+    exact = 0
+    for g_line, w_line, (row, goal) in zip(got_lines, want_lines, goals):
+        if g_line == w_line:
+            exact += 1
+            continue
+        finite = row[np.isfinite(row)]
+        tol = 1e-4 * np.abs(finite).max()
+        s = row[goal]
+        lo, hi = (len(finite), len(row)) if s == -np.inf else (int((row > s + tol).sum()), int((row >= s - tol).sum()))
+        positions = [int(line.split("\t")[1]) for line in (g_line, w_line)]
+        if g_line.split("\t")[0] != w_line.split("\t")[0] or not all(lo <= p < hi for p in positions):
+            raise AssertionError(f"full rank: {g_line!r} against the CPU's {w_line!r}, tie band [{lo}, {hi})")
+    return {"lines": len(goals), "lines_equal": exact, "lines_in_one_tie_band": len(goals) - exact}
+
+
+def full_rank_ties_apart(got_lines, want_lines, ds_dir, flags, save_dir) -> dict:
+    """``rank_lines_ties_apart`` of an RNN checkpoint's two ``_full_rank``
+    files, on the CPU's ranking scores of its test instances."""
     import torch
 
     import seqrec_tpu_torch.utils.command_parser as parse
@@ -2451,21 +2513,7 @@ def full_rank_ties_apart(got_lines, want_lines, ds_dir, flags, save_dir) -> dict
     for row, (seq, goal, _) in zip(scores, instances):
         row[[int(x[0]) for x in seq]] = -np.inf
         goals += [(row, int(g)) for g in goal]
-    if not (len(got_lines) == len(want_lines) == len(goals)):
-        raise AssertionError(f"full-rank files of {len(got_lines)} and {len(want_lines)} lines for {len(goals)} goals")
-    exact = 0
-    for g_line, w_line, (row, goal) in zip(got_lines, want_lines, goals):
-        if g_line == w_line:
-            exact += 1
-            continue
-        finite = row[np.isfinite(row)]
-        tol = 1e-4 * np.abs(finite).max()
-        s = row[goal]
-        lo, hi = (len(finite), len(row)) if s == -np.inf else (int((row > s + tol).sum()), int((row >= s - tol).sum()))
-        positions = [int(line.split("\t")[1]) for line in (g_line, w_line)]
-        if g_line.split("\t")[0] != w_line.split("\t")[0] or not all(lo <= p < hi for p in positions):
-            raise AssertionError(f"full rank: {g_line!r} against the CPU's {w_line!r}, tie band [{lo}, {hi})")
-    return {"lines": len(goals), "lines_equal": exact, "lines_in_one_tie_band": len(goals) - exact}
+    return rank_lines_ties_apart(got_lines, want_lines, goals)
 
 
 def main_path_train_features(card) -> tuple[dict, dict]:
@@ -2624,6 +2672,133 @@ def main_path_train_bf16(card) -> dict:
         "card": card, "seconds": time.perf_counter() - t_phase,
     })
     return launches
+
+
+# ----------------------------------------------------------------------
+# main path, training: the K-step dispatch (--spd) and the native parser
+# ----------------------------------------------------------------------
+def spd_run(ds_dir, flags, iters, progress, sub, device) -> tuple[list, list, dict, float]:
+    """The train CLI with --save All into models/``sub``, every counter at 0
+    before it: (its progress costs, its checkpoint names, the counts, its
+    seconds)."""
+    import shutil
+
+    import torch
+
+    from seqrec_tpu_torch.cli import train as train_cli
+
+    shutil.rmtree(os.path.join(ds_dir, "models", sub), ignore_errors=True)
+    argv = ["-d", ds_dir, *flags, "--max_iter", str(iters), "--progress", str(progress), "--save", "All",
+            "--dir", sub, "--device", device]
+    zero_counters()
+    t0 = time.perf_counter()
+    text = run_cli(train_cli.main, argv)[1]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    names = sorted(os.listdir(os.path.join(ds_dir, "models", sub)))
+    return progress_values(text, "Last train cost"), names, read_counters(), seconds
+
+
+def spd_against_cpu(ds_dir, flags, iters, progress, sub, ran, tol=1e-4) -> dict:
+    """``spd_run`` on the card (each kernel of ``ran`` must launch, and no
+    other kernel of the port) and on the CPU: the same checkpoint names
+    (epoch stamps) and progress costs within ``tol``, relative."""
+    costs, names, launches, cuda_s = spd_run(ds_dir, flags, iters, progress, sub + "cuda/", "cuda")
+    if any(launches[k] == 0 for k in ran) or any(n for k, n in launches.items() if k not in ran):
+        raise AssertionError(f"{' '.join(flags)} launched {launches}")
+    cpu_costs, cpu_names, _, cpu_s = spd_run(ds_dir, flags, iters, progress, sub + "cpu/", "cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(costs, cpu_costs)) if costs else None
+    if not costs or len(costs) != len(cpu_costs) or rel > tol or names != cpu_names:
+        raise AssertionError(f"{' '.join(flags)}: cuda {costs} {names} against cpu {cpu_costs} {cpu_names}")
+    return {"flags": " ".join(flags), "steps": iters, "launches": launches, "cli_cuda_s": cuda_s, "cli_cpu_s": cpu_s,
+            "progress_costs": costs, "progress_costs_cuda_vs_cpu_max_rel_diff": rel, "checkpoints": names,
+            "same_checkpoint_names_as_cpu": True}
+
+
+def native_parser_check() -> dict:
+    """The native sequence parser on this machine: built and taken (its
+    counter moves), the same arrays as the Python tokenizer and the load
+    time of both on the ML-1M-scale training sequences."""
+    from seqrec_tpu_torch.data import native
+    from seqrec_tpu_torch.data.dataset import SequenceStore
+
+    fn = os.path.join(ml1m_dataset(), "data", "train_set_sequences")
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    build_s = time.perf_counter() - t0
+    if lib is None:
+        raise AssertionError("the native sequence parser did not build or load")
+    times = {"native": [], "python": []}
+    stores = {}
+    for _ in range(3):
+        for how in ("native", "python"):
+            before = native.native_loads
+            failed, native._lib_failed = native._lib_failed, how == "python"
+            lib_saved, native._lib = native._lib, (lib if how == "native" else None)
+            t0 = time.perf_counter()
+            stores[how] = SequenceStore.from_file(fn)
+            times[how].append(time.perf_counter() - t0)
+            native._lib, native._lib_failed = lib_saved, failed
+            if native.native_loads - before != (how == "native"):
+                raise AssertionError(f"the {how} load moved the native counter by {native.native_loads - before}")
+    a, b = stores["native"], stores["python"]
+    for key in ("items", "offsets", "user_ids"):
+        if not np.array_equal(getattr(a, key), getattr(b, key)) or getattr(a, key).dtype != getattr(b, key).dtype:
+            raise AssertionError(f"native and Python parses differ in {key}")
+    if not np.allclose(a.ratings, b.ratings, rtol=1e-6, atol=0):
+        raise AssertionError("native and Python parses differ in ratings")
+    return {"file": "ml1m_synth/data/train_set_sequences", "sequences": len(a), "interactions": len(a.items),
+            "build_and_load_s": build_s, "load_s": {k: statistics.median(v) for k, v in times.items()},
+            "python_over_native": statistics.median(times["python"]) / statistics.median(times["native"]),
+            "same_arrays_as_tokenizer": True}
+
+
+def main_path_train_spd(card) -> dict:
+    """The K-step dispatch through the train CLI on the card, each run with
+    every counter at 0: the flagship at --spd 8 (the index wire: K1 and G1
+    a step, K3 and K4 in its two validations, no K2) against the CPU's
+    progress costs and checkpoint names; BPR and RNNCluster at
+    scripts/baseline_run2.sh's flags at --spd 8 (RNNCluster at --csn 0),
+    240 steps each; GRU-128 at B=1024 on the 50k-item catalog at --spd 4
+    (K2 must launch); the native sequence parser on this machine."""
+    from seqrec_tpu_torch.data import native
+
+    t_phase = time.perf_counter()
+    ds_dir = ml1m_dataset()
+    loads = native.native_loads
+    flagship = FLAGSHIP + ["--spd", str(SPD)]
+    runs = {
+        "flagship": spd_against_cpu(ds_dir, flagship, 480, 240, "chip_spd_flagship_",
+                                    ("gru_scan_train_fwd", "gru_scan_train_bwd", "gather_sum_fwd", "gather_sum_bwd",
+                                     "gru_scan", "fused_score_topk")),
+        "bpr": spd_against_cpu(ds_dir, SPD_BPR, 240, 80, "chip_spd_bpr_",
+                               ("gru_scan_train_fwd", "gru_scan_train_bwd", "gather_sum_fwd", "gather_sum_bwd",
+                                "gru_scan", "fused_score_topk")),
+        "cluster": spd_against_cpu(ds_dir, SPD_CLUSTER, 240, 80, "chip_spd_cluster_",
+                                   ("gru_scan_train_fwd", "gru_scan_train_bwd", "gather_sum_fwd", "gather_sum_bwd",
+                                    "gru_scan")),
+    }
+    runs["flagship"]["first_10_dispatch_costs_cuda_vs_cpu_max_rel_diff"] = cpu_step_costs(
+        ds_dir, flagship, 10, steps_a_cost=SPD)
+    costs, _, launches, cli_s = spd_run(catalog50k_dataset(), LARGE + ["--spd", "4"], 32, 32, "chip_spd_large/", "cuda")
+    ran = ("gru_scan_train_fwd", "gru_scan_train_bwd", "cce_stats", "cce_grads", "gather_sum_fwd", "gather_sum_bwd",
+           "gru_scan", "fused_score_topk")
+    if any(launches[k] == 0 for k in ran) or not np.isfinite(costs).all() or len(costs) != 1:
+        raise AssertionError(f"GRU-128 at --spd 4 launched {launches}, costs {costs}")
+    runs["large"] = {"flags": " ".join(LARGE + ["--spd", "4"]), "steps": 32, "launches": launches, "cli_cuda_s": cli_s,
+                     "progress_costs": costs}
+    if native.native_loads == loads:
+        raise AssertionError("the train CLI's dataset did not load through the native parser")
+    emit({
+        "phase": "main_path_train_spd",
+        "config": "--spd 8: flagship (index wire), BPR and RNNCluster at scripts/baseline_run2.sh:30-33, :53-56; "
+                  "--spd 4: GRU-128 B1024 at 49,999 items",
+        "runs": runs, "native_loads_in_training": native.native_loads - loads, "native_parser": native_parser_check(),
+        "tolerance": "progress costs (means of K-step dispatches) rel 1e-4 against the CPU CLI at the same --spd",
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return {name: r["launches"] for name, r in runs.items()}
 
 
 def serving_pass_gru256(card) -> dict:
@@ -2866,6 +3041,7 @@ def main() -> int:
     mf_runs, mf_checks = main_path_train_mf(card)
     feature_runs, feature_checks = main_path_train_features(card)
     bf16_train = main_path_train_bf16(card)
+    spd_runs = main_path_train_spd(card)
     path_of = {"gru_scan": serving, "fused_score_topk": serving, "gru_scan_train_fwd": flagship,
                "gru_scan_train_bwd": flagship, "cce_stats": large, "cce_grads": large,
                "lstm_scan": lstm_serve, "lstm_scan_train_fwd": lstm_train, "lstm_scan_train_bwd": lstm_train,
@@ -2886,6 +3062,7 @@ def main() -> int:
             "launches_mf": {run: counts[name] for run, counts in mf_runs.items()},
             "launches_features": {run: counts[name] for run, counts in feature_runs.items()},
             "launches_bf16": bf16_train[name],
+            "launches_spd": {run: counts[name] for run, counts in spd_runs.items()},
         })
     # K3 on the training forward's kernels: the serving chunk (reg), GRU-128's validation chunk
     # (cluster), GRU-256 serving's chunk (K3_PATH_H256)

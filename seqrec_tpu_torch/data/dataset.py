@@ -1,8 +1,9 @@
 """Dataset access: packed sequence store + reference-compatible handlers.
 
 A copy of ``seqrec_tpu/data/dataset.py`` (the port imports nothing of the
-JAX package), with the Python tokenizer only: the JAX package's optional
-C++ parser (``seqrec_tpu/data/native.py``) is not ported yet.
+JAX package). Sequence files are parsed by the port's own copy of the C++
+parser (``data/native.py``), with the Python tokenizer where it is
+unavailable, as in the JAX package.
 
 Reads the on-disk dataset contract produced by the JAX package's
 preprocess, by the port's (``seqrec_tpu_torch.data.preprocess``, the same
@@ -57,6 +58,15 @@ class SequenceStore:
 
     @classmethod
     def from_file(cls, filename: str) -> "SequenceStore":
+        # fast path: the native C++ parser (data/native.py); the Python
+        # tokenizer where it is unavailable
+        from seqrec_tpu_torch.data.native import load_sequences_native
+
+        parsed = load_sequences_native(filename)
+        if parsed is not None:
+            items, ratings, offsets, users = parsed
+            return cls(items, ratings, offsets, users)
+
         users, items, ratings, offsets = [], [], [], [0]
         with open(filename) as f:
             for line in f:

@@ -15,8 +15,27 @@ Training draws the JAX package's batches: the packed batcher with
 ``np.random.default_rng(seed + 77)`` on the default plugin settings, the
 per-sequence batcher with the model's own generator otherwise, so one seed
 gives the same batches and the loss trajectories compare step by step.
-Each ``train_function`` call is one synchronous optimizer step (autograd,
-then the updater's in-place step); validation runs the eval kernels.
+As in the JAX package, the packed batches are assembled on a prefetch
+thread (``_prefetch``), each tagged with the epoch count of its assembly
+(``_with_epochs``) so that checkpoint names do not depend on how far the
+thread ran ahead; every host draw of a training run (the cuts, negative
+samples, cluster sample sets and noise seeds) happens on that thread, in
+the JAX package's order. Each ``train_function`` call is one optimizer
+step (autograd, then the updater's in-place step) on a batch uploaded from
+pinned memory without blocking the host.
+
+``--spd K`` (``steps_per_dispatch``) runs K optimizer steps a dispatch on
+[K, ...] payloads, the JAX package's ``lax.scan`` over K steps: an
+assembly thread builds a [K*B] super-batch at a time (so a sequence's cuts
+may span adjacent steps, as there), a transfer thread copies the payload
+to the device on a stream of its own, and ``train_function_stacked``
+enqueues the K steps back to back on its slices with no host sync between
+them, summing the costs on the device. Models whose whole batch derives
+from the training store (``index_wire_ok``: the CCE, sampled, margin and
+RNNCluster heads) ship only the sampled (rows, cuts) and their per-step
+host draws: the store is uploaded once, and ``_expand_index_wire``
+assembles each step's batch with device gathers. Validation runs the eval
+kernels.
 ``--lazy_updates`` (Adam only) moves the catalog-indexed tables onto a
 slice-sparse Adam, TF LazyAdam's semantics: the input table's rows for
 ``RNNOneHot`` and ``RNNMargin``, the output columns and bias entries of
@@ -27,13 +46,13 @@ package's ``opt/{i}`` leaves in optax's leaf order, and ``load`` reads
 them back; the training loop's autosaves go through an async queue (a
 device snapshot written by a worker thread), drained before ``train``
 returns. With ``--mf``/``--uf`` the item and user side-feature ids of
-``data/features.py`` follow each step's item id. Not ported yet (each
-raises ``NotImplementedError`` where a flag asks for it): the index wire
-and K-step dispatch (``--spd``), ``--mesh``.
+``data/features.py`` follow each step's item id. Not ported yet (it
+raises ``NotImplementedError`` where a flag asks for it): ``--mesh``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import glob
 import os
@@ -211,7 +230,7 @@ class RNNBase:
         self._has_params = False
         self.opt_state = None
         self.eval_batch_size = max(batch_size, 64)
-        # >1 asks for the K-step dispatch, which is not ported yet
+        # optimizer steps a dispatch (--spd); > 1 takes the K-step payloads
         self.steps_per_dispatch = 1
 
     # ------------------------------------------------------------------
@@ -354,6 +373,18 @@ class RNNBase:
     def _tensor(self, arr):
         return None if arr is None else torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _tensor_async(self, arr):
+        """``_tensor`` without blocking the host: on the card the array is
+        copied into pinned memory and uploaded with ``non_blocking``, on the
+        current stream, so the kernels queued after it see it (the caching
+        host allocator keeps the pinned block until its copy is done)."""
+        if arr is None:
+            return None
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _input_window(self, sequence):
         """Input truncation for prediction: last ``max_length`` items
         (rnn_base.py:144)."""
@@ -438,8 +469,8 @@ class RNNBase:
 
     def _stage_eval_inputs(self, inputs, user_ids=None) -> list:
         """Encode the inputs in chunks of ``eval_batch_size`` rows (the last
-        one padded with its last row) and upload them as the compact wire
-        format; returns [(n_real_rows, (ids, lengths)), ...]."""
+        one padded with its last row) and start their upload as the compact
+        wire format; returns [(n_real_rows, (ids, lengths)), ...]."""
         chunk = self.eval_batch_size
         staged = []
         for c0 in range(0, len(inputs), chunk):
@@ -453,7 +484,9 @@ class RNNBase:
             lengths = mask.sum(axis=1).astype(np.int32)
             if self._input_size() + 1 < np.iinfo(np.int16).max:
                 ids = ids.astype(np.int16)
-            staged.append((len(batch), (self._tensor(ids), self._tensor(lengths))))
+            # uploads start here and do not block: all chunks are staged
+            # before the first is scored (the JAX package's device_put)
+            staged.append((len(batch), (self._tensor_async(ids), self._tensor_async(lengths))))
         return staged
 
     @torch.inference_mode()
@@ -513,14 +546,18 @@ class RNNBase:
                 j += n
             yield sel_rows, sel_cuts
 
-    def _gen_packed_mini_batch(self, training_set, rng=None):
+    def _gen_packed_mini_batch(self, training_set, rng=None, n_stack=0):
         """Vectorized batches from the packed SequenceStore
-        (``base.py:_gen_packed_mini_batch`` with ``n_stack=0``), in the
-        compact wire format: int16 ids when they fit, [B] prefix lengths
-        instead of masks."""
+        (``base.py:_gen_packed_mini_batch``), in the compact wire format:
+        int16 ids when they fit, [B] prefix lengths instead of masks.
+
+        With ``n_stack=K`` one numpy pass assembles a [K*B] super-batch and
+        yields it as a dict of [K, B, ...] arrays (``_restack_wire``) for the
+        K-step dispatch: a sequence's cuts may then span adjacent steps, as
+        in the JAX package."""
         store = training_set.store
         offsets = store.offsets
-        B, L, F = self.batch_size, self.max_length, self.n_feature_slots
+        B, L, F = self.batch_size * max(1, n_stack), self.max_length, self.n_feature_slots
         rng = rng if rng is not None else self.rng
         for sel_rows, sel_cuts in self._gen_cut_indices(training_set, rng, B):
             offs = offsets[sel_rows]
@@ -543,7 +580,135 @@ class RNNBase:
             packed = {"ids": ids, "mask": mask, "targets": targets}
             if F > 1:
                 packed["id_mask"] = np.broadcast_to(mask[:, :, None], ids.shape).astype(np.float32)
-            yield self._compact_wire(self._finalize_packed_batch(packed, target_ratings), m)
+            batch = self._compact_wire(self._finalize_packed_batch(packed, target_ratings), m)
+            if n_stack:
+                batch = self._restack_wire(batch, n_stack)
+            yield batch
+
+    def _restack_wire(self, batch: dict, n_stack: int) -> dict:
+        """A [K*B]-row super-batch as [K, B, ...] arrays; per-model constants
+        repeat along K. Heads whose batches carry per-step draws (negative
+        samples, cluster sample sets, noise seeds) override this to draw
+        them anew for each of the K steps."""
+        B_super = self.batch_size * n_stack
+        out = {}
+        for key, v in batch.items():
+            v = np.asarray(v)
+            if v.ndim and v.shape[0] == B_super:
+                out[key] = v.reshape(n_stack, self.batch_size, *v.shape[1:])
+            else:
+                out[key] = np.broadcast_to(v, (n_stack,) + v.shape)
+        return out
+
+    # ------------------------------------------------------------------
+    # the index wire: the training store on the device, (rows, cuts) a step
+    # ------------------------------------------------------------------
+    # Models whose whole batch derives from (store, rows, cuts) and the
+    # per-step host draws set this (``base.py:index_wire_ok``)
+    index_wire_ok = False
+
+    def _index_batching_ok(self) -> bool:
+        return self.index_wire_ok and self._fast_batching_ok()
+
+    def _make_pop_db(self) -> np.ndarray:
+        """popularity^diversity_bias per item (ones without the bias)."""
+        db = getattr(self, "diversity_bias", 0.0)
+        return np.asarray(self.dataset.item_popularity[: self.n_items], dtype=np.float32) ** db
+
+    def _index_payload_extras(self, k: int) -> dict:
+        """Model hook: the per-step host draws shipped beside (rows, cuts),
+        always on a leading k axis (the unstacked wire drops it)."""
+        return {}
+
+    def _build_index_store(self, training_set) -> dict:
+        """Host arrays of the device-resident store (the JAX package's)."""
+        store = training_set.store
+        if store.offsets[-1] >= np.iinfo(np.int32).max:
+            raise ValueError("dataset too large for int32 index wire")
+        host = {
+            "items": store.items.astype(np.int32),
+            "offsets": store.offsets.astype(np.int32),
+            "pop_db": np.asarray(self._make_pop_db(), dtype=np.float32),
+        }
+        if self.use_ratings_features:
+            host["rating_buckets"] = np.clip(np.round(store.ratings * 2) - 1, 0, 9).astype(np.int32)
+        ft = self._feature_tables
+        if ft is not None and ft.item_slots:
+            mf_off, _ = self._feature_offsets()
+            host["mf_table"] = np.where(ft.item_ids >= 0, mf_off + ft.item_ids, -1).astype(np.int32)
+        if ft is not None and ft.user_slots:
+            _, uf_off = self._feature_offsets()
+            host["uf_table"] = (uf_off + ft.user_ids).astype(np.int32)
+            host["row_user"] = store.user_ids.astype(np.int32)
+        return host
+
+    def _upload_index_store(self, training_set) -> dict:
+        """The store on the device, uploaded once a training run. Every
+        target of the wire is a store item: the catalog range that the
+        streaming CCE checks a step (one host sync) is checked here once,
+        and each expanded batch carries ``targets_in_catalog``."""
+        host = self._build_index_store(training_set)
+        items = host["items"]
+        if len(items) and (items.min() < 0 or items.max() >= self.n_items):
+            raise ValueError(f"index wire: a store item is outside the catalog [0, {self.n_items})")
+        # the arrays that only index other arrays go up as int64
+        return {
+            key: torch.from_numpy(arr.astype(np.int64) if key in ("offsets", "row_user") else arr).to(self.device)
+            for key, arr in host.items()
+        }
+
+    def _gen_index_mini_batch(self, training_set, rng=None, n_stack=0):
+        """Index-only twin of ``_gen_packed_mini_batch``: the same cut
+        sampler, yielding int32 ``rows`` and ``cuts`` ([K, B] with
+        ``n_stack``) and the model's per-step extras. The sampler reuses
+        its buffers, so they are copied before the yield."""
+        B = self.batch_size * max(1, n_stack)
+        rng = rng if rng is not None else self.rng
+        for sel_rows, sel_cuts in self._gen_cut_indices(training_set, rng, B):
+            rows = sel_rows.astype(np.int32)  # astype copies the buffer
+            cuts = sel_cuts.astype(np.int32)
+            extras = self._index_payload_extras(max(1, n_stack))
+            if n_stack:
+                rows = rows.reshape(n_stack, self.batch_size)
+                cuts = cuts.reshape(n_stack, self.batch_size)
+            else:
+                extras = {key: np.asarray(v)[0] for key, v in extras.items()}
+            yield {"rows": rows, "cuts": cuts, **extras}
+
+    def _expand_index_wire(self, batch: dict, store: dict) -> dict:
+        """One step's batch assembled on the device from its (rows, cuts)
+        and the store: the twin of the numpy assembly in
+        ``_gen_packed_mini_batch`` and ``_finalize_packed_batch``, by torch
+        gathers (XLA gathers in the JAX package). Ids stay int32; the
+        masks are full [B, L] (and [B, L, F]) tensors."""
+        rows, cuts = batch["rows"].long(), batch["cuts"].long()
+        L = int(self.max_length)
+        offs = store["offsets"][rows]
+        starts = torch.clamp(cuts - L, min=0)
+        m = cuts - starts
+        t = torch.arange(L, device=rows.device)
+        valid = t[None, :] < m[:, None]
+        flat = torch.where(valid, offs[:, None] + starts[:, None] + t[None, :], 0)
+        item_ids = torch.where(valid, store["items"][flat], 0)
+        cols = [item_ids[..., None]]
+        if self.use_ratings_features:
+            cols.append(torch.where(valid, self.n_items + store["rating_buckets"][flat], 0)[..., None])
+        if "mf_table" in store:
+            cols.append(torch.where(valid[..., None], store["mf_table"][item_ids.long()], -1))
+        if "uf_table" in store:
+            u_feats = store["uf_table"][store["row_user"][rows]]  # [B, user slots]
+            cols.append(torch.where(valid[..., None], u_feats[:, None, :], -1))
+        ids = torch.cat(cols, dim=-1) if len(cols) > 1 else cols[0]
+        mask = valid.float()
+        targets = store["items"][offs + cuts]
+        out = {"ids": ids, "mask": mask, "targets": targets, "target_pop": store["pop_db"][targets.long()],
+               "targets_in_catalog": True}
+        if self.n_feature_slots > 1:
+            out["id_mask"] = mask[..., None].expand(ids.shape).contiguous()
+        for key, v in batch.items():
+            if key not in ("rows", "cuts"):
+                out[key] = v  # the per-step extras pass through
+        return out
 
     def _finalize_packed_batch(self, packed: dict, target_ratings) -> dict:
         """Model hook: loss-specific fields of a packed batch."""
@@ -599,9 +764,14 @@ class RNNBase:
         raise NotImplementedError
 
     def _device_batch(self, batch: dict) -> dict:
-        """Upload a host batch; the compact wire's prefix lengths become the
-        [B, L] mask (and its [B, L, F] broadcast) on the device."""
-        out = {key: int(val) if key in self._HOST_KEYS else self._tensor(val) for key, val in batch.items()}
+        """Upload a host batch (``_tensor_async``) and finish it on the
+        device (``_finish_device_batch``)."""
+        out = {key: int(val) if key in self._HOST_KEYS else self._tensor_async(val) for key, val in batch.items()}
+        return self._finish_device_batch(out)
+
+    def _finish_device_batch(self, out: dict) -> dict:
+        """The compact wire's prefix lengths become the [B, L] mask (and its
+        [B, L, F] broadcast); the id fields become int64."""
         if "lengths" in out:
             lengths = out.pop("lengths")
             ids = out["ids"]
@@ -620,6 +790,142 @@ class RNNBase:
     # per-step seeds of device-side draws, kept as Python ints (a seed is
     # read on the host, so it is never uploaded)
     _HOST_KEYS: tuple = ()
+
+    # ------------------------------------------------------------------
+    # the prefetch threads and the K-step payloads
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _prefetch(generator, depth: int = 4):
+        """Run ``generator`` on a background thread, ``depth`` items ahead
+        (``base.py:_prefetch``). An error of the producer reaches the
+        consumer (it must not look like the end of the data); closing the
+        returned generator sets a stop flag that the producer checks
+        between bounded puts, and the producer closes its upstream
+        generator when it ends, so nested stages (assembly, then transfer)
+        release their threads one after another."""
+        q: queue.Queue = queue.Queue(maxsize=depth)
+        sentinel = object()
+        stop = threading.Event()
+        error: list = []
+
+        def producer():
+            try:
+                for item in generator:
+                    while not stop.is_set():
+                        try:
+                            q.put(item, timeout=0.2)
+                            break
+                        except queue.Full:
+                            continue
+                    if stop.is_set():
+                        return
+            except Exception as exc:
+                error.append(exc)
+            finally:
+                # this thread iterates the upstream generator, so it is
+                # suspended here and close() is safe
+                try:
+                    generator.close()
+                except Exception:
+                    pass
+                while not stop.is_set():
+                    try:
+                        q.put(sentinel, timeout=0.2)
+                        break
+                    except queue.Full:
+                        continue
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    if error:
+                        raise error[0]
+                    return
+                yield item
+        finally:
+            stop.set()
+
+    @staticmethod
+    def _with_epochs(gen, training_set):
+        """Tag each batch with the training set's epoch count as of its
+        assembly: the prefetch thread runs ahead of the steps, so the
+        count at checkpoint time would depend on how far it got. The
+        consumers keep the last tag in ``_pipeline_epochs``."""
+        for b in gen:
+            b["_epochs"] = float(training_set.epochs)
+            yield b
+
+    def _transfer(self, payload: dict, copies=None) -> dict:
+        """Start the upload of a [K, ...] payload: ``{"dev": tensors,
+        "host": arrays of _HOST_KEYS}``. On the card each array is copied
+        into pinned memory and uploaded ``non_blocking`` on the stream
+        ``copies`` (the current stream if None); ``"ready"`` is an event
+        after the copies and ``"pinned"`` the host buffers, which must live
+        until that event has passed (the payload pipeline holds them so;
+        the caching host allocator, which records the copies, guards them
+        too)."""
+        host = {key: np.asarray(payload.pop(key)) for key in self._HOST_KEYS if key in payload}
+        if self.device.type != "cuda":
+            dev = {key: torch.from_numpy(np.ascontiguousarray(v)) for key, v in payload.items()}
+            return {"dev": dev, "host": host, "ready": None, "pinned": []}
+        pinned = [torch.from_numpy(np.ascontiguousarray(v)).pin_memory() for v in payload.values()]
+        with torch.cuda.stream(copies) if copies is not None else contextlib.nullcontext():
+            dev = {key: p.to(self.device, non_blocking=True) for key, p in zip(payload, pinned)}
+            ready = torch.cuda.Event()
+            ready.record()
+        return {"dev": dev, "host": host, "ready": ready, "pinned": pinned}
+
+    def _gen_dispatch_payloads(self, batch_gen, K: int):
+        """Stack K wire batches at a time and start their upload
+        (``base.py:_gen_dispatch_payloads``)."""
+        while True:
+            batches = []
+            for _ in range(K):
+                try:
+                    batches.append(next(batch_gen))
+                except StopIteration:
+                    return
+            yield self._transfer({key: np.stack([b[key] for b in batches]) for key in batches[0]})
+
+    def _payload_pipeline(self, training_set, rng, K: int, depth: int = 2):
+        """The K-step payloads in two overlapped stages
+        (``base.py:_payload_pipeline`` without the mesh branch): an
+        assembly thread (the index wire's cut sampler and extras where the
+        model takes it, else the packed batcher at ``n_stack=K``) and a
+        transfer thread that uploads each payload on a copy stream of its
+        own, so assembly, upload and the device's steps overlap."""
+        if self._index_batching_ok():
+            self._dev_store = self._upload_index_store(training_set)
+            gen = self._gen_index_mini_batch(training_set, rng, n_stack=K)
+        else:
+            gen = self._gen_packed_mini_batch(training_set, rng, n_stack=K)
+        host = self._prefetch(self._with_epochs(gen, training_set), depth=depth)
+
+        def transfer(upstream):
+            # a generator function (not a genexp), so closing this stage
+            # closes the upstream prefetch too
+            copies = torch.cuda.Stream(device=self.device) if self.device.type == "cuda" else None
+            inflight: collections.deque = collections.deque()
+            try:
+                for p in upstream:
+                    ep = p.pop("_epochs", None)
+                    while inflight and inflight[0][0].query():
+                        inflight.popleft()  # its copies are done: its pinned buffers may go
+                    p = self._transfer(p, copies)
+                    pinned = p.pop("pinned")
+                    if p["ready"] is not None:
+                        inflight.append((p["ready"], pinned))
+                    p["_epochs"] = ep
+                    yield p
+            finally:
+                upstream.close()
+                for ev, _ in inflight:
+                    ev.synchronize()
+
+        return self._prefetch(transfer(host), depth=depth)
 
     # ------------------------------------------------------------------
     # optimizer steps
@@ -774,13 +1080,13 @@ class RNNBase:
             holder[key] = t.to(want.device)
         return state
 
-    def train_function(self, batch):
-        """One optimizer step on a host batch; returns the batch cost as a
-        device scalar (the loop syncs only at progress checkpoints)."""
+    def _step(self, dev_batch: dict) -> torch.Tensor:
+        """One optimizer step on a device batch: autograd, the updater's
+        in-place step (and the lazy Adam where it applies); returns the
+        cost as a device scalar, without a host sync."""
         if self.opt_state is None:
             self.opt_state = self._init_opt_state()
         params = self._train_params()
-        dev_batch = self._device_batch(batch)
         cost = self._loss(dev_batch)
         grads = torch.autograd.grad(cost, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
@@ -795,6 +1101,47 @@ class RNNBase:
             sp, i = entry["spec"], entry["param"]
             self._lazy_adam_update(params[i], entry, grads[i], sp["ids"](dev_batch), sp["axis"])
         return cost.detach()
+
+    def train_function(self, batch):
+        """One optimizer step on a host batch; returns the batch cost as a
+        device scalar (the loop syncs only at progress checkpoints)."""
+        ep = batch.pop("_epochs", None)
+        if ep is not None:
+            self._pipeline_epochs = float(ep)
+        return self._step(self._device_batch(batch))
+
+    def train_function_multi(self, batches: list) -> torch.Tensor:
+        """``len(batches)`` optimizer steps as one K-step payload (the host
+        batches stacked on a leading axis); returns the summed cost."""
+        return self.train_function_stacked(next(self._gen_dispatch_payloads(iter(batches), len(batches))))
+
+    def train_function_stacked(self, payload: dict) -> torch.Tensor:
+        """K optimizer steps on an uploaded [K, ...] payload (``_transfer``),
+        the JAX package's ``lax.scan``: the current stream waits for the
+        payload's copies, then the K steps are enqueued back to back on its
+        slices ``payload[k]`` (an index-wire payload's batches assembled
+        from the resident store) with no host sync between them, and their
+        costs are summed on the device. ``_HOST_KEYS`` are read from the
+        payload's host copy."""
+        ep = payload.pop("_epochs", None)
+        if ep is not None:
+            self._pipeline_epochs = float(ep)
+        dev, host = payload["dev"], payload["host"]
+        if payload["ready"] is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(payload["ready"])
+            for t in dev.values():
+                t.record_stream(stream)  # allocated on the copy stream
+        K = len(next(iter(dev.values())))
+        cost_sum = None
+        for k in range(K):
+            step = {key: v[k] for key, v in dev.items()}
+            step.update({key: int(v[k]) for key, v in host.items()})
+            if "rows" in step:
+                step = self._expand_index_wire(step, self._dev_store)
+            cost = self._step(self._finish_device_batch(step))
+            cost_sum = cost if cost_sum is None else cost_sum + cost
+        return cost_sum
 
     # ------------------------------------------------------------------
     # validation and the training loop (contract of rnn_base.py:215-356)
@@ -857,8 +1204,6 @@ class RNNBase:
         early_stopping=None,
         validation_metrics=("sps",),
     ):
-        if self.steps_per_dispatch > 1:
-            raise NotImplementedError("--spd > 1 (K-step dispatch) comes with a later slice of the port")
         validation_metrics = list(validation_metrics)
         self.set_dataset(dataset)
         if len(set(validation_metrics) & set(self.metrics.keys())) < len(validation_metrics):
@@ -876,10 +1221,21 @@ class RNNBase:
         if self.opt_state is None:
             self.opt_state = self._init_opt_state()
 
+        # K-step payloads need the packed batcher's fixed shapes; K counts
+        # the optimizer steps of one loop iteration in all the accounting
+        use_stacked = self._fast_batching_ok() and self.steps_per_dispatch > 1
+        K = self.steps_per_dispatch if self._fast_batching_ok() else 1
         if self._fast_batching_ok():
-            # a generator of its own, as the JAX package's prefetch thread has
+            # packed batches assembled on a prefetch thread, with a generator
+            # of their own (numpy Generators are not thread-safe)
             batch_rng = np.random.default_rng(self.seed + 77)
-            batch_generator = self._gen_packed_mini_batch(dataset.training_set, batch_rng)
+            if use_stacked:
+                batch_generator = self._payload_pipeline(dataset.training_set, batch_rng, K)
+            else:
+                batch_generator = self._prefetch(
+                    self._with_epochs(self._gen_packed_mini_batch(dataset.training_set, batch_rng),
+                                      dataset.training_set)
+                )
         else:
             batch_generator = self._gen_mini_batch(self.sequence_noise(dataset.training_set()))
 
@@ -888,23 +1244,34 @@ class RNNBase:
         train_costs = []
         cost_sum = None  # device-side running sum: one host pull per checkpoint
         cost_count = 0
+        # the epochs of the last consumed batch (its assembly tag); the
+        # training set's own count runs ahead with the prefetch thread and
+        # is read only on the synchronous per-sequence path
+        self._pipeline_epochs = None
         epochs = []
         metrics = {name: [] for name in self.metrics.keys()}
         filename = {}
         try:
             while time() - start_time < max_time and iterations < max_iter:
                 try:
-                    cost = self.train_function(next(batch_generator))
+                    if use_stacked:
+                        cost = self.train_function_stacked(next(batch_generator))
+                    else:
+                        cost = self.train_function(next(batch_generator))
                 except StopIteration:
                     break
                 cost_sum = cost if cost_sum is None else cost_sum + cost
-                cost_count += 1
-                iterations += 1
+                cost_count += K
+                iterations += K
                 progress_indicator = int(time() - start_time) if time_based_progress else iterations
 
                 if progress_indicator >= next_save:
                     if progress_indicator >= min_iterations:
-                        epochs.append(epochs_offset + dataset.training_set.epochs)
+                        consumed = (
+                            self._pipeline_epochs if self._pipeline_epochs is not None
+                            else dataset.training_set.epochs
+                        )
+                        epochs.append(epochs_offset + consumed)
                         mean_cost = float(cost_sum) / max(cost_count, 1)
                         if np.isnan(mean_cost):
                             raise ValueError("Cost is NaN")
@@ -939,8 +1306,9 @@ class RNNBase:
                             early_stopping(epochs, metrics[m]) for m in validation_metrics
                         ):
                             break
-                    # catch up past the current indicator (a slow validation
-                    # pass can overshoot a time-based schedule)
+                    # catch up past the current indicator (iterations move by
+                    # K a dispatch, and a slow validation pass can overshoot
+                    # a time-based schedule)
                     while next_save <= progress_indicator:
                         if isinstance(progress, int):
                             next_save += min(progress, max_progress_interval)
@@ -949,6 +1317,8 @@ class RNNBase:
         except KeyboardInterrupt:
             print("Training interrupted")
         finally:
+            # release the prefetch threads (a no-op on the synchronous path)
+            batch_generator.close()
             # every queued write lands before train returns (callers read the
             # files at once); a writer's error is raised, unless another
             # exception (the NaN abort) is already on its way out

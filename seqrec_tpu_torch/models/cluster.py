@@ -320,6 +320,46 @@ class RNNCluster(RNNBase):
         packed.update(self._step_fields())
         return packed
 
+    def _restack_wire(self, batch, n_stack):
+        out = super()._restack_wire(batch, n_stack)
+        # the sample sets and the noise seed are per step: drawn and
+        # advanced anew for each of the K steps (the scale is the batch's)
+        samples, cluster_samples = [np.asarray(batch["samples"])], [np.asarray(batch["cluster_samples"])]
+        seeds = [np.int32(batch["noise_seed"])]
+        for _ in range(n_stack - 1):
+            s, cs = self._draw_sample_sets()
+            self._noise_seed += 1
+            samples.append(s)
+            cluster_samples.append(cs)
+            seeds.append(np.int32(self._noise_seed))
+        out["samples"] = np.stack(samples)
+        out["cluster_samples"] = np.stack(cluster_samples)
+        out["noise_seed"] = np.asarray(seeds, dtype=np.int32)
+        return out
+
+    # index wire: the sample sets, noise seeds and the scale are drawn on the
+    # host in the packed path's order and ship beside (rows, cuts); the
+    # sequence fields assemble on the device. FISMCluster stays off it
+    # (its max_length is infinite, so the packed batcher does not apply).
+    index_wire_ok = True
+
+    def _index_payload_extras(self, k):
+        samples, cluster_samples, seeds = [], [], []
+        for _ in range(k):
+            s, cs = self._draw_sample_sets()
+            self._noise_seed += 1
+            samples.append(s)
+            cluster_samples.append(cs)
+            seeds.append(np.int32(self._noise_seed))
+        # the scale schedule advances once a payload, after its draws
+        self._update_scale()
+        return {
+            "samples": np.stack(samples),
+            "cluster_samples": np.stack(cluster_samples),
+            "scale": np.full(k, self.effective_scale, dtype=np.float32),
+            "noise_seed": np.asarray(seeds, dtype=np.int32),
+        }
+
     def _prepare_input(self, sequences):
         ids, id_mask, mask = self._encode_sequences([s[1] for s in sequences], user_ids=[s[0] for s in sequences])
         targets = np.array([s[2][0][0] for s in sequences], dtype=np.int32)

@@ -46,9 +46,10 @@ import torch
 
 from seqrec_tpu_torch import resolve_device
 from seqrec_tpu_torch.models.base import RNNBase
+from seqrec_tpu_torch.ops.core import masked_top_k
 from seqrec_tpu_torch.ops.core import pad_bucket as _bucket
 from seqrec_tpu_torch.ops.gather_sum import gather_sum_table_grad
-from seqrec_tpu_torch.ops.score_topk import fused_score_topk
+from seqrec_tpu_torch.ops.score_topk import MAX_K, fused_score_topk
 from seqrec_tpu_torch.utils import evaluation
 
 
@@ -236,7 +237,10 @@ class MFBase:
     def _device_topk_batch(self, user_ids, seqs, k) -> np.ndarray:
         """K4 over row chunks of ``_DEVICE_TOPK_ROW_CHUNK`` users: the output
         table built once for the pass, each chunk's representations and
-        seen ids (S rounded up to a multiple of 16) uploaded."""
+        seen ids (S rounded up to a multiple of 16) uploaded. K4 keeps at
+        most ``MAX_K`` a row: a longer list (``--save_rank`` ranks the
+        whole catalog) sorts the chunk's masked device scores, as the JAX
+        package ranks this route with ``masked_top_k`` at any k."""
         W, b = self._device_out_table()
         C = self._DEVICE_TOPK_ROW_CHUNK
         out = []
@@ -250,7 +254,11 @@ class MFBase:
             for r, s in enumerate(chunk):
                 seen[r, : len(s)] = [int(i[0]) for i in s]
                 sm[r, : len(s)] = 1.0
-            _, ids = fused_score_topk(self._tensor(rep), W, b, self._tensor(seen), self._tensor(sm), k)
+            if k > MAX_K:
+                with torch.inference_mode():
+                    ids = masked_top_k(self._tensor(rep) @ W + b, k, self._tensor(seen), self._tensor(sm))
+            else:
+                _, ids = fused_score_topk(self._tensor(rep), W, b, self._tensor(seen), self._tensor(sm), k)
             out.append(ids.cpu().numpy().astype(np.int64))
         return np.concatenate(out)
 

@@ -145,6 +145,19 @@ class RNNMargin(RNNBase):
         del packed["targets"]
         return packed
 
+    # index wire: every field (single-target ids, counts, seen-item sets)
+    # derives on the device from (store, rows, cuts)
+    index_wire_ok = True
+
+    def _expand_index_wire(self, batch, store):
+        out = super()._expand_index_wire(batch, store)
+        B = out["targets"].shape[0]
+        out["target_ids"] = out["targets"].reshape(B, 1)
+        out["t_count"] = torch.ones(B, dtype=torch.float32, device=out["mask"].device)
+        out["seen_ids"] = torch.where(out["mask"] > 0, out["ids"][:, :, 0], self.n_items).int()
+        del out["targets"], out["target_pop"], out["targets_in_catalog"]
+        return out
+
     def _prepare_input(self, sequences):
         ids, id_mask, mask = self._encode_sequences([s[1] for s in sequences], user_ids=[s[0] for s in sequences])
         B = len(sequences)

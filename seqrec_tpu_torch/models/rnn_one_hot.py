@@ -92,7 +92,10 @@ class RNNOneHot(RNNBase):
         net = self.net
         h = net.tower(batch["ids"], batch["mask"], batch.get("id_mask"), train=True)
         if self._use_streaming_head():
-            per_ex = streaming_cce(h, net.W_out, net.b_out, batch["targets"], compute_dtype=self.compute_dtype)
+            per_ex = streaming_cce(
+                h, net.W_out, net.b_out, batch["targets"], compute_dtype=self.compute_dtype,
+                check_targets=not batch.get("targets_in_catalog", False),
+            )
             cost = (per_ex / batch["target_pop"]).mean()
         else:
             logits = self._out_matmul(h, net.W_out, net.b_out)
@@ -108,6 +111,10 @@ class RNNOneHot(RNNBase):
             self.dataset.item_popularity[packed["targets"]] ** self.diversity_bias
         ).astype(np.float32)
         return packed
+
+    # the whole CCE batch derives on the device from (store, rows, cuts):
+    # target_pop is a lookup in the store's popularity table
+    index_wire_ok = True
 
     def _prepare_input(self, sequences):
         """sequences: list of [user_id, input_sequence, targets]."""

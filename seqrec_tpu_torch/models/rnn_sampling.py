@@ -10,7 +10,9 @@ PyTorch as the JAX package leaves them to XLA. The diagonal of the left
 The samples are drawn on the host per batch from the model's own generator
 (``self.rng``), at the same points and in the same order as the JAX
 package: uniform over the catalog, or ``pop^sampling_bias`` through a
-cumsum and ``searchsorted``. Serving ranks the raw logits (ranking the
+cumsum and ``searchsorted``; under ``--spd`` each of the K steps draws its
+own set (on the index wire, K sets beside the payload's rows and cuts).
+Serving ranks the raw logits (ranking the
 softmax), so evaluation goes through the fused score + mask + top-k kernel
 K4. ``--lazy_updates`` moves the head (``W_out`` columns, ``b_out``
 entries) onto the lazy Adam; the input table keeps dense Adam.
@@ -109,6 +111,20 @@ class RNNSampling(RNNBase):
         ).astype(np.float32)
         packed["samples"] = self._draw_samples()
         return packed
+
+    def _restack_wire(self, batch, n_stack):
+        out = super()._restack_wire(batch, n_stack)
+        # the samples are shared within a step and drawn anew for each of
+        # the K steps, after the super-batch's own draw
+        out["samples"] = np.stack([np.asarray(batch["samples"])] + [self._draw_samples() for _ in range(n_stack - 1)])
+        return out
+
+    # index wire: the batch derives on the device from (store, rows, cuts),
+    # and the host-drawn samples ship beside them
+    index_wire_ok = True
+
+    def _index_payload_extras(self, k):
+        return {"samples": np.stack([self._draw_samples() for _ in range(k)])}
 
     def _resolve_lazy_specs(self):
         """Only the target and sample columns score, so the head's gradient

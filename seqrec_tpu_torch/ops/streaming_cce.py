@@ -272,13 +272,16 @@ class _StreamingCCEChunks(torch.autograd.Function):
         return dh, dW[:, :N], db[:N], None, None
 
 
-def streaming_cce(h, W, b, targets, compute_dtype: str = "float32", chunk: int | None = None):
+def streaming_cce(h, W, b, targets, compute_dtype: str = "float32", chunk: int | None = None,
+                  check_targets: bool = True):
     """Per-example CCE [B] of h [B, H], W [H, N], b [N] and int targets
-    [B], each in [0, N) (checked: one host sync). ``compute_dtype``
+    [B], each in [0, N) (checked: one host sync; a caller whose targets
+    were checked already, as the index wire's store items are when the
+    store is uploaded, passes ``check_targets=False``). ``compute_dtype``
     "float32" runs K2; "bfloat16" the chunk loop, ``chunk`` columns at a
     time (default :func:`pick_chunk`)."""
     N = W.shape[1]
-    if len(targets) and bool(((targets < 0) | (targets >= N)).any()):
+    if check_targets and len(targets) and bool(((targets < 0) | (targets >= N)).any()):
         raise ValueError(f"streaming_cce: a target is outside the catalog [0, {N})")
     if compute_dtype == "bfloat16":
         return _StreamingCCEChunks.apply(h, W, b, targets, chunk or pick_chunk(N))

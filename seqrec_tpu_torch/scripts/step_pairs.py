@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Steady step times of the cells that run G1's backward, or the times of
-the passes that run K3, for two checkouts in one run on one CUDA GPU, in
-turns.
+"""Steady step times of the cells that run G1's backward, the times of the
+passes that run K3, or the training loop's steps, for two checkouts in one
+run on one CUDA GPU, in turns.
 
-    python3 -m seqrec_tpu_torch.scripts.step_pairs --before DIR [--rounds N] [--cells steps|serving]
+    python3 -m seqrec_tpu_torch.scripts.step_pairs --before DIR [--rounds N] [--cells steps|serving|loop]
 
 DIR is the root of another checkout of the repository (for example a
 ``git archive`` of the parent commit unpacked under ``build/``). Each round
@@ -31,6 +31,24 @@ seed 0 with random weights; ms a pass, the median of 7 after a warm-up):
   catalog at chunks of 512, timed the same way;
 - ``validation_gru128``: GRU-128's validation pass on that catalog at
   chunks of 1024 (``chip_smoke.steady_state``'s, after 3 steps).
+
+or, with ``--cells loop``, the training loop itself (``model.train``, no
+validation; the loop of each checkout: the synchronous one before the
+prefetch thread, the prefetch thread and ``--spd`` after it), from seed 0:
+
+- ``flagship_spd1`` / ``_spd8``, ``featured_spd1`` / ``_spd8`` (1,000
+  steps each) and ``bpr_b64_spd1`` / ``_spd8`` (``chip_smoke.HEADS_BPR``,
+  600 steps) on the ML-1M-scale dataset; ``gru128_spd1`` / ``_spd4``
+  (GRU-128 at B=1024 on the 50k-item catalog, 120 steps): ms a step and
+  sequences/s over a timed ``train`` call after a warm-up one (host clock
+  to a synchronize: thread start, the index store's upload and the
+  queue's fill included), the profiler's device ms a step over a shorter
+  call and its share of the step (``device_busy_share``). A checkout that
+  refuses ``--spd`` > 1 prints no such cell;
+- ``load_native`` / ``load_python``: the ML-1M-scale training sequences
+  parsed into a ``SequenceStore`` by the native parser and by the Python
+  tokenizer (the median of 3; a checkout without the native parser prints
+  the tokenizer only).
 
 Prints one JSON line per cell and checkout in each turn, with the card's
 name and power limit, and last the medians of each cell's step time by
@@ -146,6 +164,67 @@ emit("validation_gru128", st["validation_pass"]["wall_s"] * 1e3, "eval_chunk", s
 """
 
 
+# the same preamble, then the training loop at --spd 1 and K
+LOOP_CELLS = CELLS[: CELLS.index("for cell, argv, ds in")] + r"""
+import contextlib
+import os
+import statistics
+import seqrec_tpu_torch.utils.command_parser as parse
+from seqrec_tpu_torch.data import DataHandler
+
+
+def loop_model(argv, ds_dir, spd):
+    args = parse.command_parser(parse.predictor_command_parser, argv=argv)
+    args.device = "cuda"
+    model = parse.get_predictor(args)
+    dataset = DataHandler(ds_dir)
+    model.prepare_model(dataset)
+    model.steps_per_dispatch = spd
+    return model, dataset
+
+
+def run(model, dataset, steps):
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        model.train(dataset, max_iter=steps, progress=10**9, autosave="None")
+
+
+for cell, argv, ds, steps, profile_steps, spds in (
+        ("flagship", cs.FLAGSHIP, cs.ml1m_dataset(), 1000, 160, (1, 8)),
+        ("featured", cs.FEATURED, cs.featured_dataset(), 1000, 160, (1, 8)),
+        ("bpr_b64", cs.HEADS_BPR, cs.ml1m_dataset(), 600, 160, (1, 8)),
+        ("gru128", cs.LARGE, cs.catalog50k_dataset(), 120, 24, (1, 4))):
+    for spd in spds:
+        model, dataset = loop_model(argv, ds, spd)
+        try:
+            run(model, dataset, 4 * spd)  # warm-up: the first steps, the store's upload
+        except NotImplementedError:
+            continue  # this checkout refuses --spd > 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(model, dataset, steps)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / steps
+        device_ms = sum(cs.device_events(lambda: run(model, dataset, profile_steps)).values()) / profile_steps
+        emit(f"{cell}_spd{spd}", step_s * 1e3, "sequences_per_s", model.batch_size / step_s,
+             {"device_ms_per_step": device_ms, "device_busy_share": device_ms / (step_s * 1e3), "steps_timed": steps})
+from seqrec_tpu_torch.data import dataset as data_module
+fn = os.path.join(cs.ml1m_dataset(), "data", "train_set_sequences")
+try:
+    from seqrec_tpu_torch.data import native
+except ImportError:
+    native = None
+for how in ("native", "python") if native is not None else ("python",):
+    if native is not None:
+        native._lib, native._lib_failed = None, how == "python"
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        store = data_module.SequenceStore.from_file(fn)
+        times.append(time.perf_counter() - t0)
+    emit("load_" + how, statistics.median(times) * 1e3, "interactions", len(store.items), {})
+"""
+
+
 def _medians(by_cell: dict) -> dict:
     return {cell: {name: statistics.median(v) for name, v in by.items()} for cell, by in by_cell.items()}
 
@@ -154,8 +233,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--before", required=True, help="root of the other checkout")
     parser.add_argument("--rounds", type=int, default=1, help="rounds of before, this, this, before")
-    parser.add_argument("--cells", choices=("steps", "serving"), default="steps",
-                        help="G1's training cells, or the passes that run K3")
+    parser.add_argument("--cells", choices=("steps", "serving", "loop"), default="steps",
+                        help="G1's training cells, the passes that run K3, or the training loop")
     args = parser.parse_args(argv)
     import torch
 
@@ -166,7 +245,7 @@ def main(argv=None) -> int:
     steps, device = {}, {}
     for r in range(args.rounds):
         for name in ("before", "this", "this", "before"):
-            code = CELLS if args.cells == "steps" else SERVING_CELLS
+            code = {"steps": CELLS, "serving": SERVING_CELLS, "loop": LOOP_CELLS}[args.cells]
             out = subprocess.run([sys.executable, "-c", code], cwd=trees[name], capture_output=True, text=True)
             if out.returncode:
                 sys.stderr.write(out.stderr[-4000:])

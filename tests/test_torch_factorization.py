@@ -503,6 +503,40 @@ def test_top_k_batch_matches_jax_by_both_routes(mf_dataset, name):
     np.testing.assert_array_equal(tm.top_k_batch(instances, k=10), device)
 
 
+@pytest.mark.parametrize("name", ONE_EACH)
+def test_device_route_ranks_the_whole_catalog_past_k4(tmp_path_factory, name, monkeypatch):
+    """``--save_rank`` asks the device route for k = n_items (90 here),
+    past K4's k <= 64: the port sorts its masked device scores and gives the JAX
+    package's full ranks (the same scores, and the same lists where no two
+    scores tie within 1e-5); K4 is never called above 64 (on the card its
+    wrapper refuses such a k)."""
+    d = make_dataset(str(tmp_path_factory.mktemp("mf90")), n_users=40, n_items=90, min_len=5, max_len=20, seed=4)
+    jm, tm = _pair(name, d)
+    assert tm.n_items > 64
+    tm.samples_per_step, tm.chunks_per_dispatch = 64, 2
+    tm.training_step(0)
+    _share(jm, tm)
+    instances = _instances(tm, empty=name in ("fism_bpr", "fossil"))
+    scores = _scores(tm, instances)
+    calls = []
+
+    def guarded(*args, **kwargs):
+        k = kwargs["k"] if "k" in kwargs else args[5]
+        assert 1 <= k <= 64, f"K4 called with k = {k}"
+        calls.append(k)
+        return k4(*args, **kwargs)
+
+    k4 = tf.fused_score_topk
+    monkeypatch.setattr(tf, "fused_score_topk", guarded)
+    jm.DEVICE_TOPK_MIN_ITEMS = tm.DEVICE_TOPK_MIN_ITEMS = 1
+    full = tm.top_k_batch(instances, k=tm.n_items)
+    assert not calls and full.shape == (len(instances), tm.n_items)
+    assert all(sorted(row) == list(range(tm.n_items)) for row in full.tolist())
+    _assert_same_topk(full, jm.top_k_batch(instances, k=tm.n_items), scores)
+    tm.top_k_batch(instances, k=10)
+    assert calls == [10]
+
+
 def test_empty_bags_score_finite(mf_dataset):
     for name in ("fism_bpr", "fossil"):
         _, tm = _pair(name, mf_dataset)

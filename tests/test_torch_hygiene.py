@@ -21,6 +21,16 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), leaked)
 """
 
+_NEW_MODULES = r"""
+import importlib, sys
+for name in ("seqrec_tpu_torch.data.native", "seqrec_tpu_torch.models.base", "seqrec_tpu_torch.data.dataset"):
+    importlib.import_module(name)
+from seqrec_tpu_torch.data import native
+banned = {"jax", "jaxlib", "optax", "ml_dtypes", "seqrec_tpu"}
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+print(native._lib is None and not native._lib_failed, "triton" in sys.modules, leaked)
+"""
+
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of seqrec_tpu_torch, and chip_smoke.py, imported in a
@@ -35,6 +45,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     n_modules, leaked = out.stdout.split(maxsplit=1)
     assert int(n_modules) >= 15
     assert leaked.strip() == "[]"
+
+
+def test_native_parser_and_dispatch_modules_import_clean():
+    """The native parser's binding and the modules of the prefetch and
+    K-step dispatch import neither jax nor the JAX package, and importing
+    them builds and loads nothing (the parser is built at its first use)."""
+    out = subprocess.run(
+        [sys.executable, "-c", _NEW_MODULES], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": ROOT},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["True", "False", "[]"]
 
 
 def test_cli_without_device_cpu_raises_when_no_gpu(synthetic_dataset):

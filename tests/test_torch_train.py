@@ -3,7 +3,7 @@ seed gives the same batches (exactly), the same train steps give the same
 costs and parameters (dense head, and the streaming head at a 16,384-item
 catalog), and the train CLI writes the checkpoint the JAX CLI would name,
 which the JAX test CLI reads; a JAX checkpoint resumes in the port.
-Flags of later slices (--mesh, --spd > 1) raise. Small sizes throughout (GRU and LSTM towers
+Flags of later slices (--mesh, also beside --spd) raise. Small sizes throughout (GRU and LSTM towers
 of widths 6 to 16, L=10).
 
 Tolerances: costs rtol 1e-5 (the same f32 math, summed in other orders);
@@ -269,9 +269,9 @@ def test_train_cli_without_device_cpu_raises_when_no_gpu(synthetic_dataset):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--mesh", "1,1"], ["--spd", "2"], ["--u_moments", "bfloat16", "--spd", "2"], ["-m", "Fossil", "--spd", "2"],
-     ["--profile", "trace/", "--mesh", "1,1"], ["-m", "FISM", "--loss", "BPR", "--spd", "4"],
-     ["-m", "BPRMF", "--mesh", "1,1"]],
+    [["--mesh", "1,1"], ["--spd", "2", "--mesh", "1,1"], ["--u_moments", "bfloat16", "--spd", "2", "--mesh", "auto"],
+     ["-m", "Fossil", "--spd", "2", "--mesh", "1,1"], ["--profile", "trace/", "--mesh", "1,1"],
+     ["-m", "FISM", "--loss", "BPR", "--spd", "4", "--mesh", "1,1"], ["-m", "BPRMF", "--mesh", "1,1"]],
 )
 def test_train_cli_raises_not_implemented_outside_the_slice(synthetic_dataset, flags):
     argv = ["-d", synthetic_dataset, *BASE, "--max_iter", "2", "--save", "None", "--device", "cpu", *flags]
