@@ -166,6 +166,24 @@ Phases, each printing one JSON line with its seconds:
    50k-item catalog at --spd 4 (32 steps: K2 > 0). The native sequence
    parser: the train CLI's dataset loaded through it (its counter), its
    arrays equal to the Python tokenizer's, both load times.
+20. main_path_mesh: the main path over a ("data", "model") mesh of
+   torch.distributed ranks, one process a rank (this script with
+   ``--mesh-rank``). One rank under NCCL: the flagship at --mesh 1,1 for
+   300 steps and three validations. Two ranks sharing the one card over
+   gloo (NCCL refuses two ranks on one device): the flagship at --mesh
+   2,1 and 1,2 (100 steps, one validation; the vocab-parallel dense head,
+   W_in by rows), GRU-128 at B=1024 on a 50,000-item catalog (seed 9:
+   an even catalog, so W_out shards and K2 runs on each shard) at --mesh
+   1,2 --spd 4 (32 steps, one validation), and the test CLI at --mesh 1,2
+   on the single-device flagship checkpoint. Checks: each run's progress
+   costs within 1e-4 of the single-device card run's, the mesh
+   checkpoints written by rank 0 alone with the single-device keys and
+   shapes, the test CLI's top-10 lists equal to the single-device test
+   CLI's (ties apart), and in each rank every counter of K1, K2, K3, K4
+   and G1 above 0 (each rank zeroes and reads its own around each run
+   and reports them). A rank that fails or outlasts MESH_TIMEOUT fails
+   the phase, and every rank process is killed. Then K2 (every other
+   target -1), K4 and G1 at their per-shard shapes, timed.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. The last lines are
@@ -1064,9 +1082,11 @@ def check_gather_sum(ids, D, N, seed, id_mask=None, timed=True):
 # ----------------------------------------------------------------------
 # K2: streaming CCE stats and gradients
 # ----------------------------------------------------------------------
-def check_cce(B, H, N, seed, timed=True):
+def check_cce(B, H, N, seed, timed=True, foreign=False):
     """K2 stats (m, s) and grads (dh, dW, db) against the plain dense
-    versions, for in-range targets and a random upstream cotangent."""
+    versions, for in-range targets and a random upstream cotangent. With
+    ``foreign``, every other row's target is -1, another shard's under a
+    mesh (sharded_streaming_cce): it matches no column."""
     import torch
     import torch.nn.functional as F
 
@@ -1076,6 +1096,8 @@ def check_cce(B, H, N, seed, timed=True):
     h, w, b = a["h"], a["w_out"], a["b_out"]
     rng = np.random.default_rng(seed + 100)
     targets = torch.tensor(rng.integers(0, N, size=B), dtype=torch.int32, device="cuda")
+    if foreign:
+        targets[1::2] = -1
     g = torch.tensor(rng.uniform(0.5, 1.5, size=B) / B, dtype=torch.float32, device="cuda")
     g[0] = 0.0  # a row with no cotangent contributes nothing
     m_k, s_k = cce_stats(h, w, b)
@@ -1098,8 +1120,15 @@ def check_cce(B, H, N, seed, timed=True):
         raise AssertionError(f"two calls of cce_stats at {(B, H, N)} give different bits")
     if grads_k[0][0].any():
         raise AssertionError("cce_grads gave a row with g = 0 a gradient")
+    if foreign:  # a row with target -1 gets g * softmax, the dense one-hot of no column
+        p = torch.softmax(h @ w + b, dim=1)
+        want_db = (g[:, None] * p).sum(0) - torch.zeros_like(b).index_add_(
+            0, targets[::2].long(), g[::2])
+        if not close(grads_k[2], want_db, rtol=1e-4, atol_rel=1e-5)[1]:
+            raise AssertionError(f"cce_grads matched a column for target -1 at {(B, H, N)}")
     out = {
-        "kernel": "streaming_cce", "shape": {"B": B, "H": H, "N": N}, "max_abs_err": errs,
+        "kernel": "streaming_cce", "shape": {"B": B, "H": H, "N": N, "foreign_targets": foreign},
+        "max_abs_err": errs,
         "tolerance": "rtol 1e-4 + atol 1e-5*max|plain| (3xTF32 products; sums over N or B in another order)",
         "stats_same_bits_twice": True, "grads_same_bits_twice": True, "g0_row_dh_zero": True,
     }
@@ -2871,6 +2900,327 @@ def serving_pass_gru256(card) -> dict:
     return {**launches, "gru_scan_on_path": on_path}
 
 
+# ----------------------------------------------------------------------
+# the main path over a mesh: torch.distributed ranks on the one card
+# ----------------------------------------------------------------------
+# seconds one group of rank processes may take before the phase fails (and kills them)
+MESH_TIMEOUT = 300
+MESH_RAN = ("gru_scan_train_fwd", "gru_scan_train_bwd", "gather_sum_fwd", "gather_sum_bwd", "gru_scan",
+            "fused_score_topk")
+
+
+def catalog50k_even_dataset() -> str:
+    """The large catalog's generator at seed 9, which keeps 50,000 items: a
+    catalog that divides a model axis of 2 (seed 8's 49,999 items leave
+    W_out whole on every rank, and K2 would never run on a shard)."""
+    from seqrec_tpu_torch.data.synthetic import catalog_interactions, write_dataset
+
+    path = os.path.join(WORK, "catalog50k_even")
+    if os.path.exists(os.path.join(path, "data", "stats")):
+        return path + "/"
+    rows = catalog_interactions(n_users=25_000, n_items=50_000, min_len=20, max_len=100, seed=9)
+    return write_dataset(path, rows, n_val_users=500, n_test_users=500, seed=9)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_ranks(tag: str, n_ranks: int, backend: str, runs: list) -> list:
+    """Start ``n_ranks`` processes of this script as the ranks of one
+    ``backend`` process group on this host (torchrun's variables set here),
+    each running ``runs`` (``mesh_rank``). Returns (tag, rank, process,
+    log file, result file) per rank."""
+    os.makedirs(WORK, exist_ok=True)
+    cfg = os.path.join(WORK, f"mesh_{tag}.json")
+    with open(cfg, "w") as f:
+        json.dump({"backend": backend, "runs": runs, "out": os.path.join(WORK, f"mesh_{tag}")}, f)
+    port = free_port()
+    ranks = []
+    for rank in range(n_ranks):
+        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(n_ranks), "LOCAL_RANK": str(rank),
+               "LOCAL_WORLD_SIZE": str(n_ranks), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+        log = open(os.path.join(WORK, f"mesh_{tag}_rank{rank}.log"), "w+")
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", cfg], env=env,
+                                stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+        ranks.append((tag, rank, proc, log, os.path.join(WORK, f"mesh_{tag}_rank{rank}.json")))
+    return ranks
+
+
+def wait_ranks(ranks: list, timeout: float) -> dict:
+    """Wait for every rank; the first that fails, or the time limit, kills
+    them all and raises with the end of each log. Returns {tag: [each
+    rank's results]}."""
+    deadline = time.monotonic() + timeout
+    try:
+        while any(proc.poll() is None for _, _, proc, _, _ in ranks):
+            if any(proc.poll() not in (None, 0) for _, _, proc, _, _ in ranks) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for _, _, proc, _, _ in ranks:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    failed = [(tag, rank, proc.returncode) for tag, rank, proc, _, _ in ranks if proc.returncode != 0]
+    logs = []
+    for tag, rank, proc, log, _ in ranks:
+        log.seek(0)
+        logs.append(f"--- {tag} rank {rank} (rc {proc.returncode}) ---\n{log.read()[-3000:]}")
+        log.close()
+    if failed:
+        raise AssertionError(f"mesh ranks failed or timed out after {timeout} s: {failed}\n" + "\n".join(logs))
+    out: dict = {}
+    for tag, _, _, _, path in ranks:
+        with open(path) as f:
+            out.setdefault(tag, []).append(json.load(f))
+    return out
+
+
+def mesh_rank(cfg_path: str) -> int:
+    """One rank (``python3 chip_smoke.py --mesh-rank CFG``): join the
+    process group with the configured backend, then run each CLI of the
+    configuration with every counter at 0 before it, recording its
+    progress costs or top-10 lists, its seconds and the counts."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, ROOT)
+    from seqrec_tpu_torch.cli import test as test_cli
+    from seqrec_tpu_torch.cli import train as train_cli
+    from seqrec_tpu_torch.parallel import init_distributed
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    if not init_distributed(backend=cfg["backend"]):
+        raise RuntimeError("no process group")
+    rank = dist.get_rank()
+    results = {}
+    for run in cfg["runs"]:
+        argv = [a.replace("{rank}", str(rank)) for a in run["argv"]]
+        zero_counters()
+        t0 = time.perf_counter()
+        result, text = run_cli(train_cli.main if run["cli"] == "train" else test_cli.main, argv)
+        torch.cuda.synchronize()
+        rec = {"seconds": time.perf_counter() - t0, "launches": read_counters()}
+        if run["cli"] == "train":
+            rec["costs"] = progress_values(text, "Last train cost")
+        else:
+            rec["lists"] = [[int(i) for i in pred] for _, pred in result.instances]
+        results[run["name"]] = rec
+    with open(cfg["out"] + f"_rank{rank}.json", "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def checkpoint_layout(path) -> dict:
+    from seqrec_tpu_torch.models.base import _flatten, pytree_load
+
+    return {key: list(np.shape(value)) for key, value in _flatten(pytree_load(path))}
+
+
+def same_layout(ds_dir, mesh_dir, single_dir) -> dict:
+    """The mesh run's checkpoints are rank 0's alone (rank 1's directory
+    holds nothing) and have the single-device run's keys and shapes."""
+    models = os.path.join(ds_dir, "models")
+    got = sorted(os.listdir(os.path.join(models, mesh_dir + "0")))
+    other = os.path.join(models, mesh_dir + "1")
+    other = os.listdir(other) if os.path.exists(other) else []
+    if not got or other:
+        raise AssertionError(f"{mesh_dir}: rank 0 wrote {got}, rank 1 wrote {other}")
+    want = checkpoint_layout(os.path.join(models, single_dir, sorted(os.listdir(os.path.join(models, single_dir)))[0]))
+    for name in got:
+        layout = checkpoint_layout(os.path.join(models, mesh_dir + "0", name))
+        if layout != want:
+            raise AssertionError(f"{mesh_dir}{name}: keys and shapes {layout} against {want}")
+    return {"files_rank0": len(got), "files_rank1": 0, "same_keys_and_shapes_as_single_device": True,
+            "leaves": len(want)}
+
+
+def flagship_test_scores(ds_dir, save_dir):
+    """The logits, seen items at -inf, of every test user of the flagship's
+    last checkpoint in models/``save_dir`` on the card (the test CLI's
+    inputs and file order)."""
+    import glob
+    import re
+
+    import torch
+
+    import seqrec_tpu_torch.utils.command_parser as parse
+    from seqrec_tpu_torch.data import DataHandler
+
+    args = parse.command_parser(parse.predictor_command_parser, argv=FLAGSHIP)
+    model = parse.get_predictor(args)
+    dataset = DataHandler(ds_dir)
+    model.prepare_model(dataset)
+    model.set_dataset(dataset)
+    files = sorted(glob.glob(os.path.join(ds_dir, "models", save_dir, "*")),
+                   key=lambda f: float(re.search(r"_ne([0-9]+(\.[0-9]+)?)_", f).group(1)))
+    model.load(files[-1])
+    instances = list(model._iter_test_instances(dataset.test_set(epochs=1)))
+    ids, id_mask, mask = model._encode_sequences([seq for seq, _, _ in instances],
+                                                 user_ids=[u for _, _, u in instances])
+    with torch.inference_mode():
+        scores = model._logits(model._tensor(ids), model._tensor(id_mask), model._tensor(mask)).cpu().numpy()
+    for row, (seq, _, _) in zip(scores, instances):
+        row[[int(i[0]) for i in seq]] = -np.inf
+    return scores
+
+
+def mesh_shard_kernels(ds_dir, big_dir, n_big) -> dict:
+    """K2, K4 and G1 at the shapes a rank gives them at --mesh 1,2: K2 on
+    half the even catalog's columns (timed), and again with every other
+    target another shard's (-1); K4 on half of each catalog at the validation chunk (64
+    rows of GRU-50, 1,024 of GRU-128); G1 on a real batch's ids localized
+    to one shard of the input table (another shard's slot: -1)."""
+    def shard_ids(argv, ds, shard, D, seed):
+        rows, [(ids, _)] = real_batch_ids(argv, ds)
+        n = rows // 2
+        local = ids.astype(np.int64) - shard * n
+        return check_gather_sum(np.where((local >= 0) & (local < n), local, -1).astype(ids.dtype), D, n, seed=seed)
+
+    return {
+        "cce": check_cce(1024, 128, n_big // 2, seed=80),
+        "cce_foreign_targets": check_cce(1024, 128, n_big // 2, seed=85, timed=False, foreign=True),
+        "topk_flagship": check_topk(64, 50, 3706 // 2, 30, 10, seed=81),
+        "topk_large": check_topk(1024, 128, n_big // 2, 30, 10, seed=82),
+        "gather_sum_flagship": shard_ids(FLAGSHIP, ds_dir, 1, 150, seed=84),
+        "gather_sum_large": shard_ids(LARGE, big_dir, 0, 384, seed=83),
+    }
+
+
+def main_path_mesh(card) -> dict:
+    """The main path over a ("data", "model") mesh of torch.distributed
+    ranks, one process a rank, on this machine's one card: the flagship
+    (300 steps, three validations) at --mesh 1,1 under NCCL, and two ranks
+    sharing the card over gloo (NCCL refuses two ranks on one device): the
+    flagship (GRU-50, 3,706 items: the vocab-parallel dense head, W_in by
+    rows) at --mesh 2,1 and 1,2 for 100 steps and a validation, GRU-128 at
+    B=1024 on the 50,000-item catalog (the streaming head, K2 on each
+    shard) at --mesh 1,2 --spd 4 for 32 steps and a validation, and the
+    test CLI at --mesh 1,2 on the single-device flagship checkpoint. Each
+    run's progress costs against the single-device card run's (rel 1e-4),
+    the mesh checkpoints' keys and shapes against its, the test CLI's lists
+    against the single-device test CLI's (ties apart), and in every rank
+    the counts of K1, K2, K3, K4 and G1 above 0. Then K2, K4 and G1 at
+    their per-shard shapes."""
+    import glob
+    import shutil
+
+    import torch
+
+    from seqrec_tpu_torch.cli import test as test_cli
+    from seqrec_tpu_torch.cli import train as train_cli
+    from seqrec_tpu_torch.data import DataHandler
+
+    t_phase = time.perf_counter()
+    ds_dir, big_dir = ml1m_dataset(), catalog50k_even_dataset()
+    n_big = DataHandler(big_dir).n_items
+    if n_big % 2:
+        raise AssertionError(f"the even catalog has {n_big} items")
+    big = LARGE + ["--spd", "4"]
+    fl_300 = ["-d", ds_dir, *FLAGSHIP, "--max_iter", "300", "--progress", "100"]
+    fl_mesh = ["-d", ds_dir, *FLAGSHIP, "--max_iter", "100", "--progress", "100", "--save", "Best"]
+    big_argv = ["-d", big_dir, *big, "--max_iter", "32", "--progress", "32", "--save", "Best"]
+    for path in {p for d in (ds_dir, big_dir) for p in glob.glob(os.path.join(d, "models", "chip_mesh_*"))}:
+        shutil.rmtree(path)
+    nccl = start_ranks("nccl", 1, "nccl", [
+        {"name": "flagship_1x1", "cli": "train", "argv": fl_300 + ["--save", "None", "--mesh", "1,1"]},
+    ])
+    # the single-device references on the card, while the NCCL rank starts
+    t0 = time.perf_counter()
+    zero_counters()
+    fl_text = run_cli(train_cli.main, fl_300 + ["--save", "Best", "--dir", "chip_mesh_single/"])[1]
+    fl_costs, single_launches = progress_values(fl_text, "Last train cost"), read_counters()
+    big_costs = progress_values(run_cli(train_cli.main, big_argv + ["--dir", "chip_mesh_big_single/"])[1],
+                                "Last train cost")
+    test_argv = ["-d", ds_dir, *FLAGSHIP, "--dir", "chip_mesh_single/"]
+    single_lists = [[int(i) for i in pred] for _, pred in run_cli(test_cli.main, test_argv)[0].instances]
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    cuda0 = ["--device", "cuda:0"]
+    t0 = time.perf_counter()
+    gloo = start_ranks("gloo", 2, "gloo", [
+        {"name": "flagship_2x1", "cli": "train",
+         "argv": fl_mesh + ["--dir", "chip_mesh_2x1_r{rank}/", "--mesh", "2,1", *cuda0]},
+        {"name": "flagship_1x2", "cli": "train",
+         "argv": fl_mesh + ["--dir", "chip_mesh_1x2_r{rank}/", "--mesh", "1,2", *cuda0]},
+        {"name": "large_1x2_spd4", "cli": "train",
+         "argv": big_argv + ["--dir", "chip_mesh_big_r{rank}/", "--mesh", "1,2", *cuda0]},
+        {"name": "test_cli_1x2", "cli": "test", "argv": test_argv + ["--mesh", "1,2", *cuda0]},
+    ])
+    results = wait_ranks(nccl + gloo, MESH_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+
+    def rel(got, want):
+        if len(got) != len(want) or not np.isfinite(got).all():
+            raise AssertionError(f"mesh costs {got} against {want}")
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+    runs = {}
+    for tag, rank_results in results.items():
+        for rank, res in enumerate(rank_results):
+            for name, rec in res.items():
+                entry = runs.setdefault(name, {"backend": tag, "ranks": len(rank_results), "seconds": [],
+                                               "launches": []})
+                entry["seconds"].append(rec["seconds"])
+                entry["launches"].append(rec["launches"])
+                if "costs" in rec:
+                    want = {"flagship_1x1": fl_costs, "large_1x2_spd4": big_costs}.get(name, fl_costs[:1])
+                    diff = rel(rec["costs"], want)
+                    if diff > 1e-4:
+                        raise AssertionError(f"{name} rank {rank}: costs {rec['costs']} against {want}")
+                    entry["progress_costs"] = rec["costs"]
+                    entry["costs_vs_single_device_max_rel_diff"] = max(
+                        entry.get("costs_vs_single_device_max_rel_diff", 0.0), diff)
+                else:
+                    if rec["lists"] != single_lists:
+                        entry["lists_vs_single_device"] = same_lists_ties_apart(
+                            rec["lists"], single_lists, flagship_test_scores(ds_dir, "chip_mesh_single/"))
+                    else:
+                        entry["lists_vs_single_device"] = {"rows": len(single_lists), "equal": True}
+    for name, entry in runs.items():
+        ran = {"large_1x2_spd4": MESH_RAN + ("cce_stats", "cce_grads"), "test_cli_1x2": ("gru_scan", "fused_score_topk",
+               "gather_sum_fwd")}.get(name, MESH_RAN)
+        for rank, launches in enumerate(entry["launches"]):
+            streaming = launches["cce_stats"] + launches["cce_grads"]
+            if any(launches[k] == 0 for k in ran) or (name != "large_1x2_spd4" and streaming):
+                raise AssertionError(f"{name} rank {rank} launched {launches}")
+    per_rank = [{k: sum(runs[name]["launches"][rank][k] for name in runs if runs[name]["backend"] == "gloo")
+                 for k in KERNELS} for rank in range(2)]
+    for rank, counts in enumerate(per_rank):
+        missing = [k for k in KERNELS if k.startswith(("gru_scan", "cce_", "gather_sum", "fused")) and counts[k] == 0]
+        if missing:
+            raise AssertionError(f"gloo rank {rank} launched no {missing}")
+    layouts = {"flagship_2x1": same_layout(ds_dir, "chip_mesh_2x1_r", "chip_mesh_single"),
+               "flagship_1x2": same_layout(ds_dir, "chip_mesh_1x2_r", "chip_mesh_single"),
+               "large_1x2_spd4": same_layout(big_dir, "chip_mesh_big_r", "chip_mesh_big_single")}
+    t0 = time.perf_counter()
+    shard = mesh_shard_kernels(ds_dir, big_dir, n_big)
+    emit({
+        "phase": "main_path_mesh", "card": card,
+        "config": "flagship GRU-50 (3,706 items) at --mesh 1,1 (NCCL, 300 steps), 2,1 and 1,2 (gloo, 100 steps); "
+                  f"GRU-128 B1024 streaming head at {n_big} items, --mesh 1,2 --spd 4 (gloo, 32 steps); test CLI 1,2",
+        "note": "two ranks on one shared H100 over gloo: wall seconds, not a scaling number",
+        "single_device": {"flagship_costs": fl_costs, "large_costs": big_costs, "seconds": single_s,
+                          "launches_flagship": single_launches},
+        "runs": runs, "launches_per_gloo_rank": per_rank, "checkpoints": layouts, "ranks_wall_s": ranks_s,
+        "shard_kernels": {name: {k: v for k, v in res.items() if k in ("shape", "max_abs_err")}
+                          for name, res in shard.items()},
+        "shard_kernels_s": time.perf_counter() - t0,
+        "tolerance": "progress costs rel 1e-4 against the single-device card run; lists equal, ties apart",
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return {"runs": {name: entry["launches"] for name, entry in runs.items()}, "shard": shard}
+
+
 def main() -> int:
     import torch
 
@@ -3042,6 +3392,7 @@ def main() -> int:
     feature_runs, feature_checks = main_path_train_features(card)
     bf16_train = main_path_train_bf16(card)
     spd_runs = main_path_train_spd(card)
+    mesh = main_path_mesh(card)
     path_of = {"gru_scan": serving, "fused_score_topk": serving, "gru_scan_train_fwd": flagship,
                "gru_scan_train_bwd": flagship, "cce_stats": large, "cce_grads": large,
                "lstm_scan": lstm_serve, "lstm_scan_train_fwd": lstm_train, "lstm_scan_train_bwd": lstm_train,
@@ -3063,6 +3414,7 @@ def main() -> int:
             "launches_features": {run: counts[name] for run, counts in feature_runs.items()},
             "launches_bf16": bf16_train[name],
             "launches_spd": {run: counts[name] for run, counts in spd_runs.items()},
+            "launches_mesh": {run: [counts[name] for counts in ranks] for run, ranks in mesh["runs"].items()},
         })
     # K3 on the training forward's kernels: the serving chunk (reg), GRU-128's validation chunk
     # (cluster), GRU-256 serving's chunk (K3_PATH_H256)
@@ -3153,6 +3505,25 @@ def main() -> int:
                                                  ("at_ltm_targets_D32", "targets", ltm_checks),
                                                  ("at_mf_bprmf_H_D32", "gather_sum_bprmf_H", mf_checks),
                                                  ("at_mf_fism_basket_D32", "gather_sum_fism_basket", mf_checks))})
+    # the per-shard shapes of --mesh 1,2 (main_path_mesh)
+    shard_keys = ("kernel_ms", "kernel_device_ms", "plain_ms", "plain_device_ms", "library_ms", "library_device_ms",
+                  "bound_ms", "bound_by")
+    for name, part, at in (("cce_stats", "stats", "at_shard_B1024_H128_N25000"),
+                           ("cce_grads", "grads", "at_shard_B1024_H128_N25000")):
+        res = mesh["shard"]["cce"]
+        next(e for e in summary if e["name"] == name)[at] = {
+            **{key: res[part][key] for key in shard_keys if key in res[part]}, "shape": res["shape"],
+            "max_abs_err": res["max_abs_err"]}
+    for part, at in (("topk_flagship", "at_shard_B64_H50_N1853"), ("topk_large", "at_shard_B1024_H128_N25000")):
+        res = mesh["shard"][part]
+        topk[at] = {**{key: res[key] for key in shard_keys if key in res}, "max_abs_err": res["max_abs_err"]}
+    for name in ("gather_sum_fwd", "gather_sum_bwd"):
+        d = name.split("_")[-1]
+        entry = next(e for e in summary if e["name"] == name)
+        for part, at in (("gather_sum_flagship", "at_shard_flagship_D150"), ("gather_sum_large", "at_shard_large_D384")):
+            res = mesh["shard"][part]
+            entry[at] = {**{key: res[d][key] for key in shard_keys if key in res[d]}, "ids": res["shape"]["ids"],
+                         "rows": res["shape"]["N"], "max_abs_err": res["max_abs_err"][d]}
     print(card_line(), flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {
@@ -3162,4 +3533,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(sys.argv[2]))
     sys.exit(main())

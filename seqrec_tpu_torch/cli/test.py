@@ -5,9 +5,12 @@ the first half of the sequence, goal = item ids of the second half; epoch
 selection with ``-i`` or glob-all-models, resume-skip of already-tested
 epochs via the results-file tail, metric printing and TSV appending, and
 the ``--save_rank`` full rank dump, written with ``--save`` beside the
-results file as ``..._full_rank``), plus ``--device {cuda,cpu}``. It runs
-on CUDA unless ``--device cpu`` is given. ``--mesh`` comes with a later
-slice of the port.
+results file as ``..._full_rank``), plus ``--device {cuda,cuda:N,cpu}``.
+It runs on CUDA unless ``--device cpu`` is given. ``--mesh`` evaluates
+over a ("data", "model") mesh of ranks (``cli/train.py``'s flag, launched
+by torchrun the same way) for the models that take one in training, and
+for BPRMF, FPMC, FISM and Fossil; the rank with ``LOCAL_RANK`` 0 writes
+the results files.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import numpy as np
 
 import seqrec_tpu_torch.utils.command_parser as parse
 from seqrec_tpu_torch import resolve_device
+from seqrec_tpu_torch.cli.train import device_arg, make_cli_mesh
 from seqrec_tpu_torch.data import DataHandler
+from seqrec_tpu_torch.parallel.distributed import writes_files
 from seqrec_tpu_torch.utils import evaluation
 
 
@@ -247,8 +252,9 @@ def test_command_parser(parser):
     )
     parser.add_argument(
         "--device",
-        choices=["cuda", "cpu"],
-        help="Device to evaluate on; cuda raises when no GPU is present.",
+        type=device_arg,
+        help="Device to evaluate on (cuda, cuda:N or cpu); cuda raises when no GPU is present. Under --mesh, "
+        "cuda is cuda:LOCAL_RANK.",
         default="cuda",
     )
 
@@ -261,14 +267,23 @@ def main(argv=None):
     args.training_max_length = args.max_length
     if args.number_of_batches == -1:
         args.number_of_batches = "*"
-    if args.mesh:
-        raise NotImplementedError("--mesh comes with a later slice of the port")
+    mesh = make_cli_mesh(args.mesh, args.device) if args.mesh else None
+    if mesh is not None:
+        args.device = str(mesh.device)
     resolve_device(args.device)
 
     dataset = DataHandler(dirname=args.dataset)
     predictor = parse.get_predictor(args)
     predictor.prepare_model(dataset)
+    if mesh is not None:
+        if not hasattr(predictor, "set_mesh"):
+            raise ValueError(
+                f"--mesh is supported for the RNN/SDAE/cluster families; {predictor.name!r} evaluates single-device"
+            )
+        predictor.set_mesh(mesh)
     file = find_models(predictor, dataset, args)
+    # ranks on one host would race on the results files
+    writes = writes_files()
 
     evaluator = None
     if args.number_of_batches == "*" and args.method not in ("UKNN", "MM", "POP"):
@@ -294,7 +309,7 @@ def main(argv=None):
                     evaluator,
                     args.metrics.split(","),
                     plot=False,
-                    file=output_file,
+                    file=output_file if writes else None,
                     n_batches=batches[i],
                     print_full_rank_comparison=args.save_rank,
                 )
@@ -310,11 +325,17 @@ def main(argv=None):
         print_results(
             evaluator,
             args.metrics.split(","),
-            file=save_file_name(predictor, dataset, args) if args.save else None,
+            file=save_file_name(predictor, dataset, args) if args.save and writes else None,
             print_full_rank_comparison=args.save_rank,
         )
     return evaluator
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()

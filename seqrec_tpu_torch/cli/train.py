@@ -1,22 +1,32 @@
 """Training CLI: ``python -m seqrec_tpu_torch.cli.train``.
 
 Same flags as ``seqrec_tpu/cli/train.py`` (``-d DATASET_DIR -m RNN --loss
-CCE --save Best ...``), plus ``--device {cuda,cpu}``: it trains on CUDA
-unless ``--device cpu`` is given, and a missing GPU is an error. It writes
+CCE --save Best ...``), plus ``--device {cuda,cuda:N,cpu}``: it trains on
+CUDA unless ``--device cpu`` is given, and a missing GPU is an error. It writes
 the JAX package's checkpoints (same filenames and ``.npz`` keys) under
 ``DATASET_DIR/models/``. ``--profile DIR`` records the run with
 ``torch.profiler`` (host and, on the card, CUDA activity) and writes a
 Chrome trace, ``DIR/trace.json``. ``--spd K`` runs K optimizer steps a
 dispatch where the predictor has ``steps_per_dispatch`` (the RNN family;
 the factorization family and LTM take the flag and ignore it, as in the
-JAX package). ``--mesh`` comes with a later slice of the port and raises
-``NotImplementedError``.
+JAX package). ``--mesh DATA,MODEL`` (or ``auto``) trains over a
+("data", "model") mesh of ``torch.distributed`` ranks, one process a rank:
+
+    torchrun --nproc_per_node N -m seqrec_tpu_torch.cli.train ... --mesh D,M
+
+(NCCL, rank r on ``cuda:LOCAL_RANK``; with ``--device cpu``, gloo). It
+takes ``-m RNN --loss CCE`` (either tower, the dense and the streaming
+head, ``--r_emb``, ``--mf``/``--uf``, ``--spd``); the factorization family
+shards its evaluation only. The other heads, ``--lazy_updates`` and
+``--bf16`` raise ``NotImplementedError`` on more than one rank.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import os
+import re
 
 import numpy as np
 
@@ -99,10 +109,43 @@ def training_command_parser(parser):
     )
     parser.add_argument(
         "--device",
-        choices=["cuda", "cpu"],
-        help="Device to train on; cuda raises when no GPU is present.",
+        type=device_arg,
+        help="Device to train on (cuda, cuda:N or cpu); cuda raises when no GPU is present. Under --mesh, "
+        "cuda is cuda:LOCAL_RANK.",
         default="cuda",
     )
+
+
+def device_arg(value: str) -> str:
+    """--device: ``cuda``, ``cuda:N`` or ``cpu``."""
+    if not re.fullmatch(r"cpu|cuda(:\d+)?", value):
+        raise argparse.ArgumentTypeError(f"invalid device {value!r} (choose from cuda, cuda:N, cpu)")
+    return value
+
+
+def make_cli_mesh(spec: str, device="cuda"):
+    """The ("data", "model") mesh of a --mesh spec: ``"auto"`` or
+    ``"DATA,MODEL"``, over the ranks of torchrun's process group (joined
+    here; one rank without one), ``device`` the ranks' device type."""
+    from seqrec_tpu_torch.parallel import init_distributed, make_mesh, make_pod_mesh
+
+    distributed = init_distributed(device=device)
+    if spec == "auto":
+        return make_pod_mesh(device=device) if distributed else make_mesh(device=device)
+    try:
+        n_data, n_model = (int(x) for x in spec.split(","))
+    except ValueError:
+        raise ValueError(f'--mesh must be "auto" or "DATA,MODEL" (e.g. "4,2"), got {spec!r}') from None
+    if distributed:
+        import torch.distributed as dist
+
+        world = dist.get_world_size()
+        if n_data * n_model != world:
+            raise ValueError(
+                f"--mesh {spec} asks for {n_data}x{n_model} devices but the pod exposes {world // n_model}x{n_model}"
+            )
+        return make_pod_mesh(n_model=n_model, device=device)
+    return make_mesh(n_data=n_data, n_model=n_model, device=device)
 
 
 def num(s):
@@ -121,8 +164,9 @@ def main(argv=None):
         parse.early_stopping_command_parser,
         argv=argv,
     )
-    if args.mesh:
-        raise NotImplementedError("--mesh comes with a later slice of the port")
+    mesh = make_cli_mesh(args.mesh, args.device) if args.mesh else None
+    if mesh is not None:
+        args.device = str(mesh.device)
     resolve_device(args.device)
     predictor = parse.get_predictor(args)
     dataset = DataHandler(
@@ -131,6 +175,13 @@ def main(argv=None):
         shuffle_training=args.tshuffle,
     )
     predictor.prepare_model(dataset)
+    if mesh is not None:
+        if not hasattr(predictor, "set_mesh"):
+            raise ValueError(
+                f"--mesh is supported for the RNN/SDAE/cluster families (sharded training) and the MF family "
+                f"(sharded eval top-k); {predictor.name!r} runs single-device"
+            )
+        predictor.set_mesh(mesh)
     if args.steps_per_dispatch > 1 and hasattr(predictor, "steps_per_dispatch"):
         predictor.steps_per_dispatch = args.steps_per_dispatch
     profiler = contextlib.nullcontext()
@@ -164,4 +215,10 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -46,8 +46,22 @@ package's ``opt/{i}`` leaves in optax's leaf order, and ``load`` reads
 them back; the training loop's autosaves go through an async queue (a
 device snapshot written by a worker thread), drained before ``train``
 returns. With ``--mf``/``--uf`` the item and user side-feature ids of
-``data/features.py`` follow each step's item id. Not ported yet (it
-raises ``NotImplementedError`` where a flag asks for it): ``--mesh``.
+``data/features.py`` follow each step's item id.
+
+``set_mesh`` routes training and evaluation through a ("data", "model")
+mesh of ``torch.distributed`` ranks (``parallel/``), one process a rank:
+the catalog tables hold only the rank's shard (``params_from_numpy``
+shards a loaded tree, ``params_to_numpy`` gathers it back: a collective),
+each rank keeps its rows of the identical global batch (a mesh run always
+takes the stacked pipeline, even at K = 1, as in the JAX package), the
+gradients are averaged over "data" after each backward, and the eval
+chunks split over "data" and their top-k rows are gathered back, so every
+rank computes the same metrics and takes the same early-stopping and
+``--save Best`` decisions. Saves gather the full tree on every rank and
+are synchronous on more than one rank; only the rank with ``LOCAL_RANK``
+0 writes files. The heads of later mesh slices (``mesh_ok`` False),
+``--lazy_updates`` and ``--bf16`` raise ``NotImplementedError`` on more
+than one rank and run unsharded on one.
 """
 
 from __future__ import annotations
@@ -72,6 +86,9 @@ from seqrec_tpu_torch.models.recurrent import RecurrentLayers
 from seqrec_tpu_torch.models.updates import Adagrad, Adam
 from seqrec_tpu_torch.ops.core import masked_top_k, matmul_bf16
 from seqrec_tpu_torch.ops.score_topk import MAX_K, fused_score_topk
+from seqrec_tpu_torch.parallel import mesh as mesh_lib
+from seqrec_tpu_torch.parallel.collectives import all_gather, mean_over_data
+from seqrec_tpu_torch.parallel.distributed import writes_files
 from seqrec_tpu_torch.utils import evaluation
 
 # Defaults (reference rnn_base.py:24,32)
@@ -232,6 +249,11 @@ class RNNBase:
         self.eval_batch_size = max(batch_size, 64)
         # optimizer steps a dispatch (--spd); > 1 takes the K-step payloads
         self.steps_per_dispatch = 1
+        # the ("data", "model") mesh (set_mesh), the spec of every parameter
+        # under it and {state-dict key: first index} of this rank's shards
+        self.mesh = None
+        self._param_specs: dict = {}
+        self._shards: dict = {}
 
     # ------------------------------------------------------------------
     # featurization: packed sparse ids per timestep
@@ -332,6 +354,77 @@ class RNNBase:
         self.target_selection.set_dataset(dataset)
         self._val_cache = None
 
+    # ------------------------------------------------------------------
+    # the ("data", "model") mesh (parallel/; base.py:set_mesh)
+    # ------------------------------------------------------------------
+    # True where the head's sharded ops are ported (RNNOneHot)
+    mesh_ok = False
+
+    def _mesh_unported(self):
+        """What keeps this model off a mesh of more than one rank, or None."""
+        if not self.mesh_ok:
+            return type(self).__name__
+        if self.lazy_updates:
+            return "--lazy_updates"
+        if self.compute_dtype != "float32":
+            return "--bf16"
+        return None
+
+    def set_mesh(self, mesh) -> None:
+        """Route training and eval through ``mesh`` (``parallel.Mesh``; None:
+        one device). ``batch_size`` must divide the data axis;
+        ``eval_batch_size`` is rounded up to it. Parameters (and an
+        optimizer state) already present are sharded now; later ones as
+        they are loaded. A model of a later mesh slice raises on more than
+        one rank and ignores a one-rank mesh."""
+        if mesh is not None:
+            unported = self._mesh_unported()
+            if unported is not None:
+                if mesh.size > 1:
+                    raise NotImplementedError(f"--mesh for {unported} comes with a later slice of the port")
+                mesh = None
+        if mesh is not None:
+            if mesh.device != self.device:
+                raise ValueError(f"the mesh's device {mesh.device} is not the model's {self.device}")
+            n_data = mesh.shape["data"]
+            if self.batch_size % n_data:
+                raise ValueError(f"batch_size {self.batch_size} is not divisible by the mesh data axis ({n_data})")
+            if self.eval_batch_size % n_data:
+                self.eval_batch_size += n_data - self.eval_batch_size % n_data
+        full = opt = None
+        if self._has_params:
+            full = self.params_to_numpy()
+            opt = self._opt_leaves() if self.opt_state is not None else None
+        self.mesh = mesh
+        self._val_cache = None
+        if full is not None:
+            self.params_from_numpy(full)
+            if opt is not None:
+                self.opt_state = self._opt_state_from_leaves(opt)
+
+    def _shard_start(self, key: str):
+        """First index of this rank's shard of parameter ``key``, or None
+        when the parameter is whole here (no mesh, or replicated)."""
+        return self._shards.get(key)
+
+    def _shard_tree(self, state: dict) -> dict:
+        """This rank's slices of a full ``{state-dict key: array}`` tree,
+        recording each parameter's spec and shard, and the input tables'
+        shards on the tower."""
+        mesh = self.mesh
+        self._param_specs = mesh_lib.param_sharding({k: np.shape(v) for k, v in state.items()}, mesh)
+        self._shards = {}
+        for key, spec in self._param_specs.items():
+            axis = mesh_lib.sharded_axis(spec)
+            if axis is not None:
+                self._shards[key] = mesh_lib.shard_offset(np.shape(state[key])[axis], mesh)[0]
+        self.recurrent_layer.input_shards = {
+            key.split(".")[1]: (mesh, start)
+            for key, start in self._shards.items()
+            if key in ("tower.embedding", "tower.layer0_fwd.W_in", "tower.layer0_bwd.W_in")
+        }
+        return mesh_lib.shard_params(state, self._param_specs, mesh)
+
     def _init_params(self) -> dict:  # pragma: no cover
         """Freshly initialised numpy parameter tree (the JAX package's)."""
         raise NotImplementedError
@@ -344,16 +437,35 @@ class RNNBase:
         if device is not None:
             self.device = resolve_device(device)
             self.net.to(self.device)
+        state = dict(_flatten(tree))
+        resize = self.mesh is not None or bool(self._shards)  # to or from shards
+        if self.mesh is not None:
+            state = self._shard_tree(state)
+        elif self._shards:
+            self._param_specs, self._shards, self.recurrent_layer.input_shards = {}, {}, {}
         # np.require copies only leaves that are read-only or not C-contiguous
-        state = {key: torch.from_numpy(np.require(arr, requirements="CW")) for key, arr in _flatten(tree)}
-        self.net.load_state_dict(state, strict=True)
+        state = {key: torch.from_numpy(np.require(arr, requirements="CW")) for key, arr in state.items()}
+        if not resize:
+            self.net.load_state_dict(state, strict=True)
+        else:
+            # a shard has its own shape: the parameters take the new tensors
+            params = dict(self.net.named_parameters())
+            if params.keys() != state.keys():
+                raise ValueError(f"parameter keys differ: {sorted(params.keys() ^ state.keys())}")
+            with torch.no_grad():
+                for key, p in params.items():
+                    p.data = state[key].to(self.device)
         self._has_params = True
         return self.net
 
     def params_to_numpy(self) -> dict:
         """The JAX-layout params tree of numpy arrays (inverse of
-        ``params_from_numpy``)."""
-        return _unflatten(self.net.state_dict())
+        ``params_from_numpy``); under a mesh the shards are gathered (a
+        collective)."""
+        state = self.net.state_dict()
+        if self.mesh is not None:
+            state = mesh_lib.gather_params(state, self._param_specs, self.mesh)
+        return _unflatten(state)
 
     def load(self, filename: str) -> None:
         """Load a checkpoint of either package: the params, and the
@@ -413,9 +525,13 @@ class RNNBase:
         return h @ w_out + b_out
 
     def _logits(self, ids, id_mask, mask):
-        """Output logits [B, n_items] of the tower's final state."""
+        """Output logits [B, n_items] of the tower's final state (under a
+        mesh with ``W_out`` sharded, the shards' columns gathered)."""
         net = self.net
-        return self._out_matmul(net.tower(ids, mask, id_mask), net.W_out, net.b_out)
+        logits = self._out_matmul(net.tower(ids, mask, id_mask), net.W_out, net.b_out)
+        if self._shard_start("W_out") is not None:
+            logits = all_gather(logits, self.mesh, "model", dim=1)
+        return logits
 
     # softmax/identity heads over h·W_out+b set this: ranking raw logits
     # then matches ranking the scores, and the fused top-k kernel applies
@@ -433,6 +549,11 @@ class RNNBase:
         # K4 keeps at most MAX_K per row: a longer list (--save_rank ranks
         # the whole catalog) sorts the masked scores, as the JAX package
         # leaves its fused kernel above k = 64
+        if self.fused_eval_head and self._shard_start("W_out") is not None:
+            from seqrec_tpu_torch.parallel.topk import sharded_score_topk
+
+            h = self.net.tower(ids, mask, id_mask)
+            return sharded_score_topk(self.mesh, h, self.net.W_out, self.net.b_out, seen_ids, seen_mask, k)[1]
         if not self.fused_eval_head or k > MAX_K:
             return masked_top_k(self._rank_scores(ids, id_mask, mask), k, seen_ids, seen_mask)
         h = self.net.tower(ids, mask, id_mask)
@@ -470,7 +591,8 @@ class RNNBase:
     def _stage_eval_inputs(self, inputs, user_ids=None) -> list:
         """Encode the inputs in chunks of ``eval_batch_size`` rows (the last
         one padded with its last row) and start their upload as the compact
-        wire format; returns [(n_real_rows, (ids, lengths)), ...]."""
+        wire format; returns [(n_real_rows, (ids, lengths)), ...]. Under a
+        mesh each rank uploads its rows of each chunk."""
         chunk = self.eval_batch_size
         staged = []
         for c0 in range(0, len(inputs), chunk):
@@ -484,6 +606,9 @@ class RNNBase:
             lengths = mask.sum(axis=1).astype(np.int32)
             if self._input_size() + 1 < np.iinfo(np.int16).max:
                 ids = ids.astype(np.int16)
+            if self.mesh is not None:
+                rows = mesh_lib.batch_rows({"ids": ids, "lengths": lengths}, self.mesh)
+                ids, lengths = rows["ids"], rows["lengths"]
             # uploads start here and do not block: all chunks are staged
             # before the first is scored (the JAX package's device_put)
             staged.append((len(batch), (self._tensor_async(ids), self._tensor_async(lengths))))
@@ -492,6 +617,9 @@ class RNNBase:
     @torch.inference_mode()
     def _topk_from_staged(self, staged, k: int) -> np.ndarray:
         pending = [(n, self._topk_wire(ids, lengths, k)) for n, (ids, lengths) in staged]
+        if self.mesh is not None:
+            # the data ranks' rows of each chunk, gathered on every rank
+            pending = [(n, all_gather(top, self.mesh, "data")) for n, top in pending]
         return np.concatenate([top[:n].cpu().numpy() for n, top in pending], axis=0)
 
     # ------------------------------------------------------------------
@@ -892,11 +1020,12 @@ class RNNBase:
 
     def _payload_pipeline(self, training_set, rng, K: int, depth: int = 2):
         """The K-step payloads in two overlapped stages
-        (``base.py:_payload_pipeline`` without the mesh branch): an
-        assembly thread (the index wire's cut sampler and extras where the
-        model takes it, else the packed batcher at ``n_stack=K``) and a
-        transfer thread that uploads each payload on a copy stream of its
-        own, so assembly, upload and the device's steps overlap."""
+        (``base.py:_payload_pipeline``): an assembly thread (the index
+        wire's cut sampler and extras where the model takes it, else the
+        packed batcher at ``n_stack=K``) and a transfer thread that keeps
+        this rank's rows under a mesh and uploads each payload on a copy
+        stream of its own, so assembly, upload and the device's steps
+        overlap. The index store is uploaded whole to every rank."""
         if self._index_batching_ok():
             self._dev_store = self._upload_index_store(training_set)
             gen = self._gen_index_mini_batch(training_set, rng, n_stack=K)
@@ -914,6 +1043,8 @@ class RNNBase:
                     ep = p.pop("_epochs", None)
                     while inflight and inflight[0][0].query():
                         inflight.popleft()  # its copies are done: its pinned buffers may go
+                    if self.mesh is not None:  # this rank's rows: host slicing, no collective
+                        p = (mesh_lib.index_payload_rows if "rows" in p else mesh_lib.stacked_rows)(p, self.mesh)
                     p = self._transfer(p, copies)
                     pinned = p.pop("pinned")
                     if p["ready"] is not None:
@@ -1051,13 +1182,29 @@ class RNNBase:
             refs += [(entry, "m"), (entry, "v"), (entry, "count")]
         return refs
 
+    def _opt_leaf_keys(self, refs) -> list:
+        """The parameter (state-dict key) of each leaf of ``refs``, None for
+        a step count; the state under a mesh is the updater's alone
+        (``--lazy_updates`` does not take a mesh yet), whose slot leaves
+        hold their parameter's index."""
+        names = [name for name, _ in self.net.named_parameters()]
+        return [names[key] if isinstance(holder, list) else None for holder, key in refs]
+
     def _opt_leaves(self) -> list:
         """The optimizer state as the JAX package's ``opt`` leaves: tensors,
-        and int32 scalars for the step counts."""
-        return [
+        and int32 scalars for the step counts; under a mesh each sharded
+        moment gathered like its parameter (a collective)."""
+        refs = self._opt_layout(self.opt_state)
+        leaves = [
             np.asarray(holder[key], dtype=np.int32) if isinstance(holder[key], int) else holder[key]
-            for holder, key in self._opt_layout(self.opt_state)
+            for holder, key in refs
         ]
+        if self.mesh is not None:
+            leaves = [
+                leaf if name is None else mesh_lib.gather_params({name: leaf}, self._param_specs, self.mesh)[name]
+                for name, leaf in zip(self._opt_leaf_keys(refs), leaves)
+            ]
+        return leaves
 
     def _opt_state_from_leaves(self, leaves) -> dict:
         """The optimizer state of ``opt`` leaves in the JAX package's order,
@@ -1066,11 +1213,14 @@ class RNNBase:
         refs = self._opt_layout(state)
         if len(leaves) != len(refs):
             raise ValueError(f"the checkpoint has {len(leaves)} optimizer leaves, this optimizer {len(refs)}")
-        for i, ((holder, key), leaf) in enumerate(zip(refs, leaves)):
+        names = self._opt_leaf_keys(refs) if self.mesh is not None else [None] * len(refs)
+        for i, ((holder, key), leaf, name) in enumerate(zip(refs, leaves, names)):
             if isinstance(holder[key], int):
                 holder[key] = int(np.asarray(leaf))
                 continue
             t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
+            if name is not None:  # a full moment: this rank's shard of it
+                t = mesh_lib.shard_params({name: t}, self._param_specs, self.mesh)[name]
             want = holder[key]
             if t.shape != want.shape or t.dtype != want.dtype:
                 raise ValueError(
@@ -1090,17 +1240,23 @@ class RNNBase:
         cost = self._loss(dev_batch)
         grads = torch.autograd.grad(cost, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        cost = cost.detach()
+        if self.mesh is not None:
+            # each data rank's loss is the mean over its rows: the mean over
+            # "data" of the gradients (and of the cost) is the global one
+            # (parallel/collectives.py)
+            mean_over_data(grads + [cost], self.mesh)
         lazy = self.opt_state.get("lazy")
         if not lazy:
             self.updater.step(params, grads, self.opt_state)
-            return cost.detach()
+            return cost
         taken = {entry["param"] for entry in lazy}
         rest = [i for i in range(len(params)) if i not in taken]
         self.updater.step([params[i] for i in rest], [grads[i] for i in rest], self.opt_state["inner"])
         for entry in lazy:
             sp, i = entry["spec"], entry["param"]
             self._lazy_adam_update(params[i], entry, grads[i], sp["ids"](dev_batch), sp["axis"])
-        return cost.detach()
+        return cost
 
     def train_function(self, batch):
         """One optimizer step on a host batch; returns the batch cost as a
@@ -1222,8 +1378,10 @@ class RNNBase:
             self.opt_state = self._init_opt_state()
 
         # K-step payloads need the packed batcher's fixed shapes; K counts
-        # the optimizer steps of one loop iteration in all the accounting
-        use_stacked = self._fast_batching_ok() and self.steps_per_dispatch > 1
+        # the optimizer steps of one loop iteration in all the accounting. A
+        # mesh run always takes the stacked pipeline, even at K = 1, where
+        # each rank keeps its rows of a payload
+        use_stacked = self._fast_batching_ok() and (self.steps_per_dispatch > 1 or self.mesh is not None)
         K = self.steps_per_dispatch if self._fast_batching_ok() else 1
         if self._fast_batching_ok():
             # packed batches assembled on a prefetch thread, with a generator
@@ -1238,6 +1396,8 @@ class RNNBase:
                 )
         else:
             batch_generator = self._gen_mini_batch(self.sequence_noise(dataset.training_set()))
+            if self.mesh is not None:
+                batch_generator = (mesh_lib.batch_rows(b, self.mesh) for b in batch_generator)
 
         start_time = time()
         next_save = int(progress)
@@ -1296,10 +1456,11 @@ class RNNBase:
                                     # queueing the new one (which need not wait)
                                     self._drain_saves()
                                 for run in to_delete:
-                                    try:
-                                        os.remove(filename[run])
-                                    except OSError:
-                                        print("Warning : Previous model could not be deleted")
+                                    if writes_files():
+                                        try:
+                                            os.remove(filename[run])
+                                        except OSError:
+                                            print("Warning : Previous model could not be deleted")
                                     del filename[run]
                                 self.save(filename[run_nb], async_write=True)
                         if early_stopping is not None and all(
@@ -1385,14 +1546,19 @@ class RNNBase:
         optimizer leaves) are copied on the device, on the current stream,
         before the next step can change them; a CUDA event recorded after
         the copies lets a worker thread wait for them before its host copy
-        and npz write. ``train`` drains the queue before it returns."""
+        and npz write. ``train`` drains the queue before it returns.
+
+        Under a mesh every rank gathers the full tree (a collective, in
+        program order) and only the rank with ``LOCAL_RANK`` 0 writes; on
+        more than one rank the save is synchronous."""
         print("Save model in " + filename)
         opt = self.save_optimizer_state and self.opt_state is not None
-        if not async_write:
+        if not async_write or (self.mesh is not None and self.mesh.size > 1):
             tree = {"params": self.params_to_numpy()}
             if opt:
                 tree["opt"] = {str(i): leaf for i, leaf in enumerate(self._opt_leaves())}
-            pytree_save(filename, tree)
+            if writes_files():
+                pytree_save(filename, tree)
             return
         with torch.no_grad():
             snap = {key: t.detach().clone() for key, t in self.net.state_dict().items()}

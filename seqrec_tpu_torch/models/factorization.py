@@ -34,6 +34,14 @@ chunk accumulate rather than chain, as in the JAX package).
   against the output table, the seen items masked, the top k.
 - Checkpoints are the JAX package's ``.npz`` files (same keys, same file
   names). ``params_from_numpy`` takes the JAX package's parameters.
+- ``set_mesh`` takes a ("data", "model") mesh for evaluation only, as in
+  the JAX package (training stays on each rank's own device, the ranks
+  drawing the same samples from the same seed): scoring always runs on
+  the device, and where the catalog divides the model axis each rank
+  scores its rows of a chunk against its columns of the output table
+  (``parallel/topk.py:sharded_score_topk``, K4 per shard), and the rows'
+  lists are gathered over "data". Only the rank with ``LOCAL_RANK`` 0
+  writes checkpoints.
 """
 
 from __future__ import annotations
@@ -50,6 +58,10 @@ from seqrec_tpu_torch.ops.core import masked_top_k
 from seqrec_tpu_torch.ops.core import pad_bucket as _bucket
 from seqrec_tpu_torch.ops.gather_sum import gather_sum_table_grad
 from seqrec_tpu_torch.ops.score_topk import MAX_K, fused_score_topk
+from seqrec_tpu_torch.parallel.collectives import all_gather
+from seqrec_tpu_torch.parallel.distributed import writes_files
+from seqrec_tpu_torch.parallel.mesh import shard_offset
+from seqrec_tpu_torch.parallel.topk import sharded_score_topk
 from seqrec_tpu_torch.utils import evaluation
 
 
@@ -113,6 +125,7 @@ class MFBase:
         self.rng = np.random.default_rng(seed)
         self.device = resolve_device(device)
         self._dispatches = 0
+        self.mesh = None  # eval-only (set_mesh)
         self.metrics = {
             "recall": {"direction": 1},
             "sps": {"direction": 1},
@@ -231,8 +244,17 @@ class MFBase:
         """[B, n_items] host scores of a batch of (user, input-sequence)."""
         raise NotImplementedError
 
+    def set_mesh(self, mesh) -> None:
+        """Accept a ("data", "model") mesh for evaluation
+        (``factorization.py:set_mesh``): the output table's columns split
+        over "model" and the eval rows over "data"; training stays on the
+        rank's device."""
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh's device {mesh.device} is not the model's {self.device}")
+        self.mesh = mesh
+
     def _use_device_topk(self) -> bool:
-        return self.n_items >= self.DEVICE_TOPK_MIN_ITEMS
+        return self.mesh is not None or self.n_items >= self.DEVICE_TOPK_MIN_ITEMS
 
     def _device_topk_batch(self, user_ids, seqs, k) -> np.ndarray:
         """K4 over row chunks of ``_DEVICE_TOPK_ROW_CHUNK`` users: the output
@@ -240,26 +262,47 @@ class MFBase:
         seen ids (S rounded up to a multiple of 16) uploaded. K4 keeps at
         most ``MAX_K`` a row: a longer list (``--save_rank`` ranks the
         whole catalog) sorts the chunk's masked device scores, as the JAX
-        package ranks this route with ``masked_top_k`` at any k."""
+        package ranks this route with ``masked_top_k`` at any k.
+
+        Under a mesh whose model axis the catalog divides
+        (``factorization.py:247-267``), each chunk is padded to a multiple
+        of the data axis, this rank scores its rows against its columns of
+        the table (``parallel/topk.py:sharded_score_topk``) and the rows'
+        lists are gathered over "data": every rank returns the whole list."""
         W, b = self._device_out_table()
+        mesh = self.mesh
+        if mesh is not None and self.n_items % mesh.shape["model"]:
+            mesh = None  # the table stays whole: every rank scores every row
+        if mesh is not None:
+            col0, n_cols = shard_offset(W.shape[1], mesh)
+            W, b = W[:, col0 : col0 + n_cols].contiguous(), b[col0 : col0 + n_cols].contiguous()
         C = self._DEVICE_TOPK_ROW_CHUNK
         out = []
         for c0 in range(0, len(seqs), C):
             chunk = seqs[c0 : c0 + C]
             rep = self._rep_rows(user_ids[c0 : c0 + C], chunk).astype(np.float32)
+            B = len(chunk)
+            rows = B if mesh is None else -(-B // mesh.shape["data"]) * mesh.shape["data"]
+            rep = np.concatenate([rep, np.zeros((rows - B, rep.shape[1]), np.float32)])
             S = max(1, max((len(s) for s in chunk), default=1))
             S = -(-S // 16) * 16
-            seen = np.zeros((len(chunk), S), np.int32)
-            sm = np.zeros((len(chunk), S), np.float32)
+            seen = np.zeros((rows, S), np.int32)
+            sm = np.zeros((rows, S), np.float32)
             for r, s in enumerate(chunk):
                 seen[r, : len(s)] = [int(i[0]) for i in s]
                 sm[r, : len(s)] = 1.0
-            if k > MAX_K:
-                with torch.inference_mode():
+            with torch.inference_mode():
+                if mesh is not None:
+                    r0, n = shard_offset(rows, mesh, "data")
+                    mine = slice(r0, r0 + n)
+                    _, ids = sharded_score_topk(mesh, self._tensor(rep[mine]), W, b, self._tensor(seen[mine]),
+                                                self._tensor(sm[mine]), k)
+                    ids = all_gather(ids, mesh, "data")
+                elif k > MAX_K:
                     ids = masked_top_k(self._tensor(rep) @ W + b, k, self._tensor(seen), self._tensor(sm))
-            else:
-                _, ids = fused_score_topk(self._tensor(rep), W, b, self._tensor(seen), self._tensor(sm), k)
-            out.append(ids.cpu().numpy().astype(np.int64))
+                else:
+                    _, ids = fused_score_topk(self._tensor(rep), W, b, self._tensor(seen), self._tensor(sm), k)
+            out.append(ids[:B].cpu().numpy().astype(np.int64))
         return np.concatenate(out)
 
     def top_k_batch(self, instances, k=10):
@@ -367,10 +410,11 @@ class MFBase:
                             filename[run_nb] = save_dir + self._get_model_filename(round(epochs[-1], 3))
                             self.save(filename[run_nb])
                             for run in [r for r in filename if r not in pareto_runs]:
-                                try:
-                                    os.remove(filename[run])
-                                except OSError:
-                                    print("Warning : Previous model could not be deleted")
+                                if writes_files():
+                                    try:
+                                        os.remove(filename[run])
+                                    except OSError:
+                                        print("Warning : Previous model could not be deleted")
                                 del filename[run]
 
                     if early_stopping is not None and all(
@@ -398,6 +442,8 @@ class MFBase:
     # checkpoints -------------------------------------------------------
     def save(self, filename: str) -> None:
         print("Save model in " + filename)
+        if not writes_files():
+            return
         if os.path.dirname(filename) and not os.path.exists(os.path.dirname(filename)):
             os.makedirs(os.path.dirname(filename))
         with open(filename, "wb") as f:

@@ -25,6 +25,13 @@ to port. Lasagne's gradient clipping clips the cotangents of ``x_pre``
 (GRU) or of the summed pre-activation ``x_pre + h W_hid`` (LSTM, Vanilla).
 The JAX package's remat gate (``recurrent.py:378-398``) is XLA tuning and
 is not ported.
+
+Under a mesh (``models/base.py:set_mesh``) the item-indexed input tables,
+the embedding and the first layer's ``W_in``, may hold only this rank's
+rows (``input_shards``): the sparse input is then the sharded gather-sum
+(``ops/gather_sum.py:sharded_gather_sum``), and a dense input into a
+row-sharded ``W_in`` (after ``--r_emb``) is a row-parallel product, the
+rank's columns of the input against its rows, reduced over "model".
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch
 from torch import nn
 
 from seqrec_tpu_torch.ops.core import maybe_grad_clip
-from seqrec_tpu_torch.ops.gather_sum import gather_sum
+from seqrec_tpu_torch.ops.gather_sum import gather_sum, sharded_gather_sum
 from seqrec_tpu_torch.ops.lstm_scan_train import lstm_scan_train
 from seqrec_tpu_torch.ops.rnn_scan import gru_scan, gru_step, lstm_scan, lstm_step, vanilla_step
 from seqrec_tpu_torch.ops.rnn_scan_train import gru_scan_train
@@ -92,6 +99,9 @@ class RecurrentLayers(nn.Module):
         self.bidirectional = bidirectional
         self.embedding_size = embedding_size
         self.grad_clip = grad_clipping
+        # {"embedding" | "layer0_fwd" | "layer0_bwd": (mesh, first row)} of
+        # the input tables that hold one shard of their rows
+        self.input_shards: dict = {}
         self.set_name()
 
     def set_name(self) -> None:
@@ -168,13 +178,13 @@ class RecurrentLayers(nn.Module):
         if self.embedding_size > 0:
             if not sparse:
                 raise ValueError("Embedding layer only works with sparse inputs")
-            x, sparse = gather_sum(self.embedding, inputs, id_mask), False
+            x, sparse = self._gather_sum("embedding", self.embedding, inputs, id_mask), False
 
         n_layers = len(self.layers)
         for li in range(n_layers):
             orf = only_return_final and li == n_layers - 1
             outs = [
-                self._run_layer(getattr(self, f"layer{li}_{d}"), x, mask, id_mask, sparse, orf, d == "bwd", train)
+                self._run_layer(f"layer{li}_{d}", x, mask, id_mask, sparse, orf, d == "bwd", train)
                 for d in self._directions()
             ]
             x = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
@@ -182,12 +192,29 @@ class RecurrentLayers(nn.Module):
             id_mask = None
         return x
 
-    def _run_layer(self, lp, x, mask, id_mask, sparse, only_return_final, backwards, train):
+    def _gather_sum(self, key, table, ids, id_mask):
+        shard = self.input_shards.get(key)
+        if shard is None:
+            return gather_sum(table, ids, id_mask)
+        return sharded_gather_sum(table, ids, id_mask, *shard)
+
+    def _dense_input(self, key, x, W_in):
+        shard = self.input_shards.get(key)
+        if shard is None:
+            return torch.einsum("bld,dg->blg", x, W_in)
+        from seqrec_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
+
+        mesh, start = shard
+        x = copy_to_model(x, mesh)[..., start : start + W_in.shape[0]]
+        return reduce_from_model(torch.einsum("bld,dg->blg", x, W_in), mesh)
+
+    def _run_layer(self, key, x, mask, id_mask, sparse, only_return_final, backwards, train):
         """One unidirectional recurrent layer over time."""
+        lp = getattr(self, key)
         if sparse:
-            x_pre = gather_sum(lp["W_in"], x, id_mask) + lp["b"]
+            x_pre = self._gather_sum(key, lp["W_in"], x, id_mask) + lp["b"]
         else:
-            x_pre = torch.einsum("bld,dg->blg", x, lp["W_in"]) + lp["b"]
+            x_pre = self._dense_input(key, x, lp["W_in"]) + lp["b"]
         x_pre = maybe_grad_clip(x_pre, self.grad_clip)
         if backwards:
             # a backwards layer is the forward scan of the time-flipped inputs

@@ -11,6 +11,13 @@ leaves it to XLA). Regularization applies to the output bias only: L2 for a posi
 value, L1 for a negative one. Ranking the raw logits ranks the softmax, so
 batched evaluation goes through the fused score + seen-mask + top-k kernel
 (``ops/score_topk.py``).
+
+Under a mesh whose "model" axis shards ``W_out``'s columns (the catalog
+divides it), the streaming head is ``sharded_streaming_cce`` (K2 on the
+rank's columns) and the dense head ``losses.vocab_parallel_cce``; the
+``b_out`` penalty sums over the shards (``reduce_from_model``). A catalog
+that does not divide the axis keeps ``W_out`` whole on every rank, and the
+heads above run data-parallel.
 """
 
 from __future__ import annotations
@@ -22,7 +29,8 @@ from torch import nn
 from seqrec_tpu_torch.models.base import RNNBase
 from seqrec_tpu_torch.models.recurrent import RecurrentLayers
 from seqrec_tpu_torch.ops import losses
-from seqrec_tpu_torch.ops.streaming_cce import STREAMING_CCE_MIN_ITEMS, streaming_cce
+from seqrec_tpu_torch.ops.streaming_cce import STREAMING_CCE_MIN_ITEMS, sharded_streaming_cce, streaming_cce
+from seqrec_tpu_torch.parallel.collectives import reduce_from_model
 
 
 class OneHotNetwork(nn.Module):
@@ -81,29 +89,43 @@ class RNNOneHot(RNNBase):
         return self._logits(ids, id_mask, mask)
 
     fused_eval_head = True
+    mesh_ok = True
+    # catalogs at least this large train through the streaming head
+    streaming_min_items = STREAMING_CCE_MIN_ITEMS
 
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
     def _use_streaming_head(self) -> bool:
-        return self.n_items >= STREAMING_CCE_MIN_ITEMS
+        return self.n_items >= self.streaming_min_items
 
     def _loss(self, batch):
         net = self.net
         h = net.tower(batch["ids"], batch["mask"], batch.get("id_mask"), train=True)
+        col0 = self._shard_start("W_out")  # None unless W_out is column-sharded
+        check = not batch.get("targets_in_catalog", False)
         if self._use_streaming_head():
-            per_ex = streaming_cce(
-                h, net.W_out, net.b_out, batch["targets"], compute_dtype=self.compute_dtype,
-                check_targets=not batch.get("targets_in_catalog", False),
-            )
+            if col0 is not None:
+                per_ex = sharded_streaming_cce(h, net.W_out, net.b_out, batch["targets"], self.mesh, col0,
+                                               check_targets=check)
+            else:
+                per_ex = streaming_cce(h, net.W_out, net.b_out, batch["targets"], compute_dtype=self.compute_dtype,
+                                       check_targets=check)
             cost = (per_ex / batch["target_pop"]).mean()
+        elif col0 is not None:
+            cost = losses.vocab_parallel_cce(h, net.W_out, net.b_out, batch["targets"], batch["target_pop"],
+                                             self.mesh, col0)
         else:
             logits = self._out_matmul(h, net.W_out, net.b_out)
             cost = losses.diversity_biased_cce(logits, batch["targets"], batch["target_pop"])
-        if self.regularization > 0.0:
-            cost = cost + self.regularization * torch.sum(torch.square(net.b_out))
-        elif self.regularization < 0.0:
-            cost = cost - self.regularization * losses.l1_penalty(net.b_out)
+        if self.regularization != 0.0:
+            if self.regularization > 0.0:
+                penalty = self.regularization * torch.sum(torch.square(net.b_out))
+            else:
+                penalty = -self.regularization * losses.l1_penalty(net.b_out)
+            if col0 is not None:  # b_out is sharded with W_out
+                penalty = reduce_from_model(penalty, self.mesh)
+            cost = cost + penalty
         return cost
 
     def _finalize_packed_batch(self, packed, target_ratings):

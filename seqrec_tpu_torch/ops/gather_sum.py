@@ -171,3 +171,20 @@ def gather_sum(table, ids, id_mask=None):
     if torch.is_grad_enabled() and table.requires_grad:
         return _GatherSum.apply(table, ids, id_mask)
     return gather_sum_fwd(table.detach(), ids, id_mask)
+
+
+def sharded_gather_sum(table, ids, id_mask, mesh, offset: int):
+    """:func:`gather_sum` of a table whose rows are sharded over the mesh's
+    "model" axis: ``table`` holds rows ``[offset, offset + n)`` of the full
+    table. Each shard gathers its own rows, with the ids localized by the
+    offset and every slot that another shard owns made a pad slot (-1:
+    adds 0, gets no gradient, in the kernels as in the plain version), and
+    the partial sums are reduced over "model"
+    (``parallel/collectives.py:reduce_from_model``). The backward scatters
+    only into the local rows. The ids keep their dtype (int16 stays int16:
+    the localized ids lie in (-N, N))."""
+    from seqrec_tpu_torch.parallel.collectives import reduce_from_model
+
+    local = ids - offset
+    local = torch.where((local >= 0) & (local < table.shape[0]), local, torch.full_like(local, -1))
+    return reduce_from_model(gather_sum(table, local, id_mask), mesh)

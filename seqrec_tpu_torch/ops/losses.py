@@ -117,3 +117,48 @@ def logsig_loss(predictions, targets, weights):
 
 
 MARGIN_LOSSES = {"hinge": hinge_loss, "logit": logit_loss, "logsig": logsig_loss}
+
+
+# ----------------------------------------------------------------------
+# the dense CCE over a catalog sharded over the mesh's "model" axis
+# ----------------------------------------------------------------------
+class _VocabParallelCCE(torch.autograd.Function):
+    """Per-example CCE [B] of local logits [B, N/M] (the rank's columns,
+    from ``col0`` on) and global targets [B]: the max, the sum of exp and
+    the target logit combined over "model"; the backward is the local
+    softmax minus the local one-hot, with no collective (the cotangent of
+    ``h`` is summed over "model" by ``copy_to_model``)."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, mesh, col0):
+        from seqrec_tpu_torch.parallel.collectives import all_reduce
+
+        t_rel = targets.long() - col0
+        owned = (t_rel >= 0) & (t_rel < logits.shape[1])
+        m = all_reduce(logits.max(dim=1).values, mesh, "model", op="max")
+        e = torch.exp(logits - m[:, None])
+        s = all_reduce(e.sum(dim=1), mesh, "model")
+        tl = torch.where(owned, logits.gather(1, t_rel.clamp(0, logits.shape[1] - 1)[:, None])[:, 0], 0.0)
+        tl = all_reduce(tl, mesh, "model")
+        ctx.save_for_backward(e, s, t_rel)
+        return torch.log(s) + m - tl
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, t_rel = ctx.saved_tensors
+        cols = torch.arange(e.shape[1], device=e.device)
+        onehot = (cols[None, :] == t_rel[:, None]).to(e.dtype)
+        return g[:, None] * (e / s[:, None] - onehot), None, None, None
+
+
+def vocab_parallel_cce(h, w_out, b_out, targets, target_pop, mesh, col0: int) -> torch.Tensor:
+    """``diversity_biased_cce(h @ W_out + b_out, targets, target_pop)`` with
+    W_out [H, N/M] and b_out [N/M] this rank's columns (from ``col0``) of a
+    column-sharded output layer, h [B, H] the rank's rows (the same on
+    every model rank): the local logits from ``torch.matmul`` (the JAX
+    package computes this product outside any Pallas kernel), the CCE
+    combined over "model". The loss is the same on every model rank."""
+    from seqrec_tpu_torch.parallel.collectives import copy_to_model
+
+    logits = copy_to_model(h, mesh) @ w_out + b_out
+    return (_VocabParallelCCE.apply(logits, targets, mesh, col0) / target_pop).mean()

@@ -27,6 +27,11 @@ online (m, s) stats, and in the backward the chunk's d(logits) rounded to
 bf16 and contracted into dh, the chunk's dW columns and db. The caller
 (the model) picks the route from its compute dtype; the K2 wrappers never
 hand work to the loop.
+
+:func:`sharded_streaming_cce` is the op over a mesh whose "model" axis
+shards W's columns (``seqrec_tpu/ops/streaming_cce.py:313-456``): K2's
+stats and gradient kernels run on the rank's column slice, as they run on
+the whole W here.
 """
 
 from __future__ import annotations
@@ -78,10 +83,11 @@ def cce_stats_plain(h, W, b):
 
 def cce_grads_plain(h, W, b, targets, logz, g):
     """(dh [B, H], dW [H, N], db [N]) of sum_i g[i] * CCE_i, given the
-    log-partition logz [B]."""
+    log-partition logz [B]; a target of -1 matches no column."""
     logits = h @ W + b
     dz = torch.exp(logits - logz[:, None])
-    dz[torch.arange(len(targets), device=h.device), targets.long()] -= 1.0
+    # a target of -1 (another shard's, sharded_streaming_cce) matches no column, as in the kernel
+    dz -= (torch.arange(W.shape[1], device=h.device)[None, :] == targets.long()[:, None]).to(dz.dtype)
     dz *= g[:, None]
     return dz @ W.t(), h.t() @ dz, dz.sum(dim=0)
 
@@ -159,8 +165,9 @@ def cce_stats(h, W, b):
 
 
 def cce_grads(h, W, b, targets, logz, g):
-    """(dh, dW, db) of sum_i g[i] * CCE_i; targets int32 [B] in [0, N),
-    logz and g f32 [B]. CUDA tensors launch K2's gradient kernels, CPU
+    """(dh, dW, db) of sum_i g[i] * CCE_i; targets int32 [B] in [0, N), or
+    -1 for a row whose target no column matches (another shard's, in
+    :func:`sharded_streaming_cce`), logz and g f32 [B]. CUDA tensors launch K2's gradient kernels, CPU
     tensors run :func:`cce_grads_plain`. h and W need contiguous rows
     (padded here where they are not 16-byte rows)."""
     if h.device.type == "cpu":
@@ -288,3 +295,54 @@ def streaming_cce(h, W, b, targets, compute_dtype: str = "float32", chunk: int |
     if compute_dtype != "float32":
         raise ValueError(f"streaming_cce: compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
     return _StreamingCCE.apply(h, W, b, targets)
+
+
+class _ShardedStreamingCCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, W, b, targets, mesh, col0):
+        from seqrec_tpu_torch.parallel.collectives import all_reduce
+
+        h, W, b = h.contiguous(), W.contiguous(), b.contiguous()
+        if h.is_cuda:
+            h, W = rows_16b(h), rows_16b(W)
+        t_rel = targets.long() - col0
+        owned = (t_rel >= 0) & (t_rel < W.shape[1])
+        t_rel = torch.where(owned, t_rel, -1).to(torch.int32).contiguous()
+        m_l, s_l = cce_stats(h, W, b)
+        # the flash combine: the global max, then each shard's sum rescaled to it
+        m = all_reduce(m_l.clone(), mesh, "model", op="max")
+        s = all_reduce(s_l * torch.exp(m_l - m), mesh, "model")
+        # exactly one shard owns each target
+        tl = torch.where(owned, target_logit(h, W, b, t_rel.clamp_min(0).long()), 0.0)
+        tl = all_reduce(tl, mesh, "model")
+        ctx.save_for_backward(h, W, b, t_rel, m, s)
+        ctx.mesh = mesh
+        return torch.log(s) + m - tl
+
+    @staticmethod
+    def backward(ctx, g):
+        from seqrec_tpu_torch.parallel.collectives import all_reduce
+
+        h, W, b, t_rel, m, s = ctx.saved_tensors
+        dh, dW, db = cce_grads(h, W, b, t_rel, m + torch.log(s), g.contiguous())
+        # dh sums over every column: the shards' partials summed over "model";
+        # dW and db stay on their shard until the gradients' mean over "data"
+        return all_reduce(dh, ctx.mesh, "model"), dW, db, None, None, None
+
+
+def sharded_streaming_cce(h, W, b, targets, mesh, col0: int, check_targets: bool = True):
+    """Per-example CCE [B] over a catalog whose columns are sharded over
+    the mesh's "model" axis: W [H, N/M] and b [N/M] are this rank's
+    columns, from ``col0`` on; h [B, H] and the global targets [B] are the
+    rank's rows, the same on every model rank. Forward: K2's stats kernel
+    on the local slice, (m, s) combined by an all-reduce MAX and then a
+    SUM over "model", the target logit summed from the shard that owns
+    it. Backward: K2's gradient kernel with the targets relative to the
+    shard (another shard's target: -1), then dh summed over "model". The
+    result is the same on every model rank. f32 only (``--bf16`` under a
+    mesh comes with a later slice). ``check_targets`` as in
+    :func:`streaming_cce`, against the whole catalog."""
+    N = W.shape[1] * mesh.shape["model"]
+    if check_targets and len(targets) and bool(((targets < 0) | (targets >= N)).any()):
+        raise ValueError(f"sharded_streaming_cce: a target is outside the catalog [0, {N})")
+    return _ShardedStreamingCCE.apply(h, W, b, targets, mesh, col0)

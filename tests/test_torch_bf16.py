@@ -326,7 +326,8 @@ def test_bf16_cli_trains_and_names_like_jax(synthetic_dataset, tmp_path):
     import shutil
 
     d = str(tmp_path / "ds") + "/"
-    shutil.copytree(synthetic_dataset, d)
+    # the dataset alone: earlier tests may have written checkpoints into the shared fixture's models/
+    shutil.copytree(synthetic_dataset, d, ignore=shutil.ignore_patterns("models"))
     flags = BASE + ["--loss", "CCE", "--u_moments", "bfloat16", "--lazy_updates"]
     torch_train_cli.main(["-d", d, *flags, "--max_iter", "6", "--progress", "6", "--save", "All", "--device", "cpu"])
     jax_args = jax_parse.command_parser(jax_parse.predictor_command_parser, argv=flags)

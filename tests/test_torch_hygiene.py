@@ -59,6 +59,32 @@ def test_native_parser_and_dispatch_modules_import_clean():
     assert out.stdout.split() == ["True", "False", "[]"]
 
 
+_PARALLEL = r"""
+import importlib, pkgutil, sys
+import seqrec_tpu_torch.parallel as par
+import torch.distributed as dist
+names = sorted(m.name for m in pkgutil.walk_packages(par.__path__, "seqrec_tpu_torch.parallel."))
+for name in names:
+    importlib.import_module(name)
+banned = {"jax", "jaxlib", "optax", "ml_dtypes", "seqrec_tpu"}
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+print(" ".join(names), leaked, dist.is_initialized())
+"""
+
+
+def test_parallel_modules_import_clean():
+    """The mesh's modules (seqrec_tpu_torch/parallel/) import neither jax nor
+    the JAX package, and importing them joins no process group."""
+    out = subprocess.run(
+        [sys.executable, "-c", _PARALLEL], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": ROOT},
+    )
+    assert out.returncode == 0, out.stderr
+    *names, leaked, initialized = out.stdout.split()
+    assert names == [f"seqrec_tpu_torch.parallel.{m}" for m in ("collectives", "distributed", "mesh", "topk")]
+    assert (leaked, initialized) == ("[]", "False")
+
+
 def test_cli_without_device_cpu_raises_when_no_gpu(synthetic_dataset):
     """Also for the lazy baselines, which do no device work."""
     import seqrec_tpu_torch.cli.test as test_cli
@@ -70,15 +96,33 @@ def test_cli_without_device_cpu_raises_when_no_gpu(synthetic_dataset):
             test_cli.main(["-d", synthetic_dataset, *flags])
 
 
-@pytest.mark.parametrize(
-    "flags",
-    [["-m", "BPRMF", "--mesh", "1,1"], ["-m", "FPMC", "--save_rank", "--mesh", "1,1"],
-     ["-m", "FISM", "--loss", "BPR", "--bf16", "--mesh", "1,1"], ["--bf16", "--mesh", "auto"], ["--mesh", "1,1"],
-     ["--save_rank", "--mesh", "1,1"], ["-m", "Fossil", "--mesh", "1,1"]],
-)
-def test_cli_raises_not_implemented_outside_the_slice(synthetic_dataset, flags):
+# the models and flags whose --mesh comes with a later slice
+LATER_SLICE = [
+    (["-m", "RNN", "--loss", "BPR", "--sampling", "8"], "RNNSampling"),
+    (["-m", "RNN", "--loss", "hinge"], "RNNMargin"),
+    (["-m", "RNN", "--loss", "CCE", "--lazy_updates"], "--lazy_updates"),
+    (["-m", "RNN", "--loss", "CCE", "--bf16"], "--bf16"),
+    (["-m", "RNN", "--clusters", "4", "--loss", "Blackout", "--sampling", "8"], "RNNCluster"),
+    (["-m", "FISM", "--clusters", "4", "--loss", "Blackout", "--sampling", "8"], "FISMCluster"),
+    (["-m", "SDA", "-L", "8"], "StackedDenoisingAutoencoder"),
+]
+
+
+def two_rank_mesh(spec, device="cuda"):
+    """A 2x1 mesh as rank 0 of two would build it, without a process group:
+    a model refuses such a mesh before any collective."""
+    from seqrec_tpu_torch.parallel import Mesh
+
+    return Mesh(2, 1, 0, torch.device(device), {"data": None, "model": None})
+
+
+@pytest.mark.parametrize("flags, what", LATER_SLICE)
+def test_cli_raises_not_implemented_outside_the_slice(synthetic_dataset, monkeypatch, flags, what):
+    """The test CLI under a mesh of two ranks refuses the models and flags
+    of later mesh slices."""
     import seqrec_tpu_torch.cli.test as test_cli
 
-    argv = ["-d", synthetic_dataset, "-m", "RNN", "--loss", "CCE", "--r_l", "8", "--device", "cpu", *flags]
-    with pytest.raises(NotImplementedError, match="later slice"):
+    monkeypatch.setattr(test_cli, "make_cli_mesh", two_rank_mesh)
+    argv = ["-d", synthetic_dataset, "--r_l", "8", "-b", "8", "--device", "cpu", *flags, "--mesh", "2,1"]
+    with pytest.raises(NotImplementedError, match=f"--mesh for {what} comes with a later slice of the port"):
         test_cli.main(argv)

@@ -3,7 +3,8 @@ seed gives the same batches (exactly), the same train steps give the same
 costs and parameters (dense head, and the streaming head at a 16,384-item
 catalog), and the train CLI writes the checkpoint the JAX CLI would name,
 which the JAX test CLI reads; a JAX checkpoint resumes in the port.
-Flags of later slices (--mesh, also beside --spd) raise. Small sizes throughout (GRU and LSTM towers
+Under a mesh of two ranks, the models and flags of later mesh slices
+raise, also beside --spd. Small sizes throughout (GRU and LSTM towers
 of widths 6 to 16, L=10).
 
 Tolerances: costs rtol 1e-5 (the same f32 math, summed in other orders);
@@ -267,13 +268,32 @@ def test_train_cli_without_device_cpu_raises_when_no_gpu(synthetic_dataset):
         torch_train_cli.main(["-d", synthetic_dataset, *BASE, "--max_iter", "2"])
 
 
-@pytest.mark.parametrize(
-    "flags",
-    [["--mesh", "1,1"], ["--spd", "2", "--mesh", "1,1"], ["--u_moments", "bfloat16", "--spd", "2", "--mesh", "auto"],
-     ["-m", "Fossil", "--spd", "2", "--mesh", "1,1"], ["--profile", "trace/", "--mesh", "1,1"],
-     ["-m", "FISM", "--loss", "BPR", "--spd", "4", "--mesh", "1,1"], ["-m", "BPRMF", "--mesh", "1,1"]],
-)
-def test_train_cli_raises_not_implemented_outside_the_slice(synthetic_dataset, flags):
-    argv = ["-d", synthetic_dataset, *BASE, "--max_iter", "2", "--save", "None", "--device", "cpu", *flags]
-    with pytest.raises(NotImplementedError, match="later slice"):
+# the models and flags whose --mesh comes with a later slice
+LATER_SLICE = [
+    (["-m", "RNN", "--loss", "BPR", "--sampling", "8"], "RNNSampling"),
+    (["-m", "RNN", "--loss", "hinge"], "RNNMargin"),
+    (["-m", "RNN", "--loss", "CCE", "--lazy_updates"], "--lazy_updates"),
+    (["-m", "RNN", "--loss", "CCE", "--bf16"], "--bf16"),
+    (["-m", "RNN", "--clusters", "4", "--loss", "Blackout", "--sampling", "8"], "RNNCluster"),
+    (["-m", "FISM", "--clusters", "4", "--loss", "Blackout", "--sampling", "8"], "FISMCluster"),
+    (["-m", "SDA", "-L", "8"], "StackedDenoisingAutoencoder"),
+]
+
+
+def two_rank_mesh(spec, device="cuda"):
+    """A 2x1 mesh as rank 0 of two would build it, without a process group:
+    a model refuses such a mesh before any collective."""
+    from seqrec_tpu_torch.parallel import Mesh
+
+    return Mesh(2, 1, 0, torch.device(device), {"data": None, "model": None})
+
+
+@pytest.mark.parametrize("flags, what", LATER_SLICE)
+def test_train_cli_raises_not_implemented_outside_the_slice(synthetic_dataset, monkeypatch, flags, what):
+    """The train CLI under a mesh of two ranks refuses the models and
+    flags of later mesh slices, also beside --spd."""
+    monkeypatch.setattr(torch_train_cli, "make_cli_mesh", two_rank_mesh)
+    argv = ["-d", synthetic_dataset, "--r_l", "8", "-b", "8", "--max_iter", "2", "--save", "None", "--device", "cpu",
+            "--spd", "2", *flags, "--mesh", "2,1"]
+    with pytest.raises(NotImplementedError, match=f"--mesh for {what} comes with a later slice of the port"):
         torch_train_cli.main(argv)
