@@ -182,8 +182,19 @@ Phases, each printing one JSON line with its seconds:
    CLI's (ties apart), and in each rank every counter of K1, K2, K3, K4
    and G1 above 0 (each rank zeroes and reads its own around each run
    and reports them). A rank that fails or outlasts MESH_TIMEOUT fails
-   the phase, and every rank process is killed. Then K2 (every other
-   target -1), K4 and G1 at their per-shard shapes, timed.
+   the phase, and every rank process is killed. The other heads on the
+   same two gloo ranks, each against a one-card run of its flags (the
+   progress costs within 1e-4, the validation metrics equal, ASSR within
+   1e-5): BPR at --mesh 2,1 and 1,2 (100 steps, one validation, --save
+   Best; the test CLI at 1,2 on the one-card checkpoint, its lists equal,
+   ties apart), the dense hinge at 1,2, the streaming hinge at GRU-128,
+   B=1024 on the even 50,000-item catalog at 1,2 (16 steps), RNNCluster
+   at its default --csn, FISMCluster and SDA at --do 0.3, all at 1,2; in
+   each rank K1, G1, K3 and K4 above 0 for the sampled and margin heads,
+   K1, G1 and K3 for RNNCluster, G1 for FISMCluster, none for SDA. Then
+   K2 (every other target -1), K4 and G1 at their per-shard shapes (and
+   G1 on FISM's bag and on the cluster rows of a shard, K1 and K4 at the
+   32 rows of a data rank), timed.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. The last lines are
@@ -2904,9 +2915,23 @@ def serving_pass_gru256(card) -> dict:
 # the main path over a mesh: torch.distributed ranks on the one card
 # ----------------------------------------------------------------------
 # seconds one group of rank processes may take before the phase fails (and kills them)
-MESH_TIMEOUT = 300
+MESH_TIMEOUT = 420
 MESH_RAN = ("gru_scan_train_fwd", "gru_scan_train_bwd", "gather_sum_fwd", "gather_sum_bwd", "gru_scan",
             "fused_score_topk")
+# the other heads on the two gloo ranks: (flags, dataset ("ml1m" or "big"), steps, mesh, save, the
+# kernels each rank must launch); every other counter of the port must stay 0
+MESH_HEADS = {
+    "bpr_2x1": (HEADS_BPR, "ml1m", 100, "2,1", True, MESH_RAN),
+    "bpr_1x2": (HEADS_BPR, "ml1m", 100, "1,2", True, MESH_RAN),
+    "hinge_1x2": (HEADS_HINGE, "ml1m", 100, "1,2", False, MESH_RAN),
+    "large_hinge_1x2": (LARGE_HINGE, "big", 16, "1,2", False, MESH_RAN),
+    "cluster_1x2": (CLUSTER, "ml1m", 100, "1,2", False, MESH_RAN[:5]),
+    "fism_cluster_1x2": (FISM_CLUSTER, "ml1m", 100, "1,2", False, ("gather_sum_fwd", "gather_sum_bwd")),
+    "sda_1x2": (SDA + ["--do", "0.3"], "ml1m", 100, "1,2", False, ()),
+}
+# the validation metrics a progress line prints, of the RNN family and of the cluster models
+MESH_VALIDATION = ("recall", "sps", "ndcg", "user_coverage", "item_coverage", "blockbuster_share", "cluster_recall",
+                   "cluster_sps", "assr", "cluster_use_std")
 
 
 def catalog50k_even_dataset() -> str:
@@ -3011,6 +3036,7 @@ def mesh_rank(cfg_path: str) -> int:
         rec = {"seconds": time.perf_counter() - t0, "launches": read_counters()}
         if run["cli"] == "train":
             rec["costs"] = progress_values(text, "Last train cost")
+            rec["validation"] = {m: progress_values(text, m) for m in MESH_VALIDATION}
         else:
             rec["lists"] = [[int(i) for i in pred] for _, pred in result.instances]
         results[run["name"]] = rec
@@ -3044,10 +3070,21 @@ def same_layout(ds_dir, mesh_dir, single_dir) -> dict:
             "leaves": len(want)}
 
 
-def flagship_test_scores(ds_dir, save_dir):
-    """The logits, seen items at -inf, of every test user of the flagship's
-    last checkpoint in models/``save_dir`` on the card (the test CLI's
-    inputs and file order)."""
+def same_validation(got: dict, want: dict) -> dict:
+    """A mesh run's validation metrics against the one-card run's: equal,
+    ASSR within 1e-5 (a float sum of used-item counts over the shards)."""
+    for m, values in want.items():
+        tol = 1e-5 if m == "assr" else 0.0
+        if len(got[m]) != len(values) or not np.allclose(got[m], values, rtol=tol, atol=0.0):
+            raise AssertionError(f"validation {m}: {got[m]} against the one-card run's {values}")
+    return {m: v for m, v in want.items() if v}
+
+
+def flagship_test_scores(ds_dir, save_dir, flags=FLAGSHIP):
+    """The logits, seen items at -inf, of every test user of the last
+    checkpoint of ``flags`` (the flagship's by default) in
+    models/``save_dir`` on the card (the test CLI's inputs and file
+    order)."""
     import glob
     import re
 
@@ -3056,7 +3093,7 @@ def flagship_test_scores(ds_dir, save_dir):
     import seqrec_tpu_torch.utils.command_parser as parse
     from seqrec_tpu_torch.data import DataHandler
 
-    args = parse.command_parser(parse.predictor_command_parser, argv=FLAGSHIP)
+    args = parse.command_parser(parse.predictor_command_parser, argv=flags)
     model = parse.get_predictor(args)
     dataset = DataHandler(ds_dir)
     model.prepare_model(dataset)
@@ -3079,13 +3116,17 @@ def mesh_shard_kernels(ds_dir, big_dir, n_big) -> dict:
     half the even catalog's columns (timed), and again with every other
     target another shard's (-1); K4 on half of each catalog at the validation chunk (64
     rows of GRU-50, 1,024 of GRU-128); G1 on a real batch's ids localized
-    to one shard of the input table (another shard's slot: -1)."""
+    to one shard of the input table (another shard's slot: -1), on FISM's
+    bag and on the cluster rows of a shard; K1 and K4 at a data rank's 32
+    rows of the heads' batch at --mesh 2,1."""
     def shard_ids(argv, ds, shard, D, seed):
         rows, [(ids, _)] = real_batch_ids(argv, ds)
         n = rows // 2
         local = ids.astype(np.int64) - shard * n
         return check_gather_sum(np.where((local >= 0) & (local < n), local, -1).astype(ids.dtype), D, n, seed=seed)
 
+    heads_rows, [(ids_h, len_h)] = real_batch_ids(HEADS_BPR, ds_dir)
+    fism_ids, fism_w, cluster_ids, n_half = head_shard_ids(ds_dir)
     return {
         "cce": check_cce(1024, 128, n_big // 2, seed=80),
         "cce_foreign_targets": check_cce(1024, 128, n_big // 2, seed=85, timed=False, foreign=True),
@@ -3093,7 +3134,44 @@ def mesh_shard_kernels(ds_dir, big_dir, n_big) -> dict:
         "topk_large": check_topk(1024, 128, n_big // 2, 30, 10, seed=82),
         "gather_sum_flagship": shard_ids(FLAGSHIP, ds_dir, 1, 150, seed=84),
         "gather_sum_large": shard_ids(LARGE, big_dir, 0, 384, seed=83),
+        # the other heads' shapes: a data rank's 32 rows of the heads' B64 at --mesh 2,1 (K1, and K4 on
+        # its half of the validation chunk), FISM's bag and the cluster rows on a shard at 1,2
+        "train_scan_rows_B32": check_gru_train(32, 30, 50, 100.0, seed=86, lengths=len_h[:32]),
+        "topk_rows_B32": check_topk(32, 50, 3706, 30, 10, seed=87),
+        "gather_sum_fism_bag": check_gather_sum(fism_ids, 50, n_half, seed=88, id_mask=fism_w),
+        "gather_sum_cluster_rows": check_gather_sum(cluster_ids, 10, n_half, seed=89),
     }
+
+
+def head_shard_ids(ds_dir):
+    """(FISM's bag ids [64, 1, P] and slot weights mask / len^0.2 of a real
+    FISM_CLUSTER batch, localized to the second shard of item_embeddings;
+    the cluster rows [64 + 256, 1] of a real CLUSTER batch (its targets and
+    cluster samples) localized to the first shard of cluster_repartition;
+    the rows of a shard): G1's inputs on one rank at --mesh 1,2."""
+    import seqrec_tpu_torch.utils.command_parser as parse
+    from seqrec_tpu_torch.data import DataHandler
+
+    dataset = DataHandler(ds_dir)
+    n_half = dataset.n_items // 2
+    models = {}
+    for name, flags in (("fism", FISM_CLUSTER), ("cluster", CLUSTER)):
+        args = parse.command_parser(parse.predictor_command_parser, argv=flags)
+        args.device = "cpu"
+        models[name] = parse.get_predictor(args)
+        models[name].prepare_model(dataset)
+        models[name].set_dataset(dataset)
+    fism = models["fism"]
+    batch = next(fism._gen_mini_batch(fism.sequence_noise(dataset.training_set())))
+    mask = batch["mask"]
+    weights = mask / np.power(np.maximum(mask.sum(-1, keepdims=True), 1.0), fism.alpha)
+    local = np.minimum(batch["ids"], dataset.n_items - 1).astype(np.int64) - n_half
+    fism_ids = np.where((local >= 0) & (local < n_half), local, -1).astype(np.int32)[:, None, :]
+    cluster = models["cluster"]
+    packed = next(cluster._gen_packed_mini_batch(dataset.training_set, np.random.default_rng(1)))
+    rows = np.concatenate([packed["targets"], packed["cluster_samples"]]).astype(np.int64)
+    cluster_ids = np.where(rows < n_half, rows, -1)[:, None]
+    return fism_ids, weights[:, None, :].astype(np.float32), cluster_ids, n_half
 
 
 def main_path_mesh(card) -> dict:
@@ -3105,12 +3183,17 @@ def main_path_mesh(card) -> dict:
     rows) at --mesh 2,1 and 1,2 for 100 steps and a validation, GRU-128 at
     B=1024 on the 50,000-item catalog (the streaming head, K2 on each
     shard) at --mesh 1,2 --spd 4 for 32 steps and a validation, and the
-    test CLI at --mesh 1,2 on the single-device flagship checkpoint. Each
-    run's progress costs against the single-device card run's (rel 1e-4),
-    the mesh checkpoints' keys and shapes against its, the test CLI's lists
+    test CLI at --mesh 1,2 on the single-device flagship checkpoint; the
+    other heads of MESH_HEADS on the same two ranks (BPR at 2,1 and 1,2
+    and its test CLI at 1,2, the dense hinge, the streaming hinge,
+    RNNCluster, FISMCluster and SDA at 1,2). Each run's progress costs
+    against the single-device card run's (rel 1e-4) and, for the other
+    heads, its validation metrics (equal, ASSR rel 1e-5), the mesh
+    checkpoints' keys and shapes against its, the test CLIs' lists
     against the single-device test CLI's (ties apart), and in every rank
-    the counts of K1, K2, K3, K4 and G1 above 0. Then K2, K4 and G1 at
-    their per-shard shapes."""
+    the counts of K1, K2, K3, K4 and G1 above 0 over the runs, each other
+    head's kernels above 0 in its run and the port's others at 0. Then K2,
+    K4 and G1 at their per-shard shapes."""
     import glob
     import shutil
 
@@ -3147,6 +3230,25 @@ def main_path_mesh(card) -> dict:
     single_s = time.perf_counter() - t0
     cuda0 = ["--device", "cuda:0"]
     t0 = time.perf_counter()
+    # the other heads: each run's argv without its --dir and --mesh
+    heads_argv = {
+        name: ["-d", ds_dir if data == "ml1m" else big_dir, *flags, "--max_iter", str(steps), "--progress", str(steps),
+               "--save", "Best" if save else "None"]
+        for name, (flags, data, steps, _, save, _) in MESH_HEADS.items()
+    }
+    bpr_test_argv = ["-d", ds_dir, *HEADS_BPR, "--dir", "chip_mesh_bpr_single/"]
+    # the one-card references of the other heads: BPR's (its checkpoint is the ranks' test CLI's)
+    # before the gloo ranks start, the others while they run
+    t1 = time.perf_counter()
+    heads_single = {}
+
+    def head_reference(name, extra=()):
+        text = run_cli(train_cli.main, heads_argv[name] + list(extra))[1]
+        heads_single[name] = {"costs": progress_values(text, "Last train cost"),
+                              "validation": {m: progress_values(text, m) for m in MESH_VALIDATION}}
+
+    head_reference("bpr_2x1", ["--dir", "chip_mesh_bpr_single/"])
+    heads_single["bpr_1x2"] = heads_single["bpr_2x1"]
     gloo = start_ranks("gloo", 2, "gloo", [
         {"name": "flagship_2x1", "cli": "train",
          "argv": fl_mesh + ["--dir", "chip_mesh_2x1_r{rank}/", "--mesh", "2,1", *cuda0]},
@@ -3155,7 +3257,16 @@ def main_path_mesh(card) -> dict:
         {"name": "large_1x2_spd4", "cli": "train",
          "argv": big_argv + ["--dir", "chip_mesh_big_r{rank}/", "--mesh", "1,2", *cuda0]},
         {"name": "test_cli_1x2", "cli": "test", "argv": test_argv + ["--mesh", "1,2", *cuda0]},
+        *({"name": name, "cli": "train",
+           "argv": heads_argv[name] + ["--dir", f"chip_mesh_{name}_r{{rank}}/", "--mesh", MESH_HEADS[name][3], *cuda0]}
+          for name in MESH_HEADS),
+        {"name": "bpr_test_cli_1x2", "cli": "test", "argv": bpr_test_argv + ["--mesh", "1,2", *cuda0]},
     ])
+    for name in ("hinge_1x2", "large_hinge_1x2", "cluster_1x2", "fism_cluster_1x2", "sda_1x2"):
+        head_reference(name)
+    bpr_lists = [[int(i) for i in pred] for _, pred in run_cli(test_cli.main, bpr_test_argv)[0].instances]
+    torch.cuda.synchronize()
+    heads_single_s = time.perf_counter() - t1
     results = wait_ranks(nccl + gloo, MESH_TIMEOUT)
     ranks_s = time.perf_counter() - t0
 
@@ -3173,25 +3284,33 @@ def main_path_mesh(card) -> dict:
                 entry["seconds"].append(rec["seconds"])
                 entry["launches"].append(rec["launches"])
                 if "costs" in rec:
-                    want = {"flagship_1x1": fl_costs, "large_1x2_spd4": big_costs}.get(name, fl_costs[:1])
+                    want = {"flagship_1x1": fl_costs, "large_1x2_spd4": big_costs,
+                            **{n: h["costs"] for n, h in heads_single.items()}}.get(name, fl_costs[:1])
                     diff = rel(rec["costs"], want)
                     if diff > 1e-4:
                         raise AssertionError(f"{name} rank {rank}: costs {rec['costs']} against {want}")
                     entry["progress_costs"] = rec["costs"]
                     entry["costs_vs_single_device_max_rel_diff"] = max(
                         entry.get("costs_vs_single_device_max_rel_diff", 0.0), diff)
+                    if name in heads_single:
+                        entry["validation_equal_to_single_device"] = same_validation(
+                            rec["validation"], heads_single[name]["validation"])
                 else:
-                    if rec["lists"] != single_lists:
+                    want, flags, save = ((bpr_lists, HEADS_BPR, "chip_mesh_bpr_single/") if name == "bpr_test_cli_1x2"
+                                         else (single_lists, FLAGSHIP, "chip_mesh_single/"))
+                    if rec["lists"] != want:
                         entry["lists_vs_single_device"] = same_lists_ties_apart(
-                            rec["lists"], single_lists, flagship_test_scores(ds_dir, "chip_mesh_single/"))
+                            rec["lists"], want, flagship_test_scores(ds_dir, save, flags))
                     else:
-                        entry["lists_vs_single_device"] = {"rows": len(single_lists), "equal": True}
+                        entry["lists_vs_single_device"] = {"rows": len(want), "equal": True}
+    eval_ran = ("gru_scan", "fused_score_topk", "gather_sum_fwd")
     for name, entry in runs.items():
-        ran = {"large_1x2_spd4": MESH_RAN + ("cce_stats", "cce_grads"), "test_cli_1x2": ("gru_scan", "fused_score_topk",
-               "gather_sum_fwd")}.get(name, MESH_RAN)
+        ran = {"large_1x2_spd4": MESH_RAN + ("cce_stats", "cce_grads"), "test_cli_1x2": eval_ran,
+               "bpr_test_cli_1x2": eval_ran, **{n: h[5] for n, h in MESH_HEADS.items()}}.get(name, MESH_RAN)
         for rank, launches in enumerate(entry["launches"]):
             streaming = launches["cce_stats"] + launches["cce_grads"]
-            if any(launches[k] == 0 for k in ran) or (name != "large_1x2_spd4" and streaming):
+            others = [k for k in KERNELS if k not in ran and launches[k]] if name in MESH_HEADS else []
+            if any(launches[k] == 0 for k in ran) or (name != "large_1x2_spd4" and streaming) or others:
                 raise AssertionError(f"{name} rank {rank} launched {launches}")
     per_rank = [{k: sum(runs[name]["launches"][rank][k] for name in runs if runs[name]["backend"] == "gloo")
                  for k in KERNELS} for rank in range(2)]
@@ -3201,21 +3320,28 @@ def main_path_mesh(card) -> dict:
             raise AssertionError(f"gloo rank {rank} launched no {missing}")
     layouts = {"flagship_2x1": same_layout(ds_dir, "chip_mesh_2x1_r", "chip_mesh_single"),
                "flagship_1x2": same_layout(ds_dir, "chip_mesh_1x2_r", "chip_mesh_single"),
-               "large_1x2_spd4": same_layout(big_dir, "chip_mesh_big_r", "chip_mesh_big_single")}
+               "large_1x2_spd4": same_layout(big_dir, "chip_mesh_big_r", "chip_mesh_big_single"),
+               "bpr_2x1": same_layout(ds_dir, "chip_mesh_bpr_2x1_r", "chip_mesh_bpr_single"),
+               "bpr_1x2": same_layout(ds_dir, "chip_mesh_bpr_1x2_r", "chip_mesh_bpr_single")}
     t0 = time.perf_counter()
     shard = mesh_shard_kernels(ds_dir, big_dir, n_big)
     emit({
         "phase": "main_path_mesh", "card": card,
         "config": "flagship GRU-50 (3,706 items) at --mesh 1,1 (NCCL, 300 steps), 2,1 and 1,2 (gloo, 100 steps); "
-                  f"GRU-128 B1024 streaming head at {n_big} items, --mesh 1,2 --spd 4 (gloo, 32 steps); test CLI 1,2",
+                  f"GRU-128 B1024 streaming head at {n_big} items, --mesh 1,2 --spd 4 (gloo, 32 steps); test CLI 1,2; "
+                  "BPR (GRU-50 B64, 256 samples) at 2,1 and 1,2 and its test CLI at 1,2, the dense hinge, "
+                  f"the streaming hinge (GRU-128 B1024, {n_big} items, 16 steps), RNNCluster, FISMCluster and SDA "
+                  "(--do 0.3) at 1,2 (gloo, 100 steps)",
         "note": "two ranks on one shared H100 over gloo: wall seconds, not a scaling number",
         "single_device": {"flagship_costs": fl_costs, "large_costs": big_costs, "seconds": single_s,
-                          "launches_flagship": single_launches},
+                          "launches_flagship": single_launches, "heads": heads_single,
+                          "heads_seconds": heads_single_s},
         "runs": runs, "launches_per_gloo_rank": per_rank, "checkpoints": layouts, "ranks_wall_s": ranks_s,
         "shard_kernels": {name: {k: v for k, v in res.items() if k in ("shape", "max_abs_err")}
                           for name, res in shard.items()},
         "shard_kernels_s": time.perf_counter() - t0,
-        "tolerance": "progress costs rel 1e-4 against the single-device card run; lists equal, ties apart",
+        "tolerance": "progress costs rel 1e-4 against the single-device card run; validation metrics equal (ASSR "
+                     "rel 1e-5: a float sum over the shards); lists equal, ties apart",
         "seconds": time.perf_counter() - t_phase,
     })
     return {"runs": {name: entry["launches"] for name, entry in runs.items()}, "shard": shard}
@@ -3457,7 +3583,9 @@ def main() -> int:
         kernel_device_ms=k2["grads"]["kernel_device_ms"], plain_device_ms=k2["grads"]["plain_device_ms"],
         library_device_ms=k2["grads"]["library_device_ms"], bound_f32_ms=k2["grads"]["bound_f32_ms"],
         bound_tf32x3_ms=k2["grads"]["bound_tf32x3_ms"],
-        at_B16_H50_N3706={k: k2_flagship["grads"][k] for k in ("kernel_ms", "kernel_device_ms", "bound_ms")},
+        at_B16_H50_N3706={k: k2_flagship["grads"][k] for k in ("kernel_ms", "kernel_device_ms", "plain_ms",
+                                                                "plain_device_ms", "library_ms", "library_device_ms",
+                                                                "bound_ms")},
     )
     # this PR's redesigns: K1 and K5 at the flagship's and the large paths' shapes
     scan_keys = ("kernel_ms", "kernel_device_ms", "plain_device_ms", "library_device_ms", "bound_ms")
@@ -3520,10 +3648,22 @@ def main() -> int:
     for name in ("gather_sum_fwd", "gather_sum_bwd"):
         d = name.split("_")[-1]
         entry = next(e for e in summary if e["name"] == name)
-        for part, at in (("gather_sum_flagship", "at_shard_flagship_D150"), ("gather_sum_large", "at_shard_large_D384")):
+        for part, at in (("gather_sum_flagship", "at_shard_flagship_D150"), ("gather_sum_large", "at_shard_large_D384"),
+                         ("gather_sum_fism_bag", "at_shard_fism_bag_D50"),
+                         ("gather_sum_cluster_rows", "at_shard_cluster_rows_D10")):
             res = mesh["shard"][part]
-            entry[at] = {**{key: res[d][key] for key in shard_keys if key in res[d]}, "ids": res["shape"]["ids"],
-                         "rows": res["shape"]["N"], "max_abs_err": res["max_abs_err"][d]}
+            entry[at] = {**{key: res[d][key] for key in shard_keys + ("index_add_ms", "index_add_device_ms")
+                            if key in res[d]},
+                         "ids": res["shape"]["ids"], "rows": res["shape"]["N"], "max_abs_err": res["max_abs_err"][d]}
+    # a data rank's 32 rows at --mesh 2,1: K1 on the heads' batch, K4 on its half of the validation chunk
+    res = mesh["shard"]["train_scan_rows_B32"]
+    for d in ("fwd", "bwd"):
+        next(e for e in summary if e["name"] == f"gru_scan_train_{d}")["at_rows_B32_L30_H50"] = {
+            **{key: res[d][key] for key in shard_keys + ("plain_ms",) if key in res[d]}, "plan": res["plan"][d],
+            "max_abs_err": res["max_abs_err"]}
+    res = mesh["shard"]["topk_rows_B32"]
+    topk["at_rows_B32_H50_N3706"] = {**{key: res[key] for key in shard_keys if key in res},
+                                     "max_abs_err": res["max_abs_err"]}
     print(card_line(), flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {

@@ -15,10 +15,13 @@ JAX package). ``--mesh DATA,MODEL`` (or ``auto``) trains over a
     torchrun --nproc_per_node N -m seqrec_tpu_torch.cli.train ... --mesh D,M
 
 (NCCL, rank r on ``cuda:LOCAL_RANK``; with ``--device cpu``, gloo). It
-takes ``-m RNN --loss CCE`` (either tower, the dense and the streaming
-head, ``--r_emb``, ``--mf``/``--uf``, ``--spd``); the factorization family
-shards its evaluation only. The other heads, ``--lazy_updates`` and
-``--bf16`` raise ``NotImplementedError`` on more than one rank.
+takes every head of ``-m RNN`` (CCE, the sampled BPR/TOP1/Blackout, the
+margin hinge/logit/logsig, each with its dense and streaming head where it
+has both, ``--clusters N``; either tower, ``--r_emb``, ``--mf``/``--uf``,
+``--spd``), ``-m FISM --clusters N`` and ``-m SDA``; the factorization
+family shards its evaluation only. Only ``--lazy_updates`` and ``--bf16``
+remain for a later slice: they raise ``NotImplementedError`` on more than
+one rank.
 """
 
 from __future__ import annotations

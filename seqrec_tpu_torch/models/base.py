@@ -59,9 +59,11 @@ chunks split over "data" and their top-k rows are gathered back, so every
 rank computes the same metrics and takes the same early-stopping and
 ``--save Best`` decisions. Saves gather the full tree on every rank and
 are synchronous on more than one rank; only the rank with ``LOCAL_RANK``
-0 writes files. The heads of later mesh slices (``mesh_ok`` False),
-``--lazy_updates`` and ``--bf16`` raise ``NotImplementedError`` on more
-than one rank and run unsharded on one.
+0 writes files. Every head of the RNN family takes a mesh (``mesh_ok``:
+the CCE, sampled, margin and cluster heads, FISMCluster and the
+autoencoder); ``--lazy_updates`` and ``--bf16`` remain for a later slice:
+they raise ``NotImplementedError`` on more than one rank and run
+unsharded on one.
 """
 
 from __future__ import annotations
@@ -88,6 +90,7 @@ from seqrec_tpu_torch.ops.core import masked_top_k, matmul_bf16
 from seqrec_tpu_torch.ops.score_topk import MAX_K, fused_score_topk
 from seqrec_tpu_torch.parallel import mesh as mesh_lib
 from seqrec_tpu_torch.parallel.collectives import all_gather, mean_over_data
+from seqrec_tpu_torch.parallel.columns import gather_columns
 from seqrec_tpu_torch.parallel.distributed import writes_files
 from seqrec_tpu_torch.utils import evaluation
 
@@ -357,7 +360,7 @@ class RNNBase:
     # ------------------------------------------------------------------
     # the ("data", "model") mesh (parallel/; base.py:set_mesh)
     # ------------------------------------------------------------------
-    # True where the head's sharded ops are ported (RNNOneHot)
+    # True where the model's sharded ops are ported (every head of the family)
     mesh_ok = False
 
     def _mesh_unported(self):
@@ -406,6 +409,33 @@ class RNNBase:
         """First index of this rank's shard of parameter ``key``, or None
         when the parameter is whole here (no mesh, or replicated)."""
         return self._shards.get(key)
+
+    def _global_rows(self, n_local: int) -> tuple[int, int]:
+        """(the global batch's rows, the first of this rank's) for a device
+        batch of ``n_local`` rows: each data rank holds an equal share."""
+        if self.mesh is None:
+            return n_local, 0
+        return n_local * self.mesh.shape["data"], n_local * self.mesh.coords["data"]
+
+    def _batch_targets(self, targets):
+        """(the global batch's targets [B], the column of this rank's row 0
+        among them): the sampled and cluster heads score each row against
+        every target of the batch, so a data rank gathers the others'
+        (ints, no gradient)."""
+        if self.mesh is None:
+            return targets, 0
+        return all_gather(targets, self.mesh, "data"), self._global_rows(targets.shape[0])[1]
+
+    def _head_columns(self, cols):
+        """(``W_out[:, cols]``, ``b_out[cols]``) of the full output layer for
+        global column ids ``cols``: ``index_select``, or under a mesh that
+        shards ``W_out`` the columns gathered from their shards
+        (``parallel/columns.py``)."""
+        net = self.net
+        col0 = self._shard_start("W_out")
+        if col0 is None:
+            return net.W_out.index_select(1, cols), net.b_out.index_select(0, cols)
+        return gather_columns(net.W_out, net.b_out, cols, self.mesh, col0)
 
     def _shard_tree(self, state: dict) -> dict:
         """This rank's slices of a full ``{state-dict key: array}`` tree,

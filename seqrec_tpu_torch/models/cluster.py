@@ -39,6 +39,24 @@ mask-weighted bag of input item embeddings scaled by ``1/len^alpha``, a
 plain gather (``index_select``) and einsum as in the JAX package, which
 runs it through XLA (no kernel); L2 or L1 regularization on its network parameters, and the
 whole history as input (``max_length`` infinite, targets shuffled).
+
+Under a mesh (the JAX package's layout: ``W_out`` and ``b_out`` by
+columns, ``cluster_repartition`` and ``item_embeddings`` by rows, ``W_cs``
+replicated) each data rank scores its rows against the global batch's
+targets (gathered over "data") and the samples: the item columns come
+from their shards (``parallel/columns.py:gather_columns``), the
+membership rows through G1 on each shard (``gather_rows``), FISM's bag
+through the sharded gather-sum with ``mask / len^alpha`` as the slot
+weights, and the regularization's sums over the sharded tables are
+summed over "model". The selection noise is drawn in the global batch's
+shape, each rank keeping its rows, so a mesh run draws the one-device
+run's bits. The validation splits each chunk's rows over "data", takes
+the softmax over the sharded columns with its max and sum over "model",
+merges each shard's two top-10 lists (``parallel/topk.py``) and gathers
+the rows back; the host reads of the sharded tables (the validation's
+cluster sizes, ``prepare_tests``, the unclustered test scores) gather
+them over "model" first, a collective every rank reaches in the same
+order.
 """
 
 from __future__ import annotations
@@ -54,6 +72,11 @@ from seqrec_tpu_torch.models.base import RNNBase
 from seqrec_tpu_torch.models.rnn_one_hot import OneHotNetwork
 from seqrec_tpu_torch.ops import losses
 from seqrec_tpu_torch.ops.core import pad_bucket, top_k_sorted
+from seqrec_tpu_torch.ops.gather_sum import sharded_gather_sum
+from seqrec_tpu_torch.parallel import mesh as mesh_lib
+from seqrec_tpu_torch.parallel.collectives import all_gather, all_reduce, reduce_from_model
+from seqrec_tpu_torch.parallel.columns import gather_rows
+from seqrec_tpu_torch.parallel.topk import local_seen, sharded_top_k
 from seqrec_tpu_torch.utils import evaluation
 
 
@@ -85,6 +108,8 @@ class FISMClusterNetwork(nn.Module):
         self.b_out = _param((n_items,), device)
         self.W_cs = _param((n_hidden, n_clusters), device)
         self.cluster_repartition = _param((n_items, n_clusters), device)
+        # (mesh, first row) when item_embeddings holds one shard of its rows
+        self.input_shard = None
 
     def representation(self, ids, mask, id_mask=None, train=False):
         """Bag of items [B, H]: ids [B, P] under mask [B, P], weighted by
@@ -92,15 +117,21 @@ class FISMClusterNetwork(nn.Module):
         The rows are gathered by ``index_select``, whose backward is
         ``index_add_``: an indexing gather's backward
         (``indexing_backward_kernel``) serializes the pad slots, which all
-        name item 0."""
+        name item 0. With the table's rows sharded, the bag is the sharded
+        gather-sum (G1 on the shard) of one [P]-slot row a user, the
+        weights as its slot mask."""
         counts = mask.sum(-1, keepdim=True).clamp_min(1.0)
         weights = mask / torch.pow(counts, self.alpha)
+        if self.input_shard is not None:
+            ids = ids.clamp_max(self.n_items - 1)[:, None, :]
+            return sharded_gather_sum(self.item_embeddings, ids, weights[:, None, :], *self.input_shard)[:, 0]
         flat = ids.long().clamp_max(self.n_items - 1).reshape(-1)
         rows = self.item_embeddings.index_select(0, flat).view(*ids.shape, -1)
         return torch.einsum("bl,blk->bk", weights, rows)
 
 
 class RNNCluster(RNNBase):
+    mesh_ok = True
     _DEVICE_ID_KEYS = RNNBase._DEVICE_ID_KEYS + ("cluster_samples",)
     _HOST_KEYS = ("noise_seed",)
 
@@ -216,12 +247,31 @@ class RNNCluster(RNNBase):
         return torch.sigmoid(100.0 * repartition)
 
     @staticmethod
-    def _selection_noise(seed: int, like: torch.Tensor) -> torch.Tensor:
+    def _selection_noise(seed: int, like: torch.Tensor, rows: int | None = None, row0: int = 0) -> torch.Tensor:
         """Standard normal noise shaped as ``like``, from a generator on its
-        device seeded with the step's ``noise_seed``."""
+        device seeded with the step's ``noise_seed``: rows ``row0 ...`` of
+        a draw of ``rows`` rows (the global batch's, under a mesh)."""
         gen = torch.Generator(device=like.device)
         gen.manual_seed(seed)
-        return torch.randn(like.shape, generator=gen, device=like.device, dtype=like.dtype)
+        shape = (like.shape[0] if rows is None else rows, *like.shape[1:])
+        noise = torch.randn(shape, generator=gen, device=like.device, dtype=like.dtype)
+        return noise[row0 : row0 + like.shape[0]]
+
+    def _cluster_rows(self, ids):
+        """``cluster_repartition[ids]`` of the full table: ``index_select``,
+        or G1 on each shard of a row-sharded table."""
+        row0 = self._shard_start("cluster_repartition")
+        if row0 is None:
+            return self.net.cluster_repartition.index_select(0, ids)
+        return gather_rows(self.net.cluster_repartition, ids, self.mesh, row0)
+
+    def _full_param(self, key: str) -> np.ndarray:
+        """A parameter as a host array, gathered over "model" when it is
+        sharded (a collective)."""
+        t = self.net.get_parameter(key).detach()
+        if self._shard_start(key) is not None:
+            t = mesh_lib.gather_params({key: t}, self._param_specs, self.mesh)[key]
+        return t.cpu().numpy()
 
     def _loss(self, batch):
         cost, cost_clusters = self._objectives(batch)
@@ -232,25 +282,25 @@ class RNNCluster(RNNBase):
         cost) of a device batch."""
         net = self.net
         h = net.representation(batch["ids"], batch["mask"], batch.get("id_mask"), train=True)
-        B = batch["targets"].shape[0]
+        # the global batch's targets: each row scores against all B of them
+        targets, offset = self._batch_targets(batch["targets"])
+        B = targets.shape[0]
         loss_fn = losses.CLUSTER_LOSSES[self.loss]
         scale = batch["scale"]
 
         # objective 1: item scoring on targets + samples
-        cols = torch.cat([batch["targets"], batch["samples"]])
-        scores = h @ net.W_out.index_select(1, cols) + net.b_out.index_select(0, cols)
-        cost = loss_fn(scores, B).mean() + self._regularization()
+        w_cols, b_cols = self._head_columns(torch.cat([targets, batch["samples"]]))
+        cost = loss_fn(h @ w_cols + b_cols, B, offset).mean() + self._regularization()
 
         # objective 2: cluster assignment (the tower frozen by detach)
         sel_logits = h.detach() @ net.W_cs
         if self.cluster_selection_noise > 0.0:
             sel_logits = sel_logits + self.cluster_selection_noise * self._selection_noise(
-                batch["noise_seed"], sel_logits
+                batch["noise_seed"], sel_logits, *self._global_rows(sel_logits.shape[0])
             )
         selection = torch.softmax(scale * sel_logits, dim=-1)
-        cols2 = torch.cat([batch["targets"], batch["cluster_samples"]])
-        membership = self._membership(net.cluster_repartition.index_select(0, cols2), scale)
-        return cost, loss_fn(selection @ membership.T, B).mean()
+        membership = self._membership(self._cluster_rows(torch.cat([targets, batch["cluster_samples"]])), scale)
+        return cost, loss_fn(selection @ membership.T, B, offset).mean()
 
     def _regularization(self):
         return 0.0
@@ -258,14 +308,6 @@ class RNNCluster(RNNBase):
     def _scores(self, ids, id_mask, mask):
         h = self.net.representation(ids, mask, id_mask)
         return torch.softmax(h @ self.net.W_out + self.net.b_out, dim=-1)
-
-    def _cluster_assignments(self, ids, id_mask, mask):
-        """(softmax item scores, argmax cluster, hard membership matrix)."""
-        net = self.net
-        h = net.representation(ids, mask, id_mask)
-        probs = torch.softmax(h @ net.W_out + net.b_out, dim=-1)
-        c_sel = torch.argmax(h @ net.W_cs, dim=-1)
-        return probs, c_sel, self._hard_clusters(net.cluster_repartition)
 
     # ------------------------------------------------------------------
     # batching
@@ -377,16 +419,36 @@ class RNNCluster(RNNBase):
         argmax clusters and used-item counts, on the device. Seen items are
         zeroed in the (nonnegative) probabilities; items outside the
         user's cluster score 0 in the restricted list, whose ties at 0 then
-        go by id, ascending."""
-        probs, c_sel, hard = self._cluster_assignments(ids, id_mask, mask)
+        go by id, ascending.
+
+        With ``W_out`` and ``b_out`` sharded by columns and
+        ``cluster_repartition`` by rows, each rank works on its columns: the
+        softmax's max and sum over "model", the seen items zeroed in its
+        columns, its rows of the hard memberships as the user's used
+        columns (their count summed over "model"), both top-10 lists
+        merged from the shards in the same order. The same on every model
+        rank."""
+        net, mesh = self.net, self.mesh
+        col0 = self._shard_start("W_out")
+        h = net.representation(ids, mask, id_mask)
+        logits = h @ net.W_out + net.b_out  # [B, N], or the rank's [B, N/M]
+        if col0 is None:
+            probs = torch.softmax(logits, dim=-1)
+        else:
+            e = torch.exp(logits - all_reduce(logits.max(dim=1).values, mesh, "model", op="max")[:, None])
+            probs = e / all_reduce(e.sum(dim=1), mesh, "model")[:, None]
+        c_sel = torch.argmax(h @ net.W_cs, dim=-1)
+        B, n = probs.shape
         if self.interactions_are_unique:
-            B, n = probs.shape
-            safe = torch.where(seen_mask > 0, seen, n).long()  # id n: a pad column, dropped
+            local, seen_mask = local_seen(seen, seen_mask, col0 or 0, n)
+            safe = torch.where(seen_mask > 0, local, n).long()  # id n: a pad column, dropped
             probs = torch.cat([probs, probs.new_zeros((B, 1))], dim=1).scatter_(1, safe, 0.0)[:, :n]
-        used_rows = hard.T.index_select(0, c_sel)  # [B, n_items]
-        top1 = top_k_sorted(probs, 10)[1]
-        top2 = top_k_sorted(probs * used_rows, 10)[1]
-        return top1, top2, c_sel, used_rows.sum(dim=1)
+        used_rows = self._hard_clusters(net.cluster_repartition).T.index_select(0, c_sel)  # [B, n]
+        if col0 is None:
+            top1, top2 = (top_k_sorted(p, 10)[1] for p in (probs, probs * used_rows))
+            return top1, top2, c_sel, used_rows.sum(dim=1)
+        top1, top2 = (sharded_top_k(mesh, p, col0, 10)[1] for p in (probs, probs * used_rows))
+        return top1, top2, c_sel, all_reduce(used_rows.sum(dim=1), mesh, "model")
 
     def _compute_validation_metrics(self, metrics):
         clusters = np.zeros(self.n_clusters, dtype="int")
@@ -415,7 +477,13 @@ class RNNCluster(RNNBase):
                 items = [int(i[0]) for i in seq]
                 seen[row, : len(items)] = items
                 seen_mask[row, : len(items)] = 1.0
-            out = self._cluster_eval_topk(*map(self._tensor, (ids, id_mask, mask, seen, seen_mask)))
+            arrays = {"ids": ids, "id_mask": id_mask, "mask": mask, "seen": seen, "seen_mask": seen_mask}
+            if self.mesh is not None:  # this rank's rows of the chunk
+                arrays = mesh_lib.batch_rows({k: v for k, v in arrays.items() if v is not None}, self.mesh)
+            out = self._cluster_eval_topk(*(self._tensor(arrays.get(k)) for k in
+                                            ("ids", "id_mask", "mask", "seen", "seen_mask")))
+            if self.mesh is not None:  # every data rank's rows, on every rank
+                out = [all_gather(t, self.mesh, "data") for t in out]
             top1, top2, c_sel, used_count = (t.cpu().numpy() for t in out)
             for row, (seq, goal, _) in enumerate(part):
                 ev.add_instance(goal, top1[row].tolist())
@@ -423,7 +491,7 @@ class RNNCluster(RNNBase):
                 clusters[c_sel[row]] += 1
                 used_items.append(used_count[row])
 
-        repartition = self.net.cluster_repartition.detach().cpu().numpy()
+        repartition = self._full_param("cluster_repartition")
         if self.cluster_type == "softmax":
             ignored_items = 0
             cluster_size = np.histogram(repartition.argmax(axis=1), bins=range(self.n_clusters + 1))[0].tolist()
@@ -453,9 +521,9 @@ class RNNCluster(RNNBase):
     def prepare_tests(self) -> None:
         """Each item joins every cluster where its repartition is positive,
         or else the one of its largest value."""
-        cluster_membership = self.net.cluster_repartition.detach().cpu().numpy()
-        item_embeddings = self.net.W_out.detach().cpu().numpy()
-        item_bias = self.net.b_out.detach().cpu().numpy()
+        cluster_membership = self._full_param("cluster_repartition")
+        item_embeddings = self._full_param("W_out")
+        item_bias = self._full_param("b_out")
         self.clusters = [[] for _ in range(self.n_clusters)]
         for i in range(cluster_membership.shape[0]):
             no_cluster = True
@@ -519,9 +587,7 @@ class RNNCluster(RNNBase):
         h, c = self._batch_representations(seqs, user_ids=user_ids)
         B = len(seqs)
         if not self.predict_with_clusters:
-            w_out = self.net.W_out.detach().cpu().numpy()
-            b_out = self.net.b_out.detach().cpu().numpy()
-            scores = h @ w_out + b_out
+            scores = h @ self._full_param("W_out") + self._full_param("b_out")
             for row, seq in enumerate(seqs):
                 if self.interactions_are_unique:
                     scores[row, [int(i[0]) for i in seq]] = -np.inf
@@ -566,7 +632,7 @@ class RNNCluster(RNNBase):
             effective_k = min(k, len(self.clusters[c]))
             top = np.argpartition(-scores, range(effective_k))[:effective_k]
             return list(self.clusters[c][top]), len(self.clusters[c])
-        scores = u @ self.net.W_out.detach().cpu().numpy() + self.net.b_out.detach().cpu().numpy()
+        scores = u @ self._full_param("W_out") + self._full_param("b_out")
         scores[should_exclude] = -np.inf
         return list(np.argpartition(-scores, range(k))[:k]), self.n_items
 
@@ -631,13 +697,22 @@ class FISMCluster(RNNCluster):
         }
 
     def _regularization(self):
-        """L2 for reg > 0, L1 for reg < 0, on the network's parameters."""
-        net = (self.net.item_embeddings, self.net.W_out, self.net.b_out)
-        if self.reg > 0.0:
-            return self.reg * sum(torch.sum(torch.square(p)) for p in net)
-        if self.reg < 0.0:
-            return -self.reg * sum(losses.l1_penalty(p) for p in net)
-        return 0.0
+        """L2 for reg > 0, L1 for reg < 0, on the network's parameters; the
+        sum over a sharded table is summed over "model"."""
+        if self.reg == 0.0:
+            return 0.0
+        penalty = (lambda p: torch.sum(torch.square(p))) if self.reg > 0.0 else losses.l1_penalty
+        terms = []
+        for key in ("item_embeddings", "W_out", "b_out"):
+            term = penalty(self.net.get_parameter(key))
+            terms.append(term if self._shard_start(key) is None else reduce_from_model(term, self.mesh))
+        return abs(self.reg) * sum(terms)
+
+    def params_from_numpy(self, tree: dict, device=None):
+        net = super().params_from_numpy(tree, device)
+        start = self._shard_start("item_embeddings")
+        net.input_shard = None if start is None else (self.mesh, start)
+        return net
 
     # FISM's input is the bag, not a timestep tensor ------------------
     def _encode_sequences(self, seqs, user_ids=None):

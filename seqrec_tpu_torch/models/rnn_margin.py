@@ -20,6 +20,13 @@ Semantics kept:
 
 Serving ranks the raw logits, so evaluation goes through the fused score +
 mask + top-k kernel K4.
+
+Under a mesh whose "model" axis shards ``W_out``'s columns, the dense
+margin runs on the rank's local predictions [B/D, N/M] with its slice of
+the default targets, every id outside its columns (pads and the other
+shards' items) scattered into the extra column, and the per-example
+partials summed over "model"; the streaming head is
+``sharded_streaming_margin``. ``w_neg`` keeps the whole catalog's size.
 """
 
 from __future__ import annotations
@@ -30,7 +37,13 @@ import torch
 from seqrec_tpu_torch.models.base import RNNBase
 from seqrec_tpu_torch.models.rnn_one_hot import OneHotNetwork
 from seqrec_tpu_torch.ops import losses
-from seqrec_tpu_torch.ops.streaming_margin import STREAMING_MARGIN_MIN_ITEMS, pick_chunk, streaming_margin
+from seqrec_tpu_torch.ops.streaming_margin import (
+    STREAMING_MARGIN_MIN_ITEMS,
+    pick_chunk,
+    sharded_streaming_margin,
+    streaming_margin,
+)
+from seqrec_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
 
 
 def dense_margin(predictions, tgt_ids, seen_ids, w_neg, default_target, loss_name: str, unique: bool):
@@ -49,8 +62,19 @@ def dense_margin(predictions, tgt_ids, seen_ids, w_neg, default_target, loss_nam
     return losses.MARGIN_LOSSES[loss_name](predictions, Y[:, :-1], W[:, :-1])
 
 
+def local_ids(ids, col0: int, n_local: int):
+    """Global item ids as columns of the shard [col0, col0 + n_local); an id
+    outside it (a pad, another shard's item) points at the extra column
+    ``n_local``."""
+    local = ids - col0
+    return torch.where((local >= 0) & (local < n_local), local, n_local)
+
+
 class RNNMargin(RNNBase):
     fused_eval_head = True
+    mesh_ok = True
+    # catalogs at least this large train through the streaming head
+    streaming_min_items = STREAMING_MARGIN_MIN_ITEMS
 
     def __init__(
         self,
@@ -104,7 +128,7 @@ class RNNMargin(RNNBase):
 
     # ------------------------------------------------------------------
     def _use_streaming_head(self) -> bool:
-        return self.n_items >= STREAMING_MARGIN_MIN_ITEMS
+        return self.n_items >= self.streaming_min_items
 
     def _default_target_of(self, batch):
         """The batch's default targets (the per-sequence batcher ships
@@ -122,6 +146,20 @@ class RNNMargin(RNNBase):
         t_count = batch["t_count"]
         w_neg = self.balance * t_count / (self.n_items - t_count - batch["mask"].sum(dim=1))
         default_target = self._default_target_of(batch)
+        col0 = self._shard_start("W_out")  # None unless W_out is column-sharded
+        unique = self.interactions_are_unique
+        if col0 is not None:
+            if self._use_streaming_head():
+                per_ex = sharded_streaming_margin(h, net.W_out, net.b_out, tgt_ids, seen_ids, w_neg, default_target,
+                                                  self.mesh, col0, self.loss_function_name, unique)
+                return per_ex.mean()
+            n_local = net.W_out.shape[1]
+            part = dense_margin(
+                copy_to_model(h, self.mesh) @ net.W_out + net.b_out, local_ids(tgt_ids, col0, n_local),
+                local_ids(seen_ids, col0, n_local), w_neg, default_target[col0 : col0 + n_local],
+                self.loss_function_name, unique,
+            )
+            return reduce_from_model(part, self.mesh).mean()
         if self._use_streaming_head():
             per_ex = streaming_margin(
                 h, net.W_out, net.b_out, tgt_ids, seen_ids, w_neg, default_target,

@@ -7,6 +7,12 @@ negative samples are scored: a gather of ``B+S`` columns of ``W_out``
 PyTorch as the JAX package leaves them to XLA. The diagonal of the left
 ``[B, B]`` block scores each example's own target.
 
+Under a mesh each data rank scores its ``B / D`` rows against the global
+batch's ``B`` targets (gathered over "data") and the ``S`` samples, its
+own targets from column ``d * B / D`` on, as the JAX package's global
+program does; a column-sharded ``W_out`` gives its ``B+S`` columns
+through ``parallel/columns.py:gather_columns``.
+
 The samples are drawn on the host per batch from the model's own generator
 (``self.rng``), at the same points and in the same order as the JAX
 package: uniform over the catalog, or ``pop^sampling_bias`` through a
@@ -30,6 +36,7 @@ from seqrec_tpu_torch.ops import losses
 
 class RNNSampling(RNNBase):
     fused_eval_head = True
+    mesh_ok = True
 
     def __init__(
         self,
@@ -82,11 +89,12 @@ class RNNSampling(RNNBase):
     def _loss(self, batch):
         net = self.net
         h = net.tower(batch["ids"], batch["mask"], batch.get("id_mask"), train=True)
-        cols = torch.cat([batch["targets"], batch["samples"]])
-        scores = h @ net.W_out.index_select(1, cols) + net.b_out.index_select(0, cols)
+        targets, offset = self._batch_targets(batch["targets"])
+        w_cols, b_cols = self._head_columns(torch.cat([targets, batch["samples"]]))
+        scores = h @ w_cols + b_cols
         if self.last_layer_tanh and self.loss_function_name != "Blackout":
             scores = torch.tanh(scores)
-        per_example = losses.SAMPLED_LOSSES[self.loss_function_name](scores, batch["targets"].shape[0])
+        per_example = losses.SAMPLED_LOSSES[self.loss_function_name](scores, targets.shape[0], offset)
         return (per_example / batch["target_pop"]).mean()
 
     def _scores(self, ids, id_mask, mask):

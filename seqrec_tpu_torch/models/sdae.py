@@ -14,6 +14,14 @@ seeded with the batch's ``dropout_seed``: the JAX package's distribution
 and seeding schedule, drawn from other bits. The stack is plain PyTorch
 matmuls, as the JAX package leaves it to XLA (no kernel); evaluation ranks
 the sigmoid scores with ``masked_top_k``.
+
+Under a mesh whose "model" axis shards ``W_out``'s columns (``W0`` stays
+whole, the JAX package's layout) the output layer and the target bag run
+on the rank's columns, and the squared error summed over them is summed
+over "model" before the mean over the rank's rows and the catalog; the
+layer dropout is drawn in the global batch's shape, each rank keeping its
+rows, so a mesh run draws the one-device run's bits. Evaluation takes each
+shard's masked top-k and merges them (``parallel/topk.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +31,9 @@ import torch
 from torch import nn
 
 from seqrec_tpu_torch.models.base import RNNBase
-from seqrec_tpu_torch.ops.core import pad_bucket
+from seqrec_tpu_torch.ops.core import mask_seen, pad_bucket
+from seqrec_tpu_torch.parallel.collectives import all_gather, copy_to_model, reduce_from_model
+from seqrec_tpu_torch.parallel.topk import local_seen, sharded_top_k
 
 
 def _bucket(n: int) -> int:
@@ -45,6 +55,7 @@ class SDAENetwork(nn.Module):
 
 
 class StackedDenoisingAutoencoder(RNNBase):
+    mesh_ok = True
     lazy_table_ok = False  # dense multi-hot input, no gather table
     _DEVICE_ID_KEYS = RNNBase._DEVICE_ID_KEYS + ("x_ids", "y_ids")
     _HOST_KEYS = ("dropout_seed",)
@@ -86,36 +97,66 @@ class StackedDenoisingAutoencoder(RNNBase):
         return params
 
     # ------------------------------------------------------------------
-    def _bag(self, ids, mask):
-        """[B, P] padded ids under mask [B, P] -> multi-hot [B, n_items]."""
+    def _bag(self, ids, mask, col0: int = 0, n: int | None = None):
+        """[B, P] padded ids under mask [B, P] -> multi-hot [B, n] over the
+        columns [col0, col0 + n) (by default the whole catalog)."""
+        n = self.n_items if n is None else n
         B = ids.shape[0]
-        bag = torch.zeros((B, self.n_items + 1), dtype=torch.float32, device=ids.device)
-        safe = torch.where(mask > 0, ids.long(), self.n_items)  # the extra column swallows pad slots
-        return bag.scatter_(1, safe, 1.0)[:, : self.n_items]
+        bag = torch.zeros((B, n + 1), dtype=torch.float32, device=ids.device)
+        local = ids.long() - col0
+        # the extra column swallows pad slots (and another shard's items)
+        safe = torch.where((mask > 0) & (local >= 0) & (local < n), local, n)
+        return bag.scatter_(1, safe, 1.0)[:, :n]
 
     def _forward(self, x, dropout_seed=None):
+        """The sigmoid output over the output layer's columns: the whole
+        catalog, or under a mesh the rank's shard of it."""
         net = self.net
         h = x
         gen = None
         if dropout_seed is not None and self.dropout:
             gen = torch.Generator(device=x.device)
             gen.manual_seed(dropout_seed)
+        rows, row0 = self._global_rows(x.shape[0])
         for li in range(len(self.layers)):
             h = torch.relu(h @ getattr(net, f"W{li}") + getattr(net, f"b{li}"))
-            if gen is not None:
-                keep = torch.rand(h.shape, generator=gen, device=h.device) < 1.0 - self.dropout
-                h = torch.where(keep, h / (1.0 - self.dropout), 0.0)
+            if gen is not None:  # the global batch's draw, this rank's rows
+                keep = torch.rand((rows, h.shape[1]), generator=gen, device=h.device) < 1.0 - self.dropout
+                h = torch.where(keep[row0 : row0 + h.shape[0]], h / (1.0 - self.dropout), 0.0)
+        if self._shard_start("W_out") is not None:
+            h = copy_to_model(h, self.mesh)
         return torch.sigmoid(h @ net.W_out + net.b_out)
 
     def _loss(self, batch):
         x = self._bag(batch["x_ids"], batch["x_mask"])
-        y = self._bag(batch["y_ids"], batch["y_mask"])
         out = self._forward(x, dropout_seed=batch["dropout_seed"])
-        return torch.square(out - y).mean()
+        col0 = self._shard_start("W_out")
+        if col0 is None:
+            return torch.square(out - self._bag(batch["y_ids"], batch["y_mask"])).mean()
+        y = self._bag(batch["y_ids"], batch["y_mask"], col0, out.shape[1])
+        # the mean over the rank's rows and the whole catalog
+        return reduce_from_model(torch.square(out - y).sum(), self.mesh) / (out.shape[0] * self.n_items)
+
+    def _eval_output(self, ids, mask):
+        """The deterministic output (no dropout) over the output layer's
+        columns."""
+        return self._forward(self._bag(ids[..., 0] if ids.dim() == 3 else ids, mask))
 
     def _scores(self, ids, id_mask, mask):
-        # deterministic path: no dropout
-        return self._forward(self._bag(ids[..., 0] if ids.dim() == 3 else ids, mask))
+        out = self._eval_output(ids, mask)
+        if self._shard_start("W_out") is not None:
+            out = all_gather(out, self.mesh, "model", dim=1)
+        return out
+
+    def _topk(self, ids, id_mask, mask, seen_ids, seen_mask, k):
+        col0 = self._shard_start("W_out")
+        if col0 is None:
+            return super()._topk(ids, id_mask, mask, seen_ids, seen_mask, k)
+        # each shard's masked scores, its top k merged
+        scores = self._eval_output(ids, mask)
+        if seen_ids is not None:
+            scores = mask_seen(scores, *local_seen(seen_ids, seen_mask, col0, scores.shape[1]))
+        return sharded_top_k(self.mesh, scores, col0, k)[1]
 
     # ------------------------------------------------------------------
     # batching: whole sequences, a denoised input against the full target

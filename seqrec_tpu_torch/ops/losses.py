@@ -3,11 +3,14 @@
 them to XLA, not to Pallas.
 
 - CCE with diversity bias: ``mean(CCE / target_popularity^db)``.
-- Sampled losses over a score matrix ``[B, B+S]`` whose first ``B``
-  columns score each example's own target (the diagonal of the left
-  block) and whose last ``S`` columns score shared negative samples; the
-  cluster models' set (``CLUSTER_LOSSES``) adds a sampled CCE, a linear
-  loss and a leaky-relu BPR.
+- Sampled losses over a score matrix ``[b, B+S]`` whose first ``B``
+  columns score the batch's targets and whose last ``S`` columns score
+  shared negative samples; row ``i``'s own target is column
+  ``offset + i`` (``offset`` 0 and ``b = B``: the diagonal of the left
+  block; under a mesh a data rank holds rows ``offset ...`` of the global
+  batch and scores them against all ``B`` targets, as the JAX package's
+  global program does). The cluster models' set (``CLUSTER_LOSSES``) adds
+  a sampled CCE, a linear loss and a leaky-relu BPR.
 - Margin losses over dense target and weight matrices, summed over the
   catalog.
 
@@ -41,49 +44,55 @@ def l1_penalty(x: torch.Tensor) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
-# sampled losses (scores: [B, B+S], diagonal of the left block = own target)
+# sampled losses (scores: [b, B+S]; row i's own target at column offset + i)
 # ----------------------------------------------------------------------
-def blackout_loss(scores: torch.Tensor, batch_size: int) -> torch.Tensor:
-    """BlackOut: softmax over [B, B+S]; CCE of the own target minus the sum
+def _own(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """Each row's own-target entry: the diagonal of the [b, b] block from
+    column ``offset``."""
+    return torch.diagonal(x[:, offset : offset + x.shape[0]])
+
+
+def blackout_loss(scores: torch.Tensor, batch_size: int, offset: int = 0) -> torch.Tensor:
+    """BlackOut: softmax over [b, B+S]; CCE of the own target minus the sum
     over the samples of log(1 - p)."""
     logp = torch.log_softmax(scores, dim=-1)
-    diag = torch.diagonal(logp[:, :batch_size])
+    diag = _own(logp, offset)
     log1m = torch.log1p(-torch.exp(logp[:, batch_size:]))
     return -diag - log1m.sum(dim=-1)
 
 
-def bpr_loss(scores: torch.Tensor, batch_size: int) -> torch.Tensor:
+def bpr_loss(scores: torch.Tensor, batch_size: int, offset: int = 0) -> torch.Tensor:
     """BPR: -mean_s log sigma(target - sample)."""
-    diag = torch.diagonal(scores[:, :batch_size])
+    diag = _own(scores, offset)
     diff = scores[:, batch_size:] - diag[:, None]
     return -F.logsigmoid(-diff).mean(dim=-1)
 
 
-def top1_loss(scores: torch.Tensor, batch_size: int) -> torch.Tensor:
+def top1_loss(scores: torch.Tensor, batch_size: int, offset: int = 0) -> torch.Tensor:
     """TOP1: mean_s sigma(sample - target) + sigma(sample^2)."""
-    diag = torch.diagonal(scores[:, :batch_size])
+    diag = _own(scores, offset)
     diff = scores[:, batch_size:] - diag[:, None]
     reg = torch.square(scores[:, batch_size:])
     return (torch.sigmoid(diff) + torch.sigmoid(reg)).mean(dim=-1)
 
 
-def cce_sampled_loss(scores: torch.Tensor, batch_size: int) -> torch.Tensor:
+def cce_sampled_loss(scores: torch.Tensor, batch_size: int, offset: int = 0) -> torch.Tensor:
     """CCE over the sampled score matrix: -log softmax of the own target."""
     logp = torch.log_softmax(scores, dim=-1)
-    return -torch.diagonal(logp[:, :batch_size])
+    return -_own(logp, offset)
 
 
-def lin_loss(scores: torch.Tensor, batch_size: int) -> torch.Tensor:
+def lin_loss(scores: torch.Tensor, batch_size: int, offset: int = 0) -> torch.Tensor:
     """Linear loss: the sum over the samples minus the own target."""
-    diag = torch.diagonal(scores[:, :batch_size])
+    diag = _own(scores, offset)
     return scores[:, batch_size:].sum(dim=-1) - diag
 
 
-def bprelu_loss(scores: torch.Tensor, batch_size: int) -> torch.Tensor:
+def bprelu_loss(scores: torch.Tensor, batch_size: int, offset: int = 0) -> torch.Tensor:
     """Leaky-relu approximation of BPR: mean_s leaky_relu(sample - target +
     0.5), slope 0.01. Written as JAX's ``where(x >= 0, x, 0.01 x)``, whose
     derivative at 0 is 1 (``F.leaky_relu``'s is the slope)."""
-    diag = torch.diagonal(scores[:, :batch_size])
+    diag = _own(scores, offset)
     x = scores[:, batch_size:] - diag[:, None] + 0.5
     return torch.where(x >= 0, x, 0.01 * x).mean(dim=-1)
 

@@ -1,6 +1,6 @@
 """Streaming (chunked-scan) multi-target margin losses.
 
-Counterpart of the unsharded half of ``seqrec_tpu/ops/streaming_margin.py``.
+Counterpart of ``seqrec_tpu/ops/streaming_margin.py``.
 The margin head evaluates an elementwise loss ``f(pred, Y, Wt)`` against
 per-example target (``Y``) and weight (``Wt``) rows over the whole catalog
 and sums over items. ``Y`` and ``Wt`` take their DEFAULT values
@@ -30,6 +30,15 @@ backward is an atomic ``index_add_`` on CUDA, so card-against-CPU results
 agree to a tolerance, not bit for bit. Like the JAX op, the uniform part
 passes no cotangent to ``w_neg`` or ``default_target`` (they depend on the
 batch, not on parameters).
+
+:func:`sharded_streaming_margin` is the op over a mesh whose "model" axis
+shards W's columns (``seqrec_tpu/ops/streaming_margin.py:305-426``): the
+uniform part's chunk scan runs over the rank's columns with its slice of
+the default targets, chunked by ``pick_chunk(N / M)``, and the
+per-example partials are summed over "model"; in the backward the
+partial dh is summed over "model" and dW and db stay on their shard. The
+correction gathers its K special columns of each example from their
+shards (``parallel/columns.py:gather_columns``).
 """
 
 from __future__ import annotations
@@ -39,6 +48,8 @@ import torch
 from seqrec_tpu_torch.ops import losses
 from seqrec_tpu_torch.ops.core import mm_bf16
 from seqrec_tpu_torch.ops.streaming_cce import CHUNK_COLS, _pad_cols, pick_chunk  # noqa: F401 (re-export)
+from seqrec_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
+from seqrec_tpu_torch.parallel.columns import gather_columns
 
 # the dense path below this catalog size (the JAX package's switch, the
 # same as the CCE head's; not re-derived for the H100)
@@ -145,14 +156,18 @@ def _first_occurrence(ids, valid):
 
 
 def margin_special_correction(h, W, b, tgt_ids, seen_ids, w_neg, default_target,
-                              loss_name: str, unique: bool, n_items: int, compute_dtype: str = "float32"):
+                              loss_name: str, unique: bool, n_items: int, compute_dtype: str = "float32",
+                              mesh=None, col0: int = 0):
     """[B] correction that moves the special columns from their default
     (Y = default, Wt = w_neg) to their true values: targets (1, -1), seen
     items (0, 0) when interactions are unique, seen overriding target, each
     id once. Its predictions take the uniform part's precision (the
     correction subtracts what the scan added): with bf16 compute, operands
     rounded to bf16 (``x.bfloat16().float()``, whose autograd rounds the
-    cotangents to bf16 as the JAX package's casts do) and f32 sums."""
+    cotangents to bf16 as the JAX package's casts do) and f32 sums. With a
+    ``mesh``, W and b are this rank's columns from ``col0`` on (f32 only)
+    and the special columns are gathered from their shards;
+    ``default_target`` and ``n_items`` stay the whole catalog's."""
     B, T = tgt_ids.shape
     L = seen_ids.shape[1]
     t_valid = (tgt_ids >= 0) & (tgt_ids < n_items)
@@ -169,10 +184,15 @@ def margin_special_correction(h, W, b, tgt_ids, seen_ids, w_neg, default_target,
     keep = torch.cat([t_keep, s_keep], dim=1)
     safe = ids.clamp(0, n_items - 1).reshape(-1)
     K = ids.shape[1]
-    Wg = W.t().index_select(0, safe).reshape(B, K, -1)  # [B, K, H]
+    if mesh is None:
+        Wg, bg = W.t().index_select(0, safe), b.index_select(0, safe)
+    else:
+        Wc, bg = gather_columns(W, b, safe, mesh, col0)
+        Wg = Wc.t()
+    Wg = Wg.reshape(B, K, -1)  # [B, K, H]
     if compute_dtype == "bfloat16":
         Wg, h = Wg.bfloat16().float(), h.bfloat16().float()
-    pred = torch.bmm(Wg, h[:, :, None])[:, :, 0] + b.index_select(0, safe).reshape(B, K)
+    pred = torch.bmm(Wg, h[:, :, None])[:, :, 0] + bg.reshape(B, K)
 
     f_def = _f_cols(loss_name, pred, default_target.index_select(0, safe).reshape(B, K), w_neg[:, None].expand(B, K))
     dev, f32 = h.device, torch.float32
@@ -191,5 +211,39 @@ def streaming_margin(h, W, b, tgt_ids, seen_ids, w_neg, default_target,
     uniform = streaming_margin_uniform(h, W, b, w_neg, default_target, loss_name, chunk, compute_dtype)
     corr = margin_special_correction(
         h, W, b, tgt_ids, seen_ids, w_neg, default_target, loss_name, unique, W.shape[1], compute_dtype
+    )
+    return uniform + corr
+
+
+# ----------------------------------------------------------------------
+# over a mesh whose "model" axis shards W's columns
+# ----------------------------------------------------------------------
+def sharded_streaming_margin_uniform(h, W, b, w_neg, default_target, mesh, loss_name: str, chunk: int | None = None):
+    """:func:`streaming_margin_uniform` over this rank's columns W [H, N/M],
+    b and ``default_target`` [N/M] (its slice), h [B, H] and w_neg [B] the
+    rank's rows (the same on every model rank): the per-example partials
+    summed over "model" (the margin losses sum over columns). Backward:
+    the partial dh summed over "model" (``copy_to_model``), dW and db
+    local. ``chunk`` defaults to ``pick_chunk(N / M)``. f32 only."""
+    if chunk is None:
+        chunk = pick_chunk(W.shape[1])
+    part = streaming_margin_uniform(copy_to_model(h, mesh), W, b, w_neg, default_target, loss_name, chunk)
+    return reduce_from_model(part, mesh)
+
+
+def sharded_streaming_margin(h, W, b, tgt_ids, seen_ids, w_neg, default_target, mesh, col0: int,
+                             loss_name: str, unique: bool, chunk: int | None = None):
+    """Per-example margin loss [B] of :func:`streaming_margin` over a
+    catalog whose columns are sharded over the mesh's "model" axis: W [H,
+    N/M] and b [N/M] are this rank's columns from ``col0`` on,
+    ``default_target`` [N] the whole catalog's, the id arrays global. The
+    result is the same on every model rank."""
+    n_local = W.shape[1]
+    uniform = sharded_streaming_margin_uniform(
+        h, W, b, w_neg, default_target[col0 : col0 + n_local], mesh, loss_name, chunk
+    )
+    corr = margin_special_correction(
+        h, W, b, tgt_ids, seen_ids, w_neg, default_target, loss_name, unique, n_local * mesh.shape["model"],
+        mesh=mesh, col0=col0,
     )
     return uniform + corr

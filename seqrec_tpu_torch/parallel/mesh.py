@@ -5,18 +5,20 @@ Counterpart of ``seqrec_tpu/parallel/mesh.py``. PyTorch has no GSPMD, so
 the layout that the JAX package hands to its compiler is spelled out here
 and in the sharded ops (``ops/gather_sum.py:sharded_gather_sum``,
 ``ops/streaming_cce.py:sharded_streaming_cce``,
-``ops/losses.py:vocab_parallel_cce``, ``parallel/topk.py``):
+``ops/streaming_margin.py:sharded_streaming_margin``,
+``ops/losses.py:vocab_parallel_cce``, ``parallel/columns.py``,
+``parallel/topk.py``):
 
 - ranks form a ``D x M`` grid, rank ``d * M + m`` at (data ``d``, model
   ``m``), and each rank belongs to one process group along each axis
   (:class:`Mesh`);
-- the dense tower weights are replicated and run data-parallel; the two
+- the dense tower weights are replicated and run data-parallel; the
   catalog-sized tables shard over "model" by parameter name
   (:func:`param_sharding`, the JAX package's ``_spec_for_param``):
-  ``W_out`` by columns, ``b_out`` with it, the embedding and the first
-  layer's ``W_in`` by rows (and, for later slices, the cluster and
-  factorization item tables by rows); a table whose catalog does not
-  divide the model axis stays replicated;
+  ``W_out`` by columns, ``b_out`` with it, the embedding, the first
+  layer's ``W_in``, ``cluster_repartition``, FISMCluster's
+  ``item_embeddings`` and the factorization item tables by rows; a table
+  whose catalog does not divide the model axis stays replicated;
 - a batch splits over "data" on its batch axis (axis 1 of a stacked
   ``[K, B]`` payload); the fields shared by the whole batch replicate
   (``_REPLICATED_BATCH_KEYS``).

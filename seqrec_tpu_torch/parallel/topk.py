@@ -14,6 +14,10 @@ is in the top k of its own shard under that order.
 A list longer than K4's ``MAX_K`` (``--save_rank`` ranks the whole
 catalog) takes the two-pass route of ``models/base.py:_topk``: the masked
 local scores, all-gathered over "model", sorted.
+
+:func:`sharded_top_k` is the same merge for scores a model computes
+itself on its columns (the cluster models' validation, the autoencoder):
+each shard's ``top_k_sorted`` with global ids, merged in the same order.
 """
 
 from __future__ import annotations
@@ -46,11 +50,8 @@ def sharded_score_topk(mesh, h, w_out, b_out, seen_ids=None, seen_mask=None, k: 
     n_local = w_out.shape[1]
     col0 = mesh.coords["model"] * n_local
     if seen_ids is not None:
-        local = seen_ids - col0
-        owned = (local >= 0) & (local < n_local)
-        # another shard's item: a slot whose mask is 0, at a valid column
-        seen_ids = torch.where(owned, local, 0).to(torch.int32).contiguous()
-        seen_mask = torch.where(owned, seen_mask, 0.0).contiguous()
+        seen_ids, seen_mask = local_seen(seen_ids, seen_mask, col0, n_local)
+        seen_ids, seen_mask = seen_ids.to(torch.int32).contiguous(), seen_mask.contiguous()
     if k > MAX_K:
         scores = mask_seen(h @ w_out + b_out, seen_ids, seen_mask)
         return top_k_sorted(all_gather(scores, mesh, "model", dim=1), k)
@@ -58,4 +59,27 @@ def sharded_score_topk(mesh, h, w_out, b_out, seen_ids=None, seen_mask=None, k: 
     ids = torch.where(ids == _EMPTY_ID, ids, ids + col0)
     if mesh.groups["model"] is None:
         return values, ids
+    return merge_topk(all_gather(values, mesh, "model", dim=1), all_gather(ids, mesh, "model", dim=1), k)
+
+
+def local_seen(seen_ids, seen_mask, col0: int, n_local: int):
+    """Global seen ids [B, S] as columns of the shard [col0, col0 +
+    n_local): another shard's item becomes a slot whose mask is 0, at a
+    valid column."""
+    local = seen_ids - col0
+    owned = (local >= 0) & (local < n_local)
+    if seen_mask is None:
+        seen_mask = torch.ones(seen_ids.shape, dtype=torch.float32, device=seen_ids.device)
+    return torch.where(owned, local, 0), torch.where(owned, seen_mask, 0.0)
+
+
+def sharded_top_k(mesh, scores, col0: int, k: int):
+    """Global top-k (values [B, k], ids int32 [B, k]) in (value descending,
+    id ascending) order of scores [B, N/M], this rank's columns from
+    ``col0`` on of a catalog sharded evenly over "model": each shard's k
+    best (``top_k_sorted``, empty slots (-inf, INT32_MAX)) with global ids,
+    all-gathered over "model" and merged. Any k, up to the whole catalog.
+    The same on every model rank."""
+    values, ids = top_k_sorted(scores, k)
+    ids = torch.where(ids == _EMPTY_ID, ids, ids + col0)
     return merge_topk(all_gather(values, mesh, "model", dim=1), all_gather(ids, mesh, "model", dim=1), k)

@@ -81,7 +81,8 @@ def test_parallel_modules_import_clean():
     )
     assert out.returncode == 0, out.stderr
     *names, leaked, initialized = out.stdout.split()
-    assert names == [f"seqrec_tpu_torch.parallel.{m}" for m in ("collectives", "distributed", "mesh", "topk")]
+    assert names == [f"seqrec_tpu_torch.parallel.{m}" for m in ("collectives", "columns", "distributed", "mesh",
+                                                                 "topk")]
     assert (leaked, initialized) == ("[]", "False")
 
 
@@ -96,16 +97,40 @@ def test_cli_without_device_cpu_raises_when_no_gpu(synthetic_dataset):
             test_cli.main(["-d", synthetic_dataset, *flags])
 
 
-# the models and flags whose --mesh comes with a later slice
-LATER_SLICE = [
-    (["-m", "RNN", "--loss", "BPR", "--sampling", "8"], "RNNSampling"),
-    (["-m", "RNN", "--loss", "hinge"], "RNNMargin"),
-    (["-m", "RNN", "--loss", "CCE", "--lazy_updates"], "--lazy_updates"),
-    (["-m", "RNN", "--loss", "CCE", "--bf16"], "--bf16"),
-    (["-m", "RNN", "--clusters", "4", "--loss", "Blackout", "--sampling", "8"], "RNNCluster"),
-    (["-m", "FISM", "--clusters", "4", "--loss", "Blackout", "--sampling", "8"], "FISMCluster"),
-    (["-m", "SDA", "-L", "8"], "StackedDenoisingAutoencoder"),
-]
+# the flags whose --mesh comes with a later slice, refused by every model
+# that takes a mesh (each case's id names its model or flag)
+LATER_SLICE = {
+    "RNNSampling": (["-m", "RNN", "--loss", "BPR", "--sampling", "8", "--lazy_updates"], "--lazy_updates"),
+    "RNNMargin": (["-m", "RNN", "--loss", "hinge", "--lazy_updates"], "--lazy_updates"),
+    "--lazy_updates": (["-m", "RNN", "--loss", "CCE", "--lazy_updates"], "--lazy_updates"),
+    "--bf16": (["-m", "RNN", "--loss", "CCE", "--bf16"], "--bf16"),
+    "RNNCluster": (["-m", "RNN", "--clusters", "4", "--loss", "Blackout", "--sampling", "8", "--bf16"], "--bf16"),
+    "FISMCluster": (["-m", "FISM", "--clusters", "4", "--loss", "Blackout", "--sampling", "8", "--bf16"], "--bf16"),
+    # the autoencoder takes neither flag (as in the JAX package): it takes the mesh
+    "StackedDenoisingAutoencoder": (["-m", "SDA", "-L", "8", "--bf16", "--lazy_updates"], None),
+}
+LATER_SLICE_IDS = [f"flags{i}-{name}" for i, name in enumerate(LATER_SLICE)]
+
+
+class _TookMesh(Exception):
+    pass
+
+
+def _assert_takes_mesh(monkeypatch, run, model: str) -> None:
+    """The CLI's model takes the two-rank mesh: stopped right after
+    ``set_mesh`` returns, with the mesh set."""
+    from seqrec_tpu_torch.models.base import RNNBase
+
+    set_mesh = RNNBase.set_mesh
+
+    def took(self, mesh):
+        set_mesh(self, mesh)
+        raise _TookMesh(type(self).__name__, self.mesh is mesh)
+
+    monkeypatch.setattr(RNNBase, "set_mesh", took)
+    with pytest.raises(_TookMesh) as exc:
+        run()
+    assert exc.value.args == (model, True)
 
 
 def two_rank_mesh(spec, device="cuda"):
@@ -116,13 +141,16 @@ def two_rank_mesh(spec, device="cuda"):
     return Mesh(2, 1, 0, torch.device(device), {"data": None, "model": None})
 
 
-@pytest.mark.parametrize("flags, what", LATER_SLICE)
+@pytest.mark.parametrize("flags, what", list(LATER_SLICE.values()), ids=LATER_SLICE_IDS)
 def test_cli_raises_not_implemented_outside_the_slice(synthetic_dataset, monkeypatch, flags, what):
-    """The test CLI under a mesh of two ranks refuses the models and flags
-    of later mesh slices."""
+    """The test CLI under a mesh of two ranks refuses the flags of a later
+    mesh slice, for each model that takes a mesh."""
     import seqrec_tpu_torch.cli.test as test_cli
 
     monkeypatch.setattr(test_cli, "make_cli_mesh", two_rank_mesh)
     argv = ["-d", synthetic_dataset, "--r_l", "8", "-b", "8", "--device", "cpu", *flags, "--mesh", "2,1"]
+    if what is None:
+        _assert_takes_mesh(monkeypatch, lambda: test_cli.main(argv), "StackedDenoisingAutoencoder")
+        return
     with pytest.raises(NotImplementedError, match=f"--mesh for {what} comes with a later slice of the port"):
         test_cli.main(argv)

@@ -27,8 +27,8 @@ package runs here, on ``tests/conftest.py``'s 8 virtual devices, as
   costs within 1e-4 of the port's single-device CLI; only rank 0 writes
   the checkpoints, the same files and keys), the test CLI of BPRMF, FPMC,
   FISM and Fossil at ``--mesh 1,2`` (the single-device lists), and the
-  refusals (LTM, a head of a
-  later slice, a mesh that is not the world).
+  refusals (LTM, ``--lazy_updates`` and ``--bf16`` on two ranks, a mesh
+  that is not the world).
 
 Each spawning test waits at most ``TIMEOUT`` seconds, and kills every
 worker when one fails or the time is up.
@@ -428,7 +428,9 @@ def cli_results(tmp_path_factory):
         "refusals": {
             "ltm": ["-d", ds, "-m", "LTM", "-H", "8", "--mesh", "2,1", "--device", "cpu"],
             "later_slice": ["-d", ds, "-m", "RNN", "--loss", "BPR", "--sampling", "8", "--r_l", "8", "-b", "8",
-                            "--mesh", "2,1", "--device", "cpu"],
+                            "--lazy_updates", "--mesh", "2,1", "--device", "cpu"],
+            "bf16": ["-d", ds, "-m", "RNN", "--loss", "BPR", "--sampling", "8", "--r_l", "8", "-b", "8",
+                     "--bf16", "--mesh", "2,1", "--device", "cpu"],
             "world": ["-d", ds, *CLI_BASE, "--mesh", "2,2"],
         },
     }
@@ -487,5 +489,6 @@ def test_mesh_refusals(cli_results):
         ref = res["refusals"]
         assert ref["ltm"][0] == "ValueError" and "--mesh is supported for the RNN/SDAE/cluster families" in ref["ltm"][1]
         assert ref["later_slice"] == ["NotImplementedError",
-                                      "--mesh for RNNSampling comes with a later slice of the port"]
+                                      "--mesh for --lazy_updates comes with a later slice of the port"]
+        assert ref["bf16"] == ["NotImplementedError", "--mesh for --bf16 comes with a later slice of the port"]
         assert ref["world"] == ["ValueError", "--mesh 2,2 asks for 2x2 devices but the pod exposes 1x2"]

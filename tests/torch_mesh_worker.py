@@ -1,4 +1,5 @@
-"""Worker process of ``tests/test_torch_mesh.py``: one rank of a gloo
+"""Worker process of ``tests/test_torch_mesh.py`` and
+``tests/test_torch_mesh_heads.py``: one rank of a gloo
 process group on the CPU, running the port (and only the port: no JAX)
 under a ("data", "model") mesh.
 
@@ -148,7 +149,131 @@ def cli(out, inp, args):
         json.dump(res, f)
 
 
-SCENARIOS = {"ops": ops, "step": step, "cli": cli}
+# ----------------------------------------------------------------------
+# the sampled, margin and cluster heads and the autoencoder
+# (tests/test_torch_mesh_heads.py)
+# ----------------------------------------------------------------------
+def head_model(spec, handler, mesh=None):
+    """A port model of a case spec ``{"cls", "tower", "kw"}`` (the test's
+    HEAD_CASES), prepared on ``handler``, on the mesh, from its own seed's
+    initial parameters."""
+    from seqrec_tpu_torch.models.cluster import FISMCluster, RNNCluster
+    from seqrec_tpu_torch.models.recurrent import RecurrentLayers
+    from seqrec_tpu_torch.models.rnn_margin import RNNMargin
+    from seqrec_tpu_torch.models.rnn_sampling import RNNSampling
+    from seqrec_tpu_torch.models.sdae import StackedDenoisingAutoencoder
+    from seqrec_tpu_torch.models.updates import Adam
+
+    classes = {"RNNSampling": RNNSampling, "RNNMargin": RNNMargin, "RNNCluster": RNNCluster,
+               "FISMCluster": FISMCluster, "SDA": StackedDenoisingAutoencoder}
+    kw = dict(spec["kw"])
+    streaming = kw.pop("streaming", False)
+    if spec["tower"]:
+        kw["recurrent_layer"] = RecurrentLayers(layer_type=spec["tower"], layers=[16],
+                                                embedding_size=spec.get("emb", 0))
+    model = classes[spec["cls"]](updater=Adam(0.01), device="cpu", **kw)
+    if streaming:
+        model.streaming_min_items = 1
+    model.prepare_model(handler)
+    model.set_dataset(handler)
+    model.set_mesh(mesh)
+    model.params_from_numpy(model._init_params())
+    return model
+
+
+def _head_ops(inp, mesh, res):
+    from seqrec_tpu_torch.ops.streaming_margin import sharded_streaming_margin
+    from seqrec_tpu_torch.parallel.columns import gather_columns
+
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    # the column gather: the gathered columns, and the gradients of <h W[:, cols] + b[cols], cot>
+    h = _rows(t["gc_h"], mesh).clone().requires_grad_(True)
+    W = _cols(t["gc_w"], mesh, 1).requires_grad_(True)
+    b = _cols(t["gc_b"], mesh, 0).requires_grad_(True)
+    start, _ = shard_offset(t["gc_w"].shape[1], mesh)
+    w_cols, b_cols = gather_columns(W, b, t["gc_cols"], mesh, start)
+    ((h @ w_cols + b_cols) * _rows(t["gc_cot"], mesh)).sum().backward()
+    res.update(gc_w_cols=w_cols.detach(), gc_b_cols=b_cols.detach(), gc_dh=h.grad, gc_dW=W.grad, gc_db=b.grad)
+    # the sharded streaming margin: loss rows, dh rows, dW and db columns
+    for name, loss_name, unique, chunk in (("hinge", "hinge", True, 512), ("logsig", "logsig", True, 600),
+                                          ("logit", "logit", False, 512)):
+        h = _rows(t["sm_h"], mesh).clone().requires_grad_(True)
+        W = _cols(t["sm_w"], mesh, 1).requires_grad_(True)
+        b = _cols(t["sm_b"], mesh, 0).requires_grad_(True)
+        start, n = shard_offset(t["sm_w"].shape[1], mesh)
+        loss = sharded_streaming_margin(h, W, b, _rows(t["sm_tgt"], mesh).long(), _rows(t["sm_seen"], mesh).long(),
+                                        _rows(t["sm_w_neg"], mesh), t["sm_dt"], mesh, start, loss_name, unique,
+                                        chunk=chunk)
+        loss.sum().backward()
+        res.update({f"sm_{name}_loss": loss.detach(), f"sm_{name}_dh": h.grad, f"sm_{name}_dW": W.grad,
+                    f"sm_{name}_db": b.grad})
+
+
+def _head_leaves(model):
+    full = model.params_to_numpy()
+    leaves = {key: full[key] for key in ("W_out", "b_out", "cluster_repartition", "item_embeddings", "W0")
+              if key in full}
+    if "tower" in full:
+        leaves["W_in"] = full["tower"]["layer0_fwd"]["W_in"]
+        if "embedding" in full["tower"]:
+            leaves["embedding"] = full["tower"]["embedding"]
+    return leaves
+
+
+def heads(out, inp, args):
+    """At a 2x2 mesh: the column gather and the sharded streaming margin
+    on this rank's rows and shard; one train step of each case of
+    ``args["cases"]`` on the rows of its batch (the global cost and the
+    gathered tables); the cluster validation on its rows of a chunk whose
+    restricted list ties at 0."""
+    from seqrec_tpu_torch.data import DataHandler
+
+    mesh = make_mesh(2, 2, device="cpu")
+    handler = DataHandler(args["dataset"])
+    res = {}
+    _head_ops(inp, mesh, res)
+    for name, spec in args["cases"].items():
+        model = head_model(spec, handler, mesh)
+        assert model._shard_start("W_out") is not None
+        batch = {k[len(name) + 7:]: v for k, v in inp.items() if k.startswith(f"batch_{name}/")}
+        cost = model._step(model._device_batch(batch_rows(batch, mesh)))
+        res[f"{name}_cost"] = cost
+        res.update({f"{name}_{k}": torch.from_numpy(v) for k, v in _head_leaves(model).items()})
+    # the cluster validation on a chunk whose restricted list ties at 0
+    model = head_model(args["ties_case"], handler, mesh)
+    tree = model.params_to_numpy()
+    tree["W_cs"] = inp["ties_W_cs"]
+    tree["cluster_repartition"] = inp["ties_rep"]
+    model.params_from_numpy(tree)
+    names = ("ids", "mask", "seen", "seen_mask")
+    rows = batch_rows({k: inp["ties_" + k] for k in names}, mesh)
+    got = model._cluster_eval_topk(*(torch.from_numpy(rows[k]) if k != "id_mask" else None
+                                     for k in ("ids", "id_mask", "mask", "seen", "seen_mask")))
+    for key, value in zip(("top1", "top2", "c_sel", "used"), got):
+        res["ties_" + key] = value
+    np.savez(os.path.join(out, f"heads_rank{dist.get_rank()}.npz"), **{k: v.numpy() for k, v in res.items()})
+
+
+def heads_cli(out, inp, args):
+    """Two ranks: each family's train CLI at its --mesh, and the test CLI
+    at its own on the single-device run's checkpoint."""
+    import seqrec_tpu_torch.cli.test as test_cli
+    import seqrec_tpu_torch.cli.train as train_cli
+
+    rank = dist.get_rank()
+    res = {}
+    for name, run in args["runs"].items():
+        _, text = _cli(train_cli.main, run["train"] + ["--dir", f"mesh_{name}_r{rank}/", "--mesh", run["mesh"]])
+        ev, _ = _cli(test_cli.main, run["test"] + ["--mesh", run["test_mesh"]])
+        res[name] = {"costs": [float(c) for c in re.findall(r"Last train cost :  (\S+)", text)],
+                     "lists": [[int(i) for i in pred] for _, pred in ev.instances],
+                     "files": sorted(os.listdir(os.path.join(args["dataset"], "models", f"mesh_{name}_r{rank}")))
+                     if os.path.isdir(os.path.join(args["dataset"], "models", f"mesh_{name}_r{rank}")) else []}
+    with open(os.path.join(out, f"heads_cli_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+SCENARIOS = {"ops": ops, "step": step, "cli": cli, "heads": heads, "heads_cli": heads_cli}
 
 
 def main() -> int:
