@@ -192,9 +192,18 @@ Phases, each printing one JSON line with its seconds:
    at its default --csn, FISMCluster and SDA at --do 0.3, all at 1,2; in
    each rank K1, G1, K3 and K4 above 0 for the sampled and margin heads,
    K1, G1 and K3 for RNNCluster, G1 for FISMCluster, none for SDA. Then
-   K2 (every other target -1), K4 and G1 at their per-shard shapes (and
-   G1 on FISM's bag and on the cluster rows of a shard, K1 and K4 at the
-   32 rows of a data rank), timed.
+   --lazy_updates and --bf16 on the same two ranks, each against its
+   one-card run alike: the flagship with --lazy_updates at 2,1 (100
+   steps; W_in's rows from both data ranks' ids), at GRU-128, B=1024 on
+   the even catalog at 1,2 (16 steps) lazy BPR (W_out's columns on
+   25,000-column shards) and the lazy CCE (K2 on each shard, the rows of
+   a row-sharded W_in), --bf16 --u_moments bfloat16 (K2 at 0: the bf16
+   chunk loop on each shard; the moments' noise drawn in the full
+   shapes), and the dense hinge with --bf16 at 1,2 (100 steps); in each
+   rank K1, G1, K3 and K4 above 0, K2 too for the lazy CCE. Then K2
+   (every other target -1), K4 and G1 at their per-shard shapes (and G1
+   on FISM's bag and on the cluster rows of a shard, K1 and K4 at the 32
+   rows of a data rank), timed.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. The last lines are
@@ -2928,7 +2937,20 @@ MESH_HEADS = {
     "cluster_1x2": (CLUSTER, "ml1m", 100, "1,2", False, MESH_RAN[:5]),
     "fism_cluster_1x2": (FISM_CLUSTER, "ml1m", 100, "1,2", False, ("gather_sum_fwd", "gather_sum_bwd")),
     "sda_1x2": (SDA + ["--do", "0.3"], "ml1m", 100, "1,2", False, ()),
+    # --lazy_updates and --bf16 (K2 must stay 0 in the bf16 run: its loss is the bf16 chunk loop)
+    "lazy_flagship_2x1": (FLAGSHIP + ["--lazy_updates"], "ml1m", 100, "2,1", False, MESH_RAN),
+    "lazy_large_bpr_1x2": (LARGE_BPR_LAZY, "big", 16, "1,2", False, MESH_RAN),
+    "lazy_large_cce_1x2": (LARGE + ["--lazy_updates"], "big", 16, "1,2", False, MESH_RAN + ("cce_stats", "cce_grads")),
+    "bf16_large_1x2": (LARGE_BF16, "big", 16, "1,2", False, MESH_RAN),
+    "bf16_hinge_1x2": (HEADS_HINGE + ["--bf16"], "ml1m", 100, "1,2", False, MESH_RAN),
 }
+# the --bf16 runs, whose validation may differ from the one-card run's in one user's list (their
+# validation users): a bf16 rounding turns the shards' f32 sums in another order into a whole bf16
+# ulp now and then (the dense product's dh; with --u_moments bfloat16 the moments' stochastic
+# rounding), and a near tie in a top-10 list may swap. On an H100 the two ranks' ndcg differed from
+# the one-card run's by one swap, recall and sps equal: 0.0081591 against 0.0081655 (bf16 large),
+# 0.3327973 against 0.3326448 (bf16 hinge)
+MESH_ONE_USER = {"bf16_large_1x2": 500, "bf16_hinge_1x2": 100}
 # the validation metrics a progress line prints, of the RNN family and of the cluster models
 MESH_VALIDATION = ("recall", "sps", "ndcg", "user_coverage", "item_coverage", "blockbuster_share", "cluster_recall",
                    "cluster_sps", "assr", "cluster_use_std")
@@ -3070,14 +3092,21 @@ def same_layout(ds_dir, mesh_dir, single_dir) -> dict:
             "leaves": len(want)}
 
 
-def same_validation(got: dict, want: dict) -> dict:
+def same_validation(name: str, got: dict, want: dict) -> dict:
     """A mesh run's validation metrics against the one-card run's: equal,
-    ASSR within 1e-5 (a float sum of used-item counts over the shards)."""
+    ASSR within 1e-5 (a float sum of used-item counts over the shards);
+    for a run of MESH_ONE_USER, within what one user's top-10 list can move
+    them (the mean metrics by 1 / users, item coverage by 10 items)."""
+    users = MESH_ONE_USER.get(name)
     for m, values in want.items():
-        tol = 1e-5 if m == "assr" else 0.0
-        if len(got[m]) != len(values) or not np.allclose(got[m], values, rtol=tol, atol=0.0):
-            raise AssertionError(f"validation {m}: {got[m]} against the one-card run's {values}")
-    return {m: v for m, v in want.items() if v}
+        rtol = 1e-5 if m == "assr" else 0.0
+        atol = 0.0 if users is None else (10.0 if m == "item_coverage" else 1.0 / users)
+        if len(got[m]) != len(values) or not np.allclose(got[m], values, rtol=rtol, atol=atol):
+            raise AssertionError(f"{name}: validation {m}: {got[m]} against the one-card run's {values}")
+    out = {m: v for m, v in want.items() if v}
+    if users is not None:
+        out["max_abs_diff"] = {m: max(abs(a - b) for a, b in zip(got[m], v)) for m, v in out.items()}
+    return out
 
 
 def flagship_test_scores(ds_dir, save_dir, flags=FLAGSHIP):
@@ -3186,14 +3215,16 @@ def main_path_mesh(card) -> dict:
     test CLI at --mesh 1,2 on the single-device flagship checkpoint; the
     other heads of MESH_HEADS on the same two ranks (BPR at 2,1 and 1,2
     and its test CLI at 1,2, the dense hinge, the streaming hinge,
-    RNNCluster, FISMCluster and SDA at 1,2). Each run's progress costs
-    against the single-device card run's (rel 1e-4) and, for the other
-    heads, its validation metrics (equal, ASSR rel 1e-5), the mesh
+    RNNCluster, FISMCluster and SDA at 1,2), and the --lazy_updates and
+    --bf16 runs of MESH_HEADS. Each run's progress costs against the
+    single-device card run's (rel 1e-4) and, for the other heads, its
+    validation metrics (equal, ASSR rel 1e-5), the mesh
     checkpoints' keys and shapes against its, the test CLIs' lists
     against the single-device test CLI's (ties apart), and in every rank
     the counts of K1, K2, K3, K4 and G1 above 0 over the runs, each other
-    head's kernels above 0 in its run and the port's others at 0. Then K2,
-    K4 and G1 at their per-shard shapes."""
+    head's kernels above 0 in its run and the port's others at 0 (K2 in
+    every run that does not name it). Then K2, K4 and G1 at their
+    per-shard shapes."""
     import glob
     import shutil
 
@@ -3262,8 +3293,9 @@ def main_path_mesh(card) -> dict:
           for name in MESH_HEADS),
         {"name": "bpr_test_cli_1x2", "cli": "test", "argv": bpr_test_argv + ["--mesh", "1,2", *cuda0]},
     ])
-    for name in ("hinge_1x2", "large_hinge_1x2", "cluster_1x2", "fism_cluster_1x2", "sda_1x2"):
-        head_reference(name)
+    for name in MESH_HEADS:
+        if name not in heads_single:
+            head_reference(name)
     bpr_lists = [[int(i) for i in pred] for _, pred in run_cli(test_cli.main, bpr_test_argv)[0].instances]
     torch.cuda.synchronize()
     heads_single_s = time.perf_counter() - t1
@@ -3294,7 +3326,7 @@ def main_path_mesh(card) -> dict:
                         entry.get("costs_vs_single_device_max_rel_diff", 0.0), diff)
                     if name in heads_single:
                         entry["validation_equal_to_single_device"] = same_validation(
-                            rec["validation"], heads_single[name]["validation"])
+                            name, rec["validation"], heads_single[name]["validation"])
                 else:
                     want, flags, save = ((bpr_lists, HEADS_BPR, "chip_mesh_bpr_single/") if name == "bpr_test_cli_1x2"
                                          else (single_lists, FLAGSHIP, "chip_mesh_single/"))
@@ -3310,7 +3342,7 @@ def main_path_mesh(card) -> dict:
         for rank, launches in enumerate(entry["launches"]):
             streaming = launches["cce_stats"] + launches["cce_grads"]
             others = [k for k in KERNELS if k not in ran and launches[k]] if name in MESH_HEADS else []
-            if any(launches[k] == 0 for k in ran) or (name != "large_1x2_spd4" and streaming) or others:
+            if any(launches[k] == 0 for k in ran) or ("cce_stats" not in ran and streaming) or others:
                 raise AssertionError(f"{name} rank {rank} launched {launches}")
     per_rank = [{k: sum(runs[name]["launches"][rank][k] for name in runs if runs[name]["backend"] == "gloo")
                  for k in KERNELS} for rank in range(2)]
@@ -3331,7 +3363,9 @@ def main_path_mesh(card) -> dict:
                   f"GRU-128 B1024 streaming head at {n_big} items, --mesh 1,2 --spd 4 (gloo, 32 steps); test CLI 1,2; "
                   "BPR (GRU-50 B64, 256 samples) at 2,1 and 1,2 and its test CLI at 1,2, the dense hinge, "
                   f"the streaming hinge (GRU-128 B1024, {n_big} items, 16 steps), RNNCluster, FISMCluster and SDA "
-                  "(--do 0.3) at 1,2 (gloo, 100 steps)",
+                  "(--do 0.3) at 1,2 (gloo, 100 steps); the flagship with --lazy_updates at 2,1 (100 steps), at "
+                  "GRU-128 B1024 on the same catalog lazy BPR, the lazy CCE and --bf16 --u_moments bfloat16 at 1,2 "
+                  "(16 steps), the dense hinge with --bf16 at 1,2 (100 steps)",
         "note": "two ranks on one shared H100 over gloo: wall seconds, not a scaling number",
         "single_device": {"flagship_costs": fl_costs, "large_costs": big_costs, "seconds": single_s,
                           "launches_flagship": single_launches, "heads": heads_single,

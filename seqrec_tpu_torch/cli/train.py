@@ -18,10 +18,9 @@ JAX package). ``--mesh DATA,MODEL`` (or ``auto``) trains over a
 takes every head of ``-m RNN`` (CCE, the sampled BPR/TOP1/Blackout, the
 margin hinge/logit/logsig, each with its dense and streaming head where it
 has both, ``--clusters N``; either tower, ``--r_emb``, ``--mf``/``--uf``,
-``--spd``), ``-m FISM --clusters N`` and ``-m SDA``; the factorization
-family shards its evaluation only. Only ``--lazy_updates`` and ``--bf16``
-remain for a later slice: they raise ``NotImplementedError`` on more than
-one rank.
+``--spd``, ``--lazy_updates``, ``--bf16`` and ``--u_moments bfloat16``),
+``-m FISM --clusters N`` and ``-m SDA``; the factorization family shards
+its evaluation only.
 """
 
 from __future__ import annotations

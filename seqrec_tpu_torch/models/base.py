@@ -59,11 +59,12 @@ chunks split over "data" and their top-k rows are gathered back, so every
 rank computes the same metrics and takes the same early-stopping and
 ``--save Best`` decisions. Saves gather the full tree on every rank and
 are synchronous on more than one rank; only the rank with ``LOCAL_RANK``
-0 writes files. Every head of the RNN family takes a mesh (``mesh_ok``:
-the CCE, sampled, margin and cluster heads, FISMCluster and the
-autoencoder); ``--lazy_updates`` and ``--bf16`` remain for a later slice:
-they raise ``NotImplementedError`` on more than one rank and run
-unsharded on one.
+0 writes files. Every model of the family takes a mesh (the CCE, sampled,
+margin and cluster heads, FISMCluster and the autoencoder), with
+``--bf16`` (the sharded ops take the compute dtype) and
+``--lazy_updates``: the lazy Adam updates the slices that the global
+batch touches (its ids gathered over "data") on the rank's shard, and its
+moments live on the shard like their parameter.
 """
 
 from __future__ import annotations
@@ -360,32 +361,12 @@ class RNNBase:
     # ------------------------------------------------------------------
     # the ("data", "model") mesh (parallel/; base.py:set_mesh)
     # ------------------------------------------------------------------
-    # True where the model's sharded ops are ported (every head of the family)
-    mesh_ok = False
-
-    def _mesh_unported(self):
-        """What keeps this model off a mesh of more than one rank, or None."""
-        if not self.mesh_ok:
-            return type(self).__name__
-        if self.lazy_updates:
-            return "--lazy_updates"
-        if self.compute_dtype != "float32":
-            return "--bf16"
-        return None
-
     def set_mesh(self, mesh) -> None:
         """Route training and eval through ``mesh`` (``parallel.Mesh``; None:
         one device). ``batch_size`` must divide the data axis;
         ``eval_batch_size`` is rounded up to it. Parameters (and an
         optimizer state) already present are sharded now; later ones as
-        they are loaded. A model of a later mesh slice raises on more than
-        one rank and ignores a one-rank mesh."""
-        if mesh is not None:
-            unported = self._mesh_unported()
-            if unported is not None:
-                if mesh.size > 1:
-                    raise NotImplementedError(f"--mesh for {unported} comes with a later slice of the port")
-                mesh = None
+        they are loaded."""
         if mesh is not None:
             if mesh.device != self.device:
                 raise ValueError(f"the mesh's device {mesh.device} is not the model's {self.device}")
@@ -409,6 +390,26 @@ class RNNBase:
         """First index of this rank's shard of parameter ``key``, or None
         when the parameter is whole here (no mesh, or replicated)."""
         return self._shards.get(key)
+
+    def _shard_layout(self, key: str, shape):
+        """(full shape, sharded dimension, first index) of this rank's
+        shard of parameter ``key`` (whose local shape is ``shape``), or
+        None when it is whole here."""
+        start = self._shard_start(key)
+        if start is None:
+            return None
+        dim = mesh_lib.sharded_axis(self._param_specs[key])
+        full = list(shape)
+        full[dim] *= self.mesh.shape["model"]
+        return tuple(full), dim, start
+
+    def _data_ids(self, ids):
+        """The global batch's ids of a lazy spec from this rank's rows:
+        gathered over "data" under a mesh (as int32: gloo has no int16),
+        else as they are."""
+        if self.mesh is None:
+            return ids
+        return all_gather(ids.int(), self.mesh, "data")
 
     def _global_rows(self, n_local: int) -> tuple[int, int]:
         """(the global batch's rows, the first of this rank's) for a device
@@ -549,9 +550,11 @@ class RNNBase:
 
     def _out_matmul(self, h, w_out, b_out):
         """Catalog-sized output product h W_out + b: f32, or with --bf16
-        bf16 operands and an f32 result (``base.py:_out_matmul``)."""
+        bf16 operands and an f32 result (``base.py:_out_matmul``); under a
+        mesh, of this rank's rows, the bf16 W_out cotangent rounded after
+        its mean over "data" (``ops.core.matmul_bf16``)."""
         if self.compute_dtype == "bfloat16":
-            return matmul_bf16(h, w_out) + b_out
+            return matmul_bf16(h, w_out, self.mesh) + b_out
         return h @ w_out + b_out
 
     def _logits(self, ids, id_mask, mask):
@@ -577,9 +580,10 @@ class RNNBase:
 
     def _topk(self, ids, id_mask, mask, seen_ids, seen_mask, k):
         # K4 keeps at most MAX_K per row: a longer list (--save_rank ranks
-        # the whole catalog) sorts the masked scores, as the JAX package
+        # the whole catalog) sorts the masked scores (under a mesh the
+        # shards' logits gathered, in the compute dtype), as the JAX package
         # leaves its fused kernel above k = 64
-        if self.fused_eval_head and self._shard_start("W_out") is not None:
+        if self.fused_eval_head and self._shard_start("W_out") is not None and k <= MAX_K:
             from seqrec_tpu_torch.parallel.topk import sharded_score_topk
 
             h = self.net.tower(ids, mask, id_mask)
@@ -1124,12 +1128,13 @@ class RNNBase:
     def _resolve_lazy_specs(self):
         """Lazy-update specs ``{"path", "axis", "ids"}``: the parameter, the
         axis its touched slices lie on, and a function of the device batch
-        giving the touched indices. Here the input table's rows; heads
-        whose output gradient is sparse too override this (RNNSampling)."""
+        giving the global batch's touched indices (under a mesh, every data
+        rank's, ``_data_ids``). Here the input table's rows; heads whose
+        output gradient is sparse too override this (RNNSampling)."""
         path = self._resolve_lazy_path()
         if path is None:
             return None
-        return [{"path": path, "axis": 0, "ids": lambda b: b["ids"]}]
+        return [{"path": path, "axis": 0, "ids": lambda b: self._data_ids(b["ids"])}]
 
     @torch.no_grad()
     def _lazy_adam_update(self, table, state, dense_grad, ids, axis):
@@ -1141,8 +1146,11 @@ class RNNBase:
         correction uses the spec's own count. Duplicate ids gather the same
         gradient slice and so write the same bits: a scatter-set
         (``index_copy_``) needs no dedup. Negative ids (padded feature
-        slots) drop out: they are pointed at the first valid id, whose value
-        they then write again."""
+        slots, another shard's slices) drop out: they are pointed at the
+        first valid id, whose value they then write again; where no id is
+        valid (a shard that the batch does not touch) every slot points at
+        slice 0 and writes its own values back. Both choices stay on the
+        device: the step never syncs the host."""
         u = self.updater
         f32 = torch.float32
         lr = torch.tensor(u.learning_rate, dtype=f32)
@@ -1150,23 +1158,40 @@ class RNNBase:
         b2 = torch.tensor(u.beta2, dtype=f32)
         flat = ids.reshape(-1).long()
         valid = flat >= 0
+        any_valid = valid.any()
         # index_select keeps the first valid id on the device (a 0-dim index would sync)
-        idx = torch.where(valid, flat, flat.index_select(0, torch.argmax(valid.int()).reshape(1)))
+        first = flat.index_select(0, torch.argmax(valid.int()).reshape(1))
+        idx = torch.where(valid, flat, torch.where(any_valid, first, 0))
 
         def take(a):
             return a.index_select(axis, idx)
 
+        def keep(new, old):
+            return torch.where(any_valid, new, old)
+
         g = take(dense_grad)
-        m_new = b1 * take(state["m"]) + (1.0 - b1) * g
-        v_new = b2 * take(state["v"]) + (1.0 - b2) * g * g
+        m_old, v_old, t_old = take(state["m"]), take(state["v"]), take(table)
+        m_new = b1 * m_old + (1.0 - b1) * g
+        v_new = b2 * v_old + (1.0 - b2) * g * g
         state["count"] += 1
         t = torch.tensor(state["count"], dtype=f32)
         m_hat = m_new / (1.0 - b1**t)
         v_hat = v_new / (1.0 - b2**t)
         upd = -lr * m_hat / (torch.sqrt(v_hat) + 1e-8)
-        table.index_copy_(axis, idx, take(table) + upd)
-        state["m"].index_copy_(axis, idx, m_new)
-        state["v"].index_copy_(axis, idx, v_new)
+        table.index_copy_(axis, idx, keep(t_old + upd, t_old))
+        state["m"].index_copy_(axis, idx, keep(m_new, m_old))
+        state["v"].index_copy_(axis, idx, keep(v_new, v_old))
+
+    def _shard_ids(self, key: str, ids, n_local: int):
+        """Global slice ids of parameter ``key`` as indices into this
+        rank's shard of ``n_local`` slices; an id outside the shard becomes
+        -1, which the lazy update drops (the JAX package's ``mode="drop"``).
+        Unchanged where the parameter is whole here."""
+        start = self._shard_start(key)
+        if start is None:
+            return ids
+        local = ids.long() - start
+        return torch.where((local >= 0) & (local < n_local), local, -1)
 
     def _init_opt_state(self) -> dict:
         """The updater's state over every parameter, or, with lazy specs, a
@@ -1188,51 +1213,52 @@ class RNNBase:
         return {"inner": inner, "lazy": lazy}
 
     def _updater_layout(self, state, names) -> list:
-        """(holder, key) of each leaf of the updater's ``state`` over the
-        parameters ``names`` (state-dict keys), in optax's leaf order:
-        Adam's step count first, then each slot (``updater.slots``, the
-        order of optax's state fields) over the parameters in the sorted
-        path order of ``jax.tree_util.tree_leaves``."""
+        """(holder, key, parameter) of each leaf of the updater's ``state``
+        over the parameters ``names`` (state-dict keys), in optax's leaf
+        order: Adam's step count first (its parameter None), then each slot
+        (``updater.slots``, the order of optax's state fields) over the
+        parameters in the sorted path order of
+        ``jax.tree_util.tree_leaves``."""
         order = sorted(range(len(names)), key=lambda i: names[i].split("."))
-        refs = [(state, "count")] if self.updater.count_leaf else []
+        refs = [(state, "count", None)] if self.updater.count_leaf else []
         for slot in self.updater.slots:
-            refs.extend((state[slot], i) for i in order)
+            refs.extend((state[slot], i, names[i]) for i in order)
         return refs
 
-    def _opt_layout(self, state) -> list:
-        """(holder, key) of each leaf of the optimizer state in the order of
-        the JAX package's ``tree_leaves(opt_state)``: the updater's leaves,
-        and with lazy specs ``(inner state, ((m, v, count) per spec))``."""
+    def _opt_refs(self, state) -> list:
+        """(holder, key, parameter) of each leaf of the optimizer state in
+        the order of the JAX package's ``tree_leaves(opt_state)``: the
+        updater's leaves, and with lazy specs ``(inner state, ((m, v,
+        count) per spec))``. A moment names the parameter (state-dict key)
+        whose layout it shares, under a mesh its shard; a count None."""
         names = [name for name, _ in self.net.named_parameters()]
         if "lazy" not in state:
             return self._updater_layout(state, names)
         taken = {entry["param"] for entry in state["lazy"]}
         refs = self._updater_layout(state["inner"], [n for i, n in enumerate(names) if i not in taken])
         for entry in state["lazy"]:
-            refs += [(entry, "m"), (entry, "v"), (entry, "count")]
+            name = names[entry["param"]]
+            refs += [(entry, "m", name), (entry, "v", name), (entry, "count", None)]
         return refs
 
-    def _opt_leaf_keys(self, refs) -> list:
-        """The parameter (state-dict key) of each leaf of ``refs``, None for
-        a step count; the state under a mesh is the updater's alone
-        (``--lazy_updates`` does not take a mesh yet), whose slot leaves
-        hold their parameter's index."""
-        names = [name for name, _ in self.net.named_parameters()]
-        return [names[key] if isinstance(holder, list) else None for holder, key in refs]
+    def _opt_layout(self, state) -> list:
+        """(holder, key) of each leaf of the optimizer state (``_opt_refs``)."""
+        return [(holder, key) for holder, key, _ in self._opt_refs(state)]
 
     def _opt_leaves(self) -> list:
         """The optimizer state as the JAX package's ``opt`` leaves: tensors,
         and int32 scalars for the step counts; under a mesh each sharded
-        moment gathered like its parameter (a collective)."""
-        refs = self._opt_layout(self.opt_state)
+        moment (the lazy specs' too) gathered like its parameter (a
+        collective)."""
+        refs = self._opt_refs(self.opt_state)
         leaves = [
             np.asarray(holder[key], dtype=np.int32) if isinstance(holder[key], int) else holder[key]
-            for holder, key in refs
+            for holder, key, _ in refs
         ]
         if self.mesh is not None:
             leaves = [
                 leaf if name is None else mesh_lib.gather_params({name: leaf}, self._param_specs, self.mesh)[name]
-                for name, leaf in zip(self._opt_leaf_keys(refs), leaves)
+                for (_, _, name), leaf in zip(refs, leaves)
             ]
         return leaves
 
@@ -1240,16 +1266,15 @@ class RNNBase:
         """The optimizer state of ``opt`` leaves in the JAX package's order,
         each checked against a fresh state's shape and dtype."""
         state = self._init_opt_state()
-        refs = self._opt_layout(state)
+        refs = self._opt_refs(state)
         if len(leaves) != len(refs):
             raise ValueError(f"the checkpoint has {len(leaves)} optimizer leaves, this optimizer {len(refs)}")
-        names = self._opt_leaf_keys(refs) if self.mesh is not None else [None] * len(refs)
-        for i, ((holder, key), leaf, name) in enumerate(zip(refs, leaves, names)):
+        for i, ((holder, key, name), leaf) in enumerate(zip(refs, leaves)):
             if isinstance(holder[key], int):
                 holder[key] = int(np.asarray(leaf))
                 continue
             t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
-            if name is not None:  # a full moment: this rank's shard of it
+            if self.mesh is not None:  # a full moment: this rank's shard of it
                 t = mesh_lib.shard_params({name: t}, self._param_specs, self.mesh)[name]
             want = holder[key]
             if t.shape != want.shape or t.dtype != want.dtype:
@@ -1271,21 +1296,26 @@ class RNNBase:
         grads = torch.autograd.grad(cost, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         cost = cost.detach()
+        names = [name for name, _ in self.net.named_parameters()]
+        shards = None
         if self.mesh is not None:
             # each data rank's loss is the mean over its rows: the mean over
             # "data" of the gradients (and of the cost) is the global one
             # (parallel/collectives.py)
             mean_over_data(grads + [cost], self.mesh)
+            shards = [self._shard_layout(name, p.shape) for name, p in zip(names, params)]
         lazy = self.opt_state.get("lazy")
         if not lazy:
-            self.updater.step(params, grads, self.opt_state)
+            self.updater.step(params, grads, self.opt_state, shards)
             return cost
         taken = {entry["param"] for entry in lazy}
         rest = [i for i in range(len(params)) if i not in taken]
-        self.updater.step([params[i] for i in rest], [grads[i] for i in rest], self.opt_state["inner"])
+        self.updater.step([params[i] for i in rest], [grads[i] for i in rest], self.opt_state["inner"],
+                          None if shards is None else [shards[i] for i in rest])
         for entry in lazy:
             sp, i = entry["spec"], entry["param"]
-            self._lazy_adam_update(params[i], entry, grads[i], sp["ids"](dev_batch), sp["axis"])
+            ids = self._shard_ids(names[i], sp["ids"](dev_batch), params[i].shape[sp["axis"]])
+            self._lazy_adam_update(params[i], entry, grads[i], ids, sp["axis"])
         return cost
 
     def train_function(self, batch):

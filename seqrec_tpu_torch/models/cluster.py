@@ -131,7 +131,6 @@ class FISMClusterNetwork(nn.Module):
 
 
 class RNNCluster(RNNBase):
-    mesh_ok = True
     _DEVICE_ID_KEYS = RNNBase._DEVICE_ID_KEYS + ("cluster_samples",)
     _HOST_KEYS = ("noise_seed",)
 

@@ -27,6 +27,7 @@ the default targets, every id outside its columns (pads and the other
 shards' items) scattered into the extra column, and the per-example
 partials summed over "model"; the streaming head is
 ``sharded_streaming_margin``. ``w_neg`` keeps the whole catalog's size.
+Both take ``--bf16``'s compute dtype, as on one device.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from seqrec_tpu_torch.ops.streaming_margin import (
     sharded_streaming_margin,
     streaming_margin,
 )
-from seqrec_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
+from seqrec_tpu_torch.parallel.collectives import reduce_from_model
 
 
 def dense_margin(predictions, tgt_ids, seen_ids, w_neg, default_target, loss_name: str, unique: bool):
@@ -72,7 +73,6 @@ def local_ids(ids, col0: int, n_local: int):
 
 class RNNMargin(RNNBase):
     fused_eval_head = True
-    mesh_ok = True
     # catalogs at least this large train through the streaming head
     streaming_min_items = STREAMING_MARGIN_MIN_ITEMS
 
@@ -151,11 +151,13 @@ class RNNMargin(RNNBase):
         if col0 is not None:
             if self._use_streaming_head():
                 per_ex = sharded_streaming_margin(h, net.W_out, net.b_out, tgt_ids, seen_ids, w_neg, default_target,
-                                                  self.mesh, col0, self.loss_function_name, unique)
+                                                  self.mesh, col0, self.loss_function_name, unique,
+                                                  compute_dtype=self.compute_dtype)
                 return per_ex.mean()
             n_local = net.W_out.shape[1]
             part = dense_margin(
-                copy_to_model(h, self.mesh) @ net.W_out + net.b_out, local_ids(tgt_ids, col0, n_local),
+                losses.sharded_out_matmul(h, net.W_out, net.b_out, self.mesh, self.compute_dtype),
+                local_ids(tgt_ids, col0, n_local),
                 local_ids(seen_ids, col0, n_local), w_neg, default_target[col0 : col0 + n_local],
                 self.loss_function_name, unique,
             )

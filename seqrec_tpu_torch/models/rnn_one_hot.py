@@ -14,7 +14,8 @@ batched evaluation goes through the fused score + seen-mask + top-k kernel
 
 Under a mesh whose "model" axis shards ``W_out``'s columns (the catalog
 divides it), the streaming head is ``sharded_streaming_cce`` (K2 on the
-rank's columns) and the dense head ``losses.vocab_parallel_cce``; the
+rank's columns; with ``--bf16`` the bf16 chunk loop there) and the dense
+head ``losses.vocab_parallel_cce`` (its product in the compute dtype); the
 ``b_out`` penalty sums over the shards (``reduce_from_model``). A catalog
 that does not divide the axis keeps ``W_out`` whole on every rank, and the
 heads above run data-parallel.
@@ -89,7 +90,6 @@ class RNNOneHot(RNNBase):
         return self._logits(ids, id_mask, mask)
 
     fused_eval_head = True
-    mesh_ok = True
     # catalogs at least this large train through the streaming head
     streaming_min_items = STREAMING_CCE_MIN_ITEMS
 
@@ -107,14 +107,14 @@ class RNNOneHot(RNNBase):
         if self._use_streaming_head():
             if col0 is not None:
                 per_ex = sharded_streaming_cce(h, net.W_out, net.b_out, batch["targets"], self.mesh, col0,
-                                               check_targets=check)
+                                               check_targets=check, compute_dtype=self.compute_dtype)
             else:
                 per_ex = streaming_cce(h, net.W_out, net.b_out, batch["targets"], compute_dtype=self.compute_dtype,
                                        check_targets=check)
             cost = (per_ex / batch["target_pop"]).mean()
         elif col0 is not None:
             cost = losses.vocab_parallel_cce(h, net.W_out, net.b_out, batch["targets"], batch["target_pop"],
-                                             self.mesh, col0)
+                                             self.mesh, col0, self.compute_dtype)
         else:
             logits = self._out_matmul(h, net.W_out, net.b_out)
             cost = losses.diversity_biased_cce(logits, batch["targets"], batch["target_pop"])

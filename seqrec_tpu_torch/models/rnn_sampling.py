@@ -21,7 +21,11 @@ own set (on the index wire, K sets beside the payload's rows and cuts).
 Serving ranks the raw logits (ranking the
 softmax), so evaluation goes through the fused score + mask + top-k kernel
 K4. ``--lazy_updates`` moves the head (``W_out`` columns, ``b_out``
-entries) onto the lazy Adam; the input table keeps dense Adam.
+entries) onto the lazy Adam; the input table keeps dense Adam. Under a
+mesh the lazy columns are the global batch's, localized to the rank's
+shard of a column-sharded head. ``--bf16`` leaves the training product in
+f32, as the JAX package does (a plain ``jnp.dot`` of the gathered
+columns); evaluation scores as on one device.
 """
 
 from __future__ import annotations
@@ -36,7 +40,6 @@ from seqrec_tpu_torch.ops import losses
 
 class RNNSampling(RNNBase):
     fused_eval_head = True
-    mesh_ok = True
 
     def __init__(
         self,
@@ -138,12 +141,13 @@ class RNNSampling(RNNBase):
         """Only the target and sample columns score, so the head's gradient
         is column-sparse (about B+S of n_items columns a step): the lazy
         Adam takes ``W_out``'s columns and ``b_out``'s entries, and the
-        input table keeps dense Adam."""
+        input table keeps dense Adam. The columns are the global batch's
+        targets (gathered over "data" under a mesh) and the samples."""
         if self._resolve_lazy_path() is None:
             return None
 
         def cols(batch):
-            return torch.cat([batch["targets"], batch["samples"]])
+            return torch.cat([self._batch_targets(batch["targets"])[0], batch["samples"]])
 
         return [{"path": ("W_out",), "axis": 1, "ids": cols}, {"path": ("b_out",), "axis": 0, "ids": cols}]
 

@@ -55,7 +55,6 @@ class SDAENetwork(nn.Module):
 
 
 class StackedDenoisingAutoencoder(RNNBase):
-    mesh_ok = True
     lazy_table_ok = False  # dense multi-hot input, no gather table
     _DEVICE_ID_KEYS = RNNBase._DEVICE_ID_KEYS + ("x_ids", "y_ids")
     _HOST_KEYS = ("dropout_seed",)

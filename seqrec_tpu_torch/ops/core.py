@@ -60,29 +60,51 @@ class _MatmulBF16(torch.autograd.Function):
     """The JAX package's ``jnp.dot(a.astype(bf16), b.astype(bf16),
     preferred_element_type=f32)`` under autodiff: the cotangent of each
     operand is the f32 product of the incoming f32 cotangent with the other
-    bf16 operand, rounded to bf16 (the transpose of the cast)."""
+    bf16 operand, rounded to bf16 (the transpose of the cast).
+
+    Under a ``mesh`` each f32 cotangent is summed where the whole product's
+    is, before its rounding, so that it rounds as the one-device product's
+    does: ``a`` holds this rank's rows (of the batch, split over "data")
+    and ``b`` is a parameter, whose gradient the step averages over "data":
+    ``b``'s cotangent is the mean over "data" of the ranks' partial sums,
+    rounded (the step's later mean then averages equal values); with
+    ``b_sharded``, ``b`` is this rank's columns of a column-sharded operand
+    and ``a`` is replicated over "model": ``a``'s cotangent is summed over
+    "model" (``copy_to_model``'s backward, inside the cast's transpose)."""
 
     @staticmethod
-    def forward(ctx, a, b):
+    def forward(ctx, a, b, mesh, b_sharded):
         a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
         ctx.save_for_backward(a16, b16)
+        ctx.mesh, ctx.b_sharded = mesh, b_sharded
         return mm_bf16(a16, b16)
 
     @staticmethod
     def backward(ctx, g):
+        from seqrec_tpu_torch.parallel.collectives import all_reduce
+
         a16, b16 = ctx.saved_tensors
+        mesh = ctx.mesh
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = (g @ b16.float().t()).to(torch.bfloat16).float()
+            da = g @ b16.float().t()
+            if mesh is not None and ctx.b_sharded:
+                da = all_reduce(da, mesh, "model")
+            da = da.to(torch.bfloat16).float()
         if ctx.needs_input_grad[1]:
-            db = (a16.float().t() @ g).to(torch.bfloat16).float()
-        return da, db
+            db = a16.float().t() @ g
+            if mesh is not None and mesh.groups["data"] is not None:
+                db = all_reduce(db, mesh, "data") / mesh.shape["data"]
+            db = db.to(torch.bfloat16).float()
+        return da, db, None, None
 
 
-def matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul_bf16(a: torch.Tensor, b: torch.Tensor, mesh=None, b_sharded: bool = False) -> torch.Tensor:
     """a [M, K] @ b [K, N] in f32 from operands rounded to bf16 (``--bf16``'s
-    catalog-sized products), differentiable."""
-    return _MatmulBF16.apply(a, b)
+    catalog-sized products), differentiable; under a ``mesh``, ``a`` holds
+    this rank's rows and ``b`` is a parameter, with ``b_sharded`` this
+    rank's columns of it (the class docstring)."""
+    return _MatmulBF16.apply(a, b, mesh, b_sharded)
 
 
 def check_tensors(fn: str, device, expected: dict, rows=()) -> None:

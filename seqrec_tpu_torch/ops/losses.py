@@ -160,14 +160,29 @@ class _VocabParallelCCE(torch.autograd.Function):
         return g[:, None] * (e / s[:, None] - onehot), None, None, None
 
 
-def vocab_parallel_cce(h, w_out, b_out, targets, target_pop, mesh, col0: int) -> torch.Tensor:
+def sharded_out_matmul(h, w_out, b_out, mesh, compute_dtype: str = "float32") -> torch.Tensor:
+    """The local logits h W_out + b_out [B, N/M] of this rank's columns of a
+    column-sharded output layer, h replicated over "model": f32
+    (``copy_to_model``), or with ``compute_dtype="bfloat16"`` bf16 operands
+    and an f32 result (``ops.core.matmul_bf16`` on the shard, its
+    cotangents summed over the mesh before their rounding), as
+    ``models/base.py:_out_matmul`` computes the whole product."""
+    from seqrec_tpu_torch.ops.core import matmul_bf16
+    from seqrec_tpu_torch.parallel.collectives import copy_to_model
+
+    if compute_dtype == "bfloat16":
+        return matmul_bf16(h, w_out, mesh, b_sharded=True) + b_out
+    return copy_to_model(h, mesh) @ w_out + b_out
+
+
+def vocab_parallel_cce(h, w_out, b_out, targets, target_pop, mesh, col0: int,
+                       compute_dtype: str = "float32") -> torch.Tensor:
     """``diversity_biased_cce(h @ W_out + b_out, targets, target_pop)`` with
     W_out [H, N/M] and b_out [N/M] this rank's columns (from ``col0``) of a
     column-sharded output layer, h [B, H] the rank's rows (the same on
-    every model rank): the local logits from ``torch.matmul`` (the JAX
-    package computes this product outside any Pallas kernel), the CCE
-    combined over "model". The loss is the same on every model rank."""
-    from seqrec_tpu_torch.parallel.collectives import copy_to_model
-
-    logits = copy_to_model(h, mesh) @ w_out + b_out
+    every model rank): the local logits from ``torch.matmul`` in the
+    compute dtype (:func:`sharded_out_matmul`; the JAX package computes
+    this product outside any Pallas kernel), the CCE combined over
+    "model". The loss is the same on every model rank."""
+    logits = sharded_out_matmul(h, w_out, b_out, mesh, compute_dtype)
     return (_VocabParallelCCE.apply(logits, targets, mesh, col0) / target_pop).mean()

@@ -31,7 +31,7 @@ hand work to the loop.
 :func:`sharded_streaming_cce` is the op over a mesh whose "model" axis
 shards W's columns (``seqrec_tpu/ops/streaming_cce.py:313-456``): K2's
 stats and gradient kernels run on the rank's column slice, as they run on
-the whole W here.
+the whole W here; with bf16 compute the chunk loop runs there instead.
 """
 
 from __future__ import annotations
@@ -228,55 +228,93 @@ class _StreamingCCE(torch.autograd.Function):
         return dh, dW, db, None
 
 
+def _bf16_operands(h, W, b, chunk: int):
+    """(h, W padded to whole chunks) in bf16, the padded b in f32, and the
+    chunk count, for the bf16 chunk loop."""
+    Wp, bp, n_chunks = _pad_cols(W, b, chunk)
+    return h.to(torch.bfloat16), Wp.to(torch.bfloat16), bp, n_chunks
+
+
+def _chunk_stats(h16, Wp16, bp, chunk: int, n_chunks: int):
+    """(m, s) [B] of the bf16 logits h16 Wp16 + bp, one column chunk at a
+    time (``streaming_cce.py:_stats_scan``)."""
+    m = torch.full((h16.shape[0],), -1e30, dtype=torch.float32, device=h16.device)
+    s = torch.zeros_like(m)
+    for i in range(n_chunks):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        logits = mm_bf16(h16, Wp16[:, sl]) + bp[sl]
+        m_new = torch.maximum(m, logits.max(dim=1).values)
+        # m starts at -1e30 with s = 0: the first chunk's rescale is 0 * 0
+        s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=1)
+        m = m_new
+    return m, s
+
+
+def _chunk_grads(h16, Wp16, bp, t, logz, g, chunk: int, n_chunks: int):
+    """(dh [B, H], dW [H, n_chunks * chunk], db) of sum_i g[i] * CCE_i
+    from the bf16 chunk loop (``streaming_cce.py:_grad_scan``): each
+    chunk's d(logits) rounded to bf16, its products summed in f32. A
+    target of -1 (another shard's) matches no column."""
+    cols = torch.arange(chunk, device=h16.device)
+    dh = torch.zeros(h16.shape, dtype=torch.float32, device=h16.device)
+    dW = torch.empty((Wp16.shape[0], n_chunks * chunk), dtype=torch.float32, device=h16.device)
+    db = torch.empty(n_chunks * chunk, dtype=torch.float32, device=h16.device)
+    for i in range(n_chunks):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        W_c = Wp16[:, sl]
+        p = torch.exp(mm_bf16(h16, W_c) + bp[sl] - logz[:, None])
+        onehot = cols[None, :] == (t - i * chunk)[:, None]
+        dl = (g[:, None] * (p - onehot.float())).to(torch.bfloat16)
+        dW[:, sl] = mm_bf16(h16.t(), dl)
+        db[sl] = dl.float().sum(dim=0)
+        dh = dh + mm_bf16(dl, W_c.t())
+    return dh, dW, db
+
+
 class _StreamingCCEChunks(torch.autograd.Function):
     """The bf16 chunk loop (``streaming_cce.py:_fwd``/``_bwd`` off the
     kernel): operands rounded to bf16, products accumulated in f32, the
-    stats, loss and dh in f32."""
+    stats, loss and dh in f32. With a ``mesh``, W and b are this rank's
+    columns from ``col0`` on (``streaming_cce.py:_local_stats`` and
+    ``_sh_bwd``'s scan): the local (m, s) and the owned target logits are
+    combined over "model" as :class:`_ShardedStreamingCCE` combines K2's,
+    and the partial dh is summed over "model"."""
 
     @staticmethod
-    def forward(ctx, h, W, b, targets, chunk):
-        bf16 = torch.bfloat16
+    def forward(ctx, h, W, b, targets, chunk, mesh, col0):
+        from seqrec_tpu_torch.parallel.collectives import all_reduce
+
         N = W.shape[1]
-        Wp, bp, n_chunks = _pad_cols(W, b, chunk)
-        h16, Wp16 = h.to(bf16), Wp.to(bf16)
-        m = torch.full((h.shape[0],), -1e30, dtype=torch.float32, device=h.device)
-        s = torch.zeros_like(m)
-        for i in range(n_chunks):
-            sl = slice(i * chunk, (i + 1) * chunk)
-            logits = mm_bf16(h16, Wp16[:, sl]) + bp[sl]
-            m_new = torch.maximum(m, logits.max(dim=1).values)
-            # m starts at -1e30 with s = 0: the first chunk's rescale is 0 * 0
-            s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=1)
-            m = m_new
+        h16, Wp16, bp, n_chunks = _bf16_operands(h, W, b, chunk)
         t = targets.long()
-        cols = W.index_select(1, t).to(bf16)  # [H, B]
-        tl = (h16.float() * cols.float().t()).sum(dim=1) + b.index_select(0, t)
+        if mesh is not None:
+            t = t - col0
+            owned = (t >= 0) & (t < N)
+            t = torch.where(owned, t, -1)
+        m, s = _chunk_stats(h16, Wp16, bp, chunk, n_chunks)
+        safe = t.clamp_min(0)
+        cols = W.index_select(1, safe).to(torch.bfloat16)  # [H, B]
+        tl = (h16.float() * cols.float().t()).sum(dim=1) + b.index_select(0, safe)
+        if mesh is not None:
+            m_g = all_reduce(m.clone(), mesh, "model", op="max")
+            s = all_reduce(s * torch.exp(m - m_g), mesh, "model")
+            m = m_g
+            tl = all_reduce(torch.where(owned, tl, 0.0), mesh, "model")  # one shard owns each target
         ctx.save_for_backward(h, W, b, t, m, s)
-        ctx.chunk, ctx.N = chunk, N
+        ctx.chunk, ctx.mesh = chunk, mesh
         return torch.log(s) + m - tl
 
     @staticmethod
     def backward(ctx, g):
+        from seqrec_tpu_torch.parallel.collectives import all_reduce
+
         h, W, b, t, m, s = ctx.saved_tensors
-        chunk, N = ctx.chunk, ctx.N
-        bf16 = torch.bfloat16
-        Wp, bp, n_chunks = _pad_cols(W, b, chunk)
-        h16, Wp16 = h.to(bf16), Wp.to(bf16)
-        logz = (m + torch.log(s))[:, None]
-        cols = torch.arange(chunk, device=h.device)
-        dh = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
-        dW = torch.empty((W.shape[0], n_chunks * chunk), dtype=torch.float32, device=h.device)
-        db = torch.empty(n_chunks * chunk, dtype=torch.float32, device=h.device)
-        for i in range(n_chunks):
-            sl = slice(i * chunk, (i + 1) * chunk)
-            W_c = Wp16[:, sl]
-            p = torch.exp(mm_bf16(h16, W_c) + bp[sl] - logz)
-            onehot = cols[None, :] == (t - i * chunk)[:, None]
-            dl = (g[:, None] * (p - onehot.float())).to(bf16)
-            dW[:, sl] = mm_bf16(h16.t(), dl)
-            db[sl] = dl.float().sum(dim=0)
-            dh = dh + mm_bf16(dl, W_c.t())
-        return dh, dW[:, :N], db[:N], None, None
+        N = W.shape[1]
+        h16, Wp16, bp, n_chunks = _bf16_operands(h, W, b, ctx.chunk)
+        dh, dW, db = _chunk_grads(h16, Wp16, bp, t, m + torch.log(s), g, ctx.chunk, n_chunks)
+        if ctx.mesh is not None:
+            dh = all_reduce(dh, ctx.mesh, "model")
+        return dh, dW[:, :N], db[:N], None, None, None, None
 
 
 def streaming_cce(h, W, b, targets, compute_dtype: str = "float32", chunk: int | None = None,
@@ -291,7 +329,7 @@ def streaming_cce(h, W, b, targets, compute_dtype: str = "float32", chunk: int |
     if check_targets and len(targets) and bool(((targets < 0) | (targets >= N)).any()):
         raise ValueError(f"streaming_cce: a target is outside the catalog [0, {N})")
     if compute_dtype == "bfloat16":
-        return _StreamingCCEChunks.apply(h, W, b, targets, chunk or pick_chunk(N))
+        return _StreamingCCEChunks.apply(h, W, b, targets, chunk or pick_chunk(N), None, 0)
     if compute_dtype != "float32":
         raise ValueError(f"streaming_cce: compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
     return _StreamingCCE.apply(h, W, b, targets)
@@ -330,7 +368,8 @@ class _ShardedStreamingCCE(torch.autograd.Function):
         return all_reduce(dh, ctx.mesh, "model"), dW, db, None, None, None
 
 
-def sharded_streaming_cce(h, W, b, targets, mesh, col0: int, check_targets: bool = True):
+def sharded_streaming_cce(h, W, b, targets, mesh, col0: int, check_targets: bool = True,
+                          compute_dtype: str = "float32", chunk: int | None = None):
     """Per-example CCE [B] over a catalog whose columns are sharded over
     the mesh's "model" axis: W [H, N/M] and b [N/M] are this rank's
     columns, from ``col0`` on; h [B, H] and the global targets [B] are the
@@ -339,10 +378,17 @@ def sharded_streaming_cce(h, W, b, targets, mesh, col0: int, check_targets: bool
     SUM over "model", the target logit summed from the shard that owns
     it. Backward: K2's gradient kernel with the targets relative to the
     shard (another shard's target: -1), then dh summed over "model". The
-    result is the same on every model rank. f32 only (``--bf16`` under a
-    mesh comes with a later slice). ``check_targets`` as in
-    :func:`streaming_cce`, against the whole catalog."""
+    result is the same on every model rank. ``compute_dtype="bfloat16"``
+    runs the bf16 chunk loop on the local columns instead, ``chunk``
+    columns at a time (default :func:`pick_chunk` of the shard's width, as
+    the JAX package's), combined the same way: K2 is f32 only.
+    ``check_targets`` as in :func:`streaming_cce`, against the whole
+    catalog."""
     N = W.shape[1] * mesh.shape["model"]
     if check_targets and len(targets) and bool(((targets < 0) | (targets >= N)).any()):
         raise ValueError(f"sharded_streaming_cce: a target is outside the catalog [0, {N})")
+    if compute_dtype == "bfloat16":
+        return _StreamingCCEChunks.apply(h, W, b, targets, chunk or pick_chunk(W.shape[1]), mesh, col0)
+    if compute_dtype != "float32":
+        raise ValueError(f"sharded_streaming_cce: compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
     return _ShardedStreamingCCE.apply(h, W, b, targets, mesh, col0)

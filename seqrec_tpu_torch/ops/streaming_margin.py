@@ -38,7 +38,8 @@ the default targets, chunked by ``pick_chunk(N / M)``, and the
 per-example partials are summed over "model"; in the backward the
 partial dh is summed over "model" and dW and db stay on their shard. The
 correction gathers its K special columns of each example from their
-shards (``parallel/columns.py:gather_columns``).
+shards (``parallel/columns.py:gather_columns``). Both take the compute
+dtype, as on one device (``streaming_margin.py:411-425``).
 """
 
 from __future__ import annotations
@@ -165,8 +166,9 @@ def margin_special_correction(h, W, b, tgt_ids, seen_ids, w_neg, default_target,
     correction subtracts what the scan added): with bf16 compute, operands
     rounded to bf16 (``x.bfloat16().float()``, whose autograd rounds the
     cotangents to bf16 as the JAX package's casts do) and f32 sums. With a
-    ``mesh``, W and b are this rank's columns from ``col0`` on (f32 only)
-    and the special columns are gathered from their shards;
+    ``mesh``, W and b are this rank's columns from ``col0`` on and the
+    special columns are gathered from their shards (exact f32 values,
+    rounded after the gather);
     ``default_target`` and ``n_items`` stay the whole catalog's."""
     B, T = tgt_ids.shape
     L = seen_ids.shape[1]
@@ -218,32 +220,36 @@ def streaming_margin(h, W, b, tgt_ids, seen_ids, w_neg, default_target,
 # ----------------------------------------------------------------------
 # over a mesh whose "model" axis shards W's columns
 # ----------------------------------------------------------------------
-def sharded_streaming_margin_uniform(h, W, b, w_neg, default_target, mesh, loss_name: str, chunk: int | None = None):
+def sharded_streaming_margin_uniform(h, W, b, w_neg, default_target, mesh, loss_name: str, chunk: int | None = None,
+                                     compute_dtype: str = "float32"):
     """:func:`streaming_margin_uniform` over this rank's columns W [H, N/M],
     b and ``default_target`` [N/M] (its slice), h [B, H] and w_neg [B] the
     rank's rows (the same on every model rank): the per-example partials
     summed over "model" (the margin losses sum over columns). Backward:
-    the partial dh summed over "model" (``copy_to_model``), dW and db
-    local. ``chunk`` defaults to ``pick_chunk(N / M)``. f32 only."""
+    the partial dh (f32 sums, also of bf16 products) summed over "model"
+    (``copy_to_model``), dW and db local. ``chunk`` defaults to
+    ``pick_chunk(N / M)``; the products in ``compute_dtype``."""
     if chunk is None:
         chunk = pick_chunk(W.shape[1])
-    part = streaming_margin_uniform(copy_to_model(h, mesh), W, b, w_neg, default_target, loss_name, chunk)
+    part = streaming_margin_uniform(copy_to_model(h, mesh), W, b, w_neg, default_target, loss_name, chunk,
+                                    compute_dtype)
     return reduce_from_model(part, mesh)
 
 
 def sharded_streaming_margin(h, W, b, tgt_ids, seen_ids, w_neg, default_target, mesh, col0: int,
-                             loss_name: str, unique: bool, chunk: int | None = None):
+                             loss_name: str, unique: bool, chunk: int | None = None, compute_dtype: str = "float32"):
     """Per-example margin loss [B] of :func:`streaming_margin` over a
     catalog whose columns are sharded over the mesh's "model" axis: W [H,
     N/M] and b [N/M] are this rank's columns from ``col0`` on,
-    ``default_target`` [N] the whole catalog's, the id arrays global. The
-    result is the same on every model rank."""
+    ``default_target`` [N] the whole catalog's, the id arrays global; the
+    products in ``compute_dtype``. The result is the same on every model
+    rank."""
     n_local = W.shape[1]
     uniform = sharded_streaming_margin_uniform(
-        h, W, b, w_neg, default_target[col0 : col0 + n_local], mesh, loss_name, chunk
+        h, W, b, w_neg, default_target[col0 : col0 + n_local], mesh, loss_name, chunk, compute_dtype
     )
     corr = margin_special_correction(
         h, W, b, tgt_ids, seen_ids, w_neg, default_target, loss_name, unique, n_local * mesh.shape["model"],
-        mesh=mesh, col0=col0,
+        compute_dtype, mesh=mesh, col0=col0,
     )
     return uniform + corr

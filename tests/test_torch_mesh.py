@@ -26,9 +26,11 @@ package runs here, on ``tests/conftest.py``'s 8 virtual devices, as
 - two ranks: the train CLI at ``--mesh 2,1 --spd 2`` for 16 steps (progress
   costs within 1e-4 of the port's single-device CLI; only rank 0 writes
   the checkpoints, the same files and keys), the test CLI of BPRMF, FPMC,
-  FISM and Fossil at ``--mesh 1,2`` (the single-device lists), and the
-  refusals (LTM, ``--lazy_updates`` and ``--bf16`` on two ranks, a mesh
-  that is not the world).
+  FISM and Fossil at ``--mesh 1,2`` (the single-device lists), the
+  refusals (LTM, a mesh that is not the world), and BPR with
+  ``--lazy_updates`` and with ``--bf16`` at ``--mesh 2,1``, which two
+  ranks once refused and now train (costs within 1e-4 of the
+  single-device CLI's).
 
 Each spawning test waits at most ``TIMEOUT`` seconds, and kills every
 worker when one fails or the time is up.
@@ -416,6 +418,12 @@ def cli_results(tmp_path_factory):
     ds = make_dataset(str(out / "ds"), n_users=120, n_items=60, min_len=8, max_len=24, seed=3)
     _, text = _run(torch_train_cli.main, ["-d", ds, *CLI_BASE, "--dir", "single/"])
     single_costs = [float(c) for c in re.findall(r"Last train cost :  (\S+)", text)]
+    bpr = ["-d", ds, "-m", "RNN", "--loss", "BPR", "--sampling", "8", "--r_l", "8", "-b", "8", "--max_iter", "16",
+           "--progress", "8", "--device", "cpu"]
+    runs = {"later_slice": bpr + ["--lazy_updates"], "bf16": bpr + ["--bf16"]}
+    run_costs = {name: [float(c) for c in re.findall(r"Last train cost :  (\S+)",
+                                                     _run(torch_train_cli.main, argv + ["--dir", f"single_{name}/"])[1])]
+                 for name, argv in runs.items()}
     mf_lists = {}
     for name, flags in MF.items():
         argv = ["-d", ds, *flags, "--device", "cpu"]
@@ -425,12 +433,9 @@ def cli_results(tmp_path_factory):
     args = {
         "train_argv": ["-d", ds, *CLI_BASE, "--mesh", "2,1"],
         "mf_test_argv": {name: ["-d", ds, *flags, "--device", "cpu"] for name, flags in MF.items()},
+        "runs": {name: argv + ["--mesh", "2,1"] for name, argv in runs.items()},
         "refusals": {
             "ltm": ["-d", ds, "-m", "LTM", "-H", "8", "--mesh", "2,1", "--device", "cpu"],
-            "later_slice": ["-d", ds, "-m", "RNN", "--loss", "BPR", "--sampling", "8", "--r_l", "8", "-b", "8",
-                            "--lazy_updates", "--mesh", "2,1", "--device", "cpu"],
-            "bf16": ["-d", ds, "-m", "RNN", "--loss", "BPR", "--sampling", "8", "--r_l", "8", "-b", "8",
-                     "--bf16", "--mesh", "2,1", "--device", "cpu"],
             "world": ["-d", ds, *CLI_BASE, "--mesh", "2,2"],
         },
     }
@@ -441,6 +446,8 @@ def cli_results(tmp_path_factory):
     for r in range(2):
         with open(out / f"cli_rank{r}.json") as f:
             ranks.append(json.load(f))
+    for res in ranks:
+        res["run_costs_single"] = run_costs
     return ds, single_costs, mf_lists, ranks
 
 
@@ -484,11 +491,15 @@ def test_two_rank_mf_test_cli_matches_single_device(cli_results, model):
 
 
 def test_mesh_refusals(cli_results):
+    """LTM and a mesh that is not the world are refused; BPR with
+    --lazy_updates (``later_slice``) and with --bf16, once refused on two
+    ranks, train and match the single-device CLI's costs."""
     _, _, _, ranks = cli_results
     for res in ranks:
         ref = res["refusals"]
         assert ref["ltm"][0] == "ValueError" and "--mesh is supported for the RNN/SDAE/cluster families" in ref["ltm"][1]
-        assert ref["later_slice"] == ["NotImplementedError",
-                                      "--mesh for --lazy_updates comes with a later slice of the port"]
-        assert ref["bf16"] == ["NotImplementedError", "--mesh for --bf16 comes with a later slice of the port"]
         assert ref["world"] == ["ValueError", "--mesh 2,2 asks for 2x2 devices but the pod exposes 1x2"]
+        for name in ("later_slice", "bf16"):
+            want = res["run_costs_single"][name]
+            assert len(want) == 2
+            np.testing.assert_allclose(res["runs"][name], want, rtol=1e-4, err_msg=name)

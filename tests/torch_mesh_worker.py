@@ -1,5 +1,6 @@
-"""Worker process of ``tests/test_torch_mesh.py`` and
-``tests/test_torch_mesh_heads.py``: one rank of a gloo
+"""Worker process of ``tests/test_torch_mesh.py``,
+``tests/test_torch_mesh_heads.py`` and ``tests/test_torch_mesh_precision.py``:
+one rank of a gloo
 process group on the CPU, running the port (and only the port: no JAX)
 under a ("data", "model") mesh.
 
@@ -123,16 +124,23 @@ def _cli(main, argv):
     return result, buf.getvalue()
 
 
+def _costs(text) -> list:
+    return [float(c) for c in re.findall(r"Last train cost :  (\S+)", text)]
+
+
 def cli(out, inp, args):
     """The train CLI at --mesh 2,1 --spd 2, the test CLI of the
-    factorization family at --mesh 1,2, and the refusals."""
+    factorization family at --mesh 1,2, the train CLI's runs of
+    ``args["runs"]`` (their progress costs) and the refusals."""
     import seqrec_tpu_torch.cli.test as test_cli
     import seqrec_tpu_torch.cli.train as train_cli
 
     rank = dist.get_rank()
     res = {}
     _, text = _cli(train_cli.main, args["train_argv"] + ["--dir", f"rank{rank}/"])
-    res["costs"] = [float(c) for c in re.findall(r"Last train cost :  (\S+)", text)]
+    res["costs"] = _costs(text)
+    res["runs"] = {name: _costs(_cli(train_cli.main, argv + ["--dir", f"{name}_r{rank}/"])[1])
+                   for name, argv in args.get("runs", {}).items()}
     res["mf_lists"] = {}
     for name, argv in args["mf_test_argv"].items():
         ev, _ = _cli(test_cli.main, argv + ["--mesh", "1,2"])
@@ -160,18 +168,20 @@ def head_model(spec, handler, mesh=None):
     from seqrec_tpu_torch.models.cluster import FISMCluster, RNNCluster
     from seqrec_tpu_torch.models.recurrent import RecurrentLayers
     from seqrec_tpu_torch.models.rnn_margin import RNNMargin
+    from seqrec_tpu_torch.models.rnn_one_hot import RNNOneHot
     from seqrec_tpu_torch.models.rnn_sampling import RNNSampling
     from seqrec_tpu_torch.models.sdae import StackedDenoisingAutoencoder
     from seqrec_tpu_torch.models.updates import Adam
 
     classes = {"RNNSampling": RNNSampling, "RNNMargin": RNNMargin, "RNNCluster": RNNCluster,
-               "FISMCluster": FISMCluster, "SDA": StackedDenoisingAutoencoder}
+               "FISMCluster": FISMCluster, "SDA": StackedDenoisingAutoencoder, "RNNOneHot": RNNOneHot}
     kw = dict(spec["kw"])
     streaming = kw.pop("streaming", False)
     if spec["tower"]:
         kw["recurrent_layer"] = RecurrentLayers(layer_type=spec["tower"], layers=[16],
                                                 embedding_size=spec.get("emb", 0))
-    model = classes[spec["cls"]](updater=Adam(0.01), device="cpu", **kw)
+    model = classes[spec["cls"]](updater=Adam(0.01, moment_dtype=spec.get("moments", "float32")), device="cpu",
+                                 **kw)
     if streaming:
         model.streaming_min_items = 1
     model.prepare_model(handler)
@@ -273,7 +283,85 @@ def heads_cli(out, inp, args):
         json.dump(res, f)
 
 
-SCENARIOS = {"ops": ops, "step": step, "cli": cli, "heads": heads, "heads_cli": heads_cli}
+# ----------------------------------------------------------------------
+# --lazy_updates, --bf16 and bf16 Adam moments on the mesh
+# (tests/test_torch_mesh_precision.py)
+# ----------------------------------------------------------------------
+def _batch_of(inp, prefix):
+    return {k[len(prefix):]: v for k, v in inp.items() if k.startswith(prefix)}
+
+
+def precision(out, inp, args):
+    """At a 2x2 mesh, per case of ``args["cases"]``: two train steps on the
+    rows of its two batches; after each the global cost, the gathered
+    tables and the gathered optimizer leaves (``_opt_leaves``), the same on
+    every rank."""
+    from seqrec_tpu_torch.data import DataHandler
+
+    mesh = make_mesh(2, 2, device="cpu")
+    handler = DataHandler(args["dataset"])
+    res = {}
+    for name, spec in args["cases"].items():
+        model = head_model(spec, handler, mesh)
+        for step in range(2):
+            batch = _batch_of(inp, f"batch_{name}/{step}/")
+            res[f"{name}/{step}/cost"] = model._step(model._device_batch(batch_rows(batch, mesh)))
+            # copies: a replicated leaf is the live tensor, which the next step updates in place
+            res.update({f"{name}/{step}/{k}": torch.tensor(v) for k, v in _head_leaves(model).items()})
+            for i, leaf in enumerate(model._opt_leaves()):
+                res[f"{name}/{step}/opt{i}"] = torch.as_tensor(leaf).clone()
+    np.savez(os.path.join(out, f"precision_rank{dist.get_rank()}.npz"),
+             **{k: (v.view(torch.int16) if v.dtype == torch.bfloat16 else v).numpy() for k, v in res.items()})
+
+
+def precision_cli(out, inp, args):
+    """Two ranks: one step of bf16-moment Adam at each of ``args["moments"]``'
+    meshes (the gathered optimizer leaves); a lazy model at --mesh 1,2 that
+    steps once and saves with its optimizer state (rank 0 writes), and a
+    fresh one that loads that checkpoint there and steps again (its cost);
+    then the train CLI's runs of ``args["runs"]`` (their progress costs)
+    and the optimizer state of each model of ``args["refusals"]`` there."""
+    import seqrec_tpu_torch.cli.train as train_cli
+    from seqrec_tpu_torch.data import DataHandler
+
+    rank = dist.get_rank()
+    handler = DataHandler(args["dataset"])
+    res = {}
+    arrays = {}
+    for shape in args["moments"]:
+        mesh = make_mesh(*shape, device="cpu")
+        model = head_model(args["moments_case"], handler, mesh)
+        model._step(model._device_batch(batch_rows(_batch_of(inp, "moments/"), mesh)))
+        for i, leaf in enumerate(model._opt_leaves()):
+            leaf = torch.as_tensor(leaf)
+            arrays[f"moments_{shape[0]}x{shape[1]}/opt{i}"] = (
+                leaf.view(torch.int16) if leaf.dtype == torch.bfloat16 else leaf).numpy()
+    mesh = make_mesh(1, 2, device="cpu")
+    model = head_model(args["lazy_case"], handler, mesh)
+    model.save_optimizer_state = True
+    model._step(model._device_batch(batch_rows(_batch_of(inp, "lazy/0/"), mesh)))
+    model.save(args["checkpoint"])
+    dist.barrier()
+    again = head_model(args["lazy_case"], handler, mesh)
+    again.load(args["checkpoint"])
+    res["lazy_next_cost"] = float(again._step(again._device_batch(batch_rows(_batch_of(inp, "lazy/1/"), mesh))))
+    res["runs"] = {name: _costs(_cli(train_cli.main, argv + ["--dir", f"{name}_r{rank}/"])[1])
+                   for name, argv in args["runs"].items()}
+    refusals = {}
+    for name, spec in args["refusals"].items():
+        try:
+            head_model(spec, handler, mesh)._init_opt_state()
+            refusals[name] = None
+        except ValueError as exc:
+            refusals[name] = str(exc)
+    res["refusals"] = refusals
+    np.savez(os.path.join(out, f"precision_cli_rank{rank}.npz"), **arrays)
+    with open(os.path.join(out, f"precision_cli_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+SCENARIOS = {"ops": ops, "step": step, "cli": cli, "heads": heads, "heads_cli": heads_cli, "precision": precision,
+             "precision_cli": precision_cli}
 
 
 def main() -> int:
