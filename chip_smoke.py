@@ -37,19 +37,20 @@ Phases, each printing one JSON line with its seconds:
    the kernel's bound (for the 3xTF32 kernels K2 and K4 also the f32
    bound): per call with CUDA events (median
    of at least 20 runs after warm-up; host launch time included) and as
-   device time from torch.profiler (mean of 20 calls).
+   device time from torch.profiler (mean of 20 calls); the plain version
+   over PLAIN_REPS calls each way.
 3. main_path (serving): write an ML-1M-scale synthetic dataset, save a
    GRU-50 CCE model from seed 0, run the port's test CLI on the card with
    every launch counter at 0, check that K3 and K4 were launched, run the
    CLI again on the CPU and check that both give the same top-10 lists;
    then time a serving pass of 4096 users at eval chunks of 64 and 512.
 4. main_path_train (flagship): with every counter at 0, train GRU-50 CCE
-   (L=30, B=16, Adam 1e-3) through the train CLI on the card, with two
-   validations; check that K1 (forward and backward), K3 and K4 ran and K2
-   did not (dense head), and the gather-sum kernels ran; check that the
-   first 20 step costs agree with the
-   CLI on the CPU; test the trained checkpoint with the test CLI on the
-   card; time steady training steps and profile them.
+   (L=30, B=16, Adam 1e-3) through the train CLI on the card for 1,000
+   steps, with two validations; check that K1 (forward and backward), K3
+   and K4 ran and K2 did not (dense head), and the gather-sum kernels
+   ran; check that the first 20 step costs agree with the CLI on the CPU;
+   test the trained checkpoint with the test CLI on the card; time steady
+   training steps and profile them.
 5. main_path_train (large catalog): write a synthetic dataset of about
    50,000 items (streaming head), with every counter at 0 train GRU-128 at
    B=1024 for 30 steps and one validation through the train CLI; check
@@ -73,9 +74,9 @@ Phases, each printing one JSON line with its seconds:
 8. main_path_train_heads: the sampled and margin heads at
    scripts/quality_run_regime2.sh's GRU-50, B=64, Adam 2e-3 on the
    ML-1M-scale dataset. With every counter at 0 before each run, train
-   through the train CLI on the card: BPR with 256 samples (300 steps, one
+   through the train CLI on the card: BPR with 256 samples (100 steps, one
    validation), Blackout with 256 pop^0.5 samples (50 steps, one
-   validation) and the dense hinge margin (300 steps, one validation);
+   validation) and the dense hinge margin (100 steps, one validation);
    check that K1 (forward and backward), the gather-sum kernels, K3 and K4
    ran and K2 did not, and that the first 20 step costs agree with the CLI
    on the CPU within 1e-4; run the test CLI on the BPR and hinge
@@ -91,7 +92,7 @@ Phases, each printing one JSON line with its seconds:
    Adam on W_out and b_out.
 10. main_path_train_cluster: RNNCluster at scripts/baseline_run2.sh's
    flags (GRU-50, B=64, 10 clusters, Blackout with 256 samples and 256
-   cluster samples, Adam 1e-3, --csn 0) on the ML-1M-scale dataset: 300
+   cluster samples, Adam 1e-3, --csn 0) on the ML-1M-scale dataset: 100
    steps and one validation through the train CLI on the card (K1, the
    gather-sum kernels and K3 must run, K2 and K4 not), the first 20 step
    costs against the CPU's within 1e-4, the test CLI with --clusters 10 on
@@ -107,7 +108,7 @@ Phases, each printing one JSON line with its seconds:
    the JAX package: every counter must stay at 0.
 13. main_path_train_sdae: the autoencoder at scripts/baseline_run2.sh's
    flags (-L 64-32-64, --in_do 0.2, B=64, Adam 1e-3): 20 step costs at
-   --do 0 against the CPU's, 300 steps at --do 0.3 and one validation,
+   --do 0 against the CPU's, 100 steps at --do 0.3 and one validation,
    the test CLI against the CPU's lists, steady steps; every counter at 0.
 14. main_path_train_ltm: a second ML-1M-scale dataset, ml1m_pp: the same
    generator rows written as ratings.dat and split by the port's numpy
@@ -141,10 +142,11 @@ Phases, each printing one JSON line with its seconds:
    ids a step) on the ML-1M-scale dataset with side tables drawn from a
    seed at ML-1M's widths (18 genres, 1-6 an item): the gather-sum pair
    on a real featured B16 and B1024 batch (timed, with their id runs);
-   with every counter at 0, 1,000 steps and two validations through the
+   with every counter at 0, 200 steps and two validations through the
    train CLI with the optimizer state saved through the async queue
-   (K1, G1, K3, K4 > 0, K2 = 0), then a resume with --load_last_model
-   under --profile whose checkpoint's Adam count goes on from 1,000;
+   (K1, G1, K3, K4 > 0, K2 = 0), then a resume of 100 steps with
+   --load_last_model under --profile whose checkpoint's Adam count goes
+   on from 200;
    the first 20 step costs against the CPU's within 1e-4; the test CLI
    with --save --save_rank on the last checkpoint on the card (K3 and
    G1; K4 stops at k = 64) and on the CPU: the same _full_rank lines,
@@ -157,10 +159,10 @@ Phases, each printing one JSON line with its seconds:
    paired runs (f32, bf16, bf16, f32; K2 > 0 only in the f32 ones).
 19. main_path_train_spd: the K-step dispatch. With every counter at 0
    before each run, through the train CLI on the card and then the CPU:
-   the flagship at --spd 8 on the index wire (480 steps, two validations;
+   the flagship at --spd 8 on the index wire (160 steps, two validations;
    K1, G1, K3, K4 > 0, K2 = 0), BPR with 256 samples and RNNCluster (--csn
    0) at scripts/baseline_run2.sh:30-33's and :53-56's flags at --spd 8
-   (240 steps, three validations): the same checkpoint names (epoch
+   (96 steps, three validations): the same checkpoint names (epoch
    stamps) and progress costs within 1e-4 of the CPU's, and the
    flagship's first 10 dispatch costs too; GRU-128 at B=1024 on the
    50k-item catalog at --spd 4 (32 steps: K2 > 0). The native sequence
@@ -169,12 +171,12 @@ Phases, each printing one JSON line with its seconds:
 20. main_path_mesh: the main path over a ("data", "model") mesh of
    torch.distributed ranks, one process a rank (this script with
    ``--mesh-rank``). One rank under NCCL: the flagship at --mesh 1,1 for
-   300 steps and three validations. Two ranks sharing the one card over
+   150 steps and three validations. Two ranks sharing the one card over
    gloo (NCCL refuses two ranks on one device): the flagship at --mesh
-   2,1 and 1,2 (100 steps, one validation; the vocab-parallel dense head,
+   2,1 and 1,2 (50 steps, one validation; the vocab-parallel dense head,
    W_in by rows), GRU-128 at B=1024 on a 50,000-item catalog (seed 9:
    an even catalog, so W_out shards and K2 runs on each shard) at --mesh
-   1,2 --spd 4 (32 steps, one validation), and the test CLI at --mesh 1,2
+   1,2 --spd 4 (16 steps, one validation), and the test CLI at --mesh 1,2
    on the single-device flagship checkpoint. Checks: each run's progress
    costs within 1e-4 of the single-device card run's, the mesh
    checkpoints written by rank 0 alone with the single-device keys and
@@ -185,21 +187,21 @@ Phases, each printing one JSON line with its seconds:
    the phase, and every rank process is killed. The other heads on the
    same two gloo ranks, each against a one-card run of its flags (the
    progress costs within 1e-4, the validation metrics equal, ASSR within
-   1e-5): BPR at --mesh 2,1 and 1,2 (100 steps, one validation, --save
+   1e-5): BPR at --mesh 2,1 and 1,2 (50 steps, one validation, --save
    Best; the test CLI at 1,2 on the one-card checkpoint, its lists equal,
    ties apart), the dense hinge at 1,2, the streaming hinge at GRU-128,
-   B=1024 on the even 50,000-item catalog at 1,2 (16 steps), RNNCluster
+   B=1024 on the even 50,000-item catalog at 1,2 (8 steps), RNNCluster
    at its default --csn, FISMCluster and SDA at --do 0.3, all at 1,2; in
    each rank K1, G1, K3 and K4 above 0 for the sampled and margin heads,
    K1, G1 and K3 for RNNCluster, G1 for FISMCluster, none for SDA. Then
    --lazy_updates and --bf16 on the same two ranks, each against its
-   one-card run alike: the flagship with --lazy_updates at 2,1 (100
+   one-card run alike: the flagship with --lazy_updates at 2,1 (50
    steps; W_in's rows from both data ranks' ids), at GRU-128, B=1024 on
-   the even catalog at 1,2 (16 steps) lazy BPR (W_out's columns on
+   the even catalog at 1,2 (8 steps) lazy BPR (W_out's columns on
    25,000-column shards) and the lazy CCE (K2 on each shard, the rows of
    a row-sharded W_in), --bf16 --u_moments bfloat16 (K2 at 0: the bf16
    chunk loop on each shard; the moments' noise drawn in the full
-   shapes), and the dense hinge with --bf16 at 1,2 (100 steps); in each
+   shapes), and the dense hinge with --bf16 at 1,2 (50 steps); in each
    rank K1, G1, K3 and K4 above 0, K2 too for the lazy CCE. Then K2
    (every other target -1), K4 and G1 at their per-shard shapes (and G1
    on FISM's bag and on the cluster rows of a shard, K1 and K4 at the 32
@@ -207,14 +209,18 @@ Phases, each printing one JSON line with its seconds:
 
 Any failed check raises, and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. The last lines are
-the card's name and power limit, the kernels summary, and
-``{"ok": true, "device": {...}}``. Builds and datasets go under ``build/``
-of the checkout; TF32 is off throughout.
+the run's total seconds (with each phase's), the card's name and power
+limit, the kernels summary, and
+``{"ok": true, "device": {...}}``. The whole run takes about seven to ten
+minutes on an H100 (PERF.md section 5 has the newest run's seconds); it
+must end within 1,200 s. Builds and datasets go under ``build/`` of the checkout; TF32 is
+off throughout.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -326,6 +332,10 @@ MF_RUNS = {
 }
 
 
+# each phase's seconds, for the run's total line
+PHASE_SECONDS: dict = {}
+
+
 def wrapper(name):
     import importlib
 
@@ -346,6 +356,8 @@ def read_counters() -> dict:
 
 
 def emit(obj) -> None:
+    if "phase" in obj and "seconds" in obj:
+        PHASE_SECONDS.setdefault(obj["phase"], []).append(obj["seconds"])
     print(json.dumps(obj), flush=True)
 
 
@@ -427,6 +439,22 @@ def device_ms(fn, reps: int = 20) -> float:
     kernel's launches now and then) is not counted as no time."""
     fn()
     return sum(ms / n * max(1, round(n / reps)) for ms, n in device_events(fn, reps, counts=True).values())
+
+
+# calls of a plain version in its per-call and device times: a plain scan launches hundreds of
+# kernels a call, each an event for the profiler to sort, and no check reads the plain time
+PLAIN_REPS = 3
+
+
+def timings(*parts: dict) -> list:
+    """For each dict ``{label: fn}`` of ``parts``: ``{label}_ms`` per call
+    (CUDA events: the median of 30 calls) and ``{label}_device_ms``
+    (device_ms over 20 calls), both over PLAIN_REPS calls for the label
+    "plain"."""
+    return [{**{f"{label}_ms": time_ms(fn, reps=PLAIN_REPS, warmup=1) if label == "plain" else time_ms(fn)
+                for label, fn in fns.items()},
+             **{f"{label}_device_ms": device_ms(fn, reps=PLAIN_REPS if label == "plain" else 20)
+                for label, fn in fns.items()}} for fns in parts]
 
 
 def back_to_back_ms(fn, reps: int = 50) -> float:
@@ -570,13 +598,8 @@ def check_gru(B, L, H, seed, path, timed=True, empty_row=False, holes=False):
     n_bytes = 4 * (B * L * 3 * H + B * L + 3 * H * H + 2 * B * H)
     bound, bound_by = bound_ms(flops, n_bytes)
     out.update(
-        kernel_ms=time_ms(lambda: gru_scan(*args)),
-        plain_ms=time_ms(lambda: gru_scan_plain(*args)),
-        library_ms=time_ms(library),
-        kernel_device_ms=device_ms(lambda: gru_scan(*args)),
+        **timings({"kernel": lambda: gru_scan(*args), "plain": lambda: gru_scan_plain(*args), "library": library})[0],
         kernel_back_to_back_ms=back_to_back_ms(lambda: gru_scan(*args)),
-        plain_device_ms=device_ms(lambda: gru_scan_plain(*args)),
-        library_device_ms=device_ms(library),
         library="torch.nn.GRU (cuDNN), packed; includes a [B*L,3H]x[3H,3H] input product",
         library_max_abs_err=library_err,
         bound_ms=bound, bound_by=bound_by,
@@ -698,18 +721,10 @@ def check_gru_train(B, L, H, clip, seed, timed=True, empty_row=False, holes=Fals
 
     fwd = lambda: gru_scan_train_fwd(x, m, w, h0)  # noqa: E731
     bwd = lambda: gru_scan_train_bwd(x, m, w, hs, dh, clip)  # noqa: E731
-    out["fwd"] = dict(
-        zip(("bound_ms", "bound_by"), bound_ms(fwd_flops, fwd_bytes)),
-        kernel_ms=time_ms(fwd), plain_ms=time_ms(plain_fwd), library_ms=time_ms(lib_fwd),
-        kernel_device_ms=device_ms(fwd), plain_device_ms=device_ms(plain_fwd),
-        library_device_ms=device_ms(lib_fwd),
-    )
-    out["bwd"] = dict(
-        train_scan_bwd_bounds(fwd_flops, bwd_bytes, out["plan"]["bwd"][0]),
-        kernel_ms=time_ms(bwd), plain_ms=time_ms(plain_bwd), library_ms=time_ms(lib_bwd),
-        kernel_device_ms=device_ms(bwd), plain_device_ms=device_ms(plain_bwd),
-        library_device_ms=device_ms(lib_bwd),
-    )
+    t_fwd, t_bwd = timings({"kernel": fwd, "plain": plain_fwd, "library": lib_fwd},
+                           {"kernel": bwd, "plain": plain_bwd, "library": lib_bwd})
+    out["fwd"] = dict(zip(("bound_ms", "bound_by"), bound_ms(fwd_flops, fwd_bytes)), **t_fwd)
+    out["bwd"] = dict(train_scan_bwd_bounds(fwd_flops, bwd_bytes, out["plan"]["bwd"][0]), **t_bwd)
     out["library"] = "torch.nn.GRU (cuDNN), packed; forward, and backward alone (no hidden-cotangent clip)"
     return out
 
@@ -810,9 +825,7 @@ def check_lstm(B, L, H, seed, path, timed=True, empty_row=False, holes=False):
 
     out.update(
         dict(zip(("bound_ms", "bound_by"), bound_ms(flops, n_bytes))),
-        kernel_ms=time_ms(lambda: lstm_scan(*args)), plain_ms=time_ms(lambda: lstm_scan_plain(*args)),
-        library_ms=time_ms(lib), kernel_device_ms=device_ms(lambda: lstm_scan(*args)),
-        plain_device_ms=device_ms(lambda: lstm_scan_plain(*args)), library_device_ms=device_ms(lib),
+        **timings({"kernel": lambda: lstm_scan(*args), "plain": lambda: lstm_scan_plain(*args), "library": lib})[0],
         library="torch.nn.LSTM (cuDNN), packed; no peepholes; includes a [B*L,4H]x[4H,4H] input product",
     )
     return out
@@ -886,18 +899,10 @@ def check_lstm_train(B, L, H, clip, seed, timed=True, empty_row=False, holes=Fal
 
     fwd = lambda: lstm_scan_train_fwd(x, m, w, p, h0, c0)  # noqa: E731
     bwd = lambda: lstm_scan_train_bwd(x, m, w, p, hs, cs, dh, clip)  # noqa: E731
-    out["fwd"] = dict(
-        zip(("bound_ms", "bound_by"), bound_ms(flops, fwd_bytes)),
-        kernel_ms=time_ms(fwd), plain_ms=time_ms(plain_fwd), library_ms=time_ms(lib_fwd),
-        kernel_device_ms=device_ms(fwd), plain_device_ms=device_ms(plain_fwd),
-        library_device_ms=device_ms(lib_fwd),
-    )
-    out["bwd"] = dict(
-        train_scan_bwd_bounds(flops, bwd_bytes, out["plan"]["bwd"][0]),
-        kernel_ms=time_ms(bwd), plain_ms=time_ms(plain_bwd), library_ms=time_ms(lib_bwd),
-        kernel_device_ms=device_ms(bwd), plain_device_ms=device_ms(plain_bwd),
-        library_device_ms=device_ms(lib_bwd),
-    )
+    t_fwd, t_bwd = timings({"kernel": fwd, "plain": plain_fwd, "library": lib_fwd},
+                           {"kernel": bwd, "plain": plain_bwd, "library": lib_bwd})
+    out["fwd"] = dict(zip(("bound_ms", "bound_by"), bound_ms(flops, fwd_bytes)), **t_fwd)
+    out["bwd"] = dict(train_scan_bwd_bounds(flops, bwd_bytes, out["plan"]["bwd"][0]), **t_bwd)
     out["library"] = ("torch.nn.LSTM (cuDNN), packed; forward, and backward alone; no peepholes, no clip, "
                       "an extra [B*L,4H]x[4H,4H] input product")
     return out
@@ -1067,35 +1072,35 @@ def check_gather_sum(ids, D, N, seed, id_mask=None, timed=True):
     bag = lambda: nnf.embedding_bag(bag_ids, table, mode="sum", per_sample_weights=bag_w)  # noqa: E731
     bag_err = (bag().reshape(out_k.shape) - out_k).abs().max().item()
 
-    def bwd_parts(fn):
-        events = {kernel_name(k): v / 20 for k, v in device_events(fn, reps=20).items()}
-        foreign = set(events) - port_kernel_names()
-        if foreign:
-            raise AssertionError(f"gather_sum_bwd ran kernels that are not the port's at {ids.shape}: {sorted(foreign)}")
-        return dict(kernel_ms=time_ms(fn), kernel_device_ms=sum(events.values()),
-                    kernel_device_ms_by_kernel=dict(sorted(events.items(), key=lambda kv: -kv[1])))
-    plain_times = {d: (time_ms(fn), device_ms(fn)) for d, fn in (("fwd", plain_fwd), ("bwd", plain_bwd))}
-    out["fwd"] = dict(
-        zip(("bound_ms", "bound_by"), bound_ms(flops, fwd_bytes)),
-        kernel_ms=time_ms(fwd), kernel_device_ms=device_ms(fwd),
-        library_ms=time_ms(bag), library_device_ms=device_ms(bag), library_max_abs_err=bag_err,
-        library="F.embedding_bag(mode='sum', per_sample_weights=mask) over [P0, F] bags",
-    )
-    out["bwd"] = dict(
-        zip(("bound_ms", "bound_by"), bound_ms(flops, bwd_bytes)), **bwd_parts(bwd),
-        library="the plain version's backward (autograd of table[ids]: indexing_backward_kernel)",
-    )
-    for d, (ms, dev_ms) in plain_times.items():
-        out[d].update(plain_ms=ms, plain_device_ms=dev_ms)
-    out["bwd"].update(library_ms=plain_times["bwd"][0], library_device_ms=plain_times["bwd"][1])
     # index_add_ over the real slots' rows (times their mask), gathered outside the timing
     keep = ids_t.reshape(-1) >= 0
     flat_ids = ids_t.reshape(-1)[keep].long()
     rows = g.unsqueeze(-2).expand(*ids.shape, D) * (1.0 if m is None else m.unsqueeze(-1))
     rows = rows.reshape(-1, D)[keep].contiguous()
     index_add = lambda: torch.zeros(N, D, device="cuda").index_add_(0, flat_ids, rows)  # noqa: E731
-    out["bwd"].update(index_add_ms=time_ms(index_add), index_add_device_ms=device_ms(index_add),
-                      index_add="one index_add_ of the real slots' rows times their mask, gathered beforehand")
+
+    def bwd_parts(fn):
+        fn()
+        events = {}
+        for key, ms in device_events(fn, reps=20).items():
+            events[kernel_name(key)] = events.get(kernel_name(key), 0.0) + ms / 20
+        foreign = set(events) - port_kernel_names()
+        if foreign:
+            raise AssertionError(f"gather_sum_bwd ran kernels that are not the port's at {ids.shape}: {sorted(foreign)}")
+        return dict(kernel_ms=time_ms(fn), kernel_device_ms=sum(events.values()),
+                    kernel_device_ms_by_kernel=dict(sorted(events.items(), key=lambda kv: -kv[1])))
+    t_fwd, t_bwd = timings({"kernel": fwd, "plain": plain_fwd, "library": bag},
+                           {"plain": plain_bwd, "index_add": index_add})
+    out["fwd"] = dict(
+        zip(("bound_ms", "bound_by"), bound_ms(flops, fwd_bytes)), **t_fwd, library_max_abs_err=bag_err,
+        library="F.embedding_bag(mode='sum', per_sample_weights=mask) over [P0, F] bags",
+    )
+    out["bwd"] = dict(
+        zip(("bound_ms", "bound_by"), bound_ms(flops, bwd_bytes)), **bwd_parts(bwd), **t_bwd,
+        library_ms=t_bwd["plain_ms"], library_device_ms=t_bwd["plain_device_ms"],
+        library="the plain version's backward (autograd of table[ids]: indexing_backward_kernel)",
+        index_add="one index_add_ of the real slots' rows times their mask, gathered beforehand",
+    )
     return out
 
 
@@ -1169,19 +1174,11 @@ def check_cce(B, H, N, seed, timed=True, foreign=False):
     grads = lambda: cce_grads(h, w, b, targets, logz, g)  # noqa: E731
     plain_stats = lambda: cce_stats_plain(h, w, b)  # noqa: E731
     plain_grads = lambda: cce_grads_plain(h, w, b, targets, logz, g)  # noqa: E731
-    out["stats"] = dict(
-        product_bounds(2 * B * H * N, 4 * (B * H + H * N + N + 2 * B)),
-        kernel_ms=time_ms(stats), plain_ms=time_ms(plain_stats), library_ms=time_ms(lib_stats),
-        kernel_device_ms=device_ms(stats), plain_device_ms=device_ms(plain_stats),
-        library_device_ms=device_ms(lib_stats),
-    )
+    t_stats, t_grads = timings({"kernel": stats, "plain": plain_stats, "library": lib_stats},
+                               {"kernel": grads, "plain": plain_grads, "library": lib_grads})
+    out["stats"] = dict(product_bounds(2 * B * H * N, 4 * (B * H + H * N + N + 2 * B)), **t_stats)
     # three products (6 B H N)
-    out["grads"] = dict(
-        product_bounds(6 * B * H * N, 4 * (2 * (B * H + H * N + N) + 3 * B)),
-        kernel_ms=time_ms(grads), plain_ms=time_ms(plain_grads), library_ms=time_ms(lib_grads),
-        kernel_device_ms=device_ms(grads), plain_device_ms=device_ms(plain_grads),
-        library_device_ms=device_ms(lib_grads),
-    )
+    out["grads"] = dict(product_bounds(6 * B * H * N, 4 * (2 * (B * H + H * N + N) + 3 * B)), **t_grads)
     out["library"] = "stats: torch.logsumexp(h@W+b); grads: autograd of g-weighted F.cross_entropy on h@W+b (forward included)"
     return out
 
@@ -1266,16 +1263,11 @@ def check_topk(B, H, N, S, k, seed, seen_all_rows=0, timed=True, with_seen=True)
     }
     if timed:
         n_bytes = 4 * (B * H + H * N + N + 2 * B * S + 2 * B * k)
-        reps = 20 if N > 100_000 else 30
         out.update(
             product_bounds(2 * B * H * N, n_bytes),
-            kernel_ms=time_ms(lambda: fused_score_topk(*args, k=k), reps=reps),
-            plain_ms=time_ms(lambda: fused_score_topk_plain(*args, k=k), reps=reps),
-            library_ms=time_ms(lambda: torch_topk(*args, k), reps=reps),
-            kernel_device_ms=device_ms(lambda: fused_score_topk(*args, k=k)),
-            plain_device_ms=device_ms(lambda: fused_score_topk_plain(*args, k=k)),
-            library_device_ms=device_ms(lambda: torch_topk(*args, k)),
-            pad_device_ms=device_ms(lambda: (rows_16b(a["h"]), rows_16b(a["w_out"]))),
+            **timings({"kernel": lambda: fused_score_topk(*args, k=k),
+                       "plain": lambda: fused_score_topk_plain(*args, k=k), "library": lambda: torch_topk(*args, k),
+                       "pad": lambda: (rows_16b(a["h"]), rows_16b(a["w_out"]))})[0],
             library="h @ W + b, -inf scatter_add at the seen ids, torch.topk",
         )
     return out
@@ -1384,17 +1376,24 @@ def main_path(card):
     return launches
 
 
+@functools.lru_cache(maxsize=1)
+def ml1m_rows() -> np.ndarray:
+    """scripts/baseline_run.sh's rows: 6040 users over 3706 items (drawn
+    once a run: ml1m_dataset and ml1m_pp_dataset split them)."""
+    from seqrec_tpu_torch.data.synthetic import generate_interactions
+
+    return generate_interactions(n_users=6040, n_items=3706, min_len=20, max_len=310, markov_strength=0.45, seed=7)
+
+
 def ml1m_dataset() -> str:
-    """scripts/baseline_run.sh's dataset: 6040 users, 3706 items."""
-    from seqrec_tpu_torch.data.synthetic import make_dataset
+    """scripts/baseline_run.sh's dataset: 6040 users, 3706 items
+    (``make_dataset``'s split of ml1m_rows)."""
+    from seqrec_tpu_torch.data.synthetic import write_dataset
 
     path = os.path.join(WORK, "ml1m_synth")
     if os.path.exists(os.path.join(path, "data", "stats")):
         return path + "/"
-    return make_dataset(
-        path, n_users=6040, n_items=3706, min_len=20, max_len=310,
-        markov_strength=0.45, n_val_users=100, n_test_users=100, seed=7,
-    )
+    return write_dataset(path, ml1m_rows().copy(), n_val_users=100, n_test_users=100, seed=7)
 
 
 def ml1m_pp_dataset() -> tuple[str, dict]:
@@ -1403,15 +1402,13 @@ def ml1m_pp_dataset() -> tuple[str, dict]:
     preprocess.py splits them there; returns (the directory, the seconds of
     each step, None when the dataset was already there)."""
     from seqrec_tpu_torch.data import preprocess
-    from seqrec_tpu_torch.data.synthetic import generate_interactions
 
     path = os.path.join(WORK, "ml1m_pp")
     if os.path.exists(os.path.join(path, "data", "stats")):
         return path + "/", {"generate_s": None, "preprocess_s": None}
     os.makedirs(path, exist_ok=True)
     t0 = time.perf_counter()
-    rows = generate_interactions(n_users=6040, n_items=3706, min_len=20, max_len=310, markov_strength=0.45, seed=7)
-    np.savetxt(os.path.join(path, "ratings.dat"), rows, fmt="%d", delimiter="::")
+    np.savetxt(os.path.join(path, "ratings.dat"), ml1m_rows(), fmt="%d", delimiter="::")
     t1 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         preprocess.main(["-f", os.path.join(path, "ratings.dat"), *PP_FLAGS, "--yes"])
@@ -1582,7 +1579,7 @@ def main_path_train_flagship(card) -> dict:
 
     t_phase = time.perf_counter()
     ds_dir = ml1m_dataset()
-    argv = ["-d", ds_dir, *FLAGSHIP, "--max_iter", "3000", "--progress", "1500", "--save", "Best",
+    argv = ["-d", ds_dir, *FLAGSHIP, "--max_iter", "1000", "--progress", "500", "--save", "Best",
             "--dir", "chip_train/"]
     zero_counters()
     t0 = time.perf_counter()
@@ -1602,13 +1599,13 @@ def main_path_train_flagship(card) -> dict:
     ev = run_cli(test_cli.main, ["-d", ds_dir, *FLAGSHIP, "--dir", "chip_train/"])[0]
     emit({
         "phase": "main_path_train", "config": "flagship GRU-50 CCE, L=30, B=16, Adam 1e-3, dense head",
-        "launches": launches, "cli_cuda_s": cli_s, "iterations": 3000,
+        "launches": launches, "cli_cuda_s": cli_s, "iterations": 1000,
         "throughput_sequences_per_s": progress_values(text, "Throughput"),
         "train_cost": costs, "validation_sps@10": progress_values(text, "sps"), "best": best,
         "test_cli_metrics@10": {m: ev.metrics[m]() for m in ("sps", "recall", "item_coverage", "user_coverage")},
         "first_20_step_costs_cuda_vs_cpu_max_rel_diff": rel,
         "tolerance": "rel 1e-4 (f32 kernels vs the CPU's plain versions, 20 Adam steps)",
-        "steady": steady_state(FLAGSHIP, ds_dir, steps=300, warmup=20, profile_steps=50, card=card),
+        "steady": steady_state(FLAGSHIP, ds_dir, steps=150, warmup=20, profile_steps=20, card=card),
         "seconds": time.perf_counter() - t_phase,
     })
     return launches
@@ -1641,7 +1638,7 @@ def main_path_train_large(card) -> dict:
         "n_items": n_items, "launches": launches, "setup_s": setup_s, "cli_cuda_s": cli_s, "iterations": 30,
         "throughput_sequences_per_s": progress_values(text, "Throughput"),
         "train_cost": progress_values(text, "Last train cost"), "validation_sps@10": progress_values(text, "sps"),
-        "steady": steady_state(LARGE, ds_dir, steps=20, warmup=3, profile_steps=5, card=card),
+        "steady": steady_state(LARGE, ds_dir, steps=10, warmup=3, profile_steps=2, card=card),
         "seconds": time.perf_counter() - t_phase,
     })
     return launches
@@ -1711,7 +1708,7 @@ def main_path_train_lstm(card) -> tuple[dict, dict]:
         "test_cli": {"launches": serve_launches, "cuda_s": test_s, "test_users": len(recs_gpu),
                      "same_top10_as_cpu": True,
                      "metrics@10": {m: ev_gpu.metrics[m]() for m in ("sps", "recall", "item_coverage", "user_coverage")}},
-        "steady": steady_state(LSTM_LARGE, ds_dir, steps=20, warmup=3, profile_steps=5, card=card),
+        "steady": steady_state(LSTM_LARGE, ds_dir, steps=10, warmup=3, profile_steps=2, card=card),
         "seconds": time.perf_counter() - t_phase,
     })
     return train_launches, serve_launches
@@ -1745,23 +1742,23 @@ def head_run(ds_dir, flags, iters, n_costs, validates=True, save_dir=None) -> di
 
 def main_path_train_heads(card) -> dict:
     """The sampled and margin heads at scripts/quality_run_regime2.sh's
-    GRU-50/B64 on the ML-1M-scale dataset: BPR (300 steps, one validation),
+    GRU-50/B64 on the ML-1M-scale dataset: BPR (100 steps, one validation),
     Blackout with pop^0.5 samples (50 steps, one validation) and the dense
-    hinge margin (300 steps, one validation) through the train CLI on the
+    hinge margin (100 steps, one validation) through the train CLI on the
     card, each against the CPU's first 20 step costs; the test CLI on the
     BPR and hinge checkpoints against the CPU's top-10 lists; steady steps
     of BPR and hinge. Returns each run's launches."""
     t_phase = time.perf_counter()
     ds_dir = ml1m_dataset()
     runs = {
-        "bpr": head_run(ds_dir, HEADS_BPR, 300, 20, save_dir="chip_bpr/"),
+        "bpr": head_run(ds_dir, HEADS_BPR, 100, 20, save_dir="chip_bpr/"),
         "blackout": head_run(ds_dir, HEADS_BLACKOUT, 50, 20),
-        "hinge": head_run(ds_dir, HEADS_HINGE, 300, 20, save_dir="chip_hinge/"),
+        "hinge": head_run(ds_dir, HEADS_HINGE, 100, 20, save_dir="chip_hinge/"),
     }
     runs["bpr"]["test_cli"] = test_cli_lists(ds_dir, HEADS_BPR, "chip_bpr/", ran=GRU_EVAL_PATH + ("gather_sum_fwd",))
     runs["hinge"]["test_cli"] = test_cli_lists(ds_dir, HEADS_HINGE, "chip_hinge/", ran=GRU_EVAL_PATH + ("gather_sum_fwd",))
     for name, flags in (("bpr", HEADS_BPR), ("hinge", HEADS_HINGE)):
-        runs[name]["steady"] = steady_state(flags, ds_dir, steps=200, warmup=20, profile_steps=20, card=card)
+        runs[name]["steady"] = steady_state(flags, ds_dir, steps=100, warmup=20, profile_steps=20, card=card)
     emit({
         "phase": "main_path_train_heads", "config": "GRU-50, L=30, B=64, Adam 2e-3, ML-1M-scale synthetic (3,706 items)",
         "runs": runs, "tolerance": "step costs rel 1e-4 (f32 kernels and atomic column-gather backwards vs the CPU)",
@@ -1805,6 +1802,7 @@ def streaming_margin_parts(B, H, N, L, seed) -> dict:
     def dense():
         return torch.autograd.grad(dense_margin(h @ W + b, tgt, seen, w_neg, dt, "hinge", True).sum(), leaves)
 
+    parts = {"chunk_loop": loop, "correction": corr, "dense_margin": dense}
     with torch.no_grad():
         got = (streaming_margin_uniform(h, W, b, w_neg, dt, "hinge", chunk)
                + margin_special_correction(h, W, b, tgt, seen, w_neg, dt, "hinge", True, N))
@@ -1817,9 +1815,8 @@ def streaming_margin_parts(B, H, N, L, seed) -> dict:
     return {
         "shape": {"B": B, "H": H, "N": N, "chunk": chunk, "n_chunks": -(-N // chunk)},
         "max_abs_err": {k: v for k, (v, _) in errs.items()},
-        "chunk_loop_ms": time_ms(loop, reps=10), "chunk_loop_device_ms": device_ms(loop, reps=5),
-        "correction_ms": time_ms(corr, reps=10), "correction_device_ms": device_ms(corr, reps=5),
-        "dense_margin_ms": time_ms(dense, reps=10), "dense_margin_device_ms": device_ms(dense, reps=5),
+        **{f"{part}_ms": time_ms(fn, reps=10) for part, fn in parts.items()},
+        **{f"{part}_device_ms": device_ms(fn, reps=5) for part, fn in parts.items()},
         "timed": "forward and backward of the hinge loss with respect to h, W and b",
     }
 
@@ -1851,9 +1848,7 @@ def lazy_update_parts(H, N, n_cols, seed) -> dict:
     def dense():
         model.updater.step([W, b], [gW, gb], dense_state)
 
-    return {"shape": {"H": H, "N": N, "columns": n_cols},
-            "lazy_ms": time_ms(lazy), "lazy_device_ms": device_ms(lazy),
-            "dense_adam_ms": time_ms(dense), "dense_adam_device_ms": device_ms(dense)}
+    return {"shape": {"H": H, "N": N, "columns": n_cols}, **timings({"lazy": lazy, "dense_adam": dense})[0]}
 
 
 def main_path_train_heads_large(card) -> dict:
@@ -1876,7 +1871,7 @@ def main_path_train_heads_large(card) -> dict:
         "bpr_lazy": head_run(ds_dir, LARGE_BPR_LAZY, 30, 3, validates=False),
     }
     for name, flags in (("hinge_streaming", LARGE_HINGE), ("bpr_lazy", LARGE_BPR_LAZY)):
-        runs[name]["steady"] = steady_state(flags, ds_dir, steps=20, warmup=3, profile_steps=5, card=card)
+        runs[name]["steady"] = steady_state(flags, ds_dir, steps=10, warmup=3, profile_steps=2, card=card)
     emit({
         "phase": "main_path_train_heads_large", "config": "GRU-128, 50k-item synthetic catalog, L=30, B=1024, Adam 1e-3",
         "n_items": n_items, "runs": runs,
@@ -1897,14 +1892,14 @@ CLUSTER_VALIDATION = ("recall", "cluster_recall", "sps", "cluster_sps", "assr", 
 def main_path_train_cluster(card) -> dict:
     """RNNCluster at scripts/baseline_run2.sh's flags (GRU-50, B=64, 10
     clusters, Blackout with 256 samples and 256 cluster samples, Adam 1e-3)
-    on the ML-1M-scale dataset: 300 steps and one validation through the
+    on the ML-1M-scale dataset: 100 steps and one validation through the
     train CLI on the card (K1, G1 and K3 must launch, K2 and K4 not), the
     first 20 step costs against the CPU's, the test CLI with --clusters 10
     on the card and the CPU (the same lists and ASSR), steady steps.
     Returns the launches of the training run and of the test CLI."""
     t_phase = time.perf_counter()
     ds_dir = ml1m_dataset()
-    text, cli_s, launches = train_run(ds_dir, CLUSTER, 300, save_dir="chip_cluster/")
+    text, cli_s, launches = train_run(ds_dir, CLUSTER, 100, save_dir="chip_cluster/")
     ran = GRU_TRAIN_PATH + ("gru_scan",)
     if any(launches[k] == 0 for k in ran) or any(launches[k] for k in ("cce_stats", "cce_grads", "fused_score_topk")):
         raise AssertionError(f"RNNCluster's training path launched {launches}")
@@ -1913,13 +1908,13 @@ def main_path_train_cluster(card) -> dict:
     emit({
         "phase": "main_path_train_cluster", "config": "RNNCluster GRU-50, 10 clusters (mix), Blackout s256 cs256, "
         "L=30, B=64, Adam 1e-3, ML-1M-scale synthetic (3,706 items)",
-        "launches": launches, "cli_cuda_s": cli_s, "iterations": 300,
+        "launches": launches, "cli_cuda_s": cli_s, "iterations": 100,
         "train_cost": progress_values(text, "Last train cost"),
         "validation": {m: progress_values(text, m) for m in CLUSTER_VALIDATION},
         "first_20_step_costs_cuda_vs_cpu_max_rel_diff": rel, "csn": 0.0,
         "tolerance": "step costs rel 1e-4 (f32 kernels and atomic column-gather backwards vs the CPU)",
         "test_cli": test,
-        "steady": steady_state(CLUSTER, ds_dir, steps=200, warmup=20, profile_steps=20, card=card),
+        "steady": steady_state(CLUSTER, ds_dir, steps=100, warmup=20, profile_steps=20, card=card),
         "seconds": time.perf_counter() - t_phase,
     })
     return {"cluster": launches, "cluster_test_cli": test["launches"]}
@@ -1944,7 +1939,7 @@ def main_path_train_cluster_large(card) -> dict:
         "n_items": DataHandler(ds_dir).n_items, "launches": launches, "cli_cuda_s": cli_s, "iterations": 30,
         "train_cost": progress_values(text, "Last train cost"),
         "validation": {m: progress_values(text, m) for m in CLUSTER_VALIDATION},
-        "steady": steady_state(CLUSTER_LARGE, ds_dir, steps=20, warmup=3, profile_steps=5, card=card, validate=True),
+        "steady": steady_state(CLUSTER_LARGE, ds_dir, steps=10, warmup=3, profile_steps=2, card=card, validate=True),
         "seconds": time.perf_counter() - t_phase,
     })
     return launches
@@ -1982,7 +1977,7 @@ def main_path_train_sdae(card) -> dict:
     """The autoencoder at scripts/baseline_run2.sh's flags (-L 64-32-64,
     --in_do 0.2, B=64, Adam 1e-3) on the ML-1M-scale dataset: the first 20
     step costs at --do 0 against the CPU's (the layer dropout draws other
-    bits on each device), then 300 steps at --do 0.3 and one validation
+    bits on each device), then 100 steps at --do 0.3 and one validation
     through the train CLI, steady steps, and the test CLI on the card and
     the CPU. Its dense stack is plain matmuls (no port kernel, as in the JAX
     package), which the counters show. Returns the launches."""
@@ -1990,7 +1985,7 @@ def main_path_train_sdae(card) -> dict:
     ds_dir = ml1m_dataset()
     rel = cpu_step_costs(ds_dir, SDA + ["--do", "0"], 20)
     flags = SDA + ["--do", "0.3"]
-    text, cli_s, launches = train_run(ds_dir, flags, 300, save_dir="chip_sda/")
+    text, cli_s, launches = train_run(ds_dir, flags, 100, save_dir="chip_sda/")
     if any(n for k, n in launches.items() if k != "gru_scan_train_cluster") or any(launches["gru_scan_train_cluster"]):
         raise AssertionError(f"the autoencoder launched a port kernel: {launches}")
     emit({
@@ -1999,10 +1994,10 @@ def main_path_train_sdae(card) -> dict:
         "launches": launches, "no_port_kernel": "by the JAX package's design: XLA matmuls",
         "first_20_step_costs_at_do0_cuda_vs_cpu_max_rel_diff": rel,
         "tolerance": "step costs rel 1e-4 (f32 products vs the CPU)",
-        "cli_cuda_s": cli_s, "iterations": 300, "train_cost": progress_values(text, "Last train cost"),
+        "cli_cuda_s": cli_s, "iterations": 100, "train_cost": progress_values(text, "Last train cost"),
         "validation_sps@10": progress_values(text, "sps"), "throughput_sequences_per_s": progress_values(text, "Throughput"),
         "test_cli": test_cli_lists(ds_dir, flags, "chip_sda/"),
-        "steady": steady_state(flags, ds_dir, steps=200, warmup=20, profile_steps=20, card=card),
+        "steady": steady_state(flags, ds_dir, steps=100, warmup=20, profile_steps=20, card=card),
         "seconds": time.perf_counter() - t_phase,
     })
     return launches
@@ -2569,7 +2564,7 @@ def main_path_train_features(card) -> tuple[dict, dict]:
     """The featured flagship (FEATURED: GRU-50 CCE, --rf --mf --uf, F=14)
     on the ML-1M-scale dataset with seeded side tables: G1 on one real
     featured B16 batch and one B1024 batch (timed, id runs); with every
-    counter at 0, 1,000 steps and two validations through the train CLI,
+    counter at 0, 200 steps and two validations through the train CLI,
     saving with the optimizer state through the async queue (K1, G1, K3,
     K4 > 0, K2 = 0); a resume with --load_last_model under --profile (the
     checkpoint's Adam count continues: the optimizer state was read); the
@@ -2606,8 +2601,8 @@ def main_path_train_features(card) -> tuple[dict, dict]:
     runs, texts = {}, {}
     RNNBase.save_optimizer_state = True
     try:
-        for run, extra in (("train_cli", ["--max_iter", "1000", "--progress", "500"]),
-                           ("resume_cli", ["--max_iter", "200", "--progress", "200", "--load_last_model",
+        for run, extra in (("train_cli", ["--max_iter", "200", "--progress", "100"]),
+                           ("resume_cli", ["--max_iter", "100", "--progress", "100", "--load_last_model",
                                            "--profile", prof_dir])):
             argv = ["-d", ds_dir, *FEATURED, *extra, "--save", "All", "--dir", "chip_feat/"]
             zero_counters()
@@ -2626,7 +2621,7 @@ def main_path_train_features(card) -> tuple[dict, dict]:
     finally:
         RNNBase.save_optimizer_state = False
     counts = runs["resume_cli"]["opt_counts"]
-    if runs["train_cli"]["opt_counts"] != [500, 1000] or counts != [500, 1000, 1200]:
+    if runs["train_cli"]["opt_counts"] != [100, 200] or counts != [100, 200, 300]:
         raise AssertionError(f"async saves with optimizer state: {runs['train_cli']['opt_counts']}, then {counts}")
     if "Starting from model" not in texts["resume_cli"]:
         raise AssertionError("--load_last_model did not start from the last checkpoint")
@@ -2669,12 +2664,12 @@ def main_path_train_features(card) -> tuple[dict, dict]:
         "input_rows": rows, "runs": runs, "first_20_step_costs_cuda_vs_cpu_max_rel_diff": rel,
         "tolerance": "step costs rel 1e-4 (f32 kernels vs the CPU's plain versions, 20 Adam steps); full rank: "
                      "equal lines, or both positions in the goal's band of CPU scores within 1e-4 max|score|",
-        "async_saves_with_optimizer_state": {"opt_counts": counts, "resumed_from_count": 1000},
+        "async_saves_with_optimizer_state": {"opt_counts": counts, "resumed_from_count": 200},
         "save_rank": {"launches": test_launches, "cuda_s": test_s, "full_rank_file_lines": len(ranks["cuda"]),
                       "same_as_cpu": same, "metrics@10": metrics},
         "gather_sum": {name: {"ids": c["shape"]["ids"], "id_runs": c["id_runs"], "fwd": c["fwd"], "bwd": c["bwd"],
                               "max_abs_err": c["max_abs_err"]} for name, c in checks.items()},
-        "steady": steady_state(FEATURED, ds_dir, steps=300, warmup=20, profile_steps=50, card=card),
+        "steady": steady_state(FEATURED, ds_dir, steps=150, warmup=20, profile_steps=20, card=card),
         "seconds": time.perf_counter() - t_phase,
     })
     return {run: r["launches"] for run, r in runs.items()} | {"test_cli": test_launches}, checks
@@ -2700,7 +2695,7 @@ def main_path_train_bf16(card) -> dict:
     for flags in (LARGE, LARGE_BF16, LARGE_BF16, LARGE):
         bf16 = "--bf16" in flags
         zero_counters()
-        st = steady_state(flags, ds_dir, steps=20, warmup=3, profile_steps=5, card=card)
+        st = steady_state(flags, ds_dir, steps=10, warmup=3, profile_steps=2, card=card)
         k2 = wrapper("cce_stats").launches + wrapper("cce_grads").launches
         if (k2 > 0) == bf16:
             raise AssertionError(f"K2 launched {k2} times in a {'bf16' if bf16 else 'f32'} run")
@@ -2809,7 +2804,7 @@ def main_path_train_spd(card) -> dict:
     a step, K3 and K4 in its two validations, no K2) against the CPU's
     progress costs and checkpoint names; BPR and RNNCluster at
     scripts/baseline_run2.sh's flags at --spd 8 (RNNCluster at --csn 0),
-    240 steps each; GRU-128 at B=1024 on the 50k-item catalog at --spd 4
+    96 steps each; GRU-128 at B=1024 on the 50k-item catalog at --spd 4
     (K2 must launch); the native sequence parser on this machine."""
     from seqrec_tpu_torch.data import native
 
@@ -2818,13 +2813,13 @@ def main_path_train_spd(card) -> dict:
     loads = native.native_loads
     flagship = FLAGSHIP + ["--spd", str(SPD)]
     runs = {
-        "flagship": spd_against_cpu(ds_dir, flagship, 480, 240, "chip_spd_flagship_",
+        "flagship": spd_against_cpu(ds_dir, flagship, 160, 80, "chip_spd_flagship_",
                                     ("gru_scan_train_fwd", "gru_scan_train_bwd", "gather_sum_fwd", "gather_sum_bwd",
                                      "gru_scan", "fused_score_topk")),
-        "bpr": spd_against_cpu(ds_dir, SPD_BPR, 240, 80, "chip_spd_bpr_",
+        "bpr": spd_against_cpu(ds_dir, SPD_BPR, 96, 32, "chip_spd_bpr_",
                                ("gru_scan_train_fwd", "gru_scan_train_bwd", "gather_sum_fwd", "gather_sum_bwd",
                                 "gru_scan", "fused_score_topk")),
-        "cluster": spd_against_cpu(ds_dir, SPD_CLUSTER, 240, 80, "chip_spd_cluster_",
+        "cluster": spd_against_cpu(ds_dir, SPD_CLUSTER, 96, 32, "chip_spd_cluster_",
                                    ("gru_scan_train_fwd", "gru_scan_train_bwd", "gather_sum_fwd", "gather_sum_bwd",
                                     "gru_scan")),
     }
@@ -2930,19 +2925,19 @@ MESH_RAN = ("gru_scan_train_fwd", "gru_scan_train_bwd", "gather_sum_fwd", "gathe
 # the other heads on the two gloo ranks: (flags, dataset ("ml1m" or "big"), steps, mesh, save, the
 # kernels each rank must launch); every other counter of the port must stay 0
 MESH_HEADS = {
-    "bpr_2x1": (HEADS_BPR, "ml1m", 100, "2,1", True, MESH_RAN),
-    "bpr_1x2": (HEADS_BPR, "ml1m", 100, "1,2", True, MESH_RAN),
-    "hinge_1x2": (HEADS_HINGE, "ml1m", 100, "1,2", False, MESH_RAN),
-    "large_hinge_1x2": (LARGE_HINGE, "big", 16, "1,2", False, MESH_RAN),
-    "cluster_1x2": (CLUSTER, "ml1m", 100, "1,2", False, MESH_RAN[:5]),
-    "fism_cluster_1x2": (FISM_CLUSTER, "ml1m", 100, "1,2", False, ("gather_sum_fwd", "gather_sum_bwd")),
-    "sda_1x2": (SDA + ["--do", "0.3"], "ml1m", 100, "1,2", False, ()),
+    "bpr_2x1": (HEADS_BPR, "ml1m", 50, "2,1", True, MESH_RAN),
+    "bpr_1x2": (HEADS_BPR, "ml1m", 50, "1,2", True, MESH_RAN),
+    "hinge_1x2": (HEADS_HINGE, "ml1m", 50, "1,2", False, MESH_RAN),
+    "large_hinge_1x2": (LARGE_HINGE, "big", 8, "1,2", False, MESH_RAN),
+    "cluster_1x2": (CLUSTER, "ml1m", 50, "1,2", False, MESH_RAN[:5]),
+    "fism_cluster_1x2": (FISM_CLUSTER, "ml1m", 50, "1,2", False, ("gather_sum_fwd", "gather_sum_bwd")),
+    "sda_1x2": (SDA + ["--do", "0.3"], "ml1m", 50, "1,2", False, ()),
     # --lazy_updates and --bf16 (K2 must stay 0 in the bf16 run: its loss is the bf16 chunk loop)
-    "lazy_flagship_2x1": (FLAGSHIP + ["--lazy_updates"], "ml1m", 100, "2,1", False, MESH_RAN),
-    "lazy_large_bpr_1x2": (LARGE_BPR_LAZY, "big", 16, "1,2", False, MESH_RAN),
-    "lazy_large_cce_1x2": (LARGE + ["--lazy_updates"], "big", 16, "1,2", False, MESH_RAN + ("cce_stats", "cce_grads")),
-    "bf16_large_1x2": (LARGE_BF16, "big", 16, "1,2", False, MESH_RAN),
-    "bf16_hinge_1x2": (HEADS_HINGE + ["--bf16"], "ml1m", 100, "1,2", False, MESH_RAN),
+    "lazy_flagship_2x1": (FLAGSHIP + ["--lazy_updates"], "ml1m", 50, "2,1", False, MESH_RAN),
+    "lazy_large_bpr_1x2": (LARGE_BPR_LAZY, "big", 8, "1,2", False, MESH_RAN),
+    "lazy_large_cce_1x2": (LARGE + ["--lazy_updates"], "big", 8, "1,2", False, MESH_RAN + ("cce_stats", "cce_grads")),
+    "bf16_large_1x2": (LARGE_BF16, "big", 8, "1,2", False, MESH_RAN),
+    "bf16_hinge_1x2": (HEADS_HINGE + ["--bf16"], "ml1m", 50, "1,2", False, MESH_RAN),
 }
 # the --bf16 runs, whose validation may differ from the one-card run's in one user's list (their
 # validation users): a bf16 rounding turns the shards' f32 sums in another order into a whole bf16
@@ -3206,12 +3201,12 @@ def head_shard_ids(ds_dir):
 def main_path_mesh(card) -> dict:
     """The main path over a ("data", "model") mesh of torch.distributed
     ranks, one process a rank, on this machine's one card: the flagship
-    (300 steps, three validations) at --mesh 1,1 under NCCL, and two ranks
+    (150 steps, three validations) at --mesh 1,1 under NCCL, and two ranks
     sharing the card over gloo (NCCL refuses two ranks on one device): the
     flagship (GRU-50, 3,706 items: the vocab-parallel dense head, W_in by
-    rows) at --mesh 2,1 and 1,2 for 100 steps and a validation, GRU-128 at
+    rows) at --mesh 2,1 and 1,2 for 50 steps and a validation, GRU-128 at
     B=1024 on the 50,000-item catalog (the streaming head, K2 on each
-    shard) at --mesh 1,2 --spd 4 for 32 steps and a validation, and the
+    shard) at --mesh 1,2 --spd 4 for 16 steps and a validation, and the
     test CLI at --mesh 1,2 on the single-device flagship checkpoint; the
     other heads of MESH_HEADS on the same two ranks (BPR at 2,1 and 1,2
     and its test CLI at 1,2, the dense hinge, the streaming hinge,
@@ -3240,18 +3235,18 @@ def main_path_mesh(card) -> dict:
     if n_big % 2:
         raise AssertionError(f"the even catalog has {n_big} items")
     big = LARGE + ["--spd", "4"]
-    fl_300 = ["-d", ds_dir, *FLAGSHIP, "--max_iter", "300", "--progress", "100"]
-    fl_mesh = ["-d", ds_dir, *FLAGSHIP, "--max_iter", "100", "--progress", "100", "--save", "Best"]
-    big_argv = ["-d", big_dir, *big, "--max_iter", "32", "--progress", "32", "--save", "Best"]
+    fl_single = ["-d", ds_dir, *FLAGSHIP, "--max_iter", "150", "--progress", "50"]
+    fl_mesh = ["-d", ds_dir, *FLAGSHIP, "--max_iter", "50", "--progress", "50", "--save", "Best"]
+    big_argv = ["-d", big_dir, *big, "--max_iter", "16", "--progress", "16", "--save", "Best"]
     for path in {p for d in (ds_dir, big_dir) for p in glob.glob(os.path.join(d, "models", "chip_mesh_*"))}:
         shutil.rmtree(path)
     nccl = start_ranks("nccl", 1, "nccl", [
-        {"name": "flagship_1x1", "cli": "train", "argv": fl_300 + ["--save", "None", "--mesh", "1,1"]},
+        {"name": "flagship_1x1", "cli": "train", "argv": fl_single + ["--save", "None", "--mesh", "1,1"]},
     ])
     # the single-device references on the card, while the NCCL rank starts
     t0 = time.perf_counter()
     zero_counters()
-    fl_text = run_cli(train_cli.main, fl_300 + ["--save", "Best", "--dir", "chip_mesh_single/"])[1]
+    fl_text = run_cli(train_cli.main, fl_single + ["--save", "Best", "--dir", "chip_mesh_single/"])[1]
     fl_costs, single_launches = progress_values(fl_text, "Last train cost"), read_counters()
     big_costs = progress_values(run_cli(train_cli.main, big_argv + ["--dir", "chip_mesh_big_single/"])[1],
                                 "Last train cost")
@@ -3359,13 +3354,13 @@ def main_path_mesh(card) -> dict:
     shard = mesh_shard_kernels(ds_dir, big_dir, n_big)
     emit({
         "phase": "main_path_mesh", "card": card,
-        "config": "flagship GRU-50 (3,706 items) at --mesh 1,1 (NCCL, 300 steps), 2,1 and 1,2 (gloo, 100 steps); "
-                  f"GRU-128 B1024 streaming head at {n_big} items, --mesh 1,2 --spd 4 (gloo, 32 steps); test CLI 1,2; "
+        "config": "flagship GRU-50 (3,706 items) at --mesh 1,1 (NCCL, 150 steps), 2,1 and 1,2 (gloo, 50 steps); "
+                  f"GRU-128 B1024 streaming head at {n_big} items, --mesh 1,2 --spd 4 (gloo, 16 steps); test CLI 1,2; "
                   "BPR (GRU-50 B64, 256 samples) at 2,1 and 1,2 and its test CLI at 1,2, the dense hinge, "
-                  f"the streaming hinge (GRU-128 B1024, {n_big} items, 16 steps), RNNCluster, FISMCluster and SDA "
-                  "(--do 0.3) at 1,2 (gloo, 100 steps); the flagship with --lazy_updates at 2,1 (100 steps), at "
+                  f"the streaming hinge (GRU-128 B1024, {n_big} items, 8 steps), RNNCluster, FISMCluster and SDA "
+                  "(--do 0.3) at 1,2 (gloo, 50 steps); the flagship with --lazy_updates at 2,1 (50 steps), at "
                   "GRU-128 B1024 on the same catalog lazy BPR, the lazy CCE and --bf16 --u_moments bfloat16 at 1,2 "
-                  "(16 steps), the dense hinge with --bf16 at 1,2 (100 steps)",
+                  "(8 steps), the dense hinge with --bf16 at 1,2 (50 steps)",
         "note": "two ranks on one shared H100 over gloo: wall seconds, not a scaling number",
         "single_device": {"flagship_costs": fl_costs, "large_costs": big_costs, "seconds": single_s,
                           "launches_flagship": single_launches, "heads": heads_single,
@@ -3382,6 +3377,7 @@ def main_path_mesh(card) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3698,6 +3694,7 @@ def main() -> int:
     res = mesh["shard"]["topk_rows_B32"]
     topk["at_rows_B32_H50_N3706"] = {**{key: res[key] for key in shard_keys if key in res},
                                      "max_abs_err": res["max_abs_err"]}
+    emit({"total_seconds": time.perf_counter() - t_start, "phase_seconds": PHASE_SECONDS})
     print(card_line(), flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {

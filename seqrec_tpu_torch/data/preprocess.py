@@ -14,8 +14,15 @@ package leaves to pandas is done here as pandas does it:
   expression); a column of integers stays integers, one of numbers
   floats, any other text; rating 1 where there is no ``r``;
 - rows are put in time order by a stable sort of ``t``: numbers as they
-  are, text as ISO-8601 dates (``np.datetime64``; another date format
-  raises ``NotImplementedError``);
+  are (pandas reads integers as unix seconds and floats as nanoseconds,
+  which keeps their order); text as ``pd.to_datetime`` reads it: one
+  format of ``TIME_FORMATS`` guessed from the first value, month first
+  (``dayfirst=False``: a day-first format only where the month-first one
+  cannot read it; a full month name before an abbreviated one), every row
+  parsed with it and sorted by its instant; a row the format does not
+  read, or offsets from UTC that differ between rows, raise
+  ``ValueError``; a first value no format reads raises
+  ``NotImplementedError``;
 - users, then items, then users again with too few rows are removed;
 - ids become their rank among the sorted distinct ids (numeric order for
   numbers, code-point order for text), as pandas' category codes;
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import datetime
 import os
 import re
 import sys
@@ -124,6 +132,146 @@ def _fields(lines, separator: str):
     return (rx.split(line) for line in lines if line)
 
 
+def _iso_formats() -> list:
+    """ISO-8601 dates: the date alone, or with ``T`` or a space before the
+    time (minutes, seconds or a fraction), each without and with ``%z``."""
+    out = ["%Y-%m-%d"]
+    for sep in (" ", "T"):
+        for clock in ("%H:%M", "%H:%M:%S", "%H:%M:%S.%f"):
+            out += [f"%Y-%m-%d{sep}{clock}", f"%Y-%m-%d{sep}{clock}%z"]
+    return out
+
+
+# the text timestamps read, in the order a column's first value tries them (the one format
+# pandas' guess gives it): ISO dates, year first and month first with slashes (day first only
+# where the month does not read), month names (a full name before an abbreviation, as "May" is
+# both), and Amazon's reviewTime ("03 1, 2001")
+TIME_FORMATS = tuple(_iso_formats() + [
+    "%Y/%m/%d", "%Y/%m/%d %H:%M", "%Y/%m/%d %H:%M:%S",
+    "%m/%d/%Y", "%m/%d/%Y %H:%M", "%m/%d/%Y %H:%M:%S",
+    "%d/%m/%Y", "%d/%m/%Y %H:%M", "%d/%m/%Y %H:%M:%S",
+    "%d-%B-%Y", "%d-%b-%Y", "%B %d, %Y", "%b %d, %Y", "%d %B %Y", "%d %b %Y", "%m %d, %Y",
+])
+_MONTHS = ("January", "February", "March", "April", "May", "June", "July", "August", "September", "October",
+           "November", "December")
+# each directive as strptime's regular expression (a space: one or more blanks), with pandas'
+# widening of %f to any digits (nanoseconds kept) and of %z to a bare hour
+_DIRECTIVES = {
+    "Y": r"(?P<Y>\d\d\d\d)",
+    "m": r"(?P<m>1[0-2]|0[1-9]|[1-9])",
+    "d": r"(?P<d>3[01]|[12]\d|0[1-9]|[1-9]| [1-9])",
+    "H": r"(?P<H>2[0-3]|[01]\d|\d)",
+    "M": r"(?P<M>[0-5]\d|\d)",
+    "S": r"(?P<S>6[01]|[0-5]\d|\d)",
+    "f": r"(?P<f>\d+)",
+    "z": r"(?P<z>(?-i:Z)|[+-]\d\d(?::?[0-5]\d)?)",
+    "B": "(?P<B>" + "|".join(_MONTHS) + ")",
+    "b": "(?P<b>" + "|".join(m[:3] for m in _MONTHS) + ")",
+}
+
+
+def _format_regex(fmt: str):
+    parts = re.split(r"%(\w)", fmt)
+    rx = "".join(_DIRECTIVES[p] if i % 2 else re.sub(r"\\\s+|\\ ", r"\\s+", re.escape(p))
+                 for i, p in enumerate(parts))
+    return re.compile(rx, re.IGNORECASE)
+
+
+_TIME_REGEXES = {fmt: _format_regex(fmt) for fmt in TIME_FORMATS}
+
+
+def _instant(match) -> tuple:
+    """(nanoseconds since the epoch in UTC, the offset in minutes or None)
+    of a matched timestamp; a date or time out of range raises
+    ``ValueError``."""
+    g = match.groupdict()
+    name = g.get("B") or g.get("b")
+    month = int(g["m"]) if g.get("m") else [m[:3].lower() for m in _MONTHS].index(name[:3].lower()) + 1
+    t = datetime.datetime(int(g["Y"]), month, int(g["d"]), int(g.get("H") or 0), int(g.get("M") or 0),
+                          int(g.get("S") or 0))
+    ns = ((t.toordinal() - 719163) * 86400 + t.hour * 3600 + t.minute * 60 + t.second) * 10**9
+    ns += int((g.get("f") or "0")[:9].ljust(9, "0"))  # pandas keeps 9 digits
+    offset = None
+    if g.get("z"):
+        z = g["z"].replace(":", "")
+        offset = 0 if z.upper() == "Z" else (1 if z[0] == "+" else -1) * (int(z[1:3]) * 60 + int(z[3:5] or 0))
+        ns -= offset * 60 * 10**9
+    return ns, offset
+
+
+# each directive in the zero-padded ISO form np.datetime64 reads, at years whose nanoseconds fit in
+# int64 (numpy wraps the others round silently)
+_ISO_DIRECTIVES = {
+    "Y": r"(?:1[7-9]\d\d|2[01]\d\d|22[0-5]\d)",
+    "m": r"(?:0[1-9]|1[0-2])",
+    "d": r"(?:0[1-9]|[12]\d|3[01])",
+    "H": r"(?:[01]\d|2[0-3])",
+    "M": r"[0-5]\d",
+    "S": r"[0-5]\d",
+    "f": r"\d{1,9}",
+}
+
+
+def _iso_instants(t: np.ndarray, fmt: str, first) -> np.ndarray | None:
+    """Nanoseconds since the epoch in UTC of every row of an ISO column in
+    ``fmt``, all through ``np.datetime64`` at once, where every row is in
+    the form numpy reads and ends in the first row's offset text (``first``
+    the first row's match); else None, for the row-by-row path to read the
+    column or raise."""
+    line = re.sub(r"%(\w)", lambda m: _ISO_DIRECTIVES[m.group(1)], re.escape(fmt.removesuffix("%z")))
+    zone = first.group("z") if fmt.endswith("%z") else ""
+    text = "\n".join(t.tolist()) + "\n"
+    if not re.fullmatch(f"(?:{line}{re.escape(zone)}\n)+", text):
+        return None
+    if zone:
+        t = np.array(text.replace(zone + "\n", "\n").split("\n")[:-1])
+    offset_ns = (_instant(first)[1] or 0) * 60 * 10**9
+    return t.astype("datetime64[ns]").astype(np.int64) - offset_ns
+
+
+def _time_order(t: np.ndarray) -> np.ndarray:
+    """Sort keys of a text time column (equal instants, equal keys), read
+    as ``pd.to_datetime`` reads it (module docstring): an ISO column in the
+    form numpy reads as its nanoseconds (_iso_instants), any other as the
+    ranks of its distinct values' instants."""
+    first = str(t[0])
+    fmt, misread = None, None
+    for candidate, rx in _TIME_REGEXES.items():
+        match = rx.fullmatch(first)
+        if match:
+            try:
+                _instant(match)
+            except ValueError as err:
+                misread = misread or err
+                continue
+            fmt = candidate
+            break
+    if fmt is None:
+        if misread is not None:
+            raise ValueError(f"timestamp {first!r}: {misread}")
+        raise NotImplementedError(f"timestamps such as {first!r}: this preprocess reads numbers and the text "
+                                  f"formats {', '.join(TIME_FORMATS)}")
+    if fmt.startswith("%Y-%m-%d"):
+        instants = _iso_instants(t, fmt, match)
+        if instants is not None:
+            return instants
+    rx = _TIME_REGEXES[fmt]
+    values, inverse = np.unique(t, return_inverse=True)
+    keys, offsets = [], set()
+    for value in values.tolist():
+        match = rx.fullmatch(value)
+        if match is None:
+            raise ValueError(f"time data {value!r} does not match the format {fmt!r} of the first row ({first!r})")
+        ns, offset = _instant(match)
+        keys.append(ns)
+        offsets.add(offset)
+    if len(offsets) > 1:
+        raise ValueError(f"mixed offsets from UTC in the time column ({first!r} ...)")
+    # Python ints: nanoseconds past 2262 overflow int64; equal instants in other text share a rank
+    rank = np.unique(np.array(keys, dtype=object), return_inverse=True)[1]
+    return rank[inverse.reshape(-1)]
+
+
 def load_data(filename: str, columns: str, separator: str) -> dict:
     """The first ``len(columns)`` columns of the file, typed, with r = 1
     where the file has none, in time order when it has t (a stable sort)."""
@@ -139,13 +287,8 @@ def load_data(filename: str, columns: str, separator: str) -> dict:
         data["r"] = np.ones(len(rows), dtype=np.int64)
     if "t" in columns:
         t = data["t"]
-        if t.dtype.kind not in "iuf":
-            try:
-                t = t.astype("datetime64[ns]")
-            except ValueError as err:
-                raise NotImplementedError(
-                    f"timestamps such as {t[0]!r}: this preprocess reads numbers and ISO-8601 dates only"
-                ) from err
+        if t.dtype.kind not in "iuf" and len(t):
+            t = _time_order(t)
         data = _take(data, np.argsort(t, kind="stable"))
     return data
 

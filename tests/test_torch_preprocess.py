@@ -6,9 +6,16 @@ ids and ratings with ``::`` (``scripts/baseline_run.sh``'s format),
 whitespace with no rating column, and text ids with decimal ratings and
 ISO-8601 dates; rows are shuffled and timestamps tied, so the stable time
 sort matters. Also a split given as fractions, ``main`` with ``--yes``,
-and the refusal of a date format the port does not read.
+every text timestamp format the port reads (ISO dates and times with and
+without fractions, ``Z`` or an offset; slashes year first and month
+first; month names; Amazon's ``03 1, 2001``) against ``pd.to_datetime``,
+equal instants written differently kept in file order, the same
+``ValueError`` wherever pandas refuses a column (a row that does not match
+the format of the first, mixed offsets), and the refusal of a date the
+port does not read.
 """
 
+import datetime
 import os
 
 import numpy as np
@@ -72,6 +79,36 @@ INPUTS = {
     "text_ids_decimal_ratings": (_write_text_ids, dict(columns="uirt", sep=",")),
 }
 
+# text timestamps: (render a datetime, the step between two of _rows' time units); from late
+# 2000, so the rows span a new year and month names, and ``_rows`` ties them in threes
+TIME_TEXT = {
+    "iso_date": (lambda t: t.strftime("%Y-%m-%d"), datetime.timedelta(days=1)),
+    "iso_space_minutes": (lambda t: t.strftime("%Y-%m-%d %H:%M"), datetime.timedelta(hours=29, minutes=7)),
+    "iso_space_seconds": (lambda t: t.strftime("%Y-%m-%d %H:%M:%S"), datetime.timedelta(hours=29, seconds=7)),
+    "iso_t_seconds": (lambda t: t.strftime("%Y-%m-%dT%H:%M:%S"), datetime.timedelta(hours=29, seconds=7)),
+    "iso_t_fraction": (lambda t: t.strftime("%Y-%m-%dT%H:%M:%S.%f"), datetime.timedelta(hours=1, microseconds=250)),
+    "iso_t_z": (lambda t: t.strftime("%Y-%m-%dT%H:%M:%SZ"), datetime.timedelta(hours=29, seconds=7)),
+    "iso_t_fraction_z": (lambda t: t.strftime("%Y-%m-%dT%H:%M:%S.%fZ"), datetime.timedelta(minutes=97, microseconds=5)),
+    "iso_t_offset": (lambda t: t.strftime("%Y-%m-%dT%H:%M:%S+05:30"), datetime.timedelta(hours=29, seconds=7)),
+    "year_slash": (lambda t: t.strftime("%Y/%m/%d"), datetime.timedelta(days=1)),
+    "month_slash": (lambda t: t.strftime("%m/%d/%Y"), datetime.timedelta(days=1)),
+    "month_slash_minutes": (lambda t: t.strftime("%m/%d/%Y %H:%M"), datetime.timedelta(hours=29, minutes=7)),
+    "month_slash_seconds": (lambda t: t.strftime("%m/%d/%Y %H:%M:%S"), datetime.timedelta(hours=29, seconds=7)),
+    "day_abbrev_year": (lambda t: t.strftime("%d-%b-%Y"), datetime.timedelta(days=1)),
+    "abbrev_day_comma_year": (lambda t: t.strftime("%b %d, %Y"), datetime.timedelta(days=1)),
+    "day_abbrev_space_year": (lambda t: t.strftime("%d %b %Y"), datetime.timedelta(days=1)),
+    "amazon_review_time": (lambda t: f"{t.month:02d} {t.day}, {t.year}", datetime.timedelta(days=1)),
+}
+
+
+def _write_text_times(path, seed, fmt):
+    """Text ids and times in the TIME_TEXT format ``fmt``, tab-separated."""
+    render, step = TIME_TEXT[fmt]
+    start = datetime.datetime(2000, 10, 17, 6, 30)
+    with open(path, "w") as f:
+        for u, i, r, t in _rows(seed):
+            f.write(f"u{u}\tit{i}\t{r}\t{render(start + int(t) * step)}\n")
+
 
 def _run_both(tmp_path, name, data_seed, **kwargs):
     write, flags = INPUTS[name]
@@ -132,8 +169,95 @@ def test_main_with_yes_matches_jax(tmp_path, capsys):
     _assert_same_files(str(tmp_path / "jax") + "/", str(tmp_path / "port") + "/")
 
 
+@pytest.mark.parametrize("fmt", sorted(TIME_TEXT))
+def test_time_formats_equal_jax_byte_for_byte(tmp_path, fmt):
+    """Each text timestamp format through both preprocesses: pandas' one
+    guessed format and the port's order the shuffled, tied rows alike (the
+    month-first and month-name formats sort apart from their text)."""
+    dirs = []
+    for pkg, module in (("jax", jax_preprocess), ("port", torch_preprocess)):
+        d = tmp_path / pkg
+        d.mkdir()
+        _write_text_times(d / "ratings.dat", 13, fmt)
+        dirs.append(module.preprocess(str(d / "ratings.dat"), columns="uirt", sep="\t", min_item_pop=3,
+                                      val_size=10, test_size=10, dirname=str(d) + "/"))
+    _assert_same_files(*dirs)
+
+
+@pytest.mark.parametrize(
+    "times",
+    [
+        ["2001-03-01", "2000-12-31 10:00:00"],
+        ["03/01/2001", "13/01/2001"],
+        ["Mar 1, 2001", "March 2, 2001"],
+        ["2001-03-01T10:00:00Z", "2001-03-01T23:59:59.5Z"],
+        ["2001-03-01T10:00:00.5Z", "2001-03-01T23:59:59Z"],
+        ["2001-03-01T10:00:00+02:00", "2001-03-01T10:00:00+03:00"],
+        ["2001-03-01T10:00:00Z", "2001-03-01T10:00:00+00:00", "2001-03-01T09:00:00-01:00"],
+    ],
+    ids=["date_then_time", "day_past_12", "abbrev_then_full", "z_then_fraction", "fraction_then_none",
+         "mixed_offsets", "utc_then_offset"],
+)
+def test_time_columns_pandas_refuses_raise_value_error(tmp_path, times):
+    path = tmp_path / "ratings.tsv"
+    path.write_text("".join(f"{u}\t{u + 5}\t1\t{t}\n" for u, t in enumerate(times)))
+    with pytest.raises(ValueError):
+        jax_preprocess.load_data(str(path), "uirt", "\t")
+    with pytest.raises(ValueError):
+        torch_preprocess.load_data(str(path), "uirt", "\t")
+
+
+def test_equal_instants_in_other_text_keep_the_file_order(tmp_path):
+    """"Z", "+00:00" and "+0000" name one instant: pandas' stable sort keeps
+    such rows in file order, whatever their text's order."""
+    times = ["2001-03-01T10:00:00+00:00", "2001-03-01T09:00:00Z", "2001-03-01T10:00:00Z",
+             "2001-03-01T10:00:00+0000", "2001-03-01T08:59:59.5+00:00", "2001-03-01T10:00:00Z"]
+    times = [t if "." in t else t.replace(":00Z", ":00.0Z").replace(":00+", ":00.0+") for t in times]
+    path = tmp_path / "ratings.tsv"
+    path.write_text("".join(f"{u}\t{u + 5}\t1\t{t}\n" for u, t in enumerate(times)))
+    want = jax_preprocess.load_data(str(path), "uirt", "\t")["u"].tolist()
+    assert torch_preprocess.load_data(str(path), "uirt", "\t")["u"].tolist() == want == [4, 1, 0, 2, 3, 5]
+
+
 def test_unknown_date_format_raises(tmp_path):
+    """A two-digit year, which pandas reads through dateutil and no format
+    of the port reads: the refusal names the value and the formats."""
     path = tmp_path / "ratings.csv"
-    path.write_text("1,2,3,03/01/2001\n")
-    with pytest.raises(NotImplementedError, match="ISO-8601"):
+    path.write_text("1,2,3,03/01/01\n")
+    with pytest.raises(NotImplementedError, match=r"'03/01/01'.*%Y-%m-%d, "):
         torch_preprocess.load_data(str(path), "uirt", ",")
+
+
+@pytest.mark.parametrize(
+    "fmt, times",
+    [
+        ("%Y-%m-%d", ["2001-03-01", "1999-12-31", "2001-03-01"]),
+        ("%Y-%m-%d %H:%M:%S", ["2001-03-01 10:00:07", "1970-01-01 00:00:00", "2259-12-31 23:59:59"]),
+        ("%Y-%m-%dT%H:%M:%S.%f", ["2001-03-01T10:00:07.5", "2001-03-01T10:00:07.123456789"]),
+        ("%Y-%m-%dT%H:%M:%S%z", ["2001-03-01T10:00:07Z", "2001-03-01T09:00:00Z"]),
+        ("%Y-%m-%dT%H:%M:%S%z", ["2001-03-01T10:00:07-05", "2001-03-01T09:00:00-05"]),
+        ("%Y-%m-%dT%H:%M:%S.%f%z", ["2001-03-01T10:00:07.25+05:30", "2001-03-01T09:00:00.5+05:30"]),
+    ],
+)
+def test_iso_column_at_once_equals_row_by_row(fmt, times):
+    """The ISO column read at once through np.datetime64 gives each row the
+    nanoseconds the row-by-row parser gives it."""
+    rx = torch_preprocess._TIME_REGEXES[fmt]
+    got = torch_preprocess._iso_instants(np.array(times), fmt, rx.fullmatch(times[0]))
+    assert got.tolist() == [torch_preprocess._instant(rx.fullmatch(t))[0] for t in times]
+
+
+@pytest.mark.parametrize(
+    "fmt, times",
+    [
+        ("%Y-%m-%d", ["2001-03-01", "2300-01-01"]),  # past int64 nanoseconds in numpy
+        ("%Y-%m-%d %H:%M", ["2001-03-01 10:00", "2001-03-01 9:00"]),  # an hour without its zero
+        ("%Y-%m-%dT%H:%M:%S%z", ["2001-03-01T10:00:07Z", "2001-03-01T09:00:00+00:00"]),  # other offset text
+    ],
+)
+def test_iso_column_numpy_cannot_read_goes_row_by_row(fmt, times):
+    rx = torch_preprocess._TIME_REGEXES[fmt]
+    assert torch_preprocess._iso_instants(np.array(times), fmt, rx.fullmatch(times[0])) is None
+    order = np.argsort(torch_preprocess._time_order(np.array(times)), kind="stable")
+    want = np.argsort([torch_preprocess._instant(rx.fullmatch(t))[0] for t in times], kind="stable")
+    assert order.tolist() == want.tolist()
