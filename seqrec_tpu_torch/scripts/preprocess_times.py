@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Seconds of the preprocess's ``load_data`` on a text time column, on the CPU:
+"""Seconds of the preprocess's ``load_data`` on the CPU, for integer columns and text time columns:
 
-    python3 PATH/TO/preprocess_times.py [--rows N] [--reps R]
+    python3 PATH/TO/preprocess_times.py [--rows N] [--reps R] [--files NAME ...]
 
 run from the root of the checkout to measure (its package is imported from
 there, so one copy of this script measures another checkout too). Writes,
-once, files of N rows (2,000,000 by default) of ``user,item,time`` under
+once, files of N rows (2,000,000 by default) under
 ``build/preprocess_times/``, their times N distinct seconds from 2001 in a
-shuffled order: ``iso_space`` (``2001-01-01 00:00:00``), ``iso_offset``
+shuffled order: ``int_colons`` (``user::item::rating::unix seconds``, all
+integers, ML-1M's ``ratings.dat`` layout) and, as ``user,item,time``,
+``iso_space`` (``2001-01-01 00:00:00``), ``iso_offset``
 (``2001-01-01T00:00:00+05:30``) and ``month_slash`` (``01/01/2001
-00:00:00``, a format read row by row). Prints one JSON line a file with
-the seconds of each of R calls (3 by default).
+00:00:00``, a format read row by row). Prints one JSON line a file (or
+only for the files named) with the seconds of each of R calls (3 by
+default).
 """
 
 import argparse
@@ -32,11 +35,16 @@ def write_files(directory: str, rows: int) -> dict:
         "month_slash": np.array([f"{t[5:7]}/{t[8:10]}/{t[:4]} {t[11:]}" for t in iso.tolist()]),
     }
     users, items = rng.integers(0, 50_000, rows), rng.integers(0, 20_000, rows)
-    paths = {}
+    paths = {"int_colons": (os.path.join(directory, f"int_colons_{rows}.dat"), "uirt", "::")}
+    if not os.path.exists(paths["int_colons"][0]):
+        ratings = rng.integers(1, 6, rows)
+        with open(paths["int_colons"][0], "w") as f:
+            f.writelines(f"{u}::{i}::{r}::{t}\n" for u, i, r, t in zip(users.tolist(), items.tolist(),
+                                                                       ratings.tolist(), seconds.tolist()))
     for name, text in texts.items():
-        paths[name] = os.path.join(directory, f"{name}_{rows}.csv")
-        if not os.path.exists(paths[name]):
-            with open(paths[name], "w") as f:
+        paths[name] = (os.path.join(directory, f"{name}_{rows}.csv"), "uit", ",")
+        if not os.path.exists(paths[name][0]):
+            with open(paths[name][0], "w") as f:
                 f.writelines(f"{u},{i},{t}\n" for u, i, t in zip(users.tolist(), items.tolist(), text.tolist()))
     return paths
 
@@ -45,18 +53,21 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--rows", type=int, default=2_000_000)
     parser.add_argument("--reps", type=int, default=3)
+    parser.add_argument("--files", nargs="*", help="time only these files (default: all)")
     args = parser.parse_args()
     sys.path.insert(0, os.getcwd())
     from seqrec_tpu_torch.data.preprocess import load_data
 
     directory = os.path.join(os.getcwd(), "build", "preprocess_times")
     os.makedirs(directory, exist_ok=True)
-    for name, path in write_files(directory, args.rows).items():
+    for name, (path, columns, separator) in write_files(directory, args.rows).items():
+        if args.files and name not in args.files:
+            continue
         seconds = []
         for _ in range(args.reps):
             t0 = time.perf_counter()
             try:
-                load_data(path, "uit", ",")
+                load_data(path, columns, separator)
             except NotImplementedError:
                 seconds = "NotImplementedError: the format is not read"
                 break

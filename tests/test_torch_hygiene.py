@@ -59,6 +59,32 @@ def test_native_parser_and_dispatch_modules_import_clean():
     assert out.stdout.split() == ["True", "False", "[]"]
 
 
+_DATA = r"""
+import importlib, pkgutil, sys
+import seqrec_tpu_torch.data as data
+names = sorted(m.name for m in pkgutil.walk_packages(data.__path__, "seqrec_tpu_torch.data."))
+for name in names:
+    importlib.import_module(name)
+banned = {"pandas", "dateutil", "jax", "jaxlib", "optax", "ml_dtypes", "seqrec_tpu"}
+leaked = sorted({m.split(".")[0] for m in sys.modules} & banned)
+print(len(names), leaked)
+"""
+
+
+def test_data_modules_import_neither_pandas_nor_dateutil():
+    """seqrec_tpu_torch/data/ (the preprocess among it) runs where pandas is
+    missing: its modules, imported in a fresh interpreter, leave pandas and
+    dateutil (and jax and the JAX package) out of sys.modules."""
+    out = subprocess.run(
+        [sys.executable, "-c", _DATA], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": ROOT},
+    )
+    assert out.returncode == 0, out.stderr
+    n_modules, leaked = out.stdout.split(maxsplit=1)
+    assert int(n_modules) >= 5
+    assert leaked.strip() == "[]"
+
+
 _PARALLEL = r"""
 import importlib, pkgutil, sys
 import seqrec_tpu_torch.parallel as par

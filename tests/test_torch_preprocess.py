@@ -17,9 +17,12 @@ port does not read.
 
 import datetime
 import os
+import tempfile
 
 import numpy as np
 import pytest
+from hypothesis import example, given, settings
+from hypothesis import strategies as st
 
 from seqrec_tpu.data import preprocess as jax_preprocess
 from seqrec_tpu_torch.data import preprocess as torch_preprocess
@@ -261,3 +264,293 @@ def test_iso_column_numpy_cannot_read_goes_row_by_row(fmt, times):
     order = np.argsort(torch_preprocess._time_order(np.array(times)), kind="stable")
     want = np.argsort([torch_preprocess._instant(rx.fullmatch(t))[0] for t in times], kind="stable")
     assert order.tolist() == want.tolist()
+
+
+# --- raw files as pandas' reader types them (column types, NA fields, its number grammar) ---
+
+SEPARATORS = {"comma": ",", "whitespace": r"\s+", "colons": "::"}
+ALL_SEPARATORS = tuple(SEPARATORS.values())
+
+
+def _line(cells, sep):
+    return {",": ",", r"\s+": " \t", "::": "::"}[sep].join(cells) + "\n"
+
+
+def _fullwidth(n):
+    return "".join(chr(0xFF10 + int(c)) for c in str(n))
+
+
+# each fault as (the cells of a row of _rows, the separators it can occur under); rng is the row's
+# numpy generator, k the row's index in the file
+FAULTS = {
+    # float unix seconds with a fraction: pandas reads whole nanoseconds, so a second's rows tie
+    "float_times_unix": (lambda u, i, r, t, k, rng: [u, i, r, f"{978300760 + (t - 40) / 7:.1f}"], ALL_SEPARATORS),
+    # fractions either side of zero truncate to 0 alike
+    "float_times_around_zero": (lambda u, i, r, t, k, rng: [u, i, r, f"{(t - 40) / 9:.2f}"], ALL_SEPARATORS),
+    # "100_5" and "1005" are two users, full-width digits two items
+    "underscore_and_fullwidth_ids": (
+        lambda u, i, r, t, k, rng: [f"{u // 10}_{u % 10}" if k % 2 else str(u),
+                                    _fullwidth(i) if i % 3 == 0 else str(i), r, t], ALL_SEPARATORS),
+    # 2**63 and up: uint64, 1000 apart (float64's spacing there is 2048)
+    "ids_past_int64": (lambda u, i, r, t, k, rng: [str(2**63 + u * 1000), i, r, t], ALL_SEPARATORS),
+    # 2**64 and up: Python ints
+    "ids_past_uint64": (lambda u, i, r, t, k, rng: [str(2**64 + u), i, r, t], ALL_SEPARATORS),
+    # missing ratings: float64 with NaN (an empty field where the separator allows one)
+    "missing_ratings": (
+        lambda u, i, r, t, k, rng: [u, i, ["", "NA", "null", "nan", r, r, r][k % 7], t], (",", "::")),
+    "missing_ratings_no_empty": (
+        lambda u, i, r, t, k, rng: [u, i, ["NA", "null", "nan", "N/A", r, r, r][k % 7], t], ALL_SEPARATORS),
+    # boolean item ids and ratings in pandas' spellings
+    "bool_items_and_ratings": (
+        lambda u, i, r, t, k, rng: [u, ["true", "FALSE", "True", "false", "TRUE", "False"][(i + k) % 6],
+                                    ["True", "false"][k % 2], t], ALL_SEPARATORS),
+    # missing times, the first row's among them: pandas guesses from the first present value, NaT last
+    "missing_times": (
+        lambda u, i, r, t, k, rng: [u, i, r, "NA" if k % 9 == 0 else
+                                    (datetime.datetime(2001, 3, 1) + int(t) * datetime.timedelta(hours=7)).isoformat()],
+        ALL_SEPARATORS),
+    "missing_times_empty": (
+        lambda u, i, r, t, k, rng: [u, i, r, ["", "nan", "NaT"][k % 3] if k % 7 == 0 else
+                                    (datetime.datetime(2001, 3, 1) + int(t) * datetime.timedelta(hours=7)).isoformat()],
+        (",", "::")),
+}
+
+
+def _fault_text(fault, sep, seed=17):
+    render, _ = FAULTS[fault]
+    rng = np.random.default_rng(seed)
+    return "".join(_line([str(c) for c in render(u, i, r, t, k, rng)], sep)
+                   for k, (u, i, r, t) in enumerate(_rows(seed).tolist()))
+
+
+def _same_files(tmp_path, text, columns, sep, **kwargs):
+    dirs = []
+    for pkg, module in (("jax", jax_preprocess), ("port", torch_preprocess)):
+        d = tmp_path / pkg
+        d.mkdir()
+        (d / "ratings.dat").write_text(text)
+        dirs.append(module.preprocess(str(d / "ratings.dat"), columns=columns, sep=sep, dirname=str(d) + "/",
+                                      **kwargs))
+    _assert_same_files(*dirs)
+
+
+FAULT_CASES = [(f, s) for f, (_, seps) in FAULTS.items() for s in SEPARATORS.values() if s in seps]
+
+
+@pytest.mark.parametrize("fault, sep", FAULT_CASES,
+                         ids=[f"{f}-{n}" for f, s in FAULT_CASES for n, v in SEPARATORS.items() if v == s])
+def test_raw_fields_equal_jax_byte_for_byte(tmp_path, fault, sep):
+    """Each way the reader once differed from pandas (float times, ids
+    Python's int() reads and pandas does not, ids of 2**63 and up, NA
+    fields, bools, missing times), under each separator kind where it can
+    occur: the ten data files and both READMEs, byte for byte."""
+    _same_files(tmp_path, _fault_text(fault, sep), "uirt", sep, min_item_pop=1, val_size=10, test_size=10)
+
+
+def test_float_times_sort_by_whole_nanoseconds(tmp_path):
+    """pd.to_datetime reads floats as nanoseconds truncated toward zero:
+    978300760.7 and 978300760.2 tie, as do -0.5, 0.5 and -0.2."""
+    for times, want in (([978300760.7, 978300760.2, 978300759.9], [2, 0, 1]), ([-0.5, 0.5, -0.2], [0, 1, 2])):
+        path = tmp_path / "ratings.csv"
+        path.write_text("".join(f"{u},{u + 5},1,{t}\n" for u, t in enumerate(times)))
+        assert jax_preprocess.load_data(str(path), "uirt", ",")["u"].tolist() == want
+        assert torch_preprocess.load_data(str(path), "uirt", ",")["u"].tolist() == want
+
+
+# the seven text formats pandas reads and the port once refused, as (render, step): "%b %d %Y", points
+# year first and month first, a blank before the offset, the 12-hour clock (pandas guesses it for some
+# first values and reads each value alone for others), year and month, a zone name
+NEW_TIME_TEXT = {
+    "abbrev_day_year": (lambda t: f"{t:%b} {t.day} {t.year}", datetime.timedelta(days=1)),
+    "year_point": (lambda t: t.strftime("%Y.%m.%d"), datetime.timedelta(days=1)),
+    "month_point": (lambda t: t.strftime("%m.%d.%Y"), datetime.timedelta(days=1)),
+    "space_offset": (lambda t: t.strftime("%Y-%m-%d %H:%M:%S +0530"), datetime.timedelta(hours=29, seconds=7)),
+    "twelve_hour": (lambda t: t.strftime("%m/%d/%Y %I:%M %p"), datetime.timedelta(hours=29, minutes=7)),
+    "year_month": (lambda t: f"{t.year}-{t.month:02d}", datetime.timedelta(days=3)),
+    "utc_name": (lambda t: t.strftime("%Y-%m-%d %H:%M:%S UTC"), datetime.timedelta(hours=29, seconds=7)),
+}
+TIME_TEXT.update(NEW_TIME_TEXT)
+NEW_TIME_CASES = [(f, n) for f in NEW_TIME_TEXT for n, s in SEPARATORS.items()
+                  if s != r"\s+" or " " not in NEW_TIME_TEXT[f][0](datetime.datetime(2001, 3, 1))]
+
+
+@pytest.mark.parametrize("fmt, sep_name", NEW_TIME_CASES, ids=[f"{f}-{n}" for f, n in NEW_TIME_CASES])
+def test_new_time_formats_equal_jax_under_each_separator(tmp_path, fmt, sep_name):
+    render, step = NEW_TIME_TEXT[fmt]
+    start, sep = datetime.datetime(2000, 10, 17, 6, 30), SEPARATORS[sep_name]
+    text = "".join(_line([f"u{u}", f"it{i}", str(r), render(start + int(t) * step)], sep)
+                   for u, i, r, t in _rows(13).tolist())
+    _same_files(tmp_path, text, "uirt", sep, min_item_pop=3, val_size=10, test_size=10)
+
+
+@pytest.mark.parametrize(
+    "times",
+    [
+        ["Mar 1 2001", "March 2 2001"],
+        ["2001.03.01", "2001-03-02"],
+        ["01.03.2001", "13.03.2001"],
+        ["2001-03-01 10:00:00 +0000", "2001-03-01 09:00:00+0000"],
+        ["2001-03-01 10:00:00 +0000", "2001-03-01 09:00:00 +0100"],
+        ["2001-03", "2001-03-05"],
+        ["2001-03-01 10:00:00 UTC", "2001-03-01 09:00:00 EST"],
+        ["2001-03-01 10:00:00 UTC", "2001-03-01 09:00:00"],
+        ["2001-03-01 10:00:00 GMT", "2001-03-01 09:00:00 UTC"],
+        ["03/01/2001 02:00 AM", "03/01/2001 14:00"],
+        ["03/01/2001 02:00 am", "03/01/2001 10:00 pm"],
+        ["03/01/2001 10:00 PM", "2001-03-01T10:00:00Z"],
+        ["", "2001-03-01", "03/01/2001"],
+    ],
+    ids=["abbrev_then_full", "point_then_dash", "month_point_day_past_12", "offset_without_blank", "two_offsets",
+         "year_month_then_day", "utc_then_est", "utc_then_none", "gmt_then_utc", "twelve_hour_then_24",
+         "literal_am_then_pm", "per_value_mixed_zones", "missing_first_then_off_format"],
+)
+def test_new_time_formats_pandas_refuses_raise_value_error(tmp_path, times):
+    """Where pd.to_datetime refuses a column (a row off the guessed format,
+    a zone other than UTC or GMT after a UTC row, mixed zones), both
+    packages raise ValueError."""
+    path = tmp_path / "ratings.tsv"
+    path.write_text("".join(f"{u}\t{u + 5}\t1\t{t}\n" for u, t in enumerate(times)))
+    with pytest.raises(ValueError):
+        jax_preprocess.load_data(str(path), "uirt", "\t")
+    with pytest.raises(ValueError):
+        torch_preprocess.load_data(str(path), "uirt", "\t")
+
+
+@pytest.mark.parametrize("zone", ["EST", "CET", "Europe/Paris", "utc"])
+def test_a_first_zone_other_than_utc_or_gmt_is_refused(tmp_path, zone):
+    """pandas refuses a first value with another zone name (ValueError);
+    the port reads UTC and GMT only and says so (NotImplementedError)."""
+    path = tmp_path / "ratings.tsv"
+    path.write_text("".join(f"{u}\t{u + 5}\t1\t2001-03-0{u + 1} 10:00:00 {zone}\n" for u in range(2)))
+    with pytest.raises(ValueError):
+        jax_preprocess.load_data(str(path), "uirt", "\t")
+    with pytest.raises(NotImplementedError, match=zone):
+        torch_preprocess.load_data(str(path), "uirt", "\t")
+
+
+@pytest.mark.parametrize("times, error", [(["true", "False"], TypeError), (["9223372036854775808", "1"], ValueError),
+                                          (["18446744073709551616", "1"], ValueError)],
+                         ids=["bool", "uint64", "past_uint64"])
+def test_time_columns_pandas_cannot_convert_raise_as_pandas(tmp_path, times, error):
+    path = tmp_path / "ratings.csv"
+    path.write_text("".join(f"{u},{u + 5},1,{t}\n" for u, t in enumerate(times)))
+    with pytest.raises(error):
+        jax_preprocess.load_data(str(path), "uirt", ",")
+    with pytest.raises(error):
+        torch_preprocess.load_data(str(path), "uirt", ",")
+
+
+def test_missing_ids_are_refused(tmp_path):
+    """A missing user or item: pandas gives it category code -1, which the
+    port does not write; it refuses the file instead."""
+    path = tmp_path / "ratings.csv"
+    path.write_text("1,5,1\nNA,6,1\n")
+    with pytest.raises(NotImplementedError, match="missing u"):
+        torch_preprocess.load_data(str(path), "uir", ",")
+
+
+def test_na_strings_are_pandas_defaults():
+    """The port's own copy of pandas' default NA strings (the one place a
+    test holds the port to pandas itself)."""
+    from pandas._libs.parsers import STR_NA_VALUES
+
+    assert torch_preprocess.NA_VALUES == STR_NA_VALUES
+
+
+# --- property: cells from a small grammar, typed and put in time order as pandas does ---
+
+_EDGES = [2**63 - 1, 2**63, -(2**63), -(2**63) - 1, 2**64 - 1, 2**64]
+_CELLS = st.one_of(
+    st.integers(-30, 30).map(str),
+    st.sampled_from(_EDGES).map(str),
+    st.builds(lambda m, f, e: f"{m}.{f}e{e}", st.integers(-99, 99), st.integers(0, 99), st.integers(-5, 5)),
+    st.builds(lambda m, f: f"{m}.{f}", st.integers(-99, 99), st.integers(0, 99)),
+    st.sampled_from(["1_0", "2_5.5", "1e_2", "3E+1", "-0", ".5", "1.", "inf", "-Infinity"]),
+    st.sampled_from(sorted(torch_preprocess.NA_VALUES)),
+    st.sampled_from(["true", "False", "TRUE", "tRUE"]),
+    st.sampled_from(["x", "u1", "１", "NaT"]),
+)
+_TIME_CELLS = st.one_of(_CELLS, st.integers(1, 28).map(lambda d: f"2001-03-{d:02d}"),
+                        st.integers(1, 28).map(lambda d: f"Mar {d} 2001"))
+
+
+def _column(draw_cells, sep):
+    cells = st.lists(draw_cells, min_size=2, max_size=6)
+    return cells.filter(lambda c: "" not in c) if sep == r"\s+" else cells
+
+
+def _typed_as(col):
+    """(dtype kind, each value's type and repr): text as "O", whatever its dtype."""
+    kind = col.dtype.kind
+    return "O" if kind in "OUT" else kind, [(type(v).__name__, repr(v)) for v in col.tolist()]
+
+
+def _load_both(text, columns, sep):
+    out = []
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ratings.dat")
+        with open(path, "w") as f:
+            f.write(text)
+        for module in (jax_preprocess, torch_preprocess):
+            try:
+                out.append(module.load_data(path, columns, sep))
+            except Exception as err:  # noqa: BLE001 -- the class is what is compared
+                out.append(err)
+    return out
+
+
+@pytest.mark.parametrize("sep_name", list(SEPARATORS))
+def test_columns_typed_as_pandas_property(sep_name):
+    """A 2-6-row column drawn from ints, +-2**63 and 2**64 edges, floats
+    (with exponents, with "_"), the NA strings, bools and text, as the
+    first field of a row (where the python reader strips the line) and as
+    a middle one: the same dtype and the same values as pandas' reader
+    gives, or (a missing id) the port's refusal."""
+    sep = SEPARATORS[sep_name]
+
+    @settings(max_examples=200, derandomize=True, deadline=None)
+    @given(_column(_CELLS, sep), st.sampled_from(["u", "r"]))
+    @example(["-9223372036854775808", "NA", "1"], "r")  # the C reader: -2**63 beside NA is NaN
+    @example(["tRUE", "false", "NA"], "r")  # bools in any case in the C reader only
+    @example(["9223372036854775808", "1.5"], "r")  # 19 digits, rounded as pandas' parser rounds
+    @example(["0.1234567890123456789", "99999999999999999999.5"], "r")  # its 17 digits
+    @example(["18446744073709551616", "1_0", "NA"], "r")  # past uint64: Python ints
+    @example(["18446744073709551616", "NA", "x"], "r")  # ... else text, "NA" as it is
+    @example(["9223372036854775808", "NA"], "r")  # past int64 beside NA: text
+    @example(["-0", "9223372036854775808"], "r")  # "-0" is negative to the C reader only
+    @example(["1e400", "-1e-700", "-Infinity"], "r")
+    @example(["NA", "7"], "u")
+    def check(cells, name):
+        rows = [[c, str(k + 5), "7"] if name == "u" else [str(k), str(k + 5), c] for k, c in enumerate(cells)]
+        want, got = _load_both("".join(_line(r, sep) for r in rows), "uir", sep)
+        if isinstance(got, NotImplementedError):
+            assert name == "u" and any(v != v for v in want["u"].tolist() if isinstance(v, float))
+        else:
+            assert _typed_as(got[name]) == _typed_as(want[name])
+
+    check()
+
+
+@pytest.mark.parametrize("sep_name", list(SEPARATORS))
+def test_time_columns_ordered_as_pandas_property(sep_name):
+    """A 2-6-row time column from the same grammar and ISO and month-name
+    dates: the same stable order as the JAX package's, the same exception
+    class where it refuses the column, or the port's NotImplementedError
+    (text it does not read), never an order pandas does not give."""
+    sep = SEPARATORS[sep_name]
+
+    @settings(max_examples=200, derandomize=True, deadline=None)
+    @given(_column(_TIME_CELLS, sep))
+    def check(cells):
+        text = "".join(_line([str(k), str(k + 5), "1", c], sep) for k, c in enumerate(cells))
+        want, got = _load_both(text, "uirt", sep)
+        if isinstance(got, NotImplementedError):
+            return
+        if isinstance(want, Exception):
+            kind = next(k for k in (ValueError, TypeError, Exception) if isinstance(want, k))
+            assert isinstance(got, kind), (want, got)
+        else:
+            assert not isinstance(got, Exception), (want, got)
+            assert got["u"].tolist() == want["u"].tolist()
+
+    check()
