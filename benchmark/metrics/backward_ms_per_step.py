@@ -1,0 +1,14 @@
+"""``backward_ms_per_step``: device milliseconds an optimizer step of the
+operations launched during the port's ``seqrec::backward`` spans: the
+backward pass (``torch.autograd.grad`` and the zero fill in ``_step``),
+whose kernels the autograd engine's thread launches; launched by the main
+thread or by the autograd engine's (``harness/spans.py``), over the
+``seqrec::step`` spans of the host-traced call. Layer: the model step."""
+
+from __future__ import annotations
+
+from benchmark.harness import spans
+
+
+def read(run):
+    return spans.device_ms_per_step(run.trace, "seqrec::backward")

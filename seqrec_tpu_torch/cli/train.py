@@ -6,7 +6,9 @@ CUDA unless ``--device cpu`` is given, and a missing GPU is an error. It writes
 the JAX package's checkpoints (same filenames and ``.npz`` keys) under
 ``DATASET_DIR/models/``. ``--profile DIR`` records the run with
 ``torch.profiler`` (host and, on the card, CUDA activity) and writes a
-Chrome trace, ``DIR/trace.json``. ``--spd K`` runs K optimizer steps a
+Chrome trace, ``DIR/trace.json``, with the training loop's spans
+(``utils/tracing.py``): the main thread's as the profiler recorded them,
+the assembly and transfer threads' added on the trace's clock. ``--spd K`` runs K optimizer steps a
 dispatch where the predictor has ``steps_per_dispatch`` (the RNN family;
 the factorization family and LTM take the flag and ignore it, as in the
 JAX package). ``--mesh DATA,MODEL`` (or ``auto``) trains over a
@@ -35,6 +37,7 @@ import numpy as np
 import seqrec_tpu_torch.utils.command_parser as parse
 from seqrec_tpu_torch import resolve_device
 from seqrec_tpu_torch.data import DataHandler
+from seqrec_tpu_torch.utils import tracing
 
 
 def training_command_parser(parser):
@@ -211,7 +214,9 @@ def main(argv=None):
         )
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        path = os.path.join(args.profile, "trace.json")
+        profiler.export_chrome_trace(path)
+        tracing.add_to_chrome_trace(path)
         print("Profiler trace written to", args.profile)
     return result
 

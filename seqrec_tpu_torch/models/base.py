@@ -17,7 +17,7 @@ per-sequence batcher with the model's own generator otherwise, so one seed
 gives the same batches and the loss trajectories compare step by step.
 As in the JAX package, the packed batches are assembled on a prefetch
 thread (``_prefetch``), each tagged with the epoch count of its assembly
-(``_with_epochs``) so that checkpoint names do not depend on how far the
+(``_assembled``) so that checkpoint names do not depend on how far the
 thread ran ahead; every host draw of a training run (the cuts, negative
 samples, cluster sample sets and noise seeds) happens on that thread, in
 the JAX package's order. Each ``train_function`` call is one optimizer
@@ -65,6 +65,15 @@ margin and cluster heads, FISMCluster and the autoencoder), with
 ``--lazy_updates``: the lazy Adam updates the slices that the global
 batch touches (its ids gathered over "data") on the rank's shard, and its
 moments live on the shard like their parameter.
+
+The loop's layers are spans of ``utils/tracing.py``, recorded when
+``train`` starts under a profiler: ``seqrec::assemble`` (assembly thread)
+and ``seqrec::transfer`` (transfer thread) a payload, and on the calling
+thread ``seqrec::wait_payload``, ``seqrec::dispatch``, ``seqrec::step``
+and inside it ``seqrec::expand``, ``seqrec::forward``,
+``seqrec::backward``, ``seqrec::allreduce`` (under a mesh) and
+``seqrec::update``, and ``seqrec::validate`` and ``seqrec::save`` at the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import glob
+import itertools
 import os
 import queue
 import re
@@ -93,7 +103,7 @@ from seqrec_tpu_torch.parallel import mesh as mesh_lib
 from seqrec_tpu_torch.parallel.collectives import all_gather, mean_over_data
 from seqrec_tpu_torch.parallel.columns import gather_columns
 from seqrec_tpu_torch.parallel.distributed import writes_files
-from seqrec_tpu_torch.utils import evaluation
+from seqrec_tpu_torch.utils import evaluation, tracing
 
 # Defaults (reference rnn_base.py:24,32)
 MAX_LENGTH = 200
@@ -1011,13 +1021,20 @@ class RNNBase:
             stop.set()
 
     @staticmethod
-    def _with_epochs(gen, training_set):
-        """Tag each batch with the training set's epoch count as of its
-        assembly: the prefetch thread runs ahead of the steps, so the
-        count at checkpoint time would depend on how far it got. The
-        consumers keep the last tag in ``_pipeline_epochs``."""
-        for b in gen:
-            b["_epochs"] = float(training_set.epochs)
+    def _assembled(gen, training_set):
+        """Each batch of ``gen`` assembled inside a ``seqrec::assemble``
+        span and tagged with its number (``_payload``, the id of its
+        spans) and with the training set's epoch count as of its assembly:
+        the prefetch thread runs ahead of the steps, so the count at
+        checkpoint time would depend on how far it got. The consumers keep
+        the last epoch tag in ``_pipeline_epochs``."""
+        for n in itertools.count():
+            with tracing.span("seqrec::assemble", n):
+                b = next(gen, None)
+                if b is None:
+                    return
+                b["_epochs"] = float(training_set.epochs)
+            b["_payload"] = n
             yield b
 
     def _transfer(self, payload: dict, copies=None) -> dict:
@@ -1065,7 +1082,7 @@ class RNNBase:
             gen = self._gen_index_mini_batch(training_set, rng, n_stack=K)
         else:
             gen = self._gen_packed_mini_batch(training_set, rng, n_stack=K)
-        host = self._prefetch(self._with_epochs(gen, training_set), depth=depth)
+        host = self._prefetch(self._assembled(gen, training_set), depth=depth)
 
         def transfer(upstream):
             # a generator function (not a genexp), so closing this stage
@@ -1074,16 +1091,17 @@ class RNNBase:
             inflight: collections.deque = collections.deque()
             try:
                 for p in upstream:
-                    ep = p.pop("_epochs", None)
+                    ep, n = p.pop("_epochs", None), p.pop("_payload", None)
                     while inflight and inflight[0][0].query():
                         inflight.popleft()  # its copies are done: its pinned buffers may go
-                    if self.mesh is not None:  # this rank's rows: host slicing, no collective
-                        p = (mesh_lib.index_payload_rows if "rows" in p else mesh_lib.stacked_rows)(p, self.mesh)
-                    p = self._transfer(p, copies)
+                    with tracing.span("seqrec::transfer", n):
+                        if self.mesh is not None:  # this rank's rows: host slicing, no collective
+                            p = (mesh_lib.index_payload_rows if "rows" in p else mesh_lib.stacked_rows)(p, self.mesh)
+                        p = self._transfer(p, copies)
                     pinned = p.pop("pinned")
                     if p["ready"] is not None:
                         inflight.append((p["ready"], pinned))
-                    p["_epochs"] = ep
+                    p["_epochs"], p["_payload"] = ep, n
                     yield p
             finally:
                 upstream.close()
@@ -1292,9 +1310,11 @@ class RNNBase:
         if self.opt_state is None:
             self.opt_state = self._init_opt_state()
         params = self._train_params()
-        cost = self._loss(dev_batch)
-        grads = torch.autograd.grad(cost, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        with tracing.span("seqrec::forward"):
+            cost = self._loss(dev_batch)
+        with tracing.span("seqrec::backward"):
+            grads = torch.autograd.grad(cost, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         cost = cost.detach()
         names = [name for name, _ in self.net.named_parameters()]
         shards = None
@@ -1302,29 +1322,34 @@ class RNNBase:
             # each data rank's loss is the mean over its rows: the mean over
             # "data" of the gradients (and of the cost) is the global one
             # (parallel/collectives.py)
-            mean_over_data(grads + [cost], self.mesh)
+            with tracing.span("seqrec::allreduce"):
+                mean_over_data(grads + [cost], self.mesh)
             shards = [self._shard_layout(name, p.shape) for name, p in zip(names, params)]
         lazy = self.opt_state.get("lazy")
         if not lazy:
-            self.updater.step(params, grads, self.opt_state, shards)
+            self.updater.step(params, grads, self.opt_state, shards)  # its own seqrec::update span
             return cost
         taken = {entry["param"] for entry in lazy}
         rest = [i for i in range(len(params)) if i not in taken]
-        self.updater.step([params[i] for i in rest], [grads[i] for i in rest], self.opt_state["inner"],
-                          None if shards is None else [shards[i] for i in rest])
-        for entry in lazy:
-            sp, i = entry["spec"], entry["param"]
-            ids = self._shard_ids(names[i], sp["ids"](dev_batch), params[i].shape[sp["axis"]])
-            self._lazy_adam_update(params[i], entry, grads[i], ids, sp["axis"])
+        with tracing.span("seqrec::update"):  # the updater's span is part of this one
+            self.updater.step([params[i] for i in rest], [grads[i] for i in rest], self.opt_state["inner"],
+                              None if shards is None else [shards[i] for i in rest])
+            for entry in lazy:
+                sp, i = entry["spec"], entry["param"]
+                ids = self._shard_ids(names[i], sp["ids"](dev_batch), params[i].shape[sp["axis"]])
+                self._lazy_adam_update(params[i], entry, grads[i], ids, sp["axis"])
         return cost
 
     def train_function(self, batch):
         """One optimizer step on a host batch; returns the batch cost as a
         device scalar (the loop syncs only at progress checkpoints)."""
-        ep = batch.pop("_epochs", None)
+        ep, n = batch.pop("_epochs", None), batch.pop("_payload", None)
         if ep is not None:
             self._pipeline_epochs = float(ep)
-        return self._step(self._device_batch(batch))
+        with tracing.span("seqrec::dispatch", n), tracing.span("seqrec::step", n):
+            with tracing.span("seqrec::expand"):
+                dev_batch = self._device_batch(batch)
+            return self._step(dev_batch)
 
     def train_function_multi(self, batches: list) -> torch.Tensor:
         """``len(batches)`` optimizer steps as one K-step payload (the host
@@ -1339,25 +1364,29 @@ class RNNBase:
         from the resident store) with no host sync between them, and their
         costs are summed on the device. ``_HOST_KEYS`` are read from the
         payload's host copy."""
-        ep = payload.pop("_epochs", None)
+        ep, n = payload.pop("_epochs", None), payload.pop("_payload", None)
         if ep is not None:
             self._pipeline_epochs = float(ep)
-        dev, host = payload["dev"], payload["host"]
-        if payload["ready"] is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(payload["ready"])
-            for t in dev.values():
-                t.record_stream(stream)  # allocated on the copy stream
-        K = len(next(iter(dev.values())))
-        cost_sum = None
-        for k in range(K):
-            step = {key: v[k] for key, v in dev.items()}
-            step.update({key: int(v[k]) for key, v in host.items()})
-            if "rows" in step:
-                step = self._expand_index_wire(step, self._dev_store)
-            cost = self._step(self._finish_device_batch(step))
-            cost_sum = cost if cost_sum is None else cost_sum + cost
-        return cost_sum
+        with tracing.span("seqrec::dispatch", n):
+            dev, host = payload["dev"], payload["host"]
+            if payload["ready"] is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(payload["ready"])
+                for t in dev.values():
+                    t.record_stream(stream)  # allocated on the copy stream
+            K = len(next(iter(dev.values())))
+            cost_sum = None
+            for k in range(K):
+                with tracing.span("seqrec::step", n):
+                    with tracing.span("seqrec::expand"):
+                        step = {key: v[k] for key, v in dev.items()}
+                        step.update({key: int(v[k]) for key, v in host.items()})
+                        if "rows" in step:
+                            step = self._expand_index_wire(step, self._dev_store)
+                        step = self._finish_device_batch(step)
+                    cost = self._step(step)
+                cost_sum = cost if cost_sum is None else cost_sum + cost
+            return cost_sum
 
     # ------------------------------------------------------------------
     # validation and the training loop (contract of rnn_base.py:215-356)
@@ -1405,6 +1434,7 @@ class RNNBase:
                 is_efficient[is_efficient] = np.any(costs[is_efficient] >= c, axis=1)
         return np.where(is_efficient)[0].tolist()
 
+    @tracing.records
     def train(
         self,
         dataset,
@@ -1451,8 +1481,8 @@ class RNNBase:
                 batch_generator = self._payload_pipeline(dataset.training_set, batch_rng, K)
             else:
                 batch_generator = self._prefetch(
-                    self._with_epochs(self._gen_packed_mini_batch(dataset.training_set, batch_rng),
-                                      dataset.training_set)
+                    self._assembled(self._gen_packed_mini_batch(dataset.training_set, batch_rng),
+                                    dataset.training_set)
                 )
         else:
             batch_generator = self._gen_mini_batch(self.sequence_noise(dataset.training_set()))
@@ -1474,10 +1504,12 @@ class RNNBase:
         try:
             while time() - start_time < max_time and iterations < max_iter:
                 try:
+                    with tracing.span("seqrec::wait_payload"):
+                        batch = next(batch_generator)
                     if use_stacked:
-                        cost = self.train_function_stacked(next(batch_generator))
+                        cost = self.train_function_stacked(batch)
                     else:
-                        cost = self.train_function(next(batch_generator))
+                        cost = self.train_function(batch)
                 except StopIteration:
                     break
                 cost_sum = cost if cost_sum is None else cost_sum + cost
@@ -1497,14 +1529,16 @@ class RNNBase:
                             raise ValueError("Cost is NaN")
                         train_costs.append(mean_cost)
                         cost_sum, cost_count = None, 0
-                        metrics = self._compute_validation_metrics(metrics)
+                        with tracing.span("seqrec::validate"):
+                            metrics = self._compute_validation_metrics(metrics)
                         self._print_progress(
                             iterations, epochs[-1], start_time, train_costs, metrics, validation_metrics
                         )
                         run_nb = len(metrics[list(self.metrics.keys())[0]]) - 1
                         if autosave == "All":
                             filename[run_nb] = save_dir + self._get_model_filename(round(epochs[-1], 3))
-                            self.save(filename[run_nb], async_write=True)
+                            with tracing.span("seqrec::save"):
+                                self.save(filename[run_nb], async_write=True)
                         elif autosave == "Best":
                             pareto_runs = self.get_pareto_front(metrics, validation_metrics)
                             if run_nb in pareto_runs:
@@ -1514,7 +1548,8 @@ class RNNBase:
                                     # a dethroned checkpoint may still be queued: let
                                     # every write land before deleting, and before
                                     # queueing the new one (which need not wait)
-                                    self._drain_saves()
+                                    with tracing.span("seqrec::save"):
+                                        self._drain_saves()
                                 for run in to_delete:
                                     if writes_files():
                                         try:
@@ -1522,7 +1557,8 @@ class RNNBase:
                                         except OSError:
                                             print("Warning : Previous model could not be deleted")
                                     del filename[run]
-                                self.save(filename[run_nb], async_write=True)
+                                with tracing.span("seqrec::save"):
+                                    self.save(filename[run_nb], async_write=True)
                         if early_stopping is not None and all(
                             early_stopping(epochs, metrics[m]) for m in validation_metrics
                         ):
@@ -1545,7 +1581,8 @@ class RNNBase:
             # exception (the NaN abort) is already on its way out
             aborting = sys.exc_info()[0] is not None
             try:
-                self._drain_saves()
+                with tracing.span("seqrec::save"):
+                    self._drain_saves()
             except Exception as save_exc:
                 if not aborting:
                     raise

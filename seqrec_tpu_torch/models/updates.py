@@ -14,12 +14,16 @@ as ``updates.py:_scale_by_adam_bf16_moments`` does; its rounding noise
 comes from a ``torch.Generator`` seeded per step, so the law is the JAX
 package's and the bits are not. Under a mesh each sharded moment's noise
 is drawn in its parameter's full shape and sliced to the rank's shard, so
-a mesh run draws the one-device run's bits.
+a mesh run draws the one-device run's bits. Each ``step`` is a
+``seqrec::update`` span (``utils/tracing.py``), inside whatever wraps the
+call.
 """
 
 from __future__ import annotations
 
 import torch
+
+from seqrec_tpu_torch.utils import tracing
 
 
 def update_manager_command_parser(parser) -> None:
@@ -88,9 +92,10 @@ class UpdateManager:
 
     @torch.no_grad()
     def step(self, params, grads, state, shards=None) -> None:
-        state["count"] += 1
-        for i, (p, g) in enumerate(zip(params, grads)):
-            p.add_(self._update(g, [state[s][i] for s in self.slots], state["count"]))
+        with tracing.span("seqrec::update"):
+            state["count"] += 1
+            for i, (p, g) in enumerate(zip(params, grads)):
+                p.add_(self._update(g, [state[s][i] for s in self.slots], state["count"]))
 
     def _update(self, g, slots, count):  # pragma: no cover
         raise NotImplementedError
@@ -212,21 +217,22 @@ class Adam(UpdateManager):
     def step(self, params, grads, state, shards=None) -> None:
         if self.moment_dtype == "float32":
             return super().step(params, grads, state)
-        state["count"] += 1
-        b1, b2 = self.beta1, self.beta2
-        bc1, bc2 = self._corrections(state["count"])
-        gen = None
-        for i, (p, g) in enumerate(zip(params, grads)):
-            if gen is None or gen.device != p.device:
-                gen = torch.Generator(device=p.device)
-                gen.manual_seed(self.SEED * 1_000_003 + state["count"])
-            g32 = g.float()
-            m32 = b1 * state["mu"][i].float() + (1.0 - b1) * g32
-            v32 = b2 * state["nu"][i].float() + (1.0 - b2) * (g32 * g32)
-            p.add_((m32 / bc1) / (torch.sqrt(v32 / bc2) + 1e-8) * -self.learning_rate)
-            shard = shards[i] if shards is not None else None
-            state["mu"][i] = stochastic_round_bf16(m32, gen, shard)
-            state["nu"][i] = stochastic_round_bf16(v32, gen, shard)
+        with tracing.span("seqrec::update"):
+            state["count"] += 1
+            b1, b2 = self.beta1, self.beta2
+            bc1, bc2 = self._corrections(state["count"])
+            gen = None
+            for i, (p, g) in enumerate(zip(params, grads)):
+                if gen is None or gen.device != p.device:
+                    gen = torch.Generator(device=p.device)
+                    gen.manual_seed(self.SEED * 1_000_003 + state["count"])
+                g32 = g.float()
+                m32 = b1 * state["mu"][i].float() + (1.0 - b1) * g32
+                v32 = b2 * state["nu"][i].float() + (1.0 - b2) * (g32 * g32)
+                p.add_((m32 / bc1) / (torch.sqrt(v32 / bc2) + 1e-8) * -self.learning_rate)
+                shard = shards[i] if shards is not None else None
+                state["mu"][i] = stochastic_round_bf16(m32, gen, shard)
+                state["nu"][i] = stochastic_round_bf16(v32, gen, shard)
 
     def _update(self, g, slots, count):
         mu, nu = slots

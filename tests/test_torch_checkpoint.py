@@ -295,12 +295,22 @@ def test_save_rank_writes_the_jax_full_rank_file(synthetic_dataset, tmp_path, fl
 
 
 def test_profile_writes_a_trace(synthetic_dataset, tmp_path, capsys):
+    """The trace holds PyTorch's ops and the training loop's spans: the main
+    thread's, and the assembly and transfer threads' (``--spd 2``: the
+    stacked pipeline) on threads of their own."""
     trace_dir = str(tmp_path / "trace")
     torch_train_cli.main(["-d", synthetic_dataset, *BASE, "--max_iter", "4", "--progress", "4", "--save", "None",
-                          "--profile", trace_dir, "--device", "cpu"])
+                          "--spd", "2", "--profile", trace_dir, "--device", "cpu"])
     assert "Profiler trace written to " + trace_dir in capsys.readouterr().out
     import json
 
     with open(os.path.join(trace_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    threads = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            threads.setdefault(e["name"], set()).add(e["tid"])
+    spans = ("seqrec::dispatch", "seqrec::validate", "seqrec::assemble", "seqrec::transfer")
+    assert set(spans) <= set(threads)
+    assert len(set().union(*(threads[n] for n in spans))) == 3

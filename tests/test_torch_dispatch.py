@@ -161,7 +161,7 @@ def test_closing_the_payload_pipeline_releases_both_stages(dataset, head):
     before = {t.ident for t in threading.enumerate()}
     gen = tm._payload_pipeline(th.training_set, np.random.default_rng(0), K)
     p = next(gen)
-    assert set(p) == {"dev", "host", "ready", "_epochs"} and p["ready"] is None
+    assert set(p) == {"dev", "host", "ready", "_epochs", "_payload"} and p["ready"] is None
     threads = _new_threads(before)
     assert len(threads) == 2
     gen.close()
