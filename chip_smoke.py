@@ -347,7 +347,8 @@ def zero_counters() -> None:
         wrapper(name).launches = 0
     k3 = wrapper("gru_scan")
     k3.reg_launches = k3.cluster_launches = k3.gru_cluster_launches = 0
-    wrapper("gru_scan_train_fwd").cluster_launches = wrapper("gru_scan_train_bwd").cluster_launches = 0
+    for name in ("gru_scan_train_fwd", "gru_scan_train_bwd"):
+        wrapper(name).cluster_launches = wrapper(name).wide_launches = 0
     wrapper("lstm_scan").reg_launches = wrapper("lstm_scan").cluster_launches = 0
 
 
@@ -495,10 +496,10 @@ def train_scan_bwd_bounds(fwd_flops: float, n_bytes: float, path: str) -> dict:
     """Bounds of a training scan's backward: the hid recompute (it is given
     the states hs, not the gates) and the dh product as f32 FMA, and dW =
     hs^T dhid as 3xTF32 where it runs on block_mma.cuh (the cluster and l2
-    paths); on the reg path dW is f32 FMA in registers, and ``bound_ms`` is
-    the f32 one."""
+    paths); on the reg and wide paths dW is f32 FMA in registers, and
+    ``bound_ms`` is the f32 one."""
     out = product_bounds(fwd_flops, n_bytes, f32_flops=2 * fwd_flops)
-    if path == "reg":
+    if path in ("reg", "wide"):
         out["bound_ms"], out["bound_by"] = bound_ms(3 * fwd_flops, n_bytes)
     return out
 
@@ -659,10 +660,30 @@ def check_empty_row(name, dx, dh0, dh) -> None:
         raise AssertionError(f"{name} gave a row of length 0 a gradient")
 
 
+def cell_lengths(B, L, seed):
+    """Prefix lengths drawn as the benchmark cells' traffic draws them
+    (benchmark/traffic/l200_b4096.json): a history of 50-400 items, a cut
+    at 2 .. n - 1, the last L items of the prefix (mean about 102 at L
+    200; the cells read about 105, after rare items are dropped)."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(50, 401, size=B)
+    return np.minimum(rng.integers(2, n), L)
+
+
+def k1_blocks_per_sm() -> dict:
+    """Blocks an SM holds of K1's reg kernels at 16 rows and of its wide
+    kernels at their rows (H 50), forward and backward."""
+    from seqrec_tpu_torch.ops.rnn_scan_train import REG_MAX_ROWS, WIDE_ROWS, gru_train_blocks_per_sm
+
+    return {"reg": {d: gru_train_blocks_per_sm("reg", 50, REG_MAX_ROWS, d == "bwd") for d in ("fwd", "bwd")},
+            "wide": {d: gru_train_blocks_per_sm("wide", 50, WIDE_ROWS[d == "bwd"], d == "bwd") for d in ("fwd", "bwd")}}
+
+
 def check_gru_train(B, L, H, clip, seed, timed=True, empty_row=False, holes=False, lengths=None):
     """K1 forward (final state) and backward (dx, dh0, dW) against autograd
     through the plain scan, for a random upstream cotangent dh; both on the
-    path their plan picks, each called twice for the same bits."""
+    path their plan picks, each called twice for the same bits; the wide
+    path's launches of the four calls (> 0 where the plan takes it)."""
     import torch
 
     from seqrec_tpu_torch.ops.rnn_scan_train import (
@@ -676,10 +697,16 @@ def check_gru_train(B, L, H, clip, seed, timed=True, empty_row=False, holes=Fals
     x, m, w, h0 = a["x_pre"], a["mask"], a["w_hid"], a["h0"]
     dh = torch.tensor(np.random.default_rng(seed + 100).normal(0, 1, size=(B, H)),
                       dtype=torch.float32, device="cuda")
+    wide_before = [gru_scan_train_fwd.wide_launches, gru_scan_train_bwd.wide_launches]
     h_k, hs = gru_scan_train_fwd(x, m, w, h0)
     dx_k, dh0_k, dw_k = gru_scan_train_bwd(x, m, w, hs, dh, clip)
     same_bits_twice("gru_scan_train_fwd", (B, L, H), (h_k, hs), gru_scan_train_fwd(x, m, w, h0))
     same_bits_twice("gru_scan_train_bwd", (B, L, H), (dx_k, dh0_k, dw_k), gru_scan_train_bwd(x, m, w, hs, dh, clip))
+    wide = {"fwd": gru_scan_train_fwd.wide_launches - wide_before[0],
+            "bwd": gru_scan_train_bwd.wide_launches - wide_before[1]}
+    plan = {d: list(gru_train_plan(B, H, x.device, d == "bwd")) for d in ("fwd", "bwd")}
+    if any((plan[d][0] == "wide") != (wide[d] == 2) for d in ("fwd", "bwd")):
+        raise AssertionError(f"gru_scan_train at {(B, L, H)}: plan {plan}, wide launches {wide}")
     if empty_row:
         check_empty_row("gru_scan_train", dx_k, dh0_k, dh)
         if not torch.equal(h_k[0], h0[0]):
@@ -700,7 +727,7 @@ def check_gru_train(B, L, H, clip, seed, timed=True, empty_row=False, holes=Fals
     dw_free = torch.autograd.grad(gru_scan_train_plain(leaves2[0], m, leaves2[1], leaves2[2], 0.0), leaves2[1], dh)[0]
     out = {
         "kernel": "gru_scan_train", "shape": {"B": B, "L": L, "H": H}, "grad_clip": clip,
-        "plan": {d: list(gru_train_plan(B, H, x.device, d == "bwd")) for d in ("fwd", "bwd")},
+        "plan": plan, "wide_launches": wide,
         "max_abs_err": errs, "clip_moves_dW_by": (dw_p - dw_free).abs().max().item(),
         "tolerance": "rtol 1e-4 + atol 1e-5*max|plain| (f32; dW sums B*L products in another order)",
         "same_bits_twice": True,
@@ -3422,6 +3449,9 @@ def main() -> int:
     k5 = check_lstm_train(1024, 30, 128, 100.0, seed=23)
     k1_large = check_gru_train(1024, 30, 128, 100.0, seed=13)  # GRU-128's shape
     k5_small = check_lstm_train(16, 30, 50, 100.0, seed=28)  # the flagship's shape in an LSTM
+    # the benchmark cells' shape: K1 on its wide path, prefix lengths drawn as the cells' traffic draws them
+    k1_cell = check_gru_train(4096, 200, 50, 100.0, seed=90, lengths=cell_lengths(4096, 200, 90))
+    k1_cell["blocks_per_sm"] = k1_blocks_per_sm()
     main_shape = {
         "gru_scan": check_gru(64, 30, 50, seed=1, path="reg"),
         "fused_score_topk": check_topk(64, 50, 3706, 30, 10, seed=2),
@@ -3449,6 +3479,7 @@ def main() -> int:
     emit({"phase": "kernels", "at": "GRU-256 serving shape", **k4_gru256})
     emit({"phase": "kernels", "at": "large shape", **k4_large})
     emit({"phase": "kernels", "at": "large shape", **k1_large})
+    emit({"phase": "kernels", "at": "benchmark cell shape", **k1_cell})
     emit({"phase": "kernels", "at": "flagship shape", **k5_small})
     # K6 at the GRU serving shape, beside K3's
     emit({"phase": "kernels", "at": "serving shape", **k6_small})
@@ -3500,6 +3531,11 @@ def main() -> int:
         check_gru_train(1024, 30, 128, 0.01, seed=62, timed=False),  # the clip binds
         check_lstm_train(1024, 30, 128, 0.01, seed=63, timed=False),  # the clip binds
         check_gru_train(64, 30, 256, 100.0, seed=64, timed=False),
+        # K1's wide path (more than 16 rows an SM, H <= 50): a clip that binds at the cells' shape, a
+        # last CTA of one row with a row of length 0 and holes, an odd H (a unit pair of one unit)
+        check_gru_train(4096, 200, 50, 0.01, seed=91, timed=False, lengths=cell_lengths(4096, 200, 91)),
+        check_gru_train(2113, 30, 50, 100.0, seed=92, timed=False, empty_row=True, holes=True),
+        check_gru_train(3000, 20, 37, 100.0, seed=93, timed=False, holes=True),
         # K3 on its reg path (a row of length 0), its cluster path (a ragged
         # tile with holes; H=130 and 250, C not dividing H), gru_cluster.cuh
         # at H=256 (one row, a ragged tile, a row of length 0, a mask with
@@ -3523,7 +3559,7 @@ def main() -> int:
         check_cce(1000, 100, 50_001, seed=47, timed=False),
     ]
     small_clip = [e for e in edge if e.get("grad_clip", 1.0) < 0.1]
-    if len(small_clip) != 6 or not all(e["clip_moves_dW_by"] > 0 for e in small_clip):
+    if len(small_clip) != 7 or not all(e["clip_moves_dW_by"] > 0 for e in small_clip):
         raise AssertionError("a small grad_clip did not bind")
     tower = check_lstm_tower()
     emit({"phase": "kernels", "at": "edge cases", "checks": [e["shape"] for e in edge],
@@ -3633,6 +3669,10 @@ def main() -> int:
         entry["at_B64_L30_H50"] = {**{key: k1_b64[d][key] for key in scan_keys + ("plain_ms", "library_ms")},
                                    "plan": k1_b64["plan"][d], "real_batch_lengths": True,
                                    "max_abs_err": k1_b64["max_abs_err"]}
+        entry["at_B4096_L200_H50"] = {**{key: k1_cell[d][key] for key in scan_keys + ("plain_ms", "library_ms")},
+                                      "plan": k1_cell["plan"][d], "wide_launches": k1_cell["wide_launches"][d],
+                                      "blocks_per_sm": {p: n[d] for p, n in k1_cell["blocks_per_sm"].items()},
+                                      "max_abs_err": k1_cell["max_abs_err"]}
     # this PR's redesigns: K6 on the training forward's kernels, the gather-sum pair
     lstm = next(e for e in summary if e["name"] == "lstm_scan")
     k6_keys = ("kernel_ms", "kernel_device_ms", "plain_device_ms", "library_device_ms", "bound_ms", "plan")

@@ -17,9 +17,13 @@
 // at B=1024, H=128 the three per-step products (recompute hid, dhid . W^T,
 // and dW) dominate: 3 x 2 B L H 3H = 9.1 GFLOP of f32 FMAs.
 //
-// Design: three paths, chosen by the wrapper's plan (scan_train.cuh):
+// Design: four paths, chosen by the wrapper's plan (scan_train.cuh):
 // - reg (H <= 50): W_hid in registers, forward and backward, dW summed in
 //   registers inside the scan (scan_train_reg.cuh);
+// - wide (H <= 50 with more than 16 rows an SM, K1 only): backward CTAs
+//   of 32 rows in one wave, forward CTAs of 16 rows several an SM, the
+//   per-step products as register micro-tiles from W_hid in shared memory,
+//   dW summed in registers (scan_train_wide.cuh);
 // - cluster (H up to 32 units a CTA of 8): W_hid split over a thread-block
 //   cluster (scan_train_cluster.cuh); the backward writes each step's dhid
 //   to scratch [L, B, 3H], and dW = hs^T dhid is a split-K 3xTF32 product
@@ -35,6 +39,7 @@
 
 #include "gru_forward.cuh"
 #include "scan_train.cuh"
+#include "scan_train_wide.cuh"
 
 namespace {
 
@@ -151,13 +156,14 @@ extern "C" int seqrec_gru_train_fwd_f32(const float* x, const float* mask, const
                                         int H, int path, int C, int R, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   if (path == kPathL2) return launch_gru_forward<true>(x, mask, w, h0, out, hs, B, L, H, stream);
+  if (path == kPathWide) return wide_forward(x, mask, w, h0, out, hs, B, L, H, R, (cudaStream_t)stream);
   return train_forward<false>(x, mask, w, nullptr, h0, nullptr, out, hs, nullptr, B, L, H, path, C,
                               R, (cudaStream_t)stream);
 }
 
 // dh [B, H] -> dx [B, L, 3H], dh0 [B, H], dw [H, 3H]. Scratch from the
-// caller, by path: reg: part [ceil(B / R), H, 3H] where that is over 1
-// block; cluster and l2: dhid [L, B, 3H] and part [n_splits, H, 3H] (the
+// caller, by path: reg and wide: part [ceil(B / R), H, 3H] where that is
+// over 1 block; cluster and l2: dhid [L, B, 3H] and part [n_splits, H, 3H] (the
 // K = L * B rows of the dW product in n_splits ranges of k_per_split
 // rows); l2 also wt = W^T [3H, H].
 extern "C" int seqrec_gru_train_bwd_f32(const float* x, const float* mask, const float* w,
@@ -170,6 +176,7 @@ extern "C" int seqrec_gru_train_bwd_f32(const float* x, const float* mask, const
   if (path == kPathReg)
     return train_backward_reg<false>(x, mask, w, nullptr, hs, nullptr, dh, dx, dh0, nullptr, dw,
                                      nullptr, part, nullptr, B, L, H, R, clip, s);
+  if (path == kPathWide) return wide_backward(x, mask, w, hs, dh, dx, dh0, dw, part, B, L, H, R, clip, s);
   if (n_splits <= 0 || k_per_split <= 0 || (long long)n_splits * k_per_split < (long long)L * B)
     return (int)cudaErrorInvalidValue;
   int err;
@@ -196,5 +203,29 @@ extern "C" int seqrec_gru_train_capacity(int backward, int H, int C, int R, int*
 
 // Shared-memory bytes of one block of the path's kernel (-1: none takes it).
 extern "C" long long seqrec_gru_train_smem(int backward, int path, int H, int C, int R) {
+  if (path == kPathWide) {
+    if (!wide_shape_ok(H, R, backward)) return -1;
+    return (long long)(sizeof(float) * (backward ? wide_bwd_floats(H) : wide_fwd_floats(H)));
+  }
   return train_smem_bytes<false>(backward, path, H, C, R);
+}
+
+// Blocks of the reg or wide path's forward (backward = 0) or backward
+// kernel at (H, R) that one SM holds at once, with the shared memory its
+// launcher asks for (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int seqrec_gru_train_blocks_per_sm(int backward, int path, int H, int R, int* n_blocks) {
+  const long long smem = seqrec_gru_train_smem(backward, path, H, 1, R);
+  if (smem < 0 || (path != kPathReg && path != kPathWide)) return (int)cudaErrorInvalidValue;
+  const void* kernel;
+  int threads;
+  if (path == kPathReg) {
+    kernel = backward ? (const void*)reg_backward_kernel<false> : (const void*)reg_forward_kernel<false, true>;
+    threads = kRegThreads;
+  } else {
+    kernel = backward ? (const void*)wide_backward_kernel : (const void*)wide_forward_kernel<kWideFwdRows>;
+    threads = backward ? WideRows<kWideBwdRows>::kThreads : WideRows<kWideFwdRows>::kThreads;
+  }
+  const int err = allow_smem_once(kernel, (size_t)smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(n_blocks, kernel, threads, (size_t)smem);
 }

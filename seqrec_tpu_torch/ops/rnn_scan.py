@@ -80,7 +80,8 @@ def gru_scan_plain(x_pre, mask, w_hid, h0):
     return h
 
 
-PATHS = {"reg": 0, "cluster": 1, "l2": 2}  # the paths of K1, K3, K5 and K6 (csrc/scan_train.cuh kPath*)
+# the paths of K1, K3, K5 and K6 (csrc/scan_train.cuh kPath*); "wide" is K1's alone (csrc/scan_train_wide.cuh)
+PATHS = {"reg": 0, "cluster": 1, "l2": 2, "wide": 4}
 GRU_PATHS = {**PATHS, "gru_cluster": 3}  # K3's, with gru_cluster.cuh's kernel (csrc/gru_scan.cu kPathGruCluster)
 # K3 runs gru_cluster.cuh's kernel (8 CTAs of up to 64 units, tiles up to 64 rows) from this H on:
 # at GRU-256 serving's B512 chunk its 8x40 tile took 0.356 ms where the training forward's cluster
@@ -151,7 +152,7 @@ def gru_scan_plan(B: int, H: int, n_sm: int, smem_optin: int, capacity=None,
             return "gru_cluster", CLUSTER_CTAS, R
     from seqrec_tpu_torch.ops.rnn_scan_train import train_scan_plan  # it imports this module
 
-    return train_scan_plan("gru", B, H, n_sm, smem_optin, False, capacity)
+    return train_scan_plan("gru", B, H, n_sm, smem_optin, False, capacity, kernels="scan")
 
 
 _limits: dict[int, tuple[int, int]] = {}

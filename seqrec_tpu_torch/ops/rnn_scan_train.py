@@ -33,6 +33,8 @@ DW_TILE = 128  # rows and columns of one dW output tile (csrc/block_mma.cuh kBT)
 REG_MAX_H = 50  # csrc/scan_train_reg.cuh kRegMaxH
 REG_MAX_ROWS = 16
 REG_HS, REG_GS = 52, 208  # row strides of its h and hid buffers
+WIDE_MAX_H = 50  # csrc/scan_train_wide.cuh kWideMaxH
+WIDE_ROWS = (16, 32)  # rows of a forward and of a backward CTA (kWideFwdRows, kWideBwdRows)
 CLUSTER_CTAS = (2, 4, 8)
 CLUSTER_ROWS = (32, 24, 16, 8)  # csrc/scan_train.cuh cluster_*_instance
 CLUSTER_UNITS = 32  # units of one CTA: one a lane
@@ -67,10 +69,19 @@ def _h4(n: int) -> int:
 
 def train_scan_smem(cell: str, path: str, H: int, C: int, R: int, backward: bool) -> int:
     """Shared-memory bytes of one block (CTA) of a training scan's kernel
-    (csrc/scan_train_reg.cuh reg_*_floats, scan_train_cluster.cuh
-    cluster_*_floats, and the l2 kernels' state)."""
+    (csrc/scan_train_reg.cuh reg_*_floats, scan_train_wide.cuh
+    wide_*_floats, scan_train_cluster.cuh cluster_*_floats, and the l2
+    kernels' state)."""
     n = 3 if cell == "gru" else 4
-    if path == "reg":
+    if path == "wide":  # the GRU's alone; R = WIDE_ROWS[backward]
+        HQ, G, S = -(-H // 4) * 4, 3 * H, R + 4  # units to 4s; rows of the transposed buffers S floats apart
+        floats = 2 * R + 2 * R * G + HQ * (HQ // 2) * 8  # mask, x_pre, W as [HQ, HQ / 2, 8]
+        if backward:  # h [3, HQ, S], dhid [2, G to 16s, S], W^T as [G to 16s, HQ]
+            GP = -(-G // 16) * 16
+            floats += 3 * HQ * S + 2 * GP * S + GP * HQ
+        else:  # h [2, HQ, S]
+            floats += 2 * HQ * S
+    elif path == "reg":
         floats = R * (9 * REG_HS + 2 * REG_GS + 3 * n * H + 3 + 3 * H) if backward else R * (
             2 * REG_HS + REG_GS + 2 * n * H + 2)
     elif path == "cluster":
@@ -84,13 +95,18 @@ def train_scan_smem(cell: str, path: str, H: int, C: int, R: int, backward: bool
 
 
 def train_scan_plan(cell: str, B: int, H: int, n_sm: int, smem_optin: int, backward: bool = True,
-                    capacity=None) -> tuple[str, int, int]:
+                    capacity=None, kernels: str = "train") -> tuple[str, int, int]:
     """(path, C, R) of the training scan of ``cell`` ("gru": K1, "lstm":
     K5), forward or backward, at batch B and hidden size H on a card of
     ``n_sm`` SMs and ``smem_optin`` bytes of shared memory a block may use;
     ``capacity`` maps (C, R) to the clusters of that shape the card holds
-    at once (default: one per C SMs).
+    at once (default: one per C SMs). ``kernels`` "scan" plans the eval
+    scans (K3, K6) on the same kernels, which never take "wide".
 
+    - ``"wide"`` (K1 alone, H <= 50, more than 16 rows an SM): CTAs of R =
+      16 rows forward (several an SM) and 32 backward (one wave up to 32
+      rows an SM), the step's products as register micro-tiles
+      (csrc/scan_train_wide.cuh); C = 1.
     - ``"reg"`` (H <= 50): W_hid in registers, one block per tile of R =
       ceil(B / SMs) rows (at most 16); C = 1.
     - ``"cluster"``: clusters of C CTAs of at most 32 units each, R rows a
@@ -105,6 +121,9 @@ def train_scan_plan(cell: str, B: int, H: int, n_sm: int, smem_optin: int, backw
     if B < 1 or H < 1:
         raise ValueError(f"train_scan_plan: no kernel for B={B}, H={H}")
     rows = max(1, -(-B // n_sm))
+    if (cell == "gru" and kernels == "train" and H <= WIDE_MAX_H and rows > REG_MAX_ROWS
+            and train_scan_smem(cell, "wide", H, 1, WIDE_ROWS[backward], backward) <= smem_optin):
+        return "wide", 1, WIDE_ROWS[backward]
     if H <= REG_MAX_H:
         R = min(REG_MAX_ROWS, rows)
         if train_scan_smem(cell, "reg", H, 1, R, backward) <= smem_optin:
@@ -149,7 +168,7 @@ def device_train_plan(cell: str, B: int, H: int, device, backward: bool, library
     lib = library()
     n_sm, smem = device_limits(index)
     held = None
-    if train_scan_plan(cell, B, H, n_sm, smem, backward)[0] == "cluster":
+    if train_scan_plan(cell, B, H, n_sm, smem, backward, kernels=kernels)[0] == "cluster":
         fn, held = getattr(lib, f"seqrec_{cell}_{kernels}_capacity"), {}
         with torch.cuda.device(index):
             for C in CLUSTER_CTAS:
@@ -161,7 +180,7 @@ def device_train_plan(cell: str, B: int, H: int, device, backward: bool, library
                     if err:
                         raise RuntimeError(f"{cell} {kernels} scan: reading the cluster capacity failed with CUDA error {err}")
                     held[C, R] = n.value
-    plan = train_scan_plan(cell, B, H, n_sm, smem, backward, held)
+    plan = train_scan_plan(cell, B, H, n_sm, smem, backward, held, kernels)
     path, C, R = plan
     want = train_scan_smem(cell, path, H, C, R, backward)
     got = getattr(lib, f"seqrec_{cell}_{kernels}_smem")(int(backward), PATHS[path], H, C, R)
@@ -190,6 +209,8 @@ def _library():
         lib.seqrec_gru_train_capacity.restype = ctypes.c_int
         lib.seqrec_gru_train_smem.argtypes = [ctypes.c_int] * 5
         lib.seqrec_gru_train_smem.restype = ctypes.c_longlong
+        lib.seqrec_gru_train_blocks_per_sm.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.seqrec_gru_train_blocks_per_sm.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -197,6 +218,18 @@ def _library():
 def gru_train_plan(B: int, H: int, device, backward: bool) -> tuple[str, int, int]:
     """K1's (path, C, R) on ``device`` (train_scan_plan)."""
     return device_train_plan("gru", B, H, device, backward, _library)
+
+
+def gru_train_blocks_per_sm(path: str, H: int, R: int, backward: bool, device="cuda") -> int:
+    """Blocks of K1's reg or wide kernel at (H, R) that one SM of
+    ``device`` holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    with the shared memory the launch asks for)."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _library().seqrec_gru_train_blocks_per_sm(int(backward), PATHS[path], H, R, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"gru_train_blocks_per_sm ({path} path) failed with CUDA error {err}")
+    return n.value
 
 
 def gru_scan_train_fwd(x_pre, mask, w_hid, h0):
@@ -224,6 +257,7 @@ def gru_scan_train_fwd(x_pre, mask, w_hid, h0):
         raise RuntimeError(f"gru_scan_train_fwd kernel launch ({path} path) failed with CUDA error {err}")
     gru_scan_train_fwd.launches += 1
     gru_scan_train_fwd.cluster_launches += path == "cluster"
+    gru_scan_train_fwd.wide_launches += path == "wide"
     return out, hs
 
 
@@ -248,7 +282,7 @@ def gru_scan_train_bwd(x_pre, mask, w_hid, hs, dh, grad_clip: float):
     dw = torch.empty((H, G), dtype=f32, device=dev)
     w_t = dhid = part = None
     n_splits = per_split = 0
-    if path == "reg":
+    if path in ("reg", "wide"):
         if B > R:
             part = torch.empty((-(-B // R), H, G), dtype=f32, device=dev)
     else:
@@ -268,12 +302,13 @@ def gru_scan_train_bwd(x_pre, mask, w_hid, hs, dh, grad_clip: float):
         raise RuntimeError(f"gru_scan_train_bwd kernel launch ({path} path) failed with CUDA error {err}")
     gru_scan_train_bwd.launches += 1
     gru_scan_train_bwd.cluster_launches += path == "cluster"
+    gru_scan_train_bwd.wide_launches += path == "wide"
     return dx, dh0, dw
 
 
-# every launch, and those of the cluster path
-gru_scan_train_fwd.launches = gru_scan_train_fwd.cluster_launches = 0
-gru_scan_train_bwd.launches = gru_scan_train_bwd.cluster_launches = 0
+# every launch, and those of the cluster and wide paths
+gru_scan_train_fwd.launches = gru_scan_train_fwd.cluster_launches = gru_scan_train_fwd.wide_launches = 0
+gru_scan_train_bwd.launches = gru_scan_train_bwd.cluster_launches = gru_scan_train_bwd.wide_launches = 0
 
 
 class _GRUScanTrain(torch.autograd.Function):

@@ -306,7 +306,7 @@ def k3_breakdown(card: str, before: str | None) -> None:
                     else lib.seqrec_gru_cluster_capacity(H, C, R, ctypes.byref(n)))
             held[path, C, R] = n.value
         plans = {rst.train_scan_plan("gru", B, H, n_sm, smem_optin, False,
-                                     {(C, R): n for (p, C, R), n in held.items() if p == "cluster"}),
+                                     {(C, R): n for (p, C, R), n in held.items() if p == "cluster"}, "scan"),
                  ("gru_cluster", 8, rs.gru_cluster_tile(B, H, n_sm, smem_optin,
                                                        {R: n for (p, _, R), n in held.items() if p == "gru_cluster"}))}
         for shape in shapes:

@@ -27,11 +27,13 @@ from seqrec_tpu.ops.streaming_cce import streaming_cce as jax_streaming_cce
 from seqrec_tpu_torch.models import updates
 from seqrec_tpu_torch.ops import losses
 from seqrec_tpu_torch.ops.core import gather_sum, grad_clip, rows_16b
+from seqrec_tpu_torch.ops.rnn_scan import gru_scan_plan
 from seqrec_tpu_torch.ops.rnn_scan_train import (
     CLUSTER_ROWS,
     CLUSTER_UNITS,
     L2_MAX_ROWS,
     REG_MAX_ROWS,
+    WIDE_ROWS,
     gru_scan_train,
     gru_scan_train_bwd,
     gru_scan_train_fwd,
@@ -304,6 +306,11 @@ TRAIN_PLANS = {
     ("gru", 9, 12): (("reg", 1), ("reg", 1)),
     ("lstm", 1025, 130): (("cluster", 8), ("cluster", 8)),  # a ragged tile, 130 units over 8 CTAs
     ("gru", 1024, 256): (("cluster", 8), ("l2", 1)),  # the backward's two slices outgrow a CTA
+    ("gru", 4096, 50): (("wide", 1), ("wide", 1)),  # the benchmark's GRU-50 at B 4096: 32 rows an SM
+    ("lstm", 4096, 50): (("reg", 1), ("reg", 1)),  # K5 keeps the reg path there
+    ("gru", 2112, 50): (("reg", 1), ("reg", 1)),  # 16 rows an SM: the reg path's last batch
+    ("gru", 2113, 50): (("wide", 1), ("wide", 1)),  # 17 rows an SM: the wide path's first
+    ("gru", 4096, 51): (("cluster", 2), ("cluster", 2)),  # past the wide path's H
 }
 
 
@@ -316,7 +323,8 @@ def test_train_scan_plan_covers_rows_and_units_within_shared_memory(cell, B, H, 
     232,448 bytes."""
     path, C, R = train_scan_plan(cell, B, H, H100_SMS, H100_SMEM_OPTIN, backward)
     assert (path, C) == TRAIN_PLANS[cell, B, H][backward]
-    assert R in {"reg": range(1, REG_MAX_ROWS + 1), "cluster": CLUSTER_ROWS, "l2": range(1, L2_MAX_ROWS + 1)}[path]
+    assert R in {"reg": range(1, REG_MAX_ROWS + 1), "cluster": CLUSTER_ROWS, "l2": range(1, L2_MAX_ROWS + 1),
+                 "wide": (WIDE_ROWS[backward],)}[path]
     tiles = -(-B // R)
     assert tiles * R >= B and B - (tiles - 1) * R >= 1  # every row in a tile, the last tile not empty
     assert train_scan_smem(cell, path, H, C, R, backward) <= H100_SMEM_OPTIN
@@ -349,6 +357,13 @@ TRAIN_SMEM_BY_HAND = {
     ("lstm", "reg", 50, 1, 16, True): 4 * 16 * (468 + 416 + 600 + 3 + 150),
     # hp, dh, dd [8, 256] + hid [8, 768]
     ("gru", "l2", 256, 1, 8, True): 4 * (3 * 2_048 + 6_144),
+    # units padded to 52: h^T [3, 52, 36] + dhid^T [2, 160, 36] + W [52, 26, 8] + W^T [160, 13, 4] + mask [2, 32]
+    # + x [2, 32, 150]
+    ("gru", "wide", 50, 1, 32, True): 4 * (5_616 + 11_520 + 10_816 + 8_320 + 64 + 9_600),
+    # 16 rows: h^T [2, 52, 20] + W [52, 26, 8] + mask [2, 16] + x [2, 16, 150]
+    ("gru", "wide", 50, 1, 16, False): 4 * (2_080 + 10_816 + 32 + 4_800),
+    # odd H, units padded to 28: h^T [3, 28, 36], dhid^T [2, 80, 36], W [28, 14, 8], W^T [80, 7, 4], mask, x [2, 32, 75]
+    ("gru", "wide", 25, 1, 32, True): 4 * (3_024 + 5_760 + 3_136 + 2_240 + 64 + 4_800),
     # hp, cp, dh, dc [8, 128] + hid [8, 512] + dp [8, 384] + pacc [384] + keep [8]
     ("lstm", "l2", 128, 1, 8, True): 4 * (4 * 1_024 + 4_096 + 3_072 + 384 + 8),
 }
@@ -374,3 +389,13 @@ def test_train_scan_plan_follows_the_cards_cluster_capacity():
     assert train_scan_plan("gru", 1024, 128, H100_SMS, H100_SMEM_OPTIN, False) == ("cluster", 4, 32)
     held = {(C, R): (66 if C == 4 else 33) for C in (4, 8) for R in (8, 16, 24, 32)}
     assert train_scan_plan("gru", 1024, 128, H100_SMS, H100_SMEM_OPTIN, False, held) == ("cluster", 4, 16)
+
+
+@pytest.mark.parametrize("B", [16, 64, 1024, 2112, 2113, 4096])
+def test_eval_scan_plans_never_take_the_wide_path(B):
+    """K3 and K6 plan their forward on the training scans' kernels without
+    the wide path: the reg path at H 50 whatever the batch, as before it."""
+    rows = min(REG_MAX_ROWS, -(-B // H100_SMS))
+    assert gru_scan_plan(B, 50, H100_SMS, H100_SMEM_OPTIN) == ("reg", 1, rows)
+    assert train_scan_plan("lstm", B, 50, H100_SMS, H100_SMEM_OPTIN, False, kernels="scan") == ("reg", 1, rows)
+    assert train_scan_plan("gru", B, 50, H100_SMS, H100_SMEM_OPTIN, False, kernels="scan") == ("reg", 1, rows)
