@@ -65,6 +65,12 @@ Phases, each printing one JSON line with its seconds:
    CPU; with the counters at 0 again run the test CLI on the checkpoint on
    the card, check that K6 (on its cluster path) and K4 ran and that the
    top-10 lists equal the CPU run's; time and profile steady steps.
+   Then main_path_train_hstu: HSTU (--r_t HSTU) at small widths on the
+   same catalog: its first 3 step costs against the CPU's, 20 steps at
+   --spd 2 and a validation through the train CLI (the attention kernels,
+   G1 and K2, no scan), the test CLI on its checkpoint (G1, the attention
+   forward, K4) with the CPU's top-10 lists. The kernels phase checks the
+   attention at the HSTU cell's shape and two odd ones.
 7. serving_pass_gru256: GRU-256 (``bench_matrix.json`` row
    GRU-256-50000-f32-B1024) from seed 0 on the same catalog; with every
    counter at 0 serve 4096 users at eval chunks of 512, check that K3 ran
@@ -262,6 +268,9 @@ KERNELS = {
     # not a Pallas kernel: the JAX package's gather-sum is XLA's gather and scatter-add
     "gather_sum_fwd": ("gather_sum", "seqrec_tpu_torch/csrc/gather_sum.cu", "seqrec_tpu/ops/core.py:54"),
     "gather_sum_bwd": ("gather_sum", "seqrec_tpu_torch/csrc/gather_sum.cu", "seqrec_tpu/ops/core.py:54"),
+    # not a Pallas kernel: the JAX package has no attention model (models/hstu.py)
+    "hstu_attention_fwd": ("hstu_attention", "seqrec_tpu_torch/csrc/hstu_attention.cu", "none"),
+    "hstu_attention_bwd": ("hstu_attention", "seqrec_tpu_torch/csrc/hstu_attention.cu", "none"),
 }
 FLAGSHIP = [
     "-m", "RNN", "--loss", "CCE", "--r_t", "GRU", "--r_l", "50", "--max_length", "30",
@@ -278,6 +287,10 @@ LSTM_LARGE = [
     "-m", "RNN", "--loss", "CCE", "--r_t", "LSTM", "--r_l", "128", "--max_length", "30",
     "-b", "1024", "--u_m", "adam", "--u_l", "0.002",
 ]
+# HSTU (models/hstu.py) at small widths on the large catalog: the attention kernels, G1 and K2 in training, G1, the
+# attention forward and K4 in the test CLI
+HSTU_SMALL = ["-m", "RNN", "--loss", "CCE", "--r_t", "HSTU", "--r_l", "64", "--hstu_blocks", "2", "--hstu_heads", "2",
+              "--hstu_dqk", "32", "--hstu_dv", "32", "--max_length", "30", "-b", "256", "--u_m", "adam", "--u_l", "0.001"]
 # the flagship with every side feature (--rf --mf --uf) on write_side_features' ML-1M-width tables:
 # F = 1 + 1 + (3 + 6) + 3 = 14 ids a step
 FEATURED = FLAGSHIP + ["--rf", "--mf", "--uf"]
@@ -1211,6 +1224,106 @@ def check_cce(B, H, N, seed, timed=True, foreign=False):
 
 
 # ----------------------------------------------------------------------
+# HSTU's causal pointwise attention, forward and backward
+# ----------------------------------------------------------------------
+def hstu_cell_lengths(B, L, seed):
+    """Prefix lengths drawn as the HSTU cell's traffic draws them
+    (benchmark/traffic/l200_b512.json): a history of 20-300 items, a cut
+    at 2 .. n - 1, the last L items of the prefix."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(20, 301, size=B)
+    return np.minimum(rng.integers(2, n), L)
+
+
+def hstu_attention_work(lengths, heads, dqk, dv):
+    """(matrix flops forward, bytes forward, bytes backward) of the
+    attention over rows of ``lengths`` valid steps: m (m + 1) / 2 causal
+    pairs a row and head, 2 (dqk + dv) flops a pair forward; Q, K, V and O
+    forward, and Q, K, V, dO, dQ, dK, dV backward, at the valid steps."""
+    m = np.asarray(lengths, dtype=np.float64)
+    pairs = float((m * (m + 1) / 2).sum()) * heads
+    steps = float(m.sum()) * heads
+    return 2 * pairs * (dqk + dv), 4 * steps * (2 * dqk + 2 * dv), 4 * steps * (4 * dqk + 3 * dv)
+
+
+def check_hstu_attention(B, L, heads, dqk, dv, seed, lengths=None, timed=True, empty_row=False):
+    """The attention's forward (O) and backward (dQ, dK, dV, dbias) kernels
+    against autograd through the plain version in float64, for q, k, v
+    taken as views of one SiLU projection's output (as the tower passes
+    them), a random bias and upstream cotangent; both called twice for the
+    same bits, their launch counters risen by two each."""
+    import torch
+
+    from seqrec_tpu_torch.ops.hstu_attention import (
+        hstu_attention_bwd,
+        hstu_attention_fwd,
+        hstu_attention_plain,
+    )
+
+    rng = np.random.default_rng(seed)
+    if lengths is None:
+        lengths = rng.integers(0 if empty_row else 1, L + 1, size=B)
+        lengths[-1] = L
+    if empty_row:
+        lengths[0] = 0
+    dev = "cuda"
+    uvqk = torch.nn.functional.silu(torch.tensor(rng.normal(0, 1, size=(B, L, heads * (2 * dqk + 2 * dv))),
+                                                 dtype=torch.float32, device=dev))
+    v, q, k = torch.split(uvqk[..., heads * dv:], [heads * dv, heads * dqk, heads * dqk], dim=-1)
+    bias = torch.tensor(rng.normal(0, 0.5, size=L), dtype=torch.float32, device=dev)
+    m = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    dout = torch.tensor(rng.normal(0, 1, size=(B, L, heads * dv)), dtype=torch.float32, device=dev)
+    scale = 1.0 / L
+    before = [hstu_attention_fwd.launches, hstu_attention_bwd.launches]
+    o_k = hstu_attention_fwd(q, k, v, bias, m, heads, scale)
+    grads_k = hstu_attention_bwd(q, k, v, bias, m, heads, scale, dout)
+    same_bits_twice("hstu_attention_fwd", (B, L), (o_k,), (hstu_attention_fwd(q, k, v, bias, m, heads, scale),))
+    same_bits_twice("hstu_attention_bwd", (B, L), grads_k, hstu_attention_bwd(q, k, v, bias, m, heads, scale, dout))
+    if [hstu_attention_fwd.launches - before[0], hstu_attention_bwd.launches - before[1]] != [2, 2]:
+        raise AssertionError("the hstu_attention launch counters did not rise by 2 each")
+    leaves = [t.detach().double().requires_grad_() for t in (q, k, v, bias)]
+    o_p = hstu_attention_plain(*leaves[:3], leaves[3], m, heads, scale)
+    grads_p = torch.autograd.grad(o_p, leaves, dout.double())
+    torch.cuda.synchronize()
+    errs, ok = {}, True
+    for name, got, want in (("o", o_k, o_p), *zip(("dq", "dk", "dv", "dbias"), grads_k, grads_p)):
+        errs[name], good = close(got.double(), want.detach(), rtol=1e-4, atol_rel=1e-5)
+        ok &= good
+    if not ok:
+        raise AssertionError(f"hstu_attention disagrees with its plain version at {(B, L, heads, dqk, dv)}: {errs}")
+    pad = torch.arange(L, device=dev)[None, :, None] >= m[:, None, None].long()
+    if o_k.masked_select(pad).any() or any(g.masked_select(pad).any() for g in grads_k[:3]):
+        raise AssertionError("hstu_attention gave a padded step an output or a gradient")
+    out = {
+        "kernel": "hstu_attention", "shape": {"B": B, "L": L, "heads": heads, "dqk": dqk, "dv": dv},
+        "mean_length": float(np.mean(lengths)), "max_abs_err": errs,
+        "tolerance": "rtol 1e-4 + atol 1e-5*max|plain| against the plain version in float64 (3xTF32 products; "
+                     "dbias sums B*heads*pairs terms)",
+        "same_bits_twice": True, "padded_steps_zero": True,
+    }
+    if not timed:
+        return out
+    fwd_flops, fwd_bytes, bwd_bytes = hstu_attention_work(lengths, heads, dqk, dv)
+    leaves32 = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+    o_32 = hstu_attention_plain(*leaves32[:3], leaves32[3], m, heads, scale)
+
+    def plain_fwd():
+        with torch.no_grad():
+            return hstu_attention_plain(q, k, v, bias, m, heads, scale)
+
+    def plain_bwd():
+        return torch.autograd.grad(o_32, leaves32, dout, retain_graph=True)
+
+    fwd = lambda: hstu_attention_fwd(q, k, v, bias, m, heads, scale)  # noqa: E731
+    bwd = lambda: hstu_attention_bwd(q, k, v, bias, m, heads, scale, dout)  # noqa: E731
+    t_fwd, t_bwd = timings({"kernel": fwd, "plain": plain_fwd}, {"kernel": bwd, "plain": plain_bwd})
+    out["fwd"] = dict(product_bounds(fwd_flops, fwd_bytes), **t_fwd, library_ms=None)
+    out["bwd"] = dict(product_bounds(2 * fwd_flops, bwd_bytes), **t_bwd, library_ms=None)
+    out["library"] = "none: no PyTorch call computes a pointwise (SiLU, no softmax) attention"
+    return out
+
+
+# ----------------------------------------------------------------------
 # K4: fused score + seen mask + top-k
 # ----------------------------------------------------------------------
 def topk_inputs(B, H, N, S, seed, device, seen_all_rows=0):
@@ -1681,6 +1794,34 @@ def catalog50k_dataset() -> str:
         return path + "/"
     rows = catalog_interactions(n_users=25_000, n_items=50_000, min_len=20, max_len=100, seed=8)
     return write_dataset(path, rows, n_val_users=500, n_test_users=500, seed=8)
+
+
+def main_path_train_hstu(card) -> dict:
+    """HSTU at small widths (HSTU_SMALL) on the 50k-item catalog: its first
+    3 step costs against the CLI on the CPU; with every counter at 0, 20
+    steps at --spd 2 and a validation through the train CLI (the attention
+    forward and backward, G1 and K2 launched, no recurrence's kernel); the
+    test CLI on the saved checkpoint (G1, the attention forward and K4
+    alone) with the CPU's top-10 lists. Returns the training run's counts."""
+    t_phase = time.perf_counter()
+    ds_dir = catalog50k_dataset()
+    rel = cpu_step_costs(ds_dir, HSTU_SMALL, 3)
+    text, cli_s, launches = train_run(ds_dir, HSTU_SMALL + ["--spd", "2"], 20, save_dir="chip_hstu/")
+    ran = ("hstu_attention_fwd", "hstu_attention_bwd", "cce_stats", "cce_grads", "gather_sum_fwd", "gather_sum_bwd")
+    scans = ("gru_scan_train_fwd", "gru_scan_train_bwd", "lstm_scan_train_fwd", "lstm_scan_train_bwd", "gru_scan",
+             "lstm_scan")
+    if any(launches[k] == 0 for k in ran) or any(launches[k] for k in scans):
+        raise AssertionError(f"the HSTU training path launched {launches}")
+    served = test_cli_lists(ds_dir, HSTU_SMALL, "chip_hstu/", ran=("hstu_attention_fwd", "gather_sum_fwd",
+                                                                    "fused_score_topk"))
+    emit({
+        "phase": "main_path_train_hstu", "config": "HSTU d 64, 2 blocks, 2 heads of 32, L=30, B=256, --spd 2, "
+        "50k-item catalog, streaming head", "launches": launches, "cli_cuda_s": cli_s,
+        "progress_costs_cuda_vs_cpu_max_rel_diff": rel, "train_cost": progress_values(text, "Last train cost"),
+        "validation_sps@10": progress_values(text, "sps"), "test_cli": served,
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return launches
 
 
 def main_path_train_lstm(card) -> tuple[dict, dict]:
@@ -3452,6 +3593,8 @@ def main() -> int:
     # the benchmark cells' shape: K1 on its wide path, prefix lengths drawn as the cells' traffic draws them
     k1_cell = check_gru_train(4096, 200, 50, 100.0, seed=90, lengths=cell_lengths(4096, 200, 90))
     k1_cell["blocks_per_sm"] = k1_blocks_per_sm()
+    # the HSTU cell's attention (B 512, L 200, 4 heads of 64) with its traffic's prefix lengths
+    hstu = check_hstu_attention(512, 200, 4, 64, 64, seed=95, lengths=hstu_cell_lengths(512, 200, 95))
     main_shape = {
         "gru_scan": check_gru(64, 30, 50, seed=1, path="reg"),
         "fused_score_topk": check_topk(64, 50, 3706, 30, 10, seed=2),
@@ -3465,6 +3608,9 @@ def main() -> int:
             k5["max_abs_err"][k] for k in ("dx", "dW", "dpeep", "dh0", "dc0"))},
         "gather_sum_fwd": {**gs_large, **gs_large["fwd"], "max_abs_err": gs_large["max_abs_err"]["fwd"]},
         "gather_sum_bwd": {**gs_large, **gs_large["bwd"], "max_abs_err": gs_large["max_abs_err"]["bwd"]},
+        "hstu_attention_fwd": {**hstu, **hstu["fwd"], "max_abs_err": hstu["max_abs_err"]["o"]},
+        "hstu_attention_bwd": {**hstu, **hstu["bwd"], "max_abs_err": max(
+            hstu["max_abs_err"][k] for k in ("dq", "dk", "dv", "dbias"))},
     }
     for res in (main_shape["gru_scan"], main_shape["fused_score_topk"], k1, k2, k6, k5, gs_large):
         emit({"phase": "kernels", "at": "main-path shape", **res})
@@ -3480,6 +3626,7 @@ def main() -> int:
     emit({"phase": "kernels", "at": "large shape", **k4_large})
     emit({"phase": "kernels", "at": "large shape", **k1_large})
     emit({"phase": "kernels", "at": "benchmark cell shape", **k1_cell})
+    emit({"phase": "kernels", "at": "HSTU cell shape", **hstu})
     emit({"phase": "kernels", "at": "flagship shape", **k5_small})
     # K6 at the GRU serving shape, beside K3's
     emit({"phase": "kernels", "at": "serving shape", **k6_small})
@@ -3557,6 +3704,9 @@ def main() -> int:
         # the stats and of the gradients bit for bit
         check_cce(1024, 256, 50_000, seed=46, timed=False),
         check_cce(1000, 100, 50_001, seed=47, timed=False),
+        # HSTU's attention: an odd length with a row of length 0, and narrow heads over three row tiles
+        check_hstu_attention(9, 37, 4, 64, 64, seed=96, timed=False, empty_row=True),
+        check_hstu_attention(5, 130, 2, 32, 16, seed=97, timed=False),
     ]
     small_clip = [e for e in edge if e.get("grad_clip", 1.0) < 0.1]
     if len(small_clip) != 7 or not all(e["clip_moves_dW_by"] > 0 for e in small_clip):
@@ -3572,6 +3722,7 @@ def main() -> int:
     flagship = main_path_train_flagship(card)
     large = main_path_train_large(card)
     lstm_train, lstm_serve = main_path_train_lstm(card)
+    hstu_train = main_path_train_hstu(card)
     gru256 = serving_pass_gru256(card)
     heads = main_path_train_heads(card)
     heads_large = main_path_train_heads_large(card)
@@ -3588,7 +3739,8 @@ def main() -> int:
     path_of = {"gru_scan": serving, "fused_score_topk": serving, "gru_scan_train_fwd": flagship,
                "gru_scan_train_bwd": flagship, "cce_stats": large, "cce_grads": large,
                "lstm_scan": lstm_serve, "lstm_scan_train_fwd": lstm_train, "lstm_scan_train_bwd": lstm_train,
-               "gather_sum_fwd": large, "gather_sum_bwd": large}
+               "gather_sum_fwd": large, "gather_sum_bwd": large, "hstu_attention_fwd": hstu_train,
+               "hstu_attention_bwd": hstu_train}
 
     summary = []
     for name, (_, source, replaces) in KERNELS.items():

@@ -55,8 +55,8 @@ def recurrent_layers_command_parser(parser) -> None:
     parser.add_argument(
         "--r_t",
         dest="recurrent_layer_type",
-        choices=["LSTM", "GRU", "Vanilla"],
-        help="Type of recurrent layer",
+        choices=["LSTM", "GRU", "Vanilla", "HSTU"],
+        help="Type of recurrent layer (HSTU: the attention tower of models/hstu.py, width --r_l)",
         default="GRU",
     )
     parser.add_argument(
@@ -69,9 +69,22 @@ def recurrent_layers_command_parser(parser) -> None:
         type=int,
         default=0,
     )
+    parser.add_argument("--hstu_blocks", help="HSTU: number of blocks", type=int, default=8)
+    parser.add_argument("--hstu_heads", help="HSTU: attention heads a block", type=int, default=4)
+    parser.add_argument("--hstu_dqk", help="HSTU: query and key width of a head", type=int, default=64)
+    parser.add_argument("--hstu_dv", help="HSTU: value width of a head", type=int, default=64)
 
 
-def get_recurrent_layers(args) -> "RecurrentLayers":
+def get_recurrent_layers(args):
+    if args.recurrent_layer_type == "HSTU":
+        from seqrec_tpu_torch.models.hstu import HSTULayers
+
+        if args.r_bi or args.r_emb > 0 or "-" in str(args.r_l):
+            raise ValueError("HSTU takes one width (--r_l) and neither --r_bi nor --r_emb")
+        if getattr(args, "mesh", "") or getattr(args, "bf16", False):
+            raise ValueError("HSTU runs in float32 on one device: neither --mesh nor --bf16")
+        return HSTULayers(hidden=int(args.r_l), blocks=args.hstu_blocks, heads=args.hstu_heads,
+                          dqk=args.hstu_dqk, dv=args.hstu_dv, max_length=getattr(args, "max_length", 200))
     return RecurrentLayers(
         layer_type=args.recurrent_layer_type,
         layers=[int(x) for x in args.r_l.split("-")],

@@ -5,7 +5,10 @@ namespace shared by the train and test CLIs; each plugin module
 contributes its own sub-parser). ``get_predictor`` builds what the port
 has so far: the RNN family's single-model heads, ``RNNOneHot`` (``--loss
 CCE``), ``RNNSampling`` (``BPR``, ``TOP1``, ``Blackout``) and
-``RNNMargin`` (``hinge``, ``logit``, ``logsig``); the cluster models
+``RNNMargin`` (``hinge``, ``logit``, ``logsig``), each on a GRU, LSTM or
+Vanilla tower or, with ``--r_t HSTU``, the HSTU tower of ``models/hstu.py``
+(``--r_l`` its width, ``--hstu_blocks``, ``--hstu_heads``, ``--hstu_dqk``,
+``--hstu_dv``; a port-only flag set, the JAX package has no HSTU); the cluster models
 ``RNNCluster`` (``-m RNN --clusters K``) and ``FISMCluster`` (``-m FISM
 --clusters K``); ``StackedDenoisingAutoencoder`` (``-m SDA``); ``LTM``
 (``-m LTM``); and the lazy baselines ``Pop``, ``MarkovModel`` and
