@@ -362,6 +362,8 @@ def zero_counters() -> None:
     k3.reg_launches = k3.cluster_launches = k3.gru_cluster_launches = 0
     for name in ("gru_scan_train_fwd", "gru_scan_train_bwd"):
         wrapper(name).cluster_launches = wrapper(name).wide_launches = 0
+    for name in ("lstm_scan_train_fwd", "lstm_scan_train_bwd"):
+        wrapper(name).wide_launches = 0
     wrapper("lstm_scan").reg_launches = wrapper("lstm_scan").cluster_launches = 0
 
 
@@ -772,11 +774,14 @@ def check_gru_train(B, L, H, clip, seed, timed=True, empty_row=False, holes=Fals
 # ----------------------------------------------------------------------
 # K6 and K5: LSTM eval scan, LSTM training scan forward and backward
 # ----------------------------------------------------------------------
-def lstm_inputs(B, L, H, seed, device, empty_row=False, holes=False):
+def lstm_inputs(B, L, H, seed, device, empty_row=False, holes=False, lengths=None):
+    """Random LSTM scan inputs; ``lengths`` (prefix lengths) replaces the
+    drawn ones."""
     import torch
 
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(1, L + 1, size=B)
+    drawn = rng.integers(1, L + 1, size=B)
+    lengths = drawn if lengths is None else np.asarray(lengths)
     if empty_row:
         lengths[0] = 0  # keeps (h0, c0)
     mask = np.arange(L)[None, :] < lengths[:, None]
@@ -871,11 +876,12 @@ def check_lstm(B, L, H, seed, path, timed=True, empty_row=False, holes=False):
     return out
 
 
-def check_lstm_train(B, L, H, clip, seed, timed=True, empty_row=False, holes=False):
+def check_lstm_train(B, L, H, clip, seed, timed=True, empty_row=False, holes=False, lengths=None):
     """K5 forward (final state) and backward (dx, dW, dpeep, dh0, dc0)
     against autograd through the plain scan, for a random upstream
     cotangent dh; both on the path their plan picks, each called twice for
-    the same bits."""
+    the same bits; the wide path's launches of the four calls (> 0 where
+    the plan takes it)."""
     import torch
 
     from seqrec_tpu_torch.ops.lstm_scan_train import (
@@ -885,14 +891,20 @@ def check_lstm_train(B, L, H, clip, seed, timed=True, empty_row=False, holes=Fal
         lstm_train_plan,
     )
 
-    a = lstm_inputs(B, L, H, seed, "cuda", empty_row, holes)
+    a = lstm_inputs(B, L, H, seed, "cuda", empty_row, holes, lengths)
     x, m, w, p, h0, c0 = (a[k] for k in ("x_pre", "mask", "w_hid", "peep", "h0", "c0"))
     dh = torch.tensor(np.random.default_rng(seed + 100).normal(0, 1, size=(B, H)),
                       dtype=torch.float32, device="cuda")
+    wide_before = [lstm_scan_train_fwd.wide_launches, lstm_scan_train_bwd.wide_launches]
     h_k, hs, cs = lstm_scan_train_fwd(x, m, w, p, h0, c0)
     grads_k = lstm_scan_train_bwd(x, m, w, p, hs, cs, dh, clip)
     same_bits_twice("lstm_scan_train_fwd", (B, L, H), (h_k, hs, cs), lstm_scan_train_fwd(x, m, w, p, h0, c0))
     same_bits_twice("lstm_scan_train_bwd", (B, L, H), grads_k, lstm_scan_train_bwd(x, m, w, p, hs, cs, dh, clip))
+    wide = {"fwd": lstm_scan_train_fwd.wide_launches - wide_before[0],
+            "bwd": lstm_scan_train_bwd.wide_launches - wide_before[1]}
+    plan = {d: list(lstm_train_plan(B, H, x.device, d == "bwd")) for d in ("fwd", "bwd")}
+    if any((plan[d][0] == "wide") != (wide[d] == 2) for d in ("fwd", "bwd")):
+        raise AssertionError(f"lstm_scan_train at {(B, L, H)}: plan {plan}, wide launches {wide}")
     if empty_row:
         check_empty_row("lstm_scan_train", grads_k[0], grads_k[3], dh)
         if grads_k[4][0].any() or not torch.equal(h_k[0], h0[0]):
@@ -915,8 +927,8 @@ def check_lstm_train(B, L, H, clip, seed, timed=True, empty_row=False, holes=Fal
     dw_free = torch.autograd.grad(free, leaves2[1], dh)[0]
     out = {
         "kernel": "lstm_scan_train", "shape": {"B": B, "L": L, "H": H}, "grad_clip": clip,
-        "plan": {d: list(lstm_train_plan(B, H, x.device, d == "bwd")) for d in ("fwd", "bwd")},
-        "same_bits_twice": True, "max_abs_err": errs, "clip_moves_dW_by": (grads_p[1] - dw_free).abs().max().item(),
+        "plan": plan, "wide_launches": wide, "same_bits_twice": True, "max_abs_err": errs,
+        "clip_moves_dW_by": (grads_p[1] - dw_free).abs().max().item(),
         "tolerance": "rtol 1e-4 + atol 1e-5*max|plain| (f32; dW and dpeep sum B*L products in another order)",
     }
     if not timed:
@@ -3593,6 +3605,8 @@ def main() -> int:
     # the benchmark cells' shape: K1 on its wide path, prefix lengths drawn as the cells' traffic draws them
     k1_cell = check_gru_train(4096, 200, 50, 100.0, seed=90, lengths=cell_lengths(4096, 200, 90))
     k1_cell["blocks_per_sm"] = k1_blocks_per_sm()
+    # and K5 there, on its wide path
+    k5_cell = check_lstm_train(4096, 200, 50, 100.0, seed=94, lengths=cell_lengths(4096, 200, 94))
     # the HSTU cell's attention (B 512, L 200, 4 heads of 64) with its traffic's prefix lengths
     hstu = check_hstu_attention(512, 200, 4, 64, 64, seed=95, lengths=hstu_cell_lengths(512, 200, 95))
     main_shape = {
@@ -3626,6 +3640,7 @@ def main() -> int:
     emit({"phase": "kernels", "at": "large shape", **k4_large})
     emit({"phase": "kernels", "at": "large shape", **k1_large})
     emit({"phase": "kernels", "at": "benchmark cell shape", **k1_cell})
+    emit({"phase": "kernels", "at": "benchmark cell shape", **k5_cell})
     emit({"phase": "kernels", "at": "HSTU cell shape", **hstu})
     emit({"phase": "kernels", "at": "flagship shape", **k5_small})
     # K6 at the GRU serving shape, beside K3's
@@ -3683,6 +3698,10 @@ def main() -> int:
         check_gru_train(4096, 200, 50, 0.01, seed=91, timed=False, lengths=cell_lengths(4096, 200, 91)),
         check_gru_train(2113, 30, 50, 100.0, seed=92, timed=False, empty_row=True, holes=True),
         check_gru_train(3000, 20, 37, 100.0, seed=93, timed=False, holes=True),
+        # and K5's: the same four shapes
+        check_lstm_train(4096, 200, 50, 0.01, seed=98, timed=False, lengths=cell_lengths(4096, 200, 98)),
+        check_lstm_train(2113, 30, 50, 100.0, seed=99, timed=False, empty_row=True, holes=True),
+        check_lstm_train(3000, 20, 37, 100.0, seed=100, timed=False, holes=True),
         # K3 on its reg path (a row of length 0), its cluster path (a ragged
         # tile with holes; H=130 and 250, C not dividing H), gru_cluster.cuh
         # at H=256 (one row, a ragged tile, a row of length 0, a mask with
@@ -3709,7 +3728,7 @@ def main() -> int:
         check_hstu_attention(5, 130, 2, 32, 16, seed=97, timed=False),
     ]
     small_clip = [e for e in edge if e.get("grad_clip", 1.0) < 0.1]
-    if len(small_clip) != 7 or not all(e["clip_moves_dW_by"] > 0 for e in small_clip):
+    if len(small_clip) != 8 or not all(e["clip_moves_dW_by"] > 0 for e in small_clip):
         raise AssertionError("a small grad_clip did not bind")
     tower = check_lstm_tower()
     emit({"phase": "kernels", "at": "edge cases", "checks": [e["shape"] for e in edge],
@@ -3825,6 +3844,12 @@ def main() -> int:
                                       "plan": k1_cell["plan"][d], "wide_launches": k1_cell["wide_launches"][d],
                                       "blocks_per_sm": {p: n[d] for p, n in k1_cell["blocks_per_sm"].items()},
                                       "max_abs_err": k1_cell["max_abs_err"]}
+    for name in ("lstm_scan_train_fwd", "lstm_scan_train_bwd"):
+        entry = next(e for e in summary if e["name"] == name)
+        d = name.split("_")[-1]
+        entry["at_B4096_L200_H50"] = {**{key: k5_cell[d][key] for key in scan_keys + ("plain_ms", "library_ms")},
+                                      "plan": k5_cell["plan"][d], "wide_launches": k5_cell["wide_launches"][d],
+                                      "max_abs_err": k5_cell["max_abs_err"]}
     # this PR's redesigns: K6 on the training forward's kernels, the gather-sum pair
     lstm = next(e for e in summary if e["name"] == "lstm_scan")
     k6_keys = ("kernel_ms", "kernel_device_ms", "plain_device_ms", "library_device_ms", "bound_ms", "plan")

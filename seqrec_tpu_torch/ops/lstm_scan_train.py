@@ -102,6 +102,7 @@ def lstm_scan_train_fwd(x_pre, mask, w_hid, peepholes, h0, c0):
     if err:
         raise RuntimeError(f"lstm_scan_train_fwd kernel launch ({path} path) failed with CUDA error {err}")
     lstm_scan_train_fwd.launches += 1
+    lstm_scan_train_fwd.wide_launches += path == "wide"
     return out, hs, cs
 
 
@@ -128,8 +129,8 @@ def lstm_scan_train_bwd(x_pre, mask, w_hid, peepholes, hs, cs, dh, grad_clip: fl
     dpeep = torch.empty((3, H), dtype=f32, device=dev)
     w_t = dpre = part = peep_part = None
     n_splits = per_split = 0
-    blocks = -(-B // R)  # row tiles (reg, l2) or clusters: one dpeep partial each
-    if path == "reg":
+    blocks = -(-B // R)  # row tiles (reg, wide, l2) or clusters: one dpeep partial each
+    if path in ("reg", "wide"):
         if blocks > 1:
             part = torch.empty((blocks, H, G), dtype=f32, device=dev)
     else:
@@ -151,11 +152,13 @@ def lstm_scan_train_bwd(x_pre, mask, w_hid, peepholes, hs, cs, dh, grad_clip: fl
     if err:
         raise RuntimeError(f"lstm_scan_train_bwd kernel launch ({path} path) failed with CUDA error {err}")
     lstm_scan_train_bwd.launches += 1
+    lstm_scan_train_bwd.wide_launches += path == "wide"
     return dx, dw, dpeep, dh0, dc0
 
 
-lstm_scan_train_fwd.launches = 0
-lstm_scan_train_bwd.launches = 0
+# every launch, and those of the wide path
+lstm_scan_train_fwd.launches = lstm_scan_train_fwd.wide_launches = 0
+lstm_scan_train_bwd.launches = lstm_scan_train_bwd.wide_launches = 0
 
 
 class _LSTMScanTrain(torch.autograd.Function):

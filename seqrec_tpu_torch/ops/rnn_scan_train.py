@@ -35,6 +35,10 @@ REG_MAX_ROWS = 16
 REG_HS, REG_GS = 52, 208  # row strides of its h and hid buffers
 WIDE_MAX_H = 50  # csrc/scan_train_wide.cuh kWideMaxH
 WIDE_ROWS = (16, 32)  # rows of a forward and of a backward CTA (kWideFwdRows, kWideBwdRows)
+# rows an SM from which a training scan takes the wide path: K1 past the reg path's 16; K5 from 14, where its reg
+# and wide kernels cross (L 200, H 50 on an H100, forward and backward: 3.71 against 3.76 ms at 13 rows an SM,
+# 3.99 against 3.85 at 14)
+WIDE_MIN_ROWS = {"gru": REG_MAX_ROWS + 1, "lstm": 14}
 CLUSTER_CTAS = (2, 4, 8)
 CLUSTER_ROWS = (32, 24, 16, 8)  # csrc/scan_train.cuh cluster_*_instance
 CLUSTER_UNITS = 32  # units of one CTA: one a lane
@@ -70,11 +74,11 @@ def _h4(n: int) -> int:
 def train_scan_smem(cell: str, path: str, H: int, C: int, R: int, backward: bool) -> int:
     """Shared-memory bytes of one block (CTA) of a training scan's kernel
     (csrc/scan_train_reg.cuh reg_*_floats, scan_train_wide.cuh
-    wide_*_floats, scan_train_cluster.cuh cluster_*_floats, and the l2
-    kernels' state)."""
+    wide_*_floats and lstm_scan_train_wide.cuh lstm_wide_*_floats,
+    scan_train_cluster.cuh cluster_*_floats, and the l2 kernels' state)."""
     n = 3 if cell == "gru" else 4
-    if path == "wide":  # the GRU's alone; R = WIDE_ROWS[backward]
-        HQ, G, S = -(-H // 4) * 4, 3 * H, R + 4  # units to 4s; rows of the transposed buffers S floats apart
+    if path == "wide":  # R = WIDE_ROWS[backward]
+        HQ, G, S = -(-H // 4) * 4, n * H, R + 4  # units to 4s; rows of the transposed buffers S floats apart
         floats = 2 * R + 2 * R * G + HQ * (HQ // 2) * 8  # mask, x_pre, W as [HQ, HQ / 2, 8]
         if backward:  # h [3, HQ, S], dhid [2, G to 16s, S], W^T as [G to 16s, HQ]
             GP = -(-G // 16) * 16
@@ -103,10 +107,11 @@ def train_scan_plan(cell: str, B: int, H: int, n_sm: int, smem_optin: int, backw
     at once (default: one per C SMs). ``kernels`` "scan" plans the eval
     scans (K3, K6) on the same kernels, which never take "wide".
 
-    - ``"wide"`` (K1 alone, H <= 50, more than 16 rows an SM): CTAs of R =
-      16 rows forward (several an SM) and 32 backward (one wave up to 32
-      rows an SM), the step's products as register micro-tiles
-      (csrc/scan_train_wide.cuh); C = 1.
+    - ``"wide"`` (H <= 50, at least ``WIDE_MIN_ROWS[cell]`` rows an SM: K1
+      17, K5 14): CTAs of R = 16 rows forward (several an SM) and 32
+      backward (one wave up to 32 rows an SM), the step's products as
+      register micro-tiles (csrc/scan_train_wide.cuh, K5's
+      csrc/lstm_scan_train_wide.cuh); C = 1.
     - ``"reg"`` (H <= 50): W_hid in registers, one block per tile of R =
       ceil(B / SMs) rows (at most 16); C = 1.
     - ``"cluster"``: clusters of C CTAs of at most 32 units each, R rows a
@@ -121,7 +126,7 @@ def train_scan_plan(cell: str, B: int, H: int, n_sm: int, smem_optin: int, backw
     if B < 1 or H < 1:
         raise ValueError(f"train_scan_plan: no kernel for B={B}, H={H}")
     rows = max(1, -(-B // n_sm))
-    if (cell == "gru" and kernels == "train" and H <= WIDE_MAX_H and rows > REG_MAX_ROWS
+    if (kernels == "train" and H <= WIDE_MAX_H and rows >= WIDE_MIN_ROWS[cell]
             and train_scan_smem(cell, "wide", H, 1, WIDE_ROWS[backward], backward) <= smem_optin):
         return "wide", 1, WIDE_ROWS[backward]
     if H <= REG_MAX_H:

@@ -41,7 +41,10 @@ kernel runs on a path of ``chip_smoke.py``:
   the dh product, without the dW sums (reg) or the dW product (cluster),
   with every step's copies reading step 0's rows (cache-hot, so the
   loads' latency is all that goes), with the new h or dhid stored only into the
-  CTA's own buffer, and through the wrapper per call; with ``--before``
+  CTA's own buffer, and through the wrapper per call; K5 also at the
+  benchmark cell's B=4096/L=200/H=50 with its prefix lengths (wide path):
+  without the hid recompute, without the dh product, without the dW sums;
+  with ``--before``
   also the kernels of that checkout (one block per row tile, W_hid through
   L2 at H=128, 64 x 64 f32 dW tiles) without the hid recompute, phase 3,
   the step loads, the dW launches or the W_hid reads, its wrapper (device
@@ -528,14 +531,15 @@ SCAN_TRAIN_BEFORE_VARIANTS = {
 SCAN_SHAPES = [(16, 30, 50), (1024, 30, 128)]  # (B, L, H): the flagship; GRU-128 and LSTM-128
 
 
-def scan_inputs(cell: str, B: int, L: int, H: int, seed: int = 5) -> dict:
-    """chip_smoke.py's scan inputs (ragged prefix masks) and an upstream
-    cotangent, on the card."""
+def scan_inputs(cell: str, B: int, L: int, H: int, seed: int = 5, lengths=None) -> dict:
+    """chip_smoke.py's scan inputs (ragged prefix masks, or ``lengths``)
+    and an upstream cotangent, on the card."""
     import torch
 
     rng = np.random.default_rng(seed)
     n_gates = 3 if cell == "gru" else 4
-    lengths = rng.integers(1, L + 1, size=B)
+    drawn = rng.integers(1, L + 1, size=B)
+    lengths = drawn if lengths is None else np.asarray(lengths)
     arrays = {
         "x": rng.normal(0, 0.5, (B, L, n_gates * H)), "m": np.arange(L)[None] < lengths[:, None],
         "w": rng.normal(0, 0.1, (H, n_gates * H)), "p": rng.normal(0, 0.1, (3, H)),
@@ -567,8 +571,9 @@ def scan_train_before_breakdown(card: str, cell: str, csrc: str) -> None:
     libs = {d: build_variants(source, SCAN_TRAIN_BEFORE_VARIANTS[f"{cell}_{d}"], csrc=csrc, tag=f"-before-{d}")
             for d in ("fwd", "bwd")}
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for B, L, H in SCAN_SHAPES:
-        a = scan_inputs(cell, B, L, H)
+    for B, L, H in SCAN_SHAPES + (K5_WIDE_SHAPES if cell == "lstm" else []):
+        wide_shape = (B, L, H) in K5_WIDE_SHAPES
+        a = scan_inputs(cell, B, L, H, lengths=chip_smoke.cell_lengths(B, L, 5) if wide_shape else None)
         G = a["w"].shape[1]
         stream = torch.cuda.current_stream().cuda_stream
         e = lambda *s: torch.empty(*s, device="cuda")  # noqa: E731
@@ -653,26 +658,40 @@ SCAN_TRAIN_VARIANTS = {
                                (CLU, "for (int pr = 0; pr < C; ++pr) cluster.map_shared_rank(hn, pr)[e] = h;", "hn[e] = h;")],
 }
 REG_ROWS = (1, 2, 4, 8, 16)  # reg-path tiles timed at B=16
+# K5's wide path (lstm_scan_train_wide.cuh), one part cut out at a time: timed at K5_WIDE_SHAPES alone
+WIDE = "lstm_scan_train_wide.cuh"
+LSTM_WIDE_VARIANTS = {
+    "wide_no_hid_recompute": [(WIDE, "      lstm_wide_hid(hT + p * d.HQ * S, Wf, H, d, th, hid);",
+                               "      lstm_wide_hid(hT + p * d.HQ * S, Wf, L < 0 ? H : 0, d, th, hid);"),
+                              (WIDE, "      if (t >= 1) lstm_wide_hid(hpT + ((t - 1) % 3) * d.HQ * S, Wf, H, d, th, hid);",
+                               "      if (t >= 1) lstm_wide_hid(hpT + ((t - 1) % 3) * d.HQ * S, Wf, L < 0 ? H : 0, d, th, hid);")],
+    "wide_no_dh_product": [(WIDE, "      for (int c = 0; c < d.CQ; ++c) {", "      for (int c = 0; c < (L < 0 ? d.CQ : 0); ++c) {")],
+    "wide_no_dw": [(WIDE, "      for (int rb = 0; rb < R; rb += 4) {", "      for (int rb = 0; rb < (L < 0 ? R : 0); rb += 4) {")],
+}
+K5_WIDE_SHAPES = [(4096, 200, 50)]  # the benchmark's LSTM cell, with its traffic's prefix lengths
 
 
 def scan_train_breakdown(card: str, cell: str) -> None:
-    """K1 (cell "gru") or K5 ("lstm") as committed at SCAN_SHAPES on its
-    plan's path, forward and backward, cut part by part; at B=16 the reg
-    path also with other row tiles; through the wrapper per call against
-    its device time."""
+    """K1 (cell "gru") or K5 ("lstm") as committed at SCAN_SHAPES (K5
+    also at K5_WIDE_SHAPES) on its plan's path, forward and backward, cut
+    part by part; at B=16 the reg path also with other row tiles; through
+    the wrapper per call against its device time."""
     import torch
 
     from seqrec_tpu_torch.ops import lstm_scan_train as lst
     from seqrec_tpu_torch.ops import rnn_scan_train as rst
     from seqrec_tpu_torch.ops.rnn_scan import device_limits
 
+    import chip_smoke
+
     source = "gru_scan_train" if cell == "gru" else "lstm_scan_train"
-    libs = build_variants(source, SCAN_TRAIN_VARIANTS, tag="-now")
+    libs = build_variants(source, {**SCAN_TRAIN_VARIANTS, **(LSTM_WIDE_VARIANTS if cell == "lstm" else {})}, tag="-now")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     n_sm = device_limits(torch.cuda.current_device())[0]
     plan_fn = rst.gru_train_plan if cell == "gru" else lst.lstm_train_plan
-    for B, L, H in SCAN_SHAPES:
-        a = scan_inputs(cell, B, L, H)
+    for B, L, H in SCAN_SHAPES + (K5_WIDE_SHAPES if cell == "lstm" else []):
+        wide_shape = (B, L, H) in K5_WIDE_SHAPES
+        a = scan_inputs(cell, B, L, H, lengths=chip_smoke.cell_lengths(B, L, 5) if wide_shape else None)
         G = a["w"].shape[1]
         e = lambda *sh: torch.empty(*sh, device="cuda")  # noqa: E731
         out, hs, cs, dx, dh0, dc0 = e(B, H), e(L, B, H), e(L, B, H), e(B, L, G), e(B, H), e(B, H)
@@ -710,6 +729,8 @@ def scan_train_breakdown(card: str, cell: str) -> None:
         for d in ("fwd", "bwd"):
             path, C, R = plans[d]
             for name, lib in libs.items():
+                if name != "committed" and name.startswith("wide_") != wide_shape:
+                    continue  # a variant of the other path's kernels
                 print(json.dumps({"kernel": f"{source} {d}", "variant": name, "shape": [B, L, H], "plan": [path, C, R],
                                   **timed(call(lib, d, path, C, R)), "card": card}), flush=True)
             if path == "reg":

@@ -307,10 +307,13 @@ TRAIN_PLANS = {
     ("lstm", 1025, 130): (("cluster", 8), ("cluster", 8)),  # a ragged tile, 130 units over 8 CTAs
     ("gru", 1024, 256): (("cluster", 8), ("l2", 1)),  # the backward's two slices outgrow a CTA
     ("gru", 4096, 50): (("wide", 1), ("wide", 1)),  # the benchmark's GRU-50 at B 4096: 32 rows an SM
-    ("lstm", 4096, 50): (("reg", 1), ("reg", 1)),  # K5 keeps the reg path there
+    ("lstm", 4096, 50): (("wide", 1), ("wide", 1)),  # the benchmark's LSTM-50 at B 4096: 32 rows an SM
     ("gru", 2112, 50): (("reg", 1), ("reg", 1)),  # 16 rows an SM: the reg path's last batch
     ("gru", 2113, 50): (("wide", 1), ("wide", 1)),  # 17 rows an SM: the wide path's first
     ("gru", 4096, 51): (("cluster", 2), ("cluster", 2)),  # past the wide path's H
+    ("lstm", 1716, 50): (("reg", 1), ("reg", 1)),  # 13 rows an SM: K5's last reg batch
+    ("lstm", 1717, 50): (("wide", 1), ("wide", 1)),  # 14 rows an SM: K5's first wide batch
+    ("lstm", 4096, 51): (("cluster", 2), ("cluster", 2)),  # past the wide path's H
 }
 
 
@@ -339,7 +342,8 @@ def test_train_scan_plan_covers_rows_and_units_within_shared_memory(cell, B, H, 
 
 # (cell, path, H, C, R, backward) -> bytes of one block, counted by hand from
 # the buffer layouts in the comments of csrc/scan_train_reg.cuh,
-# scan_train_cluster.cuh and scan_train.cuh:l2_train_floats
+# scan_train_cluster.cuh, scan_train_wide.cuh, lstm_scan_train_wide.cuh and
+# scan_train.cuh:l2_train_floats
 TRAIN_SMEM_BY_HAND = {
     # W[:, cols(q)] 128 x 96 + W[units(q), :]^T 384 x 32 + h 2 x 24 x 128 + dhid 2 x 24 x 384
     ("gru", "cluster", 128, 4, 24, True): 4 * (12_288 + 12_288 + 6_144 + 18_432),
@@ -364,6 +368,14 @@ TRAIN_SMEM_BY_HAND = {
     ("gru", "wide", 50, 1, 16, False): 4 * (2_080 + 10_816 + 32 + 4_800),
     # odd H, units padded to 28: h^T [3, 28, 36], dhid^T [2, 80, 36], W [28, 14, 8], W^T [80, 7, 4], mask, x [2, 32, 75]
     ("gru", "wide", 25, 1, 32, True): 4 * (3_024 + 5_760 + 3_136 + 2_240 + 64 + 4_800),
+    # K5's wide path, 4H = 200 columns to 208: h^T [3, 52, 36] + dpre^T [2, 208, 36] + W [52, 26, 8]
+    # + W^T [208, 13, 4] + mask [2, 32] + x [2, 32, 200]
+    ("lstm", "wide", 50, 1, 32, True): 4 * (5_616 + 14_976 + 10_816 + 10_816 + 64 + 12_800),
+    # 16 rows: h^T [2, 52, 20] + W [52, 26, 8] + mask [2, 16] + x [2, 16, 200]
+    ("lstm", "wide", 50, 1, 16, False): 4 * (2_080 + 10_816 + 32 + 6_400),
+    # odd H, units padded to 28: h^T [3, 28, 36], dpre^T [2, 112, 36], W [28, 14, 8], W^T [112, 7, 4], mask,
+    # x [2, 32, 100]
+    ("lstm", "wide", 25, 1, 32, True): 4 * (3_024 + 8_064 + 3_136 + 3_136 + 64 + 6_400),
     # hp, cp, dh, dc [8, 128] + hid [8, 512] + dp [8, 384] + pacc [384] + keep [8]
     ("lstm", "l2", 128, 1, 8, True): 4 * (4 * 1_024 + 4_096 + 3_072 + 384 + 8),
 }
@@ -391,7 +403,7 @@ def test_train_scan_plan_follows_the_cards_cluster_capacity():
     assert train_scan_plan("gru", 1024, 128, H100_SMS, H100_SMEM_OPTIN, False, held) == ("cluster", 4, 16)
 
 
-@pytest.mark.parametrize("B", [16, 64, 1024, 2112, 2113, 4096])
+@pytest.mark.parametrize("B", [16, 64, 1024, 1717, 2112, 2113, 4096])
 def test_eval_scan_plans_never_take_the_wide_path(B):
     """K3 and K6 plan their forward on the training scans' kernels without
     the wide path: the reg path at H 50 whatever the batch, as before it."""
