@@ -20,10 +20,10 @@
 // Design: four paths, chosen by the wrapper's plan (scan_train.cuh):
 // - reg (H <= 50): W_hid in registers, forward and backward, dW summed in
 //   registers inside the scan (scan_train_reg.cuh);
-// - wide (H <= 50 with more than 16 rows an SM, K1 only): backward CTAs
-//   of 32 rows in one wave, forward CTAs of 16 rows several an SM, the
-//   per-step products as register micro-tiles from W_hid in shared memory,
-//   dW summed in registers (scan_train_wide.cuh);
+// - wide (H <= 50 with more than 16 rows an SM): backward CTAs of 32 rows
+//   in one wave, forward CTAs of 16 rows several an SM, the per-step
+//   products as register micro-tiles from W_hid in shared memory, dW
+//   summed in registers (scan_train_wide.cuh, K5's kernels too);
 // - cluster (H up to 32 units a CTA of 8): W_hid split over a thread-block
 //   cluster (scan_train_cluster.cuh); the backward writes each step's dhid
 //   to scratch [L, B, 3H], and dW = hs^T dhid is a split-K 3xTF32 product
@@ -156,7 +156,8 @@ extern "C" int seqrec_gru_train_fwd_f32(const float* x, const float* mask, const
                                         int H, int path, int C, int R, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   if (path == kPathL2) return launch_gru_forward<true>(x, mask, w, h0, out, hs, B, L, H, stream);
-  if (path == kPathWide) return wide_forward(x, mask, w, h0, out, hs, B, L, H, R, (cudaStream_t)stream);
+  if (path == kPathWide)
+    return wide_forward<false>(x, mask, w, nullptr, h0, nullptr, out, hs, nullptr, B, L, H, R, (cudaStream_t)stream);
   return train_forward<false>(x, mask, w, nullptr, h0, nullptr, out, hs, nullptr, B, L, H, path, C,
                               R, (cudaStream_t)stream);
 }
@@ -176,7 +177,9 @@ extern "C" int seqrec_gru_train_bwd_f32(const float* x, const float* mask, const
   if (path == kPathReg)
     return train_backward_reg<false>(x, mask, w, nullptr, hs, nullptr, dh, dx, dh0, nullptr, dw,
                                      nullptr, part, nullptr, B, L, H, R, clip, s);
-  if (path == kPathWide) return wide_backward(x, mask, w, hs, dh, dx, dh0, dw, part, B, L, H, R, clip, s);
+  if (path == kPathWide)
+    return wide_backward<false>(x, mask, w, nullptr, hs, nullptr, dh, dx, dh0, nullptr, dw, nullptr, part, nullptr, B,
+                                L, H, R, clip, s);
   if (n_splits <= 0 || k_per_split <= 0 || (long long)n_splits * k_per_split < (long long)L * B)
     return (int)cudaErrorInvalidValue;
   int err;
@@ -203,10 +206,7 @@ extern "C" int seqrec_gru_train_capacity(int backward, int H, int C, int R, int*
 
 // Shared-memory bytes of one block of the path's kernel (-1: none takes it).
 extern "C" long long seqrec_gru_train_smem(int backward, int path, int H, int C, int R) {
-  if (path == kPathWide) {
-    if (!wide_shape_ok(H, R, backward)) return -1;
-    return (long long)(sizeof(float) * (backward ? wide_bwd_floats(H) : wide_fwd_floats(H)));
-  }
+  if (path == kPathWide) return wide_smem_bytes<false>(backward, H, R);
   return train_smem_bytes<false>(backward, path, H, C, R);
 }
 
@@ -222,7 +222,8 @@ extern "C" int seqrec_gru_train_blocks_per_sm(int backward, int path, int H, int
     kernel = backward ? (const void*)reg_backward_kernel<false> : (const void*)reg_forward_kernel<false, true>;
     threads = kRegThreads;
   } else {
-    kernel = backward ? (const void*)wide_backward_kernel : (const void*)wide_forward_kernel<kWideFwdRows>;
+    kernel = backward ? (const void*)wide_backward_kernel<false>
+                      : (const void*)wide_forward_kernel<false, kWideFwdRows>;
     threads = backward ? WideRows<kWideBwdRows>::kThreads : WideRows<kWideFwdRows>::kThreads;
   }
   const int err = allow_smem_once(kernel, (size_t)smem);

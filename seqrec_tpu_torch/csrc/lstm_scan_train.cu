@@ -27,7 +27,7 @@
 // Design: four paths, chosen by the wrapper's plan (scan_train.cuh):
 // - wide (H <= 50 with at least 14 rows an SM: the benchmark's B=4096):
 //   one wave of register-tiled CTAs, W_hid in shared memory, dW and dpeep
-//   summed inside the scan (lstm_scan_train_wide.cuh);
+//   summed inside the scan (scan_train_wide.cuh, K1's kernels too);
 // - reg (H <= 50): W_hid in registers, forward and backward, dW and dpeep
 //   summed inside the scan (scan_train_reg.cuh);
 // - cluster (H up to 32 units a CTA of 8): W_hid split over a thread-block
@@ -49,8 +49,8 @@
 // as they are (no lane padding, no time chunks).
 
 #include "lstm_forward.cuh"
-#include "lstm_scan_train_wide.cuh"
 #include "scan_train.cuh"
+#include "scan_train_wide.cuh"
 
 namespace {
 
@@ -186,15 +186,14 @@ extern "C" int seqrec_lstm_train_fwd_f32(const float* x, const float* mask, cons
   if (path == kPathL2)
     return launch_lstm_forward<true>(x, mask, w, peep, h0, c0, out, hs, cs, B, L, H, stream);
   if (path == kPathWide)
-    return lstm_wide_forward(x, mask, w, peep, h0, c0, out, hs, cs, B, L, H, R, (cudaStream_t)stream);
+    return wide_forward<true>(x, mask, w, peep, h0, c0, out, hs, cs, B, L, H, R, (cudaStream_t)stream);
   return train_forward<true>(x, mask, w, peep, h0, c0, out, hs, cs, B, L, H, path, C, R,
                              (cudaStream_t)stream);
 }
 
 // dh [B, H] -> dx [B, L, 4H], dh0, dc0 [B, H], dw [H, 4H], dpeep [3, H].
-// Scratch from the caller, by path: reg: part [ceil(B / R), H, 4H] and
-// peep_part [ceil(B / R), 3H] where that is over 1 block, wide: both always
-// (its plan has many CTAs); cluster: dpre
+// Scratch from the caller, by path: reg and wide: part [ceil(B / R), H, 4H]
+// and peep_part [ceil(B / R), 3H] where that is over 1 block; cluster: dpre
 // [L, B, 4H], part [n_splits, H, 4H] (the K = L * B rows of the dW product
 // in n_splits ranges of k_per_split rows) and peep_part [ceil(B / R), 3H]
 // where that is over 1 cluster; l2: the same (peep_part over 1 block) and
@@ -212,8 +211,8 @@ extern "C" int seqrec_lstm_train_bwd_f32(const float* x, const float* mask, cons
     return train_backward_reg<true>(x, mask, w, peep, hs, cs, dh, dx, dh0, dc0, dw, dpeep, part,
                                     peep_part, B, L, H, R, clip, s);
   if (path == kPathWide)
-    return lstm_wide_backward(x, mask, w, peep, hs, cs, dh, dx, dh0, dc0, dw, dpeep, part, peep_part, B, L, H,
-                              R, clip, s);
+    return wide_backward<true>(x, mask, w, peep, hs, cs, dh, dx, dh0, dc0, dw, dpeep, part, peep_part, B, L, H, R,
+                               clip, s);
   if (n_splits <= 0 || k_per_split <= 0 || (long long)n_splits * k_per_split < (long long)L * B)
     return (int)cudaErrorInvalidValue;
   int err;
@@ -244,9 +243,6 @@ extern "C" int seqrec_lstm_train_capacity(int backward, int H, int C, int R, int
 
 // Shared-memory bytes of one block of the path's kernel (-1: none takes it).
 extern "C" long long seqrec_lstm_train_smem(int backward, int path, int H, int C, int R) {
-  if (path == kPathWide) {
-    if (!wide_shape_ok(H, R, backward)) return -1;
-    return (long long)(sizeof(float) * (backward ? lstm_wide_bwd_floats(H) : lstm_wide_fwd_floats(H)));
-  }
+  if (path == kPathWide) return wide_smem_bytes<true>(backward, H, R);
   return train_smem_bytes<true>(backward, path, H, C, R);
 }

@@ -26,8 +26,8 @@ import torch
 
 from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops.core import check_tensors, on_device
-from seqrec_tpu_torch.ops.rnn_scan import device_limits, lstm_step
-from seqrec_tpu_torch.ops.rnn_scan_train import PATHS, device_train_plan, dw_split_plan
+from seqrec_tpu_torch.ops.rnn_scan import lstm_step
+from seqrec_tpu_torch.ops.rnn_scan_train import PATHS, backward_scratch, device_train_plan
 
 
 def lstm_scan_train_plain(x_pre, mask, w_hid, peepholes, h0, c0, grad_clip: float = 0.0):
@@ -127,20 +127,9 @@ def lstm_scan_train_bwd(x_pre, mask, w_hid, peepholes, hs, cs, dh, grad_clip: fl
     dc0 = torch.empty((B, H), dtype=f32, device=dev)
     dw = torch.empty((H, G), dtype=f32, device=dev)
     dpeep = torch.empty((3, H), dtype=f32, device=dev)
-    w_t = dpre = part = peep_part = None
-    n_splits = per_split = 0
+    part, dpre, w_t, n_splits, per_split = backward_scratch(path, B, L, R, w_hid)
     blocks = -(-B // R)  # row tiles (reg, wide, l2) or clusters: one dpeep partial each
-    if path in ("reg", "wide"):
-        if blocks > 1:
-            part = torch.empty((blocks, H, G), dtype=f32, device=dev)
-    else:
-        n_splits, per_split = dw_split_plan(L * B, H, G, device_limits(dh0.device.index)[0])
-        dpre = torch.empty((L, B, G), dtype=f32, device=dev)
-        part = torch.empty((n_splits, H, G), dtype=f32, device=dev)
-        if path == "l2":
-            w_t = w_hid.t().contiguous()
-    if blocks > 1:
-        peep_part = torch.empty((blocks, 3 * H), dtype=f32, device=dev)
+    peep_part = torch.empty((blocks, 3 * H), dtype=f32, device=dev) if blocks > 1 else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with on_device(dev):
         err = _library().seqrec_lstm_train_bwd_f32(

@@ -80,8 +80,8 @@ def gru_scan_plain(x_pre, mask, w_hid, h0):
     return h
 
 
-# the paths of K1, K3, K5 and K6 (csrc/scan_train.cuh kPath*); "wide" is the training scans' alone (K1's
-# csrc/scan_train_wide.cuh, K5's csrc/lstm_scan_train_wide.cuh)
+# the paths of K1, K3, K5 and K6 (csrc/scan_train.cuh kPath*); "wide" is the training scans' alone (K1's and
+# K5's csrc/scan_train_wide.cuh)
 PATHS = {"reg": 0, "cluster": 1, "l2": 2, "wide": 4}
 GRU_PATHS = {**PATHS, "gru_cluster": 3}  # K3's, with gru_cluster.cuh's kernel (csrc/gru_scan.cu kPathGruCluster)
 # K3 runs gru_cluster.cuh's kernel (8 CTAs of up to 64 units, tiles up to 64 rows) from this H on:

@@ -67,6 +67,24 @@ def dw_split_plan(K: int, H: int, G: int, n_sm: int) -> tuple[int, int]:
     return -(-K // per_split), per_split
 
 
+def backward_scratch(path: str, B: int, L: int, R: int, w_hid):
+    """(part, split, w_t, n_splits, per_split): the scratch of a training
+    scan's backward on ``path`` at B rows, L steps and R rows a block, on
+    ``w_hid``'s device (W_hid [H, G]). reg and wide: per-block dW partials
+    part [ceil(B / R), H, G] where there is more than one block; cluster
+    and l2: the dhid (dpre) rows split [L, B, G] and the dW splits' part
+    [n_splits, H, G] (dw_split_plan, n_splits of per_split rows); l2 also
+    W^T as w_t [G, H]. None where a buffer is not needed."""
+    H, G = w_hid.shape
+    if path in ("reg", "wide"):
+        part = torch.empty((-(-B // R), H, G), dtype=torch.float32, device=w_hid.device) if B > R else None
+        return part, None, None, 0, 0
+    n_splits, per_split = dw_split_plan(L * B, H, G, device_limits(w_hid.device.index)[0])
+    split = torch.empty((L, B, G), dtype=torch.float32, device=w_hid.device)
+    part = torch.empty((n_splits, H, G), dtype=torch.float32, device=w_hid.device)
+    return part, split, w_hid.t().contiguous() if path == "l2" else None, n_splits, per_split
+
+
 def _h4(n: int) -> int:
     return -(-n // 4) * 4
 
@@ -74,8 +92,8 @@ def _h4(n: int) -> int:
 def train_scan_smem(cell: str, path: str, H: int, C: int, R: int, backward: bool) -> int:
     """Shared-memory bytes of one block (CTA) of a training scan's kernel
     (csrc/scan_train_reg.cuh reg_*_floats, scan_train_wide.cuh
-    wide_*_floats and lstm_scan_train_wide.cuh lstm_wide_*_floats,
-    scan_train_cluster.cuh cluster_*_floats, and the l2 kernels' state)."""
+    wide_*_floats, scan_train_cluster.cuh cluster_*_floats, and the l2
+    kernels' state)."""
     n = 3 if cell == "gru" else 4
     if path == "wide":  # R = WIDE_ROWS[backward]
         HQ, G, S = -(-H // 4) * 4, n * H, R + 4  # units to 4s; rows of the transposed buffers S floats apart
@@ -110,8 +128,7 @@ def train_scan_plan(cell: str, B: int, H: int, n_sm: int, smem_optin: int, backw
     - ``"wide"`` (H <= 50, at least ``WIDE_MIN_ROWS[cell]`` rows an SM: K1
       17, K5 14): CTAs of R = 16 rows forward (several an SM) and 32
       backward (one wave up to 32 rows an SM), the step's products as
-      register micro-tiles (csrc/scan_train_wide.cuh, K5's
-      csrc/lstm_scan_train_wide.cuh); C = 1.
+      register micro-tiles (csrc/scan_train_wide.cuh, both cells); C = 1.
     - ``"reg"`` (H <= 50): W_hid in registers, one block per tile of R =
       ceil(B / SMs) rows (at most 16); C = 1.
     - ``"cluster"``: clusters of C CTAs of at most 32 units each, R rows a
@@ -285,17 +302,7 @@ def gru_scan_train_bwd(x_pre, mask, w_hid, hs, dh, grad_clip: float):
     dx = torch.empty((B, L, G), dtype=f32, device=dev)
     dh0 = torch.empty((B, H), dtype=f32, device=dev)
     dw = torch.empty((H, G), dtype=f32, device=dev)
-    w_t = dhid = part = None
-    n_splits = per_split = 0
-    if path in ("reg", "wide"):
-        if B > R:
-            part = torch.empty((-(-B // R), H, G), dtype=f32, device=dev)
-    else:
-        n_splits, per_split = dw_split_plan(L * B, H, G, device_limits(dh0.device.index)[0])
-        dhid = torch.empty((L, B, G), dtype=f32, device=dev)
-        part = torch.empty((n_splits, H, G), dtype=f32, device=dev)
-        if path == "l2":
-            w_t = w_hid.t().contiguous()
+    part, dhid, w_t, n_splits, per_split = backward_scratch(path, B, L, R, w_hid)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with on_device(dev):
         err = _library().seqrec_gru_train_bwd_f32(

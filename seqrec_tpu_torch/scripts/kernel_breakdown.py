@@ -41,8 +41,8 @@ kernel runs on a path of ``chip_smoke.py``:
   the dh product, without the dW sums (reg) or the dW product (cluster),
   with every step's copies reading step 0's rows (cache-hot, so the
   loads' latency is all that goes), with the new h or dhid stored only into the
-  CTA's own buffer, and through the wrapper per call; K5 also at the
-  benchmark cell's B=4096/L=200/H=50 with its prefix lengths (wide path):
+  CTA's own buffer, and through the wrapper per call; both also at the
+  benchmark cells' B=4096/L=200/H=50 with their prefix lengths (wide path):
   without the hid recompute, without the dh product, without the dW sums;
   with ``--before``
   also the kernels of that checkout (one block per row tile, W_hid through
@@ -566,13 +566,15 @@ def scan_train_before_breakdown(card: str, cell: str, csrc: str) -> None:
     against its device time."""
     import torch
 
+    import chip_smoke
+
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     source = "gru_scan_train" if cell == "gru" else "lstm_scan_train"
     libs = {d: build_variants(source, SCAN_TRAIN_BEFORE_VARIANTS[f"{cell}_{d}"], csrc=csrc, tag=f"-before-{d}")
             for d in ("fwd", "bwd")}
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for B, L, H in SCAN_SHAPES + (K5_WIDE_SHAPES if cell == "lstm" else []):
-        wide_shape = (B, L, H) in K5_WIDE_SHAPES
+    for B, L, H in SCAN_SHAPES + (WIDE_SHAPES if cell == "lstm" else []):
+        wide_shape = (B, L, H) in WIDE_SHAPES
         a = scan_inputs(cell, B, L, H, lengths=chip_smoke.cell_lengths(B, L, 5) if wide_shape else None)
         G = a["w"].shape[1]
         stream = torch.cuda.current_stream().cuda_stream
@@ -658,22 +660,21 @@ SCAN_TRAIN_VARIANTS = {
                                (CLU, "for (int pr = 0; pr < C; ++pr) cluster.map_shared_rank(hn, pr)[e] = h;", "hn[e] = h;")],
 }
 REG_ROWS = (1, 2, 4, 8, 16)  # reg-path tiles timed at B=16
-# K5's wide path (lstm_scan_train_wide.cuh), one part cut out at a time: timed at K5_WIDE_SHAPES alone
-WIDE = "lstm_scan_train_wide.cuh"
-LSTM_WIDE_VARIANTS = {
-    "wide_no_hid_recompute": [(WIDE, "      lstm_wide_hid(hT + p * d.HQ * S, Wf, H, d, th, hid);",
-                               "      lstm_wide_hid(hT + p * d.HQ * S, Wf, L < 0 ? H : 0, d, th, hid);"),
-                              (WIDE, "      if (t >= 1) lstm_wide_hid(hpT + ((t - 1) % 3) * d.HQ * S, Wf, H, d, th, hid);",
-                               "      if (t >= 1) lstm_wide_hid(hpT + ((t - 1) % 3) * d.HQ * S, Wf, L < 0 ? H : 0, d, th, hid);")],
+# K1's and K5's wide path (scan_train_wide.cuh), one part cut out at a time: timed at WIDE_SHAPES alone
+WIDE = "scan_train_wide.cuh"
+WIDE_VARIANTS = {
+    "wide_no_hid_recompute": [(WIDE, "      wide_hid(hc, Wf, H, d, th, hid);", "      wide_hid(hc, Wf, L < 0 ? H : 0, d, th, hid);"),
+                              (WIDE, "      if (t >= 1) wide_hid(hpT + ((t - 1) % 3) * d.HQ * S, Wf, H, d, th, hid);",
+                               "      if (t >= 1) wide_hid(hpT + ((t - 1) % 3) * d.HQ * S, Wf, L < 0 ? H : 0, d, th, hid);")],
     "wide_no_dh_product": [(WIDE, "      for (int c = 0; c < d.CQ; ++c) {", "      for (int c = 0; c < (L < 0 ? d.CQ : 0); ++c) {")],
     "wide_no_dw": [(WIDE, "      for (int rb = 0; rb < R; rb += 4) {", "      for (int rb = 0; rb < (L < 0 ? R : 0); rb += 4) {")],
 }
-K5_WIDE_SHAPES = [(4096, 200, 50)]  # the benchmark's LSTM cell, with its traffic's prefix lengths
+WIDE_SHAPES = [(4096, 200, 50)]  # the benchmark's GRU and LSTM cells, with their traffic's prefix lengths
 
 
 def scan_train_breakdown(card: str, cell: str) -> None:
-    """K1 (cell "gru") or K5 ("lstm") as committed at SCAN_SHAPES (K5
-    also at K5_WIDE_SHAPES) on its plan's path, forward and backward, cut
+    """K1 (cell "gru") or K5 ("lstm") as committed at SCAN_SHAPES and
+    WIDE_SHAPES on its plan's path, forward and backward, cut
     part by part; at B=16 the reg path also with other row tiles; through
     the wrapper per call against its device time."""
     import torch
@@ -685,12 +686,12 @@ def scan_train_breakdown(card: str, cell: str) -> None:
     import chip_smoke
 
     source = "gru_scan_train" if cell == "gru" else "lstm_scan_train"
-    libs = build_variants(source, {**SCAN_TRAIN_VARIANTS, **(LSTM_WIDE_VARIANTS if cell == "lstm" else {})}, tag="-now")
+    libs = build_variants(source, {**SCAN_TRAIN_VARIANTS, **WIDE_VARIANTS}, tag="-now")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     n_sm = device_limits(torch.cuda.current_device())[0]
     plan_fn = rst.gru_train_plan if cell == "gru" else lst.lstm_train_plan
-    for B, L, H in SCAN_SHAPES + (K5_WIDE_SHAPES if cell == "lstm" else []):
-        wide_shape = (B, L, H) in K5_WIDE_SHAPES
+    for B, L, H in SCAN_SHAPES + WIDE_SHAPES:
+        wide_shape = (B, L, H) in WIDE_SHAPES
         a = scan_inputs(cell, B, L, H, lengths=chip_smoke.cell_lengths(B, L, 5) if wide_shape else None)
         G = a["w"].shape[1]
         e = lambda *sh: torch.empty(*sh, device="cuda")  # noqa: E731

@@ -26,6 +26,7 @@ from seqrec_tpu.ops.streaming_cce import _pad_cols
 from seqrec_tpu.ops.streaming_cce import streaming_cce as jax_streaming_cce
 from seqrec_tpu_torch.models import updates
 from seqrec_tpu_torch.ops import losses
+from seqrec_tpu_torch.ops import rnn_scan_train
 from seqrec_tpu_torch.ops.core import gather_sum, grad_clip, rows_16b
 from seqrec_tpu_torch.ops.rnn_scan import gru_scan_plan
 from seqrec_tpu_torch.ops.rnn_scan_train import (
@@ -34,6 +35,8 @@ from seqrec_tpu_torch.ops.rnn_scan_train import (
     L2_MAX_ROWS,
     REG_MAX_ROWS,
     WIDE_ROWS,
+    backward_scratch,
+    dw_split_plan,
     gru_scan_train,
     gru_scan_train_bwd,
     gru_scan_train_fwd,
@@ -342,7 +345,7 @@ def test_train_scan_plan_covers_rows_and_units_within_shared_memory(cell, B, H, 
 
 # (cell, path, H, C, R, backward) -> bytes of one block, counted by hand from
 # the buffer layouts in the comments of csrc/scan_train_reg.cuh,
-# scan_train_cluster.cuh, scan_train_wide.cuh, lstm_scan_train_wide.cuh and
+# scan_train_cluster.cuh, scan_train_wide.cuh (both cells) and
 # scan_train.cuh:l2_train_floats
 TRAIN_SMEM_BY_HAND = {
     # W[:, cols(q)] 128 x 96 + W[units(q), :]^T 384 x 32 + h 2 x 24 x 128 + dhid 2 x 24 x 384
@@ -387,6 +390,31 @@ def test_train_scan_smem_matches_the_kernels_layouts(cell, path, H, C, R, backwa
     bytes counted by hand from the kernel's buffer layout (on the card the
     plan also holds it against the kernel's own count)."""
     assert train_scan_smem(cell, path, H, C, R, backward) == TRAIN_SMEM_BY_HAND[cell, path, H, C, R, backward]
+
+
+@pytest.mark.parametrize("path,B,R,n_gates", [
+    ("reg", 16, 16, 3), ("reg", 64, 1, 4), ("wide", 4096, 32, 3), ("wide", 1717, 32, 4), ("wide", 32, 32, 4),
+    ("cluster", 1024, 24, 3), ("cluster", 1024, 16, 4), ("l2", 1024, 8, 3), ("l2", 1024, 8, 4),
+])
+def test_backward_scratch_follows_each_paths_rule(monkeypatch, path, B, R, n_gates):
+    """K1's and K5's backward scratch, one rule for both cells: per-block dW
+    partials on the reg and wide paths where there is more than one block;
+    the dhid (dpre) rows and the dW splits on the cluster and l2 paths; W^T
+    on the l2 path alone."""
+    monkeypatch.setattr(rnn_scan_train, "device_limits", lambda index: (H100_SMS, H100_SMEM_OPTIN))
+    L, H = 30, 50
+    G = n_gates * H
+    w = torch.randn(H, G)
+    part, split, w_t, n_splits, per_split = backward_scratch(path, B, L, R, w)
+    if path in ("reg", "wide"):
+        assert split is None and w_t is None and (n_splits, per_split) == (0, 0)
+        assert (None if B <= R else (-(-B // R), H, G)) == (None if part is None else tuple(part.shape))
+    else:
+        assert (n_splits, per_split) == dw_split_plan(L * B, H, G, H100_SMS)
+        assert tuple(split.shape) == (L, B, G) and tuple(part.shape) == (n_splits, H, G)
+        assert (w_t is not None) == (path == "l2")
+        if w_t is not None:
+            assert w_t.is_contiguous() and torch.equal(w_t, w.t())
 
 
 @pytest.mark.parametrize("cell,B,H", [("gru", 0, 50), ("lstm", 16, 0), ("gru", 1024, 5000), ("lstm", 1024, 4000)])
