@@ -66,7 +66,10 @@ Phases, each printing one JSON line with its seconds:
    the card, check that K6 (on its cluster path) and K4 ran and that the
    top-10 lists equal the CPU run's; time and profile steady steps.
    Then main_path_train_hstu: HSTU (--r_t HSTU) at small widths on the
-   same catalog: its first 3 step costs against the CPU's, 20 steps at
+   same catalog: the tower on packed tokens against float64 on the CPU
+   (output, every gradient, token counters) at dqk != dv with empty, full
+   and one-step rows and at the HSTU cell's prefix lengths; its first 3
+   step costs against the CPU's, 20 steps at
    --spd 2 and a validation through the train CLI (the attention kernels,
    G1 and K2, no scan), the test CLI on its checkpoint (G1, the attention
    forward, K4) with the CPU's top-10 lists. The kernels phase checks the
@@ -1335,6 +1338,71 @@ def check_hstu_attention(B, L, heads, dqk, dv, seed, lengths=None, timed=True, e
     return out
 
 
+def check_hstu_tower(lengths, L, hidden, blocks, heads, dqk, dv, seed, slots=1, dev="cuda"):
+    """The HSTU tower (``models/hstu.py``) on packed tokens, on ``dev``
+    (the attention kernels on the card), against the same parameters in
+    float64 on the CPU (the attention's plain version): the last valid
+    step's output and every leaf's gradient, the output at every step
+    (zeros at the padded steps but an empty row's step 0), the attention's
+    launch counters and the tower's token counters, which rise by
+    sum(max(m, 1)) and B L a forward. ``slots`` id slots a step, with an
+    id_mask where there are more than one."""
+    import copy
+
+    import torch
+
+    from seqrec_tpu_torch.models.hstu import HSTULayers
+    from seqrec_tpu_torch.ops.hstu_attention import hstu_attention_bwd, hstu_attention_fwd
+
+    n_items = 300
+    B = len(lengths)
+    tower = HSTULayers(hidden, blocks, heads, dqk, dv, L)
+    tower.build(n_items, "cpu")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in tower.parameters():
+            p.copy_(0.3 * torch.randn(p.shape, generator=g))
+    want_tower = copy.deepcopy(tower).double()
+    tower.to(dev)
+    m = torch.tensor(np.asarray(lengths), dtype=torch.int64)
+    mask = (torch.arange(L)[None, :] < m[:, None]).float()
+    ids = torch.randint(0, n_items, (B, L, slots), generator=g).int()
+    id_mask = torch.rand(B, L, slots, generator=g) if slots > 1 else None
+    up = torch.randn(B, hidden, generator=g)
+    before = [hstu_attention_fwd.launches, hstu_attention_bwd.launches, tower.tokens_run, tower.tokens_padded]
+    dev_args = (ids.to(dev), mask.to(dev), None if id_mask is None else id_mask.to(dev))
+    got = tower(*dev_args)
+    got_grads = torch.autograd.grad((got * up.to(dev)).sum(), list(tower.parameters()))
+    got_every = tower(*dev_args, only_return_final=False).detach()
+    T = int(torch.clamp(m, min=1).sum())
+    counted = [tower.tokens_run - before[2], tower.tokens_padded - before[3]]
+    if counted != [2 * T, 2 * B * L]:
+        raise AssertionError(f"the HSTU tower counted {counted} tokens in two forwards, not {[2 * T, 2 * B * L]}")
+    ran = [hstu_attention_fwd.launches - before[0], hstu_attention_bwd.launches - before[1]]
+    if dev == "cuda" and ran != [2 * blocks, blocks]:
+        raise AssertionError(f"the HSTU tower launched the attention kernels {ran} times, not {[2 * blocks, blocks]}")
+    cpu_args = (ids, mask.double(), None if id_mask is None else id_mask.double())
+    want = want_tower(*cpu_args)
+    want_grads = torch.autograd.grad((want * up.double()).sum(), list(want_tower.parameters()))
+    want_every = want_tower(*cpu_args, only_return_final=False).detach()
+    errs, ok = {}, True
+    for name, a, b in (("out", got, want), ("every_step", got_every, want_every),
+                       *zip((n for n, _ in tower.named_parameters()), got_grads, want_grads)):
+        errs[name], good = close(a.detach().cpu().double(), b.detach(), rtol=1e-4, atol_rel=1e-5)
+        ok &= good
+    if not ok:
+        raise AssertionError(f"the HSTU tower disagrees with the CPU's at {(B, L, heads, dqk, dv)}: {errs}")
+    kept = torch.arange(L)[None, :] < torch.clamp(m, min=1)[:, None]
+    if got_every.cpu()[~kept].any():
+        raise AssertionError("the HSTU tower gave a padded step an output")
+    return {
+        "model": "hstu_tower", "shape": {"B": B, "L": L, "d": hidden, "blocks": blocks, "heads": heads,
+                                         "dqk": dqk, "dv": dv, "slots": slots},
+        "tokens_run_share": counted[0] / counted[1], "max_abs_err": errs,
+        "tolerance": "rtol 1e-4 + atol 1e-5*max|cpu| against the same parameters in float64 on the CPU",
+    }
+
+
 # ----------------------------------------------------------------------
 # K4: fused score + seen mask + top-k
 # ----------------------------------------------------------------------
@@ -1809,13 +1877,20 @@ def catalog50k_dataset() -> str:
 
 
 def main_path_train_hstu(card) -> dict:
-    """HSTU at small widths (HSTU_SMALL) on the 50k-item catalog: its first
-    3 step costs against the CLI on the CPU; with every counter at 0, 20
+    """HSTU at small widths (HSTU_SMALL) on the 50k-item catalog: first
+    the tower on packed tokens against the CPU (``check_hstu_tower``) at
+    dqk != dv with empty, full and one-step rows, and at dqk = dv with the
+    HSTU cell's prefix lengths; its first 3 step costs against the CLI on
+    the CPU; with every counter at 0, 20
     steps at --spd 2 and a validation through the train CLI (the attention
     forward and backward, G1 and K2 launched, no recurrence's kernel); the
     test CLI on the saved checkpoint (G1, the attention forward and K4
     alone) with the CPU's top-10 lists. Returns the training run's counts."""
     t_phase = time.perf_counter()
+    # the tower on packed tokens: dqk != dv (V, Q, K in one padded buffer) with empty, full and one-step rows and
+    # two id slots; dqk = dv (three buffers) at the cell's prefix lengths, whose share of packed tokens it reads
+    towers = [check_hstu_tower([0, 37, 5, 12, 1, 0, 29], 37, 64, 2, 2, 32, 16, seed=98, slots=2),
+              check_hstu_tower(hstu_cell_lengths(512, 200, 95), 200, 64, 2, 2, 32, 32, seed=99)]
     ds_dir = catalog50k_dataset()
     rel = cpu_step_costs(ds_dir, HSTU_SMALL, 3)
     text, cli_s, launches = train_run(ds_dir, HSTU_SMALL + ["--spd", "2"], 20, save_dir="chip_hstu/")
@@ -1830,7 +1905,7 @@ def main_path_train_hstu(card) -> dict:
         "phase": "main_path_train_hstu", "config": "HSTU d 64, 2 blocks, 2 heads of 32, L=30, B=256, --spd 2, "
         "50k-item catalog, streaming head", "launches": launches, "cli_cuda_s": cli_s,
         "progress_costs_cuda_vs_cpu_max_rel_diff": rel, "train_cost": progress_values(text, "Last train cost"),
-        "validation_sps@10": progress_values(text, "sps"), "test_cli": served,
+        "validation_sps@10": progress_values(text, "sps"), "test_cli": served, "towers": towers,
         "seconds": time.perf_counter() - t_phase,
     })
     return launches

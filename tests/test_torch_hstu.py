@@ -4,7 +4,9 @@ dqk = dv = 8, B 6, L 12, 300 items, with rows of 1, 12 and between valid
 steps: the attention op's plain version (causal and padding masks, the
 rab's bucket edges and its gradients), the tower and CCE head's cost,
 every leaf's gradient and three Adam steps, and the flags, the file name,
-an ``.npz`` round trip and both CLIs.
+an ``.npz`` round trip and both CLIs. The tower on packed tokens against
+the same parameters run over every padded step (:func:`_padded_tower`), at
+full rows, mixed lengths with empty rows, rows of one step and one row.
 
 Tolerances: both sides are float32 on the CPU and differ in the order of
 some sums (the head's log-sum-exp, the gather-sum, the bias's table
@@ -24,6 +26,7 @@ from contextlib import redirect_stdout
 import numpy as np
 import pytest
 import torch
+from torch.nn import functional as F
 
 import seqrec_tpu_torch.cli.test as test_cli
 import seqrec_tpu_torch.cli.train as train_cli
@@ -32,6 +35,7 @@ from seqrec_tpu_torch.data import DataHandler
 from seqrec_tpu_torch.data.synthetic import make_dataset
 from seqrec_tpu_torch.models.hstu import HSTULayers
 from seqrec_tpu_torch.ops import hstu_attention as op
+from seqrec_tpu_torch.ops.gather_sum import gather_sum
 from seqrec_tpu_torch.reference import hstu as ref
 
 D, BLOCKS, HEADS, DK, L, B = 16, 2, 2, 8, 12, 6
@@ -160,6 +164,82 @@ def test_three_adam_steps_against_the_reference(dataset):
     got = _ref_params(model)
     for key in params:
         assert torch.allclose(got[key], params[key], rtol=0, atol=PARAM_ATOL), key
+
+
+def _padded_tower(tower, inputs, mask, id_mask, only_return_final=True):
+    """The tower's math over every step of the padded [B, L] layout, the
+    output read at step max(m - 1, 0)."""
+    B, L = mask.shape
+    lengths = mask.sum(dim=1).round().long()
+    d, hq, hv = tower.hidden, tower.heads * tower.dqk, tower.heads * tower.dv
+    x = math.sqrt(d) * gather_sum(tower.embedding, inputs, id_mask) + tower.pos[:L]
+    for b in range(tower.blocks):
+        p = getattr(tower, f"block{b}")
+        uvqk = F.silu(F.layer_norm(x, (d,), eps=1e-6) @ p["W_uvqk"])
+        u, v, q, k = torch.split(uvqk, [hv, hv, hq, hq], dim=-1)
+        o = op.hstu_attention(q, k, v, p["rab_p"], p["rab_w"], lengths, tower.heads, 1.0 / L)
+        x = x + (F.layer_norm(o, (hv,), eps=1e-6) * u) @ p["W_o"] + p["b_o"]
+    if not only_return_final:
+        return x
+    return x[torch.arange(B), torch.clamp(lengths - 1, min=0)]
+
+
+PACKED_MIXES = {"full": [L, L, L], "mixed_empty": [0, 12, 5, 0, 7, 1], "ones": [1, 1, 1, 1], "one_row": [5]}
+
+
+def _packed_case(lengths, dv, seed=11):
+    """A tower of 2 heads with dqk 8 and dv 8 (V, Q, K in three padded
+    buffers) or 4 (in one), random parameters (b_o too), two id slots a
+    step with pad slots and an id_mask, and ids at the padded steps as
+    well."""
+    tower = HSTULayers(hidden=D, blocks=BLOCKS, heads=HEADS, dqk=DK, dv=dv, max_length=L + 3)
+    tower.build(50, "cpu")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in tower.parameters():
+            p.copy_(0.3 * torch.randn(p.shape, generator=g))
+    m = torch.tensor(lengths)
+    mask = (torch.arange(L)[None, :] < m[:, None]).float()
+    ids = torch.randint(-1, 50, (len(lengths), L, 2), generator=g).int()
+    id_mask = torch.rand(len(lengths), L, 2, generator=g)
+    return tower, m, ids, mask, id_mask
+
+
+@pytest.mark.parametrize("dv", [DK, DK // 2], ids=["dv8", "dv4"])
+@pytest.mark.parametrize("lengths", list(PACKED_MIXES.values()), ids=list(PACKED_MIXES))
+def test_packed_tower_against_the_padded_layout(lengths, dv):
+    """The output and every leaf's gradient of the tower on packed tokens
+    equal the padded computation's (float32, the same ops a token; only the
+    weight gradients' sums run in another order), and the counters rise by
+    sum(max(m, 1)) and B L."""
+    tower, m, ids, mask, id_mask = _packed_case(lengths, dv)
+    leaves = list(tower.parameters())
+    got = tower(ids, mask, id_mask)
+    want = _padded_tower(tower, ids, mask, id_mask)
+    assert got.shape == want.shape == (len(lengths), D)
+    assert _close(got, want, 1e-6)
+    up = torch.randn(got.shape, generator=torch.Generator().manual_seed(3))
+    for (name, _), a, b in zip(tower.named_parameters(), torch.autograd.grad((got * up).sum(), leaves),
+                               torch.autograd.grad((want * up).sum(), leaves)):
+        assert _close(a, b, GRAD_ATOL_REL), name
+    assert tower.tokens_run == int(torch.clamp(m, min=1).sum()) and tower.tokens_padded == len(lengths) * L
+    tower(ids, mask, id_mask)
+    assert tower.tokens_run == 2 * int(torch.clamp(m, min=1).sum()) and tower.tokens_padded == 2 * len(lengths) * L
+
+
+@pytest.mark.parametrize("dv", [DK, DK // 2], ids=["dv8", "dv4"])
+@pytest.mark.parametrize("lengths", list(PACKED_MIXES.values()), ids=list(PACKED_MIXES))
+def test_packed_tower_every_step(lengths, dv):
+    """``only_return_final=False``: [B, L, d] equal to the padded
+    computation at the valid steps and at step 0 of an empty row (the step
+    its output reads), zeros at every other padded step."""
+    tower, m, ids, mask, id_mask = _packed_case(lengths, dv, seed=12)
+    got = tower(ids, mask, id_mask, only_return_final=False)
+    want = _padded_tower(tower, ids, mask, id_mask, only_return_final=False)
+    kept = torch.arange(L)[None, :] < torch.clamp(m, min=1)[:, None]
+    assert got.shape == want.shape == (len(lengths), L, D)
+    assert _close(got[kept], want[kept], 1e-6)
+    assert not got[~kept].any()
 
 
 def test_flags_name_and_checkpoint_round_trip(dataset, tmp_path):
